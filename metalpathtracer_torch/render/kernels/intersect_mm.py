@@ -1,0 +1,490 @@
+"""Closest hit with ray-triangle intersection as dot products over tiles.
+
+Port of `metalpathtracer_tpu/render/pallas/intersect_mm.py`. Every Moller-
+Trumbore determinant is linear in the 12 ray features
+
+    X = [d, o x d, o, o.d, |o|^2, 1]
+
+with per-triangle weights (n = e1 x e2):
+
+    a  = -d.n
+    su = (o x d).e2 - d.(e2 x v0)
+    sv = -(o x d).e1 - d.(v0 x e1)
+    st = o.n - v0.n
+
+so a ray is tested against a tile of triangles by four 12-term dot products
+per triangle, done by the CUDA kernel `csrc/mm_closest_hit.cu`. Around it:
+the exact sphere pass, the tile cull that builds each 128-lane subgroup's
+entry-ordered list of passing tiles, and the plane-t refine of the winner.
+
+TPU workarounds of the reference that are not ported, and why:
+- the bf16 hi/lo "pack" weight slab and the precision modes: they work
+  around Mosaic's reduced-precision f32 matmul; the kernel computes in f32;
+- the 16-feature padding: a Mosaic DMA alignment rule; 12 features here;
+- the resident/streaming split (VMEM residency cap, SMEM list guard): VMEM
+  and SMEM capacity; one kernel reads its lists from global memory;
+- `BLOCK_R` padding: N is padded to a multiple of 128 (one subgroup);
+- `PACKED_ARGMIN`, regroup and `LAST_PLAN`: measured neutral or a loss on
+  the TPU, and `LAST_PLAN` goes stale;
+- the `MPT_*` environment knobs: TPU sweep settings.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from metalpathtracer_torch.core import vecmath as vm
+from metalpathtracer_torch.render.intersect import ray_sphere
+from metalpathtracer_torch.render.kernels import _build
+from metalpathtracer_torch.scene import PRIM_SPHERE, PRIM_TRIANGLE
+
+T_MIN = 1e-4
+TRI_PARALLEL_EPS = 1e-5
+NUM_FEATURES = 12
+LANES = 128  # rays per subgroup: one tile list, one CUDA block
+TILE_P_SMALL = 128  # triangles per tile up to TILE_SWITCH_TRIS ...
+TILE_P_LARGE = 256  # ... and beyond
+TILE_SWITCH_TRIS = 24 * 1024
+# subgroups per batched matmul in the plain twin: bounds its temporaries
+# to ~0.3 GB each at tile_p 128
+TWIN_GROUP_CHUNK = 1024
+_INF = float("inf")
+
+
+# --------------------------------------------------------------------------
+# host tables
+# --------------------------------------------------------------------------
+
+
+def _kd_order(cent: np.ndarray, tile_p: int) -> np.ndarray:
+    """Triangle order in which every run of `tile_p` is one cell of a
+    recursive longest-axis median split (split points at multiples of
+    tile_p), so each tile's AABB is tight."""
+    order = np.empty(len(cent), np.int64)
+    out_pos = 0
+
+    def split(idx):
+        nonlocal out_pos
+        n_i = len(idx)
+        if n_i <= tile_p:
+            order[out_pos:out_pos + n_i] = idx
+            out_pos += n_i
+            return
+        c = cent[idx]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        k = max(tile_p, (n_i // 2) // tile_p * tile_p)
+        part = np.argpartition(c[:, axis], k)
+        split(idx[part[:k]])
+        split(idx[part[k:]])
+
+    split(np.arange(len(cent)))
+    return order
+
+
+def tri_weight_slab(v0, v1, v2, tile_p: int) -> np.ndarray:
+    """The f32 weight slab (n_tiles, tile_p, 4, 12) of triangles in column
+    order: for column c, rows [wa, wu, wv, wt] of 12 weights each, so that
+    x . w[tile, c, k] is determinant k of ray x against triangle c.
+    Columns past the last triangle are zero (never accepted: |a| = 0)."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    t = v0.shape[0]
+    pad_t = (-t) % tile_p if t else tile_p
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = np.cross(e1, e2)
+    z1 = np.zeros((t, 1), np.float32)
+    z3 = np.zeros((t, 3), np.float32)
+    wa = np.concatenate([-n, z3, z3, z1, z1, z1], axis=1)
+    wu = np.concatenate([-np.cross(e2, v0), e2, z3, z1, z1, z1], axis=1)
+    wv = np.concatenate([-np.cross(v0, e1), -e1, z3, z1, z1, z1], axis=1)
+    wt = np.concatenate(
+        [z3, z3, n, z1, z1, -np.sum(v0 * n, 1, keepdims=True)], axis=1
+    )
+    w = np.zeros((t + pad_t, 4, NUM_FEATURES), np.float32)
+    w[:t] = np.stack([wa, wu, wv, wt], axis=1)
+    return w.reshape(-1, tile_p, 4, NUM_FEATURES)
+
+
+def build_weights(prim_type, p0, p1, p2) -> dict:
+    """Per-scene intersection tables (numpy, once per scene).
+
+    Returns dict with:
+      w: f32 weight slab (n_tiles, tile_p, 4, 12) — see `tri_weight_slab`
+      tri_ids: int32 (T_padded,) original primitive index per column, -1 pad
+      tri_refine: f32 (T_padded, 8) rows [n, n.v0 (f64 sum), prim, mat, 0, 0]
+        in column order (mat is filled in by `upload_scene`)
+      tile_box: f32 (n_tiles, 8) per-tile AABB [lo3, 0, hi3, 0]; padding
+        tiles are empty (lo = +inf, hi = -inf)
+      n_tris: real triangle count
+      sph_center/sph_radius/sph_ids: the sphere SoA padded to a multiple of
+        8 (padding radius 0, id -1).
+    """
+    prim_type = np.asarray(prim_type)
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    p2 = np.asarray(p2, np.float32)
+
+    tri_sel = np.nonzero(prim_type == PRIM_TRIANGLE)[0]
+    sph_sel = np.nonzero(prim_type == PRIM_SPHERE)[0]
+    tile_p = TILE_P_SMALL if len(tri_sel) <= TILE_SWITCH_TRIS else TILE_P_LARGE
+
+    if len(tri_sel):
+        cent = (p0[tri_sel] + p1[tri_sel] + p2[tri_sel]) / 3.0
+        tri_sel = tri_sel[_kd_order(cent, tile_p)]
+
+    v0, v1, v2 = p0[tri_sel], p1[tri_sel], p2[tri_sel]
+    t = len(tri_sel)
+    w = tri_weight_slab(v0, v1, v2, tile_p)
+    n_cols = w.shape[0] * tile_p
+    pad_t = n_cols - t
+    tri_ids = np.concatenate(
+        [tri_sel.astype(np.int32), np.full(pad_t, -1, np.int32)]
+    )
+
+    n = np.cross(v1 - v0, v2 - v0)
+    refine = np.zeros((n_cols, 8), np.float32)
+    refine[:t, 0:3] = n
+    refine[:t, 3] = np.sum(
+        v0.astype(np.float64) * n.astype(np.float64), axis=1
+    ).astype(np.float32)
+    refine[:, 4] = tri_ids.astype(np.float32)
+
+    n_tiles = n_cols // tile_p
+    tile_box = np.zeros((max(n_tiles, 1), 8), np.float32)
+    tile_box[:, 0:3] = np.inf
+    tile_box[:, 4:7] = -np.inf
+    for i in range(n_tiles):
+        a, b = i * tile_p, min((i + 1) * tile_p, t)
+        if a >= t:
+            continue
+        vs = np.concatenate([v0[a:b], v1[a:b], v2[a:b]])
+        tile_box[i, 0:3] = vs.min(axis=0)
+        tile_box[i, 4:7] = vs.max(axis=0)
+
+    s = len(sph_sel)
+    pad_s = (-s) % 8 if s else 8
+    sph_center = np.concatenate([p0[sph_sel], np.zeros((pad_s, 3), np.float32)])
+    sph_radius = np.concatenate([p1[sph_sel, 0], np.zeros(pad_s, np.float32)])
+    sph_ids = np.concatenate(
+        [sph_sel.astype(np.int32), np.full(pad_s, -1, np.int32)]
+    )
+
+    return dict(
+        w=w,
+        tri_ids=tri_ids,
+        tri_refine=refine,
+        tile_box=tile_box,
+        n_tris=t,
+        sph_center=sph_center.astype(np.float32),
+        sph_radius=sph_radius.astype(np.float32),
+        sph_ids=sph_ids,
+    )
+
+
+# --------------------------------------------------------------------------
+# the kernel and its plain twin
+# --------------------------------------------------------------------------
+
+
+def _check_inputs(lists, counts, smin, x, lane_bound, w):
+    g, nt = lists.shape
+    n = g * LANES
+    expect = [
+        ("lists", lists, torch.int32, (g, nt)),
+        ("counts", counts, torch.int32, (g,)),
+        ("smin", smin, torch.float32, (g, nt)),
+        ("x", x, torch.float32, (n, NUM_FEATURES)),
+        ("lane_bound", lane_bound, torch.float32, (n,)),
+        ("w", w, torch.float32, (nt, w.shape[1], 4, NUM_FEATURES)),
+    ]
+    for name, tensor, dtype, shape in expect:
+        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
+            raise ValueError(
+                f"mm_closest_hit: {name} must be {dtype} {shape}, "
+                f"got {tensor.dtype} {tuple(tensor.shape)}"
+            )
+        if tensor.device != x.device:
+            raise ValueError(
+                f"mm_closest_hit: {name} is on {tensor.device}, x on {x.device}"
+            )
+
+
+@functools.cache
+def _launcher():
+    lib = _build.load_library("mm_closest_hit")
+    fn = lib.mm_closest_hit_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    err = lib.mm_closest_hit_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float):
+    """Closest accepted hit per ray over its subgroup's tile list.
+
+    lists (G, nt) int32: each 128-lane subgroup's passing tiles, nearest
+      entry first; counts (G,) int32 its passing-tile count; smin (G, nt)
+      f32 the subgroup-min entry at each list position (+inf past counts);
+    x (G*128, 12) f32 ray features; lane_bound (G*128,) f32 each lane's
+      relevance bound; w the (nt, tile_p, 4, 12) f32 weight slab.
+    Returns (t (G*128,) f32, col (G*128,) int32 kernel column, -1 on miss).
+
+    CUDA tensors launch `csrc/mm_closest_hit.cu` (and count the launch in
+    `mm_closest_hit.launches`); CPU tensors take the plain twin
+    `mm_closest_hit_reference`. Any other device raises.
+    """
+    _check_inputs(lists, counts, smin, x, lane_bound, w)
+    if x.device.type == "cpu":
+        return mm_closest_hit_reference(lists, counts, smin, x, lane_bound,
+                                        w, t_min)
+    if x.device.type != "cuda":
+        raise ValueError(f"mm_closest_hit: no kernel for device {x.device}")
+    tensors = (lists, counts, smin, x, lane_bound, w)
+    for tensor in tensors:
+        if not tensor.is_contiguous() or tensor.data_ptr() % 16:
+            raise ValueError("mm_closest_hit: inputs must be contiguous and "
+                             "16-byte aligned")
+    g, nt = lists.shape
+    t = torch.empty(g * LANES, dtype=torch.float32, device=x.device)
+    col = torch.empty(g * LANES, dtype=torch.int32, device=x.device)
+    fn, err = _launcher()
+    rc = fn(*(v.data_ptr() for v in tensors), t.data_ptr(), col.data_ptr(),
+            g, nt, w.shape[1], float(t_min), x.device.index or 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"mm_closest_hit launch failed: CUDA error {rc} "
+            f"({err(rc).decode()})"
+        )
+    mm_closest_hit.launches += 1
+    return t, col
+
+
+mm_closest_hit.launches = 0
+
+
+def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,
+                             t_min: float):
+    """Plain torch twin of the kernel: the same walk over list positions,
+    vectorised across subgroups (TWIN_GROUP_CHUNK at a time), with the same
+    early-exit test, acceptance, division and tie rules. The determinants
+    come from a batched f32 matmul, whose summation order may differ from
+    the kernel's FMA chain in the last bits."""
+    g, nt = lists.shape
+    tile_p = w.shape[1]
+    dev = x.device
+    xg = x.view(g, LANES, NUM_FEATURES)
+    lb = lane_bound.view(g, LANES)
+    wf = w.view(nt, tile_p * 4, NUM_FEATURES)
+    best_t = torch.full((g, LANES), _INF, dtype=torch.float32, device=dev)
+    best_c = torch.full((g, LANES), -1, dtype=torch.int32, device=dev)
+    thr = lb.amax(dim=1)
+    live = torch.arange(g, device=dev)
+    cnt = counts.to(torch.int64)
+    for j in range(nt):
+        live = live[(j < cnt[live]) & (smin[live, j] <= thr[live])]
+        if live.numel() == 0:
+            break
+        for part in live.split(TWIN_GROUP_CHUNK):
+            tiles = lists[part, j].to(torch.int64)
+            det = torch.bmm(xg[part], wf[tiles].transpose(1, 2))
+            det = det.view(-1, LANES, tile_p, 4)
+            sa, su, sv, st = det.unbind(dim=-1)
+            s = torch.where(sa < 0.0, -1.0, 1.0)
+            sas, sus, svs, sts = sa * s, su * s, sv * s, st * s
+            ok = ((sas > TRI_PARALLEL_EPS) & (sus >= 0.0) & (svs >= 0.0)
+                  & (sus + svs <= sas) & (sts > t_min * sas))
+            t_all = torch.where(ok, sts / sas, _INF)
+            t_tile, c_tile = torch.min(t_all, dim=2)  # lowest column on ties
+            bt = best_t[part]
+            better = t_tile < bt
+            best_t[part] = torch.where(better, t_tile, bt)
+            col = (tiles[:, None] * tile_p + c_tile).to(torch.int32)
+            best_c[part] = torch.where(better, col, best_c[part])
+            thr[part] = torch.minimum(best_t[part], lb[part]).amax(dim=1)
+    return best_t.view(-1), best_c.view(-1)
+
+
+# --------------------------------------------------------------------------
+# closest hit around the kernel
+# --------------------------------------------------------------------------
+
+
+def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """X = [d, o x d, o, o.d, |o|^2, 1] — (N, 12) float32."""
+    m = vm.cross(o, d)
+    od = (o * d).sum(dim=-1, keepdim=True)
+    oo = (o * o).sum(dim=-1, keepdim=True)
+    return torch.cat([d, m, o, od, oo, torch.ones_like(od)], dim=-1)
+
+
+def _cull_hit_mask(o, d, active, tile_box, t_min, occ=None):
+    """Slab test of every ray against every tile AABB. Returns (hit (nt, N)
+    bool: can this active ray enter this tile's box?, enter (nt, N) f32:
+    its entry distance, >= t_min). Any hit inside a box lies at t >= enter,
+    which is what lets entry-ordered lists exit early."""
+    n = o.shape[0]
+    nt = tile_box.shape[0]
+    inv = 1.0 / d
+    enter = torch.full((nt, n), t_min, dtype=torch.float32, device=o.device)
+    exit_ = torch.full((nt, n), _INF, dtype=torch.float32, device=o.device)
+    for a in range(3):
+        lo = tile_box[:, a][:, None]
+        hi = tile_box[:, 4 + a][:, None]
+        oa = o[:, a][None, :]
+        ia = inv[:, a][None, :]
+        t0 = (lo - oa) * ia
+        t1 = (hi - oa) * ia
+        # 0 * inf = NaN when a direction component is 0 and the origin sits
+        # on the box plane: that axis must not constrain (conservative)
+        a_lo = torch.minimum(t0, t1)
+        a_hi = torch.maximum(t0, t1)
+        enter = torch.maximum(enter, torch.where(torch.isnan(a_lo), -_INF, a_lo))
+        exit_ = torch.minimum(exit_, torch.where(torch.isnan(a_hi), _INF, a_hi))
+    hit = (exit_ > enter) & (active.reshape(1, n) > 0.5)
+    if occ is not None:
+        # a tile entered beyond the lane's occlusion bound cannot win
+        hit = hit & (enter <= occ.reshape(1, n))
+    return hit, enter
+
+
+def _cull_pass(x, active, tile_box, t_min, occ=None):
+    """Per-subgroup cull: (sgm (N/128, nt) bool — does any lane of the
+    128-lane subgroup pass the tile?, gent (N/128, nt) f32 — the subgroup-
+    min entry, +inf where none passes, lane_bound (N,) f32 — per lane, the
+    max entry over its passing tiles, -inf when it passes none)."""
+    n = x.shape[0]
+    nt = tile_box.shape[0]
+    o, d = x[:, 6:9], x[:, 0:3]
+    hit, enter = _cull_hit_mask(o, d, active.reshape(n, 1), tile_box, t_min,
+                                occ)
+    ent = torch.where(hit, enter, _INF)
+    lane_bound = torch.where(hit, enter, -_INF).amax(dim=0)
+    sgm = hit.reshape(nt, n // LANES, LANES).any(dim=2).T
+    gent = ent.reshape(nt, n // LANES, LANES).amin(dim=2).T
+    return sgm, gent, lane_bound
+
+
+def _cull_tile_lists(x, active, tile_box, t_min, occ=None):
+    """Entry-ordered passing-tile lists per 128-lane subgroup:
+      lists (G, nt) int32: passing tiles first, nearest entry first
+      counts (G,) int32
+      smin (G, nt) f32: the subgroup-min entry at each list position
+        (ascending; +inf at non-passing positions)
+      lane_bound (N,) f32: per lane, max entry over its passing tiles.
+    One stable sort gives both the sorted entries and the permutation;
+    equal entries keep ascending tile order."""
+    sgm, gent, lane_bound = _cull_pass(x, active, tile_box, t_min, occ)
+    counts = sgm.sum(dim=1).to(torch.int32)
+    smin, lists = torch.sort(gent.contiguous(), dim=1, stable=True)
+    return lists.to(torch.int32), counts, smin, lane_bound
+
+
+def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
+    """The kernel's inputs for rays (o, d), padded with inactive lanes to
+    a multiple of 128: (lists, counts, smin, x, lane_bound). `occ` (N,) is
+    each lane's occlusion bound (+inf for none); `active` (N,) bool or
+    None for all lanes."""
+    n = o.shape[0]
+    pad = (-n) % LANES
+    x = ray_features(o, d)
+    if active is None:
+        act = torch.ones((n,), dtype=torch.float32, device=o.device)
+    else:
+        act = active.to(torch.float32)
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, NUM_FEATURES))])
+        act = torch.cat([act, act.new_zeros((pad,))])
+        occ = torch.cat([occ, occ.new_full((pad,), _INF)])
+    lists, counts, smin, lane_bound = _cull_tile_lists(
+        x, act, scene.mm_tile_box, t_min, occ
+    )
+    return lists, counts, smin, x, torch.minimum(lane_bound, occ)
+
+
+def _sphere_hit_exact(scene, o, d, t_min):
+    """Exact dense sphere pass over the (N, S) pairs. Returns (t, prim idx
+    (-1 on miss), center, material-bank id) of each lane's nearest sphere;
+    equal t picks the lowest slot."""
+    t = ray_sphere(o[:, None, :], d[:, None, :], scene.sph_center[None, :, :],
+                   scene.sph_radius[None, :], t_min)
+    t_best, slot = torch.min(t, dim=1)
+    idx = torch.where(torch.isinf(t_best), -1, scene.sph_ids[slot])
+    return t_best, idx, scene.sph_center[slot], scene.sph_mat_id[slot]
+
+
+def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
+    """Closest hit: the triangle kernel and the exact sphere pass, merged.
+
+    Returns (t, idx, normal, front_face, mat_id, tile_passes). idx is -1 on
+    miss (normal and mat_id are garbage there; callers mask). `active` (N,)
+    bool drops finished lanes from every tile list. `occ_t` (N,) optional:
+    a per-lane bound past which hits do not matter to the caller (a shadow
+    ray's light distance); tiles entered beyond it are pruned, so the hit
+    is exact for t <= occ_t and unspecified-but-farther beyond.
+    tile_passes counts the (128-lane subgroup, tile) pairs of the lists in
+    units of 2^20 ray-triangle tests.
+    """
+    n = o.shape[0]
+    t_s, i_s, c, m_s = _sphere_hit_exact(scene, o, d, t_min)
+    sph_n = vm.normalize(o + t_s[:, None] * d - c)
+
+    if scene.num_tris > 0:
+        # the sphere pass already bounds the winner
+        occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
+        lists, counts, smin, x, lane_bound = kernel_inputs(
+            scene, o, d, occ, active, t_min
+        )
+        t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound,
+                                  scene.mm_w, t_min)
+        tile_p = scene.mm_w.shape[1]
+        tile_passes = counts.sum().to(torch.float32) * (
+            LANES * tile_p / float(1 << 20)
+        )
+        t_t, col = t_t[:n], col[:n]
+
+        # one (N, 8) row gather: [n, n.v0, prim id, material id]; the
+        # winner's t is re-derived exactly from its plane
+        row = scene.mm_refine[col.clamp(min=0).to(torch.int64)]
+        nvec = row[:, 0:3]
+        ndotv0 = row[:, 3]
+        i_t = row[:, 4].to(torch.int32)
+        m_t = row[:, 5].to(torch.int32)
+        denom = vm.dot(nvec, d)
+        parallel = torch.abs(denom) <= TRI_PARALLEL_EPS
+        t_plane = (ndotv0 - vm.dot(nvec, o)) / torch.where(parallel, 1.0, denom)
+        t_exact = torch.where((~parallel) & (t_plane > t_min), t_plane, _INF)
+        # an exact re-test that rejects the kernel's winner keeps the
+        # kernel's t rather than reporting a miss (no edge sparkle)
+        tri_hit = (col >= 0) & torch.isfinite(t_t)
+        t_t = torch.where(
+            tri_hit, torch.where(torch.isfinite(t_exact), t_exact, t_t), _INF
+        )
+        i_t = torch.where(tri_hit, i_t, -1)
+        tri_n = vm.normalize(nvec)
+    else:
+        t_t = torch.full((n,), _INF, dtype=torch.float32, device=o.device)
+        i_t = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+        m_t = torch.zeros((n,), dtype=torch.int32, device=o.device)
+        tri_n = torch.zeros_like(o)
+        tile_passes = torch.zeros((), dtype=torch.float32, device=o.device)
+
+    tri_wins = t_t < t_s
+    t = torch.where(tri_wins, t_t, t_s)
+    idx = torch.where(tri_wins, i_t, i_s)
+    mat_id = torch.where(tri_wins, m_t, m_s)
+    normal = vm.where3(tri_wins, tri_n, sph_n)
+    front_face = vm.dot(normal, d) < 0.0
+    normal = vm.where3(front_face, normal, -normal)
+    return t, idx, normal, front_face, mat_id, tile_passes

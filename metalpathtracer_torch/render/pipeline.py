@@ -1,0 +1,85 @@
+"""Rendering pipeline: ray generation and sample batching.
+
+Port of `generate_rays`, `render_tile` and `render_image` from
+`metalpathtracer_tpu/render/pipeline.py`. Samples of a pass are traced one
+after another and summed; passes split spp as the reference does, so the
+sums are taken in the same order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from metalpathtracer_torch.core import rng
+from metalpathtracer_torch.render.camera import Camera, viewport_basis
+from metalpathtracer_torch.render.integrator import (
+    DEFAULT_CONFIG,
+    RenderConfig,
+    trace,
+)
+
+
+def generate_rays(camera: Camera, width: int, height: int, pixel_id, sample_id,
+                  seed):
+    """Jittered primary rays: screen coords sx = (px+u)/W, sy = (py+v)/H
+    with u, v ~ U[0,1); row 0 is the TOP of the image. `pixel_id` is an
+    int64 tensor of u32 pixel ids; the rays land on its device."""
+    dev = pixel_id.device
+    origin, first_pixel, vu, vv = (
+        v.to(dev) for v in viewport_basis(camera, width, height)
+    )
+    px = (pixel_id % width).to(torch.float32)
+    py = (pixel_id // width).to(torch.float32)
+    u1, u2 = rng.uniform2(seed, pixel_id, sample_id, 0, rng.PURPOSE_JITTER_X)
+    sx = (px + u1) / width
+    sy = (py + u2) / height
+    d = (
+        first_pixel[None, :]
+        + sx[:, None] * vu[None, :]
+        + sy[:, None] * vv[None, :]
+        - origin[None, :]
+    )
+    # vector_norm accumulates as XLA's jnp.linalg.norm does (bit-equal)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    o = origin.expand_as(d)
+    return o, d
+
+
+def render_tile(scene, camera, width, height, pixel_id, sample_ids, seed, cfg):
+    """Render the samples `sample_ids` (ints, in order) for the given
+    pixels. Returns (rgb_sum (N, 3), rays_traced int64 scalar tensor)."""
+    acc = torch.zeros((pixel_id.shape[0], 3), dtype=torch.float32,
+                      device=pixel_id.device)
+    rays = torch.zeros((), dtype=torch.int64, device=pixel_id.device)
+    for sample_id in sample_ids:
+        o, d = generate_rays(camera, width, height, pixel_id, sample_id, seed)
+        radiance, r = trace(scene, o, d, pixel_id, sample_id, seed, cfg)
+        acc = acc + radiance
+        rays = rays + r
+    return acc, rays
+
+
+def render_image(scene, camera: Camera, width: int, height: int, spp: int,
+                 seed: int = 0, cfg: RenderConfig = DEFAULT_CONFIG,
+                 spp_per_pass: int | None = None):
+    """Render a full image on the scene's device. Returns (image (H, W, 3)
+    float32 linear mean, rays_traced int)."""
+    if spp <= 0:
+        raise ValueError(f"spp must be positive, got {spp}")
+    if spp_per_pass is None:
+        spp_per_pass = max(1, min(spp, (1 << 22) // max(1, width * height)))
+    dev = scene.device
+    pixel_id = torch.arange(width * height, dtype=torch.int64, device=dev)
+    seed_u32 = rng.seed_from_int(seed)
+    rgb = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    rays = 0
+    done = 0
+    while done < spp:
+        k = min(spp_per_pass, spp - done)
+        sample_ids = list(range(done, done + k))
+        part, r = render_tile(scene, camera, width, height, pixel_id,
+                              sample_ids, seed_u32, cfg)
+        rgb = rgb + part.reshape(height, width, 3)
+        rays += int(r)
+        done += k
+    return rgb / spp, rays
