@@ -1,36 +1,51 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`metalpathtracer_torch`) on one card.
 
-Builds the hand-written CUDA closest-hit kernel from `metalpathtracer_torch/
-csrc/`, holds it to its plain PyTorch twin and to the brute-force oracle at
-the shapes of the CLI's default render, then drives that render through the
-port's CLI at full size (scenes/reference.xml, 1280x720, spp 4, depth 32)
-and checks that every bounce went through the kernel. Phases, each raising
-on failure:
+Builds the hand-written CUDA kernels from `metalpathtracer_torch/csrc/` (one
+`nvcc` each, started together), holds each to its plain PyTorch version at
+the shapes the render paths give it, then drives those paths through the
+port's entry points at full size and checks that every advance went through
+both kernels. Phases, each raising on failure:
 
-1. set up: the card, TF32 off, the kernel build;
-2. kernel vs twin on the 921,600 primary rays and the rays left after one
-   bounce: hit columns equal except at near-ties and triangle edges, t
-   within the CPU tests' bound; kernel and twin timed with CUDA events;
-3. `closest_hit_mm_full` with the kernel vs the brute-force oracle on a
+1. set up: the card, TF32 off, the kernel builds;
+2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
+   primary rays and the rays left after one bounce: hit columns equal
+   except at near-ties and triangle edges, t within the CPU tests' bound;
+3. `closest_hit_mm_full` on the kernels vs the brute-force oracle on a
    65,536-ray subset (tests/test_intersect_mm.py's criteria);
-4. the slice: the port's `cli.main` at full size on `cuda`, with launch
-   counts reset just before and read just after;
-5. the slice vs itself on the twin (320x180, spp 2, depth 8), and a render
-   of the reference-scene golden case vs tests/golden/reference_scene.npz.
+4. `cull_tiles` vs its plain version, bit-equal, at 39 tiles (921,600
+   primary rays), 311 tiles (bunny70k) and 1,242 tiles (bunny300k), the
+   latter two on 32,768 rays after one bounce with an active mask and the
+   sphere pass's occlusion bound;
+5. `mm_closest_hit` at tile_p 256 (bunny300k) vs its twin on 32,768
+   primary and 32,768 bounce-1 rays, and vs the brute oracle on 8,192;
+6. the scan path: `cli.main` at 1280x720, spp 4, depth 32;
+7. the wavefront path: `cli.main --wavefront` at the same size (pool 2^15),
+   its image against the scan path's;
+8. the large-scene legs: `render_image_wavefront` on bunny70k and
+   bunny300k at 512x512, spp 2, depth 8, pool 2^15;
+9. small renders (320x180, spp 2, depth 8) of both paths on the kernels vs
+   on the plain versions, and the golden reference-scene case vs
+   tests/golden/reference_scene.npz.
+Each path of phases 6-8 runs with every launch count set to 0 just before
+it and read just after, and with the plain versions counted (they must not
+run). Times are CUDA-event means (kernels) or host clocks around work that
+ends in a synchronise (renders).
 
 The second-to-last lines of standard output are the kernels' JSON record and
 the card's name and power limit; the last line is the result JSON. Writes
-images and the compiler log under chiprun_out/chip_smoke/.
+images, compiler logs and a summary into the gitignored directory `OUT`.
 
 Usage:
     python3 chip_smoke.py            # what a check runs
-    python3 chip_smoke.py --profile  # also a torch.profiler table of the slice
+    python3 chip_smoke.py --profile  # also torch.profiler tables of the
+                                     # wavefront path and the bunny300k leg
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -50,9 +65,20 @@ T_RTOL, T_ATOL = 5e-4, 1e-2
 EDGE_MARGIN = 1e-3
 # at most this share of rays may differ at all
 MAX_MISMATCH = 1e-4
-KERNEL_SOURCE = "metalpathtracer_torch/csrc/mm_closest_hit.cu"
-REPLACES = "metalpathtracer_tpu/render/pallas/intersect_mm.py:477"
-ALSO_REPLACES = "metalpathtracer_tpu/render/pallas/intersect_mm.py:555"
+# two renders of one estimator: share of pixels that may differ by > 1e-3
+# (a path flipping at a triangle edge), and the bound on their means
+IMG_FRAC, IMG_MEAN = 0.02, 5e-3
+TPU_FILE = "metalpathtracer_tpu/render/pallas/intersect_mm.py"
+KERNELS = {
+    "mm_closest_hit": dict(source="metalpathtracer_torch/csrc/mm_closest_hit.cu",
+                           replaces=f"{TPU_FILE}:477",
+                           also_replaces=f"{TPU_FILE}:555"),
+    "cull_tiles": dict(source="metalpathtracer_torch/csrc/cull_tiles.cu",
+                       replaces=f"{TPU_FILE}:712"),
+}
+# the large-scene legs of the reference's bench.py
+LEG_W = LEG_H = 512
+LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
 
 
 def log(msg: str) -> None:
@@ -149,16 +175,70 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
 
 
 @contextlib.contextmanager
-def twin_closest_hit():
-    """Route `closest_hit_mm_full` through the kernel's plain twin."""
+def plain_versions():
+    """Route the closest hit through both kernels' plain versions."""
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    kernel = tmm.mm_closest_hit
+    kernels = tmm.mm_closest_hit, tmm.cull_tiles
     tmm.mm_closest_hit = tmm.mm_closest_hit_reference
+    tmm.cull_tiles = tmm.cull_pass_reference
     try:
         yield
     finally:
-        tmm.mm_closest_hit = kernel
+        tmm.mm_closest_hit, tmm.cull_tiles = kernels
+
+
+@contextlib.contextmanager
+def counted_path():
+    """Count one path's bounce steps, kernel launches and plain-version
+    calls: every count is 0 on entry; the dict is filled on exit."""
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    calls = dict(steps=0, plain_mm=0, plain_cull=0)
+    originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
+                 tmm.cull_pass_reference)
+
+    def counter(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    tint._bounce_step = counter("steps", originals[0])
+    tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
+    tmm.cull_pass_reference = counter("plain_cull", originals[2])
+    result = {}
+    try:
+        import torch
+
+        torch.cuda.synchronize()
+        tmm.mm_closest_hit.launches = 0
+        tmm.cull_tiles.launches = 0
+        yield result
+    finally:
+        (tint._bounce_step, tmm.mm_closest_hit_reference,
+         tmm.cull_pass_reference) = originals
+    result.update(calls, mm_launches=tmm.mm_closest_hit.launches,
+                  cull_launches=tmm.cull_tiles.launches)
+    if calls["plain_mm"] or calls["plain_cull"]:
+        raise RuntimeError(f"the path ran a plain version: {calls}")
+    if calls["steps"] == 0 or min(result["mm_launches"],
+                                  result["cull_launches"]) < calls["steps"]:
+        raise RuntimeError(f"not every bounce step launched both kernels: {result}")
+
+
+def compare_images(a, b, what: str):
+    """Two renders of one estimator: under IMG_FRAC of pixels differ by more
+    than 1e-3 and the means agree within IMG_MEAN."""
+    import numpy as np
+
+    frac = float((np.abs(a - b) > 1e-3).mean())
+    dmean = float(abs(a.mean() - b.mean()))
+    if not (np.isfinite(a).all() and np.isfinite(b).all() and frac < IMG_FRAC
+            and dmean < IMG_MEAN):
+        raise RuntimeError(f"{what}: {frac} of pixels differ, means by {dmean}")
+    return frac, dmean
 
 
 def phase_setup():
@@ -179,39 +259,51 @@ def phase_setup():
     from metalpathtracer_torch.render.kernels import _build
 
     t0 = time.perf_counter()
-    so = _build.build("mm_closest_hit")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        libs = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
-    compiler_log = so.with_name(so.name + ".log").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "nvcc.log").write_text(compiler_log)
-    log(f"[1] built {so.name} in {build_s:.2f} s; ptxas:")
-    for line in compiler_log.splitlines():
-        if "ptxas" in line:
-            log(f"    {line.strip()}")
+    log(f"[1] built {len(libs)} kernels in {build_s:.2f} s; ptxas:")
+    for name, so in libs.items():
+        compiler_log = so.with_name(so.name + ".log").read_text()
+        (OUT / f"nvcc_{name}.log").write_text(compiler_log)
+        for line in compiler_log.splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line):
+                log(f"    {name}: {line.strip()}")
     return card, build_s
 
 
-def phase_kernel_vs_twin(scene, dev, w=1280, h=720):
+def primary_and_bounce(scene, w, h, stride=1):
+    """Primary rays of every `stride`-th pixel of a w x h view from the
+    default camera, and the rays one bounce later (with its live mask)."""
     import torch
 
     from metalpathtracer_torch.core import rng
     from metalpathtracer_torch.render import integrator as tint
     from metalpathtracer_torch.render.camera import Camera
-    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.pipeline import generate_rays
 
-    n = w * h
+    dev = scene.device
     seed = rng.seed_from_int(0)
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = torch.arange(0, w * h, stride, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
     o, d = generate_rays(Camera.reset(), w, h, pix, 0, seed)
-    ones = torch.ones((n,), dtype=torch.bool, device=dev)
     step = tint._bounce_step(
         scene, o, d, torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
-        ones, torch.zeros((n,), device=dev), pix, 0, 0, seed, tint.RenderConfig(),
+        torch.ones((n,), dtype=torch.bool, device=dev), torch.zeros((n,), device=dev),
+        pix, 0, 0, seed, tint.RenderConfig(),
     )
-    sets = {"primary": (o, d, None), "bounce1": (step[0], step[1], step[4])}
+    return {"primary": (o, d, None), "bounce1": (step[0], step[1], step[4])}
+
+
+def phase_kernel_vs_twin(scene, sets):
+    import torch
+
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
     record = {}
     for name, (so, sd, act) in sets.items():
+        n = so.shape[0]
         t_s = tmm._sphere_hit_exact(scene, so, sd, T_MIN)[0]
         args = tmm.kernel_inputs(scene, so, sd, t_s, act, T_MIN) + (scene.mm_w, T_MIN)
         tk, ck = tmm.mm_closest_hit(*args)
@@ -223,17 +315,20 @@ def phase_kernel_vs_twin(scene, dev, w=1280, h=720):
         def prim(col):
             return torch.where(col >= 0, tri_ids[col.clamp(min=0).long()], -1)
 
+        what = f"mm_closest_hit vs twin ({name}, tile_p {scene.mm_w.shape[1]})"
         n_mis, n_tie, n_edge = judge_mismatches(
-            scene, so, sd, prim(ck), tk, prim(cr), tr, f"kernel vs twin ({name})")
+            scene, so, sd, prim(ck), tk, prim(cr), tr, what)
         same = (ck == cr) & torch.isfinite(tr)
         err = (tk[same] - tr[same]).abs()
         bound = T_RTOL * tr[same].abs() + T_ATOL
         if not bool((err <= bound).all()):
-            raise RuntimeError(f"kernel vs twin ({name}): t off by {float(err.max())}")
+            raise RuntimeError(f"{what}: t off by {float(err.max())}")
         both_miss = (ck == -1) & (cr == -1)
         if not bool(torch.isinf(tk[both_miss]).all()):
-            raise RuntimeError(f"kernel vs twin ({name}): a miss has a finite t")
+            raise RuntimeError(f"{what}: a miss has a finite t")
         hits = int((cr >= 0).sum())
+        if hits == 0:
+            raise RuntimeError(f"{what}: no triangle hits")
         k_ms = cuda_ms(lambda: tmm.mm_closest_hit(*args), 20)
         r_ms = cuda_ms(lambda: tmm.mm_closest_hit_reference(*args), 3)
         passing = float(args[1].float().mean())
@@ -243,14 +338,14 @@ def phase_kernel_vs_twin(scene, dev, w=1280, h=720):
             max_abs_err=float(err.max()) if err.numel() else 0.0,
             ms=k_ms, plain_ms=r_ms, mean_passing_tiles=passing,
         )
-        log(f"[2] {name}: {hits} triangle hits, {n_mis} differ "
+        log(f"    {what}: {hits} triangle hits, {n_mis} differ "
             f"({n_tie} near-ties, {n_edge} edges), max |dt| "
             f"{record[name]['max_abs_err']:.3g}; kernel {k_ms:.3f} ms, "
             f"twin {r_ms:.3f} ms, {passing:.2f} passing tiles per subgroup")
-    return sets, record
+    return record
 
 
-def phase_oracle(scene, sets):
+def phase_oracle(scene, sets, n_each, chunk):
     import torch
 
     from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
@@ -260,185 +355,298 @@ def phase_oracle(scene, sets):
     o_p, d_p, _ = sets["primary"]
     o_b, d_b, act = sets["bounce1"]
     live = act.nonzero().flatten().cpu()
-    pick_p = torch.randperm(o_p.shape[0], generator=g)[:32768].to(o_p.device)
-    pick_b = live[torch.randperm(live.numel(), generator=g)[:32768]].to(o_p.device)
+    pick_p = torch.randperm(o_p.shape[0], generator=g)[:n_each].to(o_p.device)
+    pick_b = live[torch.randperm(live.numel(), generator=g)[:n_each]].to(o_p.device)
     o = torch.cat([o_p[pick_p], o_b[pick_b]])
     d = torch.cat([d_p[pick_p], d_b[pick_b]])
-    before = tmm.mm_closest_hit.launches
+    before = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
     t1, i1, *_ = tmm.closest_hit_mm_full(scene, o, d, T_MIN)
-    if tmm.mm_closest_hit.launches != before + 1:
-        raise RuntimeError("closest_hit_mm_full did not launch the kernel")
-    t0, i0 = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=1024)
-    n_mis, n_tie, n_edge = judge_mismatches(scene, o, d, i1, t1, i0, t0,
-                                            "kernel path vs brute oracle")
+    if (tmm.mm_closest_hit.launches, tmm.cull_tiles.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise RuntimeError("closest_hit_mm_full did not launch both kernels")
+    t0, i0 = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=chunk)
+    what = f"kernel path vs brute oracle ({scene.num_tris} triangles)"
+    n_mis, n_tie, n_edge = judge_mismatches(scene, o, d, i1, t1, i0, t0, what)
     same = (i1 == i0) & torch.isfinite(t0)
     err = (t1[same] - t0[same]).abs()
     if not bool((err <= T_RTOL * t0[same].abs() + T_ATOL).all()):
-        raise RuntimeError(f"kernel path vs brute oracle: t off by {float(err.max())}")
+        raise RuntimeError(f"{what}: t off by {float(err.max())}")
     hits = int((i0 >= 0).sum())
     tri_hits = int((i0 >= 3).sum())
-    log(f"[3] {o.shape[0]} rays: {hits} hits ({tri_hits} triangles), "
+    log(f"    {what}, {o.shape[0]} rays: {hits} hits ({tri_hits} triangles), "
         f"{n_mis} differ ({n_tie} near-ties, {n_edge} edges), "
         f"max |dt| {float(err.max()):.3g}")
-    return dict(rays=o.shape[0], hits=hits, mismatches=n_mis,
-                max_abs_err=float(err.max()))
+    return dict(rays=o.shape[0], hits=hits, triangle_hits=tri_hits,
+                mismatches=n_mis, max_abs_err=float(err.max()))
 
 
-def phase_slice(profile: bool, w=1280, h=720, device="cuda"):
-    import numpy as np
+def phase_cull(name, scene, o, d, act):
+    """cull_tiles vs cull_pass_reference on the inputs closest_hit_mm_full
+    gives them: bit-equal outputs, and both timed."""
     import torch
 
-    from metalpathtracer_torch import cli
-    from metalpathtracer_torch.render import integrator as tint
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    png = OUT / f"reference_{w}x{h}.png"
-    npz = OUT / f"reference_{w}x{h}.npz"
-    argv = ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", str(w),
-            "--height", str(h), "--spp", "4", "--max-depth", "32", "--stats-json",
-            "--device", device, "--output", str(png), "--npz", str(npz)]
-    steps = [0]
-    twin_calls = [0]
-    bounce_step = tint._bounce_step
-    twin = tmm.mm_closest_hit_reference
+    n = o.shape[0]
+    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
+    x = tmm.ray_features(o, d)
+    a = (torch.ones((n,), device=o.device) if act is None
+         else act.to(torch.float32))
+    args = (x, a, scene.mm_tile_box, T_MIN, t_s)
+    out_k = tmm.cull_tiles(*args)
+    out_r = tmm.cull_pass_reference(*args)
+    torch.cuda.synchronize()
+    for what, k, r in zip(("sgm", "gent", "lane_bound"), out_k, out_r):
+        if not torch.equal(k, r):
+            bad = int((k != r).sum())
+            raise RuntimeError(f"cull_tiles vs plain ({name}): {what} differs "
+                               f"at {bad} places")
+    fin = torch.isfinite(out_r[1])
+    err = float((out_k[1][fin] - out_r[1][fin]).abs().max()) if fin.any() else 0.0
+    k_ms = cuda_ms(lambda: tmm.cull_tiles(*args), 20)
+    r_ms = cuda_ms(lambda: tmm.cull_pass_reference(*args), 3)
+    nt = scene.mm_tile_box.shape[0]
+    rec = dict(rays=n, tiles=nt, active=int(a.sum()), max_abs_err=err,
+               passing=float(out_r[0].float().mean()), ms=k_ms, plain_ms=r_ms)
+    log(f"    cull_tiles vs plain ({name}): {n} rays x {nt} tiles, bit-equal, "
+        f"{rec['passing']:.4f} of (subgroup, tile) pairs pass; kernel "
+        f"{k_ms:.3f} ms, plain {r_ms:.3f} ms")
+    return rec
 
-    def counted_step(*a, **k):
-        steps[0] += 1
-        return bounce_step(*a, **k)
 
-    def counted_twin(*a, **k):
-        twin_calls[0] += 1
-        return twin(*a, **k)
+def run_cli(argv, profile_name=None):
+    """cli.main(argv) on a counted path; returns (stats, counts)."""
+    from metalpathtracer_torch import cli
 
-    tint._bounce_step = counted_step
-    tmm.mm_closest_hit_reference = counted_twin
     out = io.StringIO()
-    try:
-        torch.cuda.synchronize()
-        tmm.mm_closest_hit.launches = 0
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
-        launches = tmm.mm_closest_hit.launches
-    finally:
-        tint._bounce_step = bounce_step
-        tmm.mm_closest_hit_reference = twin
-    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    with counted_path() as counts, contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
     if rc != 0:
         raise RuntimeError(f"cli.main returned {rc}")
-    if twin_calls[0]:
-        raise RuntimeError(f"the slice ran the plain twin {twin_calls[0]} times")
-    if launches < steps[0] or steps[0] == 0:
-        raise RuntimeError(f"{launches} kernel launches for {steps[0]} bounces")
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    if profile_name:
+        stats["profile"] = profile(lambda: cli.main(argv), profile_name)
+    return stats, counts
+
+
+def check_image(npz, shape):
+    import numpy as np
+
     with np.load(npz) as z:
         img = z["radiance"]
-    if img.shape != (h, w, 3) or not np.isfinite(img).all():
+    if img.shape != shape or not np.isfinite(img).all():
         raise RuntimeError(f"bad image: {img.shape}, finite {np.isfinite(img).all()}")
     if not img.mean() > 0.05:
         raise RuntimeError(f"image is black: mean {img.mean()}")
-    log(f"[4] cli: {stats['seconds']} s, {stats['rays']} rays, "
-        f"{stats['mrays_per_sec']} Mrays/s, {steps[0]} bounces, {launches} "
-        f"kernel launches, image mean {img.mean():.4f}")
-    result = dict(stats=stats, bounces=steps[0], launches=launches,
-                  image_mean=float(img.mean()))
-    if profile:
-        result["profile"] = profile_slice(argv)
+    return img
+
+
+def phase_paths(profile_on: bool, w=1280, h=720):
+    """The scan and the wavefront path through the CLI at full size."""
+    base = ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", str(w),
+            "--height", str(h), "--spp", "4", "--max-depth", "32", "--stats-json",
+            "--device", "cuda"]
+    result, images = {}, {}
+    for name, extra in (("scan", []), ("wavefront", ["--wavefront"])):
+        png, npz = OUT / f"{name}_{w}x{h}.png", OUT / f"{name}_{w}x{h}.npz"
+        stats, counts = run_cli(
+            base + extra + ["--output", str(png), "--npz", str(npz)],
+            profile_name=f"{name}_{w}x{h}" if profile_on and name == "wavefront"
+            else None)
+        images[name] = check_image(npz, (h, w, 3))
+        result[name] = dict(stats=stats, counts=counts,
+                            image_mean=float(images[name].mean()))
+        log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
+            f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
+            f"{counts['steps']} bounce steps, launches: mm_closest_hit "
+            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
+            f"image mean {images[name].mean():.4f}")
+    frac, dmean = compare_images(images["wavefront"], images["scan"],
+                                 "wavefront vs scan image")
+    result["wavefront"].update(vs_scan_divergent=frac, vs_scan_mean_diff=dmean)
+    log(f"[7] wavefront vs scan: {frac:.5f} of pixels differ by > 1e-3, "
+        f"means by {dmean:.2e}")
     return result
 
 
-def profile_slice(argv) -> str:
-    """Run the slice once more under torch.profiler; keep the kernel table."""
+def phase_legs(scenes, profile_on: bool):
+    """bench.py's large-scene legs through render_image_wavefront."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.pipeline import render_image_wavefront
+
+    cfg = RenderConfig(max_depth=LEG_DEPTH)
+    result = {}
+    for name, scene in scenes.items():
+        def leg():
+            img, rays, stats = render_image_wavefront(
+                scene, Camera.reset(), LEG_W, LEG_H, LEG_SPP, seed=0, cfg=cfg,
+                pool_size=POOL, return_stats=True)
+            return img.cpu().numpy(), rays, stats
+
+        with counted_path() as counts:
+            t0 = time.perf_counter()
+            img, rays, stats = leg()  # .cpu() waits for the device
+            dt = time.perf_counter() - t0
+        if img.shape != (LEG_H, LEG_W, 3) or not np.isfinite(img).all():
+            raise RuntimeError(f"{name}: bad image {img.shape}")
+        if not img.mean() > 0.05:
+            raise RuntimeError(f"{name}: image is black: mean {img.mean()}")
+        rec = dict(seconds=dt, rays=rays, mrays_per_sec=rays / dt / 1e6,
+                   image_mean=float(img.mean()), counts=counts,
+                   tiles=scene.mm_tile_box.shape[0], **stats)
+        if profile_on and name == "bunny300k":
+            rec["profile"] = profile(leg, f"leg_{name}")
+        result[name] = rec
+        torch.cuda.empty_cache()
+        log(f"[8] {name} ({scene.num_tris} triangles, {rec['tiles']} tiles): "
+            f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
+            f"{counts['steps']} bounce steps, launches: mm_closest_hit "
+            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
+            f"image mean {img.mean():.4f}")
+    return result
+
+
+def profile(fn, name) -> str:
+    """Run fn once more under torch.profiler; keep the kernel table."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with contextlib.redirect_stdout(io.StringIO()), profile(activities=acts) as prof:
-        cli.main(argv)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), tprofile(activities=acts) as prof:
+        fn()
         torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (OUT / "profile.txt").write_text(table)
+    (OUT / f"profile_{name}.txt").write_text(table)
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_us = sum(e.device_time for e in events)
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events)) if events else 0.0
     summary = (f"device kernel time {busy_us / 1e3:.1f} ms over a device span of "
-               f"{span_us / 1e3:.1f} ms ({len(events)} kernels)")
-    log(f"[4] profile: {summary}; table in {OUT / 'profile.txt'}")
-    log(table)
+               f"{span_us / 1e3:.1f} ms ({len(events)} kernels), profiled wall "
+               f"{wall:.3f} s")
+    log(f"    profile {name}: {summary}; table in {OUT / f'profile_{name}.txt'}")
     return summary
 
 
-def phase_slice_vs_twin(device="cuda"):
+def phase_small_vs_plain(scene):
+    """Both paths at 320x180 spp 2 depth 8 on the kernels vs on the plain
+    versions, and the golden reference-scene case."""
     import numpy as np
-    import torch
 
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.integrator import RenderConfig
-    from metalpathtracer_torch.render.pipeline import render_image
-    from metalpathtracer_torch.scene import load_scene_xml, presets
+    from metalpathtracer_torch.render.pipeline import (
+        render_image,
+        render_image_wavefront,
+    )
+    from metalpathtracer_torch.scene import presets
 
-    host = load_scene_xml(str(ROOT / "scenes" / "reference.xml"))
-    scene = upload_scene(host, device)
     cfg = RenderConfig(max_depth=8)
-    a, _ = render_image(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
-    with twin_closest_hit():
-        b, _ = render_image(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
-    a, b = a.cpu().numpy(), b.cpu().numpy()
-    frac = float((np.abs(a - b) > 1e-3).mean())
-    dmean = float(abs(a.mean() - b.mean()))
-    if not (np.isfinite(a).all() and frac < 0.02 and dmean < 5e-3):
-        raise RuntimeError(f"kernel vs twin render: {frac} divergent, mean diff {dmean}")
-    log(f"[5] 320x180 spp 2 depth 8: {frac:.5f} of pixels differ by > 1e-3, "
-        f"means differ by {dmean:.2e}")
+    result = {}
+    for name, fn in (("scan", render_image), ("wavefront", render_image_wavefront)):
+        a, ra = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+        with plain_versions():
+            b, rb = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+        frac, dmean = compare_images(a.cpu().numpy(), b.cpu().numpy(),
+                                     f"{name} kernels vs plain versions")
+        result[name] = dict(divergent=frac, mean_diff=dmean, rays=ra, plain_rays=rb)
+        log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
+            f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
-        presets.reference_default(str(ROOT / "assets" / "bunny.obj")), device)
+        presets.reference_default(str(ROOT / "assets" / "bunny.obj")), "cuda")
     img, _ = render_image(golden_scene, Camera.reset(), 64, 36, 4, seed=3, cfg=cfg)
     img = img.cpu().numpy()
     with np.load(ROOT / "tests" / "golden" / "reference_scene.npz") as z:
         golden = z["image"]
     rmse = float(np.sqrt(((img - golden) ** 2).mean()))
     gfrac = float((np.abs(img - golden) > 1e-3).mean())
-    if not (rmse < 1e-2 and gfrac < 0.02):
+    if not (rmse < 1e-2 and gfrac < IMG_FRAC):
         raise RuntimeError(f"golden reference_scene: RMSE {rmse}, {gfrac} divergent")
-    log(f"[5] golden reference_scene on {device}: RMSE {rmse:.2e}, {gfrac:.5f} divergent")
-    return dict(divergent=frac, mean_diff=dmean, golden_rmse=rmse)
+    log(f"[9] golden reference_scene on cuda: RMSE {rmse:.2e}, {gfrac:.5f} divergent")
+    result["golden_rmse"] = rmse
+    return result
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the slice with torch.profiler")
+                    help="also profile the wavefront path and the bunny300k leg")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     card, build_s = phase_setup()
     import torch
 
     from metalpathtracer_torch.render.device_scene import upload_scene
-    from metalpathtracer_torch.scene import load_scene_xml
+    from metalpathtracer_torch.scene import load_scene_xml, presets
 
     dev = torch.device("cuda")
     scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "reference.xml")), dev)
+    big = {}
+    for name, preset in (("bunny70k", presets.reference_bunny70k),
+                         ("bunny300k", presets.reference_bunny300k)):
+        t0 = time.perf_counter()
+        big[name] = upload_scene(preset(), dev)
+        log(f"[1] {name}: {big[name].num_tris} triangles in "
+            f"{big[name].mm_tile_box.shape[0]} tiles of {big[name].mm_w.shape[1]}, "
+            f"built and uploaded in {time.perf_counter() - t0:.2f} s")
     log(f"[1] reference scene: {scene.num_tris} triangles in "
         f"{scene.mm_tile_box.shape[0]} tiles of {scene.mm_w.shape[1]}")
-    sets, kvt = phase_kernel_vs_twin(scene, dev)
-    oracle = phase_oracle(scene, sets)
-    slice_ = phase_slice(args.profile)
-    twin = phase_slice_vs_twin()
 
-    kernels = {"kernels": [{
-        "name": "mm_closest_hit", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
-        "launches": slice_["launches"],
-        "max_abs_err": kvt["primary"]["max_abs_err"],
-        "ms": kvt["primary"]["ms"], "plain_ms": kvt["primary"]["plain_ms"],
-    }]}
-    summary = dict(card=card, build_s=build_s, kernel_vs_twin=kvt, oracle=oracle,
-                   slice=slice_, slice_vs_twin=twin)
+    ref_sets = primary_and_bounce(scene, 1280, 720)
+    log("[2] mm_closest_hit vs twin, reference scene, 921,600 rays")
+    kvt = phase_kernel_vs_twin(scene, ref_sets)
+    log("[3] the kernel path vs the brute oracle")
+    oracle = phase_oracle(scene, ref_sets, 32768, chunk=1024)
+
+    # 32,768 rays of a 512x512 view (every 8th pixel), as the legs' pool
+    leg_sets = {k: primary_and_bounce(s, LEG_W, LEG_H, stride=8)
+                for k, s in big.items()}
+    log("[4] cull_tiles vs its plain version")
+    cull = {"reference_primary": phase_cull("reference primary", scene,
+                                            *ref_sets["primary"])}
+    for k, sets in leg_sets.items():
+        cull[f"{k}_bounce1"] = phase_cull(f"{k} bounce 1", big[k], *sets["bounce1"])
+    if big["bunny300k"].mm_w.shape[1] != 256:
+        raise RuntimeError("bunny300k is not at tile_p 256")
+    log("[5] mm_closest_hit at tile_p 256 (bunny300k)")
+    kvt256 = phase_kernel_vs_twin(big["bunny300k"], leg_sets["bunny300k"])
+    oracle256 = phase_oracle(big["bunny300k"], leg_sets["bunny300k"], 4096,
+                             chunk=4096)
+    del leg_sets
+
+    paths = phase_paths(args.profile)
+    legs = phase_legs(big, args.profile)
+    small = phase_small_vs_plain(scene)
+
+    main_path = paths["wavefront"]["counts"]
+    kernels = {"kernels": [
+        dict(name="mm_closest_hit", route="cuda", **KERNELS["mm_closest_hit"],
+             launches=main_path["mm_launches"],
+             max_abs_err=kvt["primary"]["max_abs_err"],
+             ms=kvt["primary"]["ms"], plain_ms=kvt["primary"]["plain_ms"]),
+        dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
+             launches=main_path["cull_launches"],
+             max_abs_err=cull["bunny300k_bounce1"]["max_abs_err"],
+             ms=cull["bunny300k_bounce1"]["ms"],
+             plain_ms=cull["bunny300k_bounce1"]["plain_ms"]),
+    ]}
+    summary = dict(card=card, build_s=build_s, mm_vs_twin=kvt, oracle=oracle,
+                   cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
+                   oracle_tile_p256=oracle256, paths=paths, legs=legs,
+                   small_vs_plain=small,
+                   total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
+    log(f"done in {summary['total_s']:.1f} s")
     print(json.dumps(kernels))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

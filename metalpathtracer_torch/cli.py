@@ -1,14 +1,16 @@
 """Command-line renderer on PyTorch.
 
-Port of the default branch of `metalpathtracer_tpu/cli.py`: load a scene,
-render it with the scan integrator and write a PNG (and optionally the
-linear radiance as npz). Flags of the reference that are not ported yet
-(`--wavefront`, `--checkpoint`, `--tile-shard`, ...) are not defined, so
+Port of the default and `--wavefront` branches of
+`metalpathtracer_tpu/cli.py`: load a scene, render it with the scan or the
+persistent-wavefront integrator and write a PNG (and optionally the linear
+radiance as npz). Flags of the reference that are not ported yet
+(`--checkpoint`, `--resume`, `--tile-shard`, ...) are not defined, so
 argparse rejects them.
 
 Usage:
     python -m metalpathtracer_torch.cli --scene scenes/reference.xml \
-        --width 1280 --height 720 --spp 4 --device cuda --stats-json
+        --width 1280 --height 720 --spp 4 --device cuda --stats-json \
+        [--wavefront]
 """
 
 from __future__ import annotations
@@ -47,6 +49,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clamp", action="store_true",
                    help="per-sample [0,1] radiance clamp")
     p.add_argument("--spp-per-pass", type=int, default=None)
+    p.add_argument("--wavefront", action="store_true",
+                   help="persistent-wavefront integrator with lane "
+                        "regeneration (fastest on open scenes)")
+    p.add_argument("--pool-size", type=int, default=None,
+                   help="wavefront lane-pool size (default: auto)")
+    p.add_argument("--bounces-per-iter", type=int, default=1,
+                   help="wavefront bounces per regeneration cycle")
     p.add_argument("--stats-json", action="store_true",
                    help="print a machine-readable stats line")
     p.add_argument("--device", default="cuda",
@@ -73,7 +82,10 @@ def main(argv=None) -> int:
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.integrator import RenderConfig
-    from metalpathtracer_torch.render.pipeline import render_image
+    from metalpathtracer_torch.render.pipeline import (
+        render_image,
+        render_image_wavefront,
+    )
     from metalpathtracer_torch.scene import load_scene_xml
 
     device = torch.device(args.device)
@@ -109,6 +121,7 @@ def main(argv=None) -> int:
         clamp_radiance=args.clamp,
         rr_start=args.rr_start,
         nee=args.nee,
+        bounces_per_iter=args.bounces_per_iter,
     )
 
     output = args.output
@@ -118,10 +131,16 @@ def main(argv=None) -> int:
         output = os.path.join("runs", f"{base}.png")
 
     t0 = time.time()
-    img, rays = render_image(
-        scene, cam, args.width, args.height, args.spp,
-        seed=args.seed, cfg=cfg, spp_per_pass=args.spp_per_pass,
-    )
+    if args.wavefront:
+        img, rays = render_image_wavefront(
+            scene, cam, args.width, args.height, args.spp,
+            seed=args.seed, cfg=cfg, pool_size=args.pool_size,
+        )
+    else:
+        img, rays = render_image(
+            scene, cam, args.width, args.height, args.spp,
+            seed=args.seed, cfg=cfg, spp_per_pass=args.spp_per_pass,
+        )
     img = img.cpu().numpy()  # waits for the device
     dt = time.time() - t0
 

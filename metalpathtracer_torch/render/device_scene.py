@@ -2,8 +2,8 @@
 
 Port of `metalpathtracer_tpu/render/device_scene.py`, holding only what the
 render path reads: the primitive SoA and `geom_table` (brute oracle), the
-material bank, the closest-hit tables, the sphere SoA and the light table.
-The BVH and the wavefront's coarse boxes are not ported yet.
+material bank, the closest-hit tables, the wavefront's coarse boxes, the
+sphere SoA and the light table. The BVH is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ class TorchScene:
     mm_tri_ids: torch.Tensor  # int32 (n_tiles*tile_p,) column -> primitive
     mm_refine: torch.Tensor  # float32 (n_tiles*tile_p, 8) [n, n.v0, prim, mat]
     mm_tile_box: torch.Tensor  # float32 (n_tiles, 8) [lo3, 0, hi3, 0]
+    # float32 (<= N_COARSE, 8): boxes over contiguous tile ranges, the
+    # wavefront's tileset sort key
+    mm_coarse_box: torch.Tensor
     sph_center: torch.Tensor  # float32 (S, 3)
     sph_radius: torch.Tensor  # float32 (S,)
     sph_ids: torch.Tensor  # int32 (S,)
@@ -61,6 +64,31 @@ class TorchScene:
     @property
     def device(self) -> torch.device:
         return self.p0.device
+
+
+# coarse boxes of the tileset sort key (the reference's measured default;
+# its MPT_COARSE_BOXES sweep knob and >32-box two-word key are not ported)
+N_COARSE = 32
+
+
+def _coarse_boxes(tile_box: np.ndarray, n_coarse: int = N_COARSE) -> np.ndarray:
+    """Merge the per-tile AABBs into <= n_coarse boxes over contiguous tile
+    id ranges (tiles are kd-ordered, so a range is spatially compact). One
+    slab test per coarse box gives a ray its tile-set signature, the
+    wavefront pool's sort key. Never more boxes than tiles; slots past the
+    last range are empty boxes (lo = +inf, hi = -inf), which the slab test
+    enters for every live lane, so they add the same bit to every key."""
+    nt = tile_box.shape[0]
+    n_coarse = max(1, min(n_coarse, nt))
+    out = np.zeros((n_coarse, 8), np.float32)
+    out[:, 0:3] = np.inf
+    out[:, 4:7] = -np.inf
+    group = max(1, -(-nt // n_coarse))
+    for c in range(min(n_coarse, -(-nt // group))):
+        a, b = c * group, min((c + 1) * group, nt)
+        out[c, 0:3] = tile_box[a:b, 0:3].min(axis=0)
+        out[c, 4:7] = tile_box[a:b, 4:7].max(axis=0)
+    return out
 
 
 def _build_light_table(packed: PackedScene) -> dict:
@@ -189,6 +217,7 @@ def upload_scene(host: PackedScene | HostScene, device) -> TorchScene:
         mm_tri_ids=w["tri_ids"],
         mm_refine=refine,
         mm_tile_box=w["tile_box"],
+        mm_coarse_box=_coarse_boxes(w["tile_box"]),
         sph_center=w["sph_center"],
         sph_radius=w["sph_radius"],
         sph_ids=w["sph_ids"],

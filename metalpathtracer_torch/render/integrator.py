@@ -1,10 +1,15 @@
 """Path-tracing integrator over the ray wavefront.
 
-Port of the scan integrator of `metalpathtracer_tpu/render/integrator.py`
-(`_trace_rays`, `_fetch_material`, `_sphere_cone_pdf`, `_sample_light`,
-`_light_pdf_toward`, `_bounce_step`, `trace`). Every ray advances one bounce
-per step with masked updates, in a Python loop that exits once every ray
-has terminated or `max_depth` is reached.
+Port of `metalpathtracer_tpu/render/integrator.py` (`_trace_rays`,
+`_fetch_material`, `_sphere_cone_pdf`, `_sample_light`, `_light_pdf_toward`,
+`_bounce_step`, `trace`, `trace_wavefront`). Two integrators share the
+bounce step:
+- `trace` (scan): one lane per (pixel, sample); every lane advances one
+  bounce per step with masked updates, in a Python loop that exits once
+  every lane has terminated or `max_depth` is reached;
+- `trace_wavefront`: a fixed pool of lanes works through the (pixel group,
+  sample) queue; a lane whose path ends banks its radiance and restarts on
+  the next work item, so every advance traces a dense pool.
 
 Estimator:
 - miss -> sky gradient, terminate;
@@ -31,24 +36,39 @@ from metalpathtracer_torch.render.intersect import (
     closest_hit_bruteforce,
     surface_interaction_packed,
 )
-from metalpathtracer_torch.render.kernels.intersect_mm import closest_hit_mm_full
+from metalpathtracer_torch.render.kernels.intersect_mm import (
+    _cull_hit_mask,
+    closest_hit_mm_full,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Integrator configuration: the fields the scan path reads."""
+    """Integrator configuration."""
 
     max_depth: int = 32
     # closest-hit backend: "auto" and "mm" take the tile kernel,
     # "brute" the brute-force oracle
     intersector: str = "auto"
     brute_chunk: int = 128
+    # wavefront: reorder the pool by each lane's tile-set signature, so that
+    # a 128-lane subgroup's tile list covers few tiles. Positional RNG makes
+    # the estimate invariant to the order. Ignored without triangles.
+    sort_lanes: bool = True
+    sort_key: str = "tileset"  # the one key ported
     clamp_radiance: bool = False  # per-sample [0,1] radiance clamp
     rr_start: int = 0  # 0 = off; else first bounce eligible for roulette
     nee: bool = False  # next-event estimation + MIS
+    # wavefront bounces per advance (between regenerations); the estimate
+    # is invariant to it
+    bounces_per_iter: int = 1
     # scale the scatter-origin offset with the hit point's magnitude: a
     # fixed 1e-4 is below f32 position resolution once |p| > ~2
     adaptive_offset: bool = True
+    # wavefront pixel-group banking: one work item covers bank_k adjacent
+    # pixels x their samples and banks them as one framebuffer row.
+    # 0 = auto (the largest k <= 8 that keeps the queue >= 4 pool fills)
+    bank_k: int = 0
 
 
 DEFAULT_CONFIG = RenderConfig()
@@ -176,8 +196,9 @@ def _light_pdf_toward(scene, origin, d, t, idx):
 
 def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
                  pixel_id, sample_id, bounce, seed, cfg):
-    """Advance every lane one bounce (`bounce` is the Python int index the
-    RNG draws key on). `prev_pdf` carries the BSDF pdf of
+    """Advance every lane one bounce. `bounce`, the index the RNG draws key
+    on, is an int or a per-lane tensor, as are `sample_id` and `pixel_id`.
+    `prev_pdf` carries the BSDF pdf of
     the previous bounce's scattered direction on lanes whose previous
     bounce sampled a light (0 otherwise): the MIS counterweight.
 
@@ -279,12 +300,14 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         new_o = point + (1e-4 * offset_sign)[..., None] * normal
     new_tp = throughput * albedo
 
-    # Russian roulette (unbiased early termination)
-    if 0 < cfg.rr_start <= bounce:
+    # Russian roulette (unbiased early termination), from bounce rr_start
+    # on; `bounce` is an int (scan) or a per-lane tensor (wavefront)
+    if cfg.rr_start > 0:
         u_rr = rng.uniform1(seed, pixel_id, sample_id, bounce, rng.PURPOSE_RR)
         p = torch.clamp(new_tp.amax(dim=-1), 0.05, 1.0)
-        new_tp = new_tp * (1.0 / p)[..., None]
-        hit_live = hit_live & (u_rr < p)
+        do_rr = torch.as_tensor(bounce >= cfg.rr_start, device=o.device)
+        new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)[..., None]
+        hit_live = hit_live & (~do_rr | (u_rr < p))
 
     # MIS counterweight for the next bounce: the sampled lobe's pdf of the
     # direction just scattered, on lanes where light sampling ran
@@ -332,3 +355,246 @@ def trace(scene, o, d, pixel_id, sample_id, seed,
     if cfg.clamp_radiance:
         light = torch.clamp(light, 0.0, 1.0)
     return light, rays_traced
+
+
+# wavefront cadences (the reference's defaults; its MPT_* sweep knobs are
+# not ported)
+BANK_K_MAX = 8  # largest automatic pixel-group banking width
+SORT_EVERY = 4  # advances between pool sorts (at most spb)
+DRAIN_WIDTH = 1024  # the pool narrows to this once the queue is empty
+
+
+def _tileset_key(scene, o, d, alive):
+    """Each lane's tile-set signature: bit c set where the lane's ray enters
+    coarse box c (the quantity the subgroup cull unions). Dead lanes and
+    lanes that enter no box share key 0 (neither costs kernel work)."""
+    chit, _ = _cull_hit_mask(o, d, alive.to(torch.float32),
+                             scene.mm_coarse_box, T_MIN)  # (nc, n)
+    nc = scene.mm_coarse_box.shape[0]
+    bits = 1 << torch.arange(nc, dtype=torch.int64, device=o.device)
+    return (chit.to(torch.int64) * bits[:, None]).sum(dim=0)
+
+
+def trace_wavefront(scene, camera, width, height, spp, seed,
+                    cfg: RenderConfig = DEFAULT_CONFIG,
+                    pool_size: int | None = None):
+    """Persistent-wavefront path tracing with lane regeneration. `seed` is
+    the u32 seed word.
+
+    A fixed pool of lanes works through the queue of work items, each
+    `bank_k` adjacent pixels x `spb` samples. When a path ends, its radiance
+    joins the lane's accumulator; when the item's last path ends, the lane
+    banks the accumulator to the framebuffer and restarts on the next item.
+    RNG streams key on (pixel, sample, bounce), never on the lane, so the
+    estimate equals `trace`'s up to framebuffer addition order.
+
+    Host loop: advances run in windows of `flush_every`; banks collect in
+    per-lane pending slots and reach the framebuffer in one `index_add_`
+    per window; the loop condition (queue left, or more live lanes than the
+    drain width) is read once per window. Once it fails, the live lanes are
+    compacted to `DRAIN_WIDTH` and advanced until none is left.
+
+    Returns (rgb_sum (width*height, 3) f32, rays int, stats): stats has
+    `tile_passes` (closest-hit tile passes, 2^20 ray-triangle tests each)
+    and `shadow_rays` (NEE shadow rays, included in rays). Divide rgb_sum
+    by spp.
+    """
+    from metalpathtracer_torch.render.pipeline import generate_rays
+
+    if cfg.sort_key != "tileset":
+        raise ValueError(f"unknown sort key {cfg.sort_key!r}")
+    dev = scene.device
+    n_pix = width * height
+    if n_pix * spp > (1 << 31):
+        raise ValueError(f"{n_pix * spp} work items overflow the queue")
+    pool = int(pool_size) if pool_size is not None else min(n_pix * spp, 1 << 15)
+    bpi = max(1, cfg.bounces_per_iter)
+
+    # samples per bank: a lane traces all spp samples of its pixels when the
+    # image alone fills the pool, else one sample per item
+    spb = spp if n_pix >= pool else 1
+    chunks = spp // spb
+    bank_k = 1
+    if spb == spp:
+        k_req = cfg.bank_k or BANK_K_MAX
+        for k in (16, 8, 4, 2, 1):
+            # queue-depth guard: grouping shortens the queue k-fold; keep it
+            # >= 4 pool fills unless bank_k was asked for
+            deep_enough = bool(cfg.bank_k) or (n_pix // k) * chunks >= 4 * pool
+            if (k <= k_req and n_pix % k == 0 and n_pix // k >= pool
+                    and deep_enough):
+                bank_k = k
+                break
+    groups = n_pix // bank_k
+    per_item = bank_k * spb  # path completions per work item
+    total = groups * chunks
+    ka = 3 * bank_k  # accumulator width
+
+    # a lane completes at most one path per advance, so it banks at most once
+    # per window of flush_every <= per_item advances: one pending slot each
+    sort_every = min(spb, SORT_EVERY)
+    flush_every = max(1, per_item // sort_every) * sort_every
+    sorting = cfg.sort_lanes and scene.num_tris > 0
+    lane_ids = torch.arange(pool, dtype=torch.int64, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def pix_samp_of(item, schunk):
+        pixel = (item % groups) * bank_k + schunk // spb
+        sample = (item // groups) * spb + schunk % spb
+        return pixel, sample
+
+    def ray_for(item, schunk):
+        pixel, sample = pix_samp_of(item, schunk)
+        return generate_rays(camera, width, height, pixel, sample, seed)
+
+    item0 = lane_ids.clone()
+    schunk0 = torch.zeros(pool, **i64)
+    o0, d0 = ray_for(item0, schunk0)
+    st = dict(
+        item=item0, schunk=schunk0, acc=torch.zeros((pool, ka), **f32),
+        o=o0, d=d0, bounce=torch.zeros(pool, **i64),
+        light=torch.zeros((pool, 3), **f32), tp=torch.ones((pool, 3), **f32),
+        prev_pdf=torch.zeros(pool, **f32), alive=item0 < total,
+    )
+    # rows >= groups are private dummy rows: a lane with no pending bank
+    # adds its zero row there, so every index of a scatter is distinct
+    fb = torch.zeros((groups + pool, ka), **f32)
+    counters = dict(rays=torch.zeros((), **i64),
+                    shadow=torch.zeros((), **i64),
+                    tile_passes=torch.zeros((), **f32))
+
+    def advance(st):
+        """bpi bounce steps and the per-path bookkeeping. Returns the new
+        state and the masks `more` (the lane restarts on its item's next
+        sample) and `bank` (the lane finished its item)."""
+        alive, bounce = st["alive"], st["bounce"]
+        o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",
+                                                     "prev_pdf"))
+        pixel, sample = pix_samp_of(st["item"], st["schunk"])
+        still = alive
+        for k in range(bpi):
+            step_active = still & (bounce + k < cfg.max_depth)
+            o, d, light, tp, still, prev_pdf, c, sh, tpass = _bounce_step(
+                scene, o, d, light, tp, step_active, prev_pdf, pixel, sample,
+                bounce + k, seed, cfg,
+            )
+            counters["rays"] += c
+            counters["shadow"] += sh
+            counters["tile_passes"] += tpass
+        bounce_next = bounce + bpi
+        survivors = still & (bounce_next < cfg.max_depth)
+        path_done = alive & ~survivors
+
+        # the finished path joins accumulator slot schunk // spb
+        ps = torch.clamp(light, 0.0, 1.0) if cfg.clamp_radiance else light
+        schunk = st["schunk"]
+        if bank_k == 1:
+            acc = st["acc"] + torch.where(path_done[:, None], ps, 0.0)
+        else:
+            slot = (torch.arange(bank_k, device=dev)[None, :]
+                    == (schunk // spb)[:, None])  # (pool, K)
+            mask = path_done[:, None] & slot
+            acc = st["acc"] + torch.where(mask[:, :, None], ps[:, None, :],
+                                          0.0).reshape(-1, ka)
+        light = torch.where(path_done[:, None], 0.0, light)
+        schunk_next = schunk + path_done.to(torch.int64)
+        more = path_done & (schunk_next < per_item)
+        bank = path_done & ~more  # the item is finished
+        st = dict(
+            st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
+            bounce=bounce_next, alive=survivors,
+            schunk=torch.where(path_done,
+                               torch.where(bank, 0, schunk_next), schunk),
+        )
+        return st, more, bank
+
+    def restart_lanes(st, restart):
+        """Fresh primary rays where the (item, schunk) changed."""
+        no, nd = ray_for(st["item"], st["schunk"])
+        r = restart[:, None]
+        return dict(
+            st, o=torch.where(r, no, st["o"]), d=torch.where(r, nd, st["d"]),
+            tp=torch.where(r, 1.0, st["tp"]),
+            bounce=torch.where(restart, 0, st["bounce"]),
+            prev_pdf=torch.where(restart, 0.0, st["prev_pdf"]),
+            alive=st["alive"] | restart,
+        )
+
+    def sort_pool(st, pend=None):
+        """Reorder the lanes by tile-set signature (stable); the pending
+        banks (pend_idx, pend_rgb) ride along."""
+        key = _tileset_key(scene, st["o"], st["d"], st["alive"])
+        perm = torch.argsort(key, stable=True)
+        fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
+                  st["prev_pdf"][:, None]]
+        iparts = [st["item"], st["schunk"], st["bounce"],
+                  st["alive"].to(torch.int64)]
+        if pend is not None:
+            fparts.append(pend[1])
+            iparts.append(pend[0])
+        fpack = torch.cat(fparts, dim=1)[perm]
+        ipack = torch.stack(iparts, dim=1)[perm]
+        st = dict(
+            st, o=fpack[:, 0:3], d=fpack[:, 3:6], acc=fpack[:, 6:6 + ka],
+            light=fpack[:, 6 + ka:9 + ka], tp=fpack[:, 9 + ka:12 + ka],
+            prev_pdf=fpack[:, 12 + ka], item=ipack[:, 0], schunk=ipack[:, 1],
+            bounce=ipack[:, 2], alive=ipack[:, 3] > 0,
+        )
+        if pend is None:
+            return st, None
+        return st, (ipack[:, 4], fpack[:, 13 + ka:])
+
+    # ---- feed: the queue refills lanes; one framebuffer scatter a window
+    drain_w = min(pool, DRAIN_WIDTH)
+    drain_stop = drain_w if pool > drain_w else 0
+    next_item = torch.full((), min(pool, total), **i64)
+    while True:
+        queued, live = (int(v) for v in torch.stack(
+            [next_item, st["alive"].sum()]).tolist())
+        if not (queued < total or live > drain_stop):
+            break
+        pend = (groups + lane_ids, torch.zeros((pool, ka), **f32))
+        for _ in range(flush_every // sort_every):
+            for _ in range(sort_every):
+                st, more, bank = advance(st)
+                pend = (torch.where(bank, st["item"] % groups, pend[0]),
+                        torch.where(bank[:, None], st["acc"], pend[1]))
+                st["acc"] = torch.where(bank[:, None], 0.0, st["acc"])
+                # queue pop: a banked lane's rank among banked lanes
+                new_item = next_item + torch.cumsum(bank.to(torch.int64), 0) - 1
+                regen = bank & (new_item < total)
+                st["item"] = torch.where(regen, new_item, st["item"])
+                st = restart_lanes(st, more | regen)
+                next_item = torch.clamp(next_item + bank.sum(), max=total)
+            if sorting:
+                st, pend = sort_pool(st, pend)
+        fb.index_add_(0, pend[0], pend[1])
+
+    # ---- drain: no queue left; live lanes fit drain_w
+    # (lanes that banked in the feed hold no residue; clear it regardless,
+    # so the final flush adds nothing twice)
+    dead = ~st["alive"]
+    st["light"] = torch.where(dead[:, None], 0.0, st["light"])
+    st["acc"] = torch.where(dead[:, None], 0.0, st["acc"])
+    if pool > drain_w:
+        live_first = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
+        st = {k: v[live_first][:drain_w] for k, v in st.items()}
+    while bool(st["alive"].any()):
+        for _ in range(sort_every):
+            st, more, _ = advance(st)
+            st = restart_lanes(st, more)
+        if sorting:
+            st, _ = sort_pool(st)
+
+    # ---- flush: every dead lane whose item is real banks its accumulator
+    w = st["item"].shape[0]
+    banked = ~st["alive"] & (st["item"] < total)
+    idx = torch.where(banked, st["item"] % groups, groups + lane_ids[:w])
+    fb.index_add_(0, idx, st["acc"])
+    # (groups, 3K) rows are K row-major (pixel, rgb) blocks
+    rgb_sum = fb[:groups].reshape(n_pix, 3)
+    return rgb_sum, int(counters["rays"]), dict(
+        tile_passes=float(counters["tile_passes"]),
+        shadow_rays=int(counters["shadow"]),
+    )

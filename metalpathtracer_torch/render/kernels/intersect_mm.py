@@ -13,9 +13,11 @@ with per-triangle weights (n = e1 x e2):
     st = o.n - v0.n
 
 so a ray is tested against a tile of triangles by four 12-term dot products
-per triangle, done by the CUDA kernel `csrc/mm_closest_hit.cu`. Around it:
-the exact sphere pass, the tile cull that builds each 128-lane subgroup's
-entry-ordered list of passing tiles, and the plane-t refine of the winner.
+per triangle, done by the CUDA kernel `csrc/mm_closest_hit.cu`. Before it,
+the CUDA kernel `csrc/cull_tiles.cu` slab-tests every ray against every
+tile box and reduces the result per 128-lane subgroup, from which each
+subgroup's entry-ordered list of passing tiles is sorted. Around them: the
+exact sphere pass and the plane-t refine of the winner.
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
@@ -24,6 +26,10 @@ TPU workarounds of the reference that are not ported, and why:
 - the resident/streaming split (VMEM residency cap, SMEM list guard): VMEM
   and SMEM capacity; one kernel reads its lists from global memory;
 - `BLOCK_R` padding: N is padded to a multiple of 128 (one subgroup);
+- the cull kernel's `CULL_KERNEL_MIN_TILES` routing, its padding of the
+  tiles to a multiple of 128 and its fold of the lane bound mod 128: TPU
+  dispatch cost and lane-layout rules; the CUDA cull serves every scene
+  and writes the lane bound directly;
 - `PACKED_ARGMIN`, regroup and `LAST_PLAN`: measured neutral or a loss on
   the TPU, and `LAST_PLAN` goes stale;
 - the `MPT_*` environment knobs: TPU sweep settings.
@@ -52,6 +58,9 @@ TILE_SWITCH_TRIS = 24 * 1024
 # subgroups per batched matmul in the plain twin: bounds its temporaries
 # to ~0.3 GB each at tile_p 128
 TWIN_GROUP_CHUNK = 1024
+# (ray, tile) pairs per step of the plain cull: ~64 MB per f32 temporary
+CULL_TWIN_PAIRS = 1 << 24
+RECIP_CLIP = 1e30  # the cull's reciprocal clip: finite, so no inf * 0
 _INF = float("inf")
 
 
@@ -192,42 +201,60 @@ def build_weights(prim_type, p0, p1, p2) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _check_inputs(lists, counts, smin, x, lane_bound, w):
-    g, nt = lists.shape
-    n = g * LANES
-    expect = [
-        ("lists", lists, torch.int32, (g, nt)),
-        ("counts", counts, torch.int32, (g,)),
-        ("smin", smin, torch.float32, (g, nt)),
-        ("x", x, torch.float32, (n, NUM_FEATURES)),
-        ("lane_bound", lane_bound, torch.float32, (n,)),
-        ("w", w, torch.float32, (nt, w.shape[1], 4, NUM_FEATURES)),
-    ]
+# each kernel's C entry point `<name>_launch(pointers..., scalars...,
+# device, stream)`: its pointer count and scalar types
+_ENTRY_ARGS = {
+    "mm_closest_hit": (8, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float)),
+    "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
+}
+
+
+def _check_tensors(kernel: str, expect, device):
+    """Raise unless every (name, tensor, dtype, shape) of `expect` has its
+    dtype and shape and lies on `device`."""
     for name, tensor, dtype, shape in expect:
         if tensor.dtype != dtype or tuple(tensor.shape) != shape:
             raise ValueError(
-                f"mm_closest_hit: {name} must be {dtype} {shape}, "
+                f"{kernel}: {name} must be {dtype} {shape}, "
                 f"got {tensor.dtype} {tuple(tensor.shape)}"
             )
-        if tensor.device != x.device:
-            raise ValueError(
-                f"mm_closest_hit: {name} is on {tensor.device}, x on {x.device}"
-            )
+        if tensor.device != device:
+            raise ValueError(f"{kernel}: {name} is on {tensor.device}, "
+                             f"not {device}")
 
 
 @functools.cache
-def _launcher():
-    lib = _build.load_library("mm_closest_hit")
-    fn = lib.mm_closest_hit_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
+def _entry(kernel: str):
+    lib = _build.load_library(kernel)
+    n_ptr, scalars = _ENTRY_ARGS[kernel]
+    fn = getattr(lib, f"{kernel}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [*scalars, ctypes.c_int,
+                                               ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = lib.mm_closest_hit_error_string
+    err = getattr(lib, f"{kernel}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+def _launch(kernel: str, inputs, outputs, scalars, device):
+    """Launch `kernel` on `device`'s current stream: pointers of `inputs`
+    (None passes a null pointer) and `outputs`, then `scalars`. Inputs must
+    be contiguous and 16-byte aligned. Raises on a refused launch."""
+    for tensor in inputs:
+        if tensor is not None and (not tensor.is_contiguous()
+                                   or tensor.data_ptr() % 16):
+            raise ValueError(f"{kernel}: inputs must be contiguous and "
+                             "16-byte aligned")
+    fn, err = _entry(kernel)
+    rc = fn(*(None if v is None else v.data_ptr() for v in (*inputs, *outputs)),
+            *scalars, device.index or 0,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: CUDA error {rc} ({err(rc).decode()})"
+        )
 
 
 def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float):
@@ -244,29 +271,25 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float):
     `mm_closest_hit.launches`); CPU tensors take the plain twin
     `mm_closest_hit_reference`. Any other device raises.
     """
-    _check_inputs(lists, counts, smin, x, lane_bound, w)
+    g, nt = lists.shape
+    n = g * LANES
+    _check_tensors("mm_closest_hit", [
+        ("lists", lists, torch.int32, (g, nt)),
+        ("counts", counts, torch.int32, (g,)),
+        ("smin", smin, torch.float32, (g, nt)),
+        ("x", x, torch.float32, (n, NUM_FEATURES)),
+        ("lane_bound", lane_bound, torch.float32, (n,)),
+        ("w", w, torch.float32, (nt, w.shape[1], 4, NUM_FEATURES)),
+    ], x.device)
     if x.device.type == "cpu":
         return mm_closest_hit_reference(lists, counts, smin, x, lane_bound,
                                         w, t_min)
     if x.device.type != "cuda":
         raise ValueError(f"mm_closest_hit: no kernel for device {x.device}")
-    tensors = (lists, counts, smin, x, lane_bound, w)
-    for tensor in tensors:
-        if not tensor.is_contiguous() or tensor.data_ptr() % 16:
-            raise ValueError("mm_closest_hit: inputs must be contiguous and "
-                             "16-byte aligned")
-    g, nt = lists.shape
-    t = torch.empty(g * LANES, dtype=torch.float32, device=x.device)
-    col = torch.empty(g * LANES, dtype=torch.int32, device=x.device)
-    fn, err = _launcher()
-    rc = fn(*(v.data_ptr() for v in tensors), t.data_ptr(), col.data_ptr(),
-            g, nt, w.shape[1], float(t_min), x.device.index or 0,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"mm_closest_hit launch failed: CUDA error {rc} "
-            f"({err(rc).decode()})"
-        )
+    t = torch.empty(n, dtype=torch.float32, device=x.device)
+    col = torch.empty(n, dtype=torch.int32, device=x.device)
+    _launch("mm_closest_hit", (lists, counts, smin, x, lane_bound, w),
+            (t, col), (g, nt, w.shape[1], float(t_min)), x.device)
     mm_closest_hit.launches += 1
     return t, col
 
@@ -329,8 +352,10 @@ def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, m, o, od, oo, torch.ones_like(od)], dim=-1)
 
 
-def _cull_hit_mask(o, d, active, tile_box, t_min, occ=None):
-    """Slab test of every ray against every tile AABB. Returns (hit (nt, N)
+def _cull_hit_mask(o, d, active, tile_box, t_min):
+    """Slab test of every ray against every box, in the reference's
+    unclipped form (its XLA branch; the wavefront's tileset sort key
+    runs it over the coarse boxes). Returns (hit (nt, N)
     bool: can this active ray enter this tile's box?, enter (nt, N) f32:
     its entry distance, >= t_min). Any hit inside a box lies at t >= enter,
     which is what lets entry-ordered lists exit early."""
@@ -353,26 +378,98 @@ def _cull_hit_mask(o, d, active, tile_box, t_min, occ=None):
         enter = torch.maximum(enter, torch.where(torch.isnan(a_lo), -_INF, a_lo))
         exit_ = torch.minimum(exit_, torch.where(torch.isnan(a_hi), _INF, a_hi))
     hit = (exit_ > enter) & (active.reshape(1, n) > 0.5)
-    if occ is not None:
-        # a tile entered beyond the lane's occlusion bound cannot win
-        hit = hit & (enter <= occ.reshape(1, n))
     return hit, enter
 
 
-def _cull_pass(x, active, tile_box, t_min, occ=None):
-    """Per-subgroup cull: (sgm (N/128, nt) bool — does any lane of the
-    128-lane subgroup pass the tile?, gent (N/128, nt) f32 — the subgroup-
-    min entry, +inf where none passes, lane_bound (N,) f32 — per lane, the
-    max entry over its passing tiles, -inf when it passes none)."""
-    n = x.shape[0]
-    nt = tile_box.shape[0]
-    o, d = x[:, 6:9], x[:, 0:3]
-    hit, enter = _cull_hit_mask(o, d, active.reshape(n, 1), tile_box, t_min,
-                                occ)
-    ent = torch.where(hit, enter, _INF)
-    lane_bound = torch.where(hit, enter, -_INF).amax(dim=0)
-    sgm = hit.reshape(nt, n // LANES, LANES).any(dim=2).T
-    gent = ent.reshape(nt, n // LANES, LANES).amin(dim=2).T
+# --------------------------------------------------------------------------
+# the cull kernel and its plain twin
+# --------------------------------------------------------------------------
+
+
+def cull_tiles(x, active, tile_box, t_min: float, occ=None):
+    """Per-subgroup cull of rays against tile AABBs (the reference's
+    `_cull_pass`). x (N, 12) f32 ray features, N a multiple of 128;
+    active (N,) f32 (> 0.5 = live); tile_box (nt, 8) f32; occ (N,) f32
+    optional per-lane occlusion bound. Returns
+      sgm (N/128, nt) bool: does any lane of the subgroup enter the tile?
+      gent (N/128, nt) f32: the subgroup-min entry, +inf where none does;
+      lane_bound (N,) f32: per lane, the max entry over the tiles it
+        enters, -inf where it enters none.
+
+    CUDA tensors launch `csrc/cull_tiles.cu` (and count the launch in
+    `cull_tiles.launches`); CPU tensors take `cull_pass_reference`. Any
+    other device raises.
+    """
+    n, nt = x.shape[0], tile_box.shape[0]
+    f32 = torch.float32
+    _check_tensors("cull_tiles", [
+        ("x", x, f32, (n, NUM_FEATURES)),
+        ("active", active, f32, (n,)),
+        ("tile_box", tile_box, f32, (nt, 8)),
+    ] + ([] if occ is None else [("occ", occ, f32, (n,))]), x.device)
+    if n % LANES:
+        raise ValueError(f"cull_tiles: {n} rays is not a multiple of {LANES}")
+    if x.device.type == "cpu":
+        return cull_pass_reference(x, active, tile_box, t_min, occ)
+    if x.device.type != "cuda":
+        raise ValueError(f"cull_tiles: no kernel for device {x.device}")
+    g = n // LANES
+    sgm = torch.empty((g, nt), dtype=torch.bool, device=x.device)
+    gent = torch.empty((g, nt), dtype=f32, device=x.device)
+    lane_bound = torch.empty((n,), dtype=f32, device=x.device)
+    _launch("cull_tiles", (x, active, occ, tile_box), (sgm, gent, lane_bound),
+            (g, nt, float(t_min)), x.device)
+    cull_tiles.launches += 1
+    return sgm, gent, lane_bound
+
+
+cull_tiles.launches = 0
+
+
+def cull_pass_reference(x, active, tile_box, t_min: float, occ=None):
+    """Plain torch twin of the cull kernel, in the reference kernel's
+    arithmetic: reciprocals clipped to +-1e30 (no inf * 0 NaN), inactive
+    lanes' bound folded to -inf, NaN-propagating min/max. One repair: a
+    lane enters a box where exit >= entry, not exit > entry, so a flat box
+    (the tile of an axis-aligned planar mesh) is entered where a ray
+    crosses its plane. Bit-equal to the kernel, and to the reference's
+    `_cull_pass` on generic rays and boxes; where a direction component is
+    0 it is tighter than `_cull_hit_mask` (a ray lying in a flat box's plane
+    enters it there, not here). Works through the rays CULL_TWIN_PAIRS
+    (ray, tile) pairs at a time."""
+    n, nt = x.shape[0], tile_box.shape[0]
+    g = n // LANES
+    dev = x.device
+    inv = torch.clamp(1.0 / x[:, 0:3], -RECIP_CLIP, RECIP_CLIP)
+    o = x[:, 6:9]
+    bound = active.reshape(n) > 0.5
+    occv = torch.full((n,), _INF, device=dev) if occ is None else occ
+    bound = torch.where(bound, occv, -_INF)
+    t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    sgm = torch.empty((g, nt), dtype=torch.bool, device=dev)
+    gent = torch.empty((g, nt), dtype=torch.float32, device=dev)
+    lane_bound = torch.empty((n,), dtype=torch.float32, device=dev)
+    step = max(1, CULL_TWIN_PAIRS // (LANES * max(nt, 1)))
+    for g0 in range(0, g, step):
+        g1 = min(g, g0 + step)
+        rays = slice(g0 * LANES, g1 * LANES)
+        en = ex = None
+        for a in range(3):
+            oa = o[rays, a][None, :]
+            ia = inv[rays, a][None, :]
+            t0 = (tile_box[:, a][:, None] - oa) * ia
+            t1 = (tile_box[:, 4 + a][:, None] - oa) * ia
+            a_lo = torch.minimum(t0, t1)
+            a_hi = torch.maximum(t0, t1)
+            if a == 0:
+                en, ex = torch.maximum(a_lo, t_min_t), a_hi
+            else:
+                en, ex = torch.maximum(en, a_lo), torch.minimum(ex, a_hi)
+        hit = (ex >= en) & (en <= bound[rays][None, :])  # (nt, rays)
+        k = g1 - g0
+        sgm[g0:g1] = hit.reshape(nt, k, LANES).any(dim=2).T
+        gent[g0:g1] = torch.where(hit, en, _INF).reshape(nt, k, LANES).amin(dim=2).T
+        lane_bound[rays] = torch.where(hit, en, -_INF).amax(dim=0)
     return sgm, gent, lane_bound
 
 
@@ -385,7 +482,7 @@ def _cull_tile_lists(x, active, tile_box, t_min, occ=None):
       lane_bound (N,) f32: per lane, max entry over its passing tiles.
     One stable sort gives both the sorted entries and the permutation;
     equal entries keep ascending tile order."""
-    sgm, gent, lane_bound = _cull_pass(x, active, tile_box, t_min, occ)
+    sgm, gent, lane_bound = cull_tiles(x, active, tile_box, t_min, occ)
     counts = sgm.sum(dim=1).to(torch.int32)
     smin, lists = torch.sort(gent.contiguous(), dim=1, stable=True)
     return lists.to(torch.int32), counts, smin, lane_bound

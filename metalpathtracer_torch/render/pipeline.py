@@ -1,9 +1,9 @@
 """Rendering pipeline: ray generation and sample batching.
 
-Port of `generate_rays`, `render_tile` and `render_image` from
-`metalpathtracer_tpu/render/pipeline.py`. Samples of a pass are traced one
-after another and summed; passes split spp as the reference does, so the
-sums are taken in the same order.
+Port of `generate_rays`, `render_tile`, `render_image` and
+`render_image_wavefront` from `metalpathtracer_tpu/render/pipeline.py`.
+Samples of a pass are traced one after another and summed; passes split
+spp as the reference does, so the sums are taken in the same order.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from metalpathtracer_torch.render.integrator import (
     DEFAULT_CONFIG,
     RenderConfig,
     trace,
+    trace_wavefront,
 )
 
 
@@ -83,3 +84,27 @@ def render_image(scene, camera: Camera, width: int, height: int, spp: int,
         rays += int(r)
         done += k
     return rgb / spp, rays
+
+
+def render_image_wavefront(scene, camera: Camera, width: int, height: int,
+                           spp: int, seed: int = 0,
+                           cfg: RenderConfig = DEFAULT_CONFIG,
+                           pool_size: int | None = None,
+                           return_stats: bool = False):
+    """Render through the persistent-wavefront integrator (see
+    `integrator.trace_wavefront`): the estimate of `render_image`, all spp
+    in one queue with pool-sized live state. Returns (image (H, W, 3) f32,
+    rays_traced int), plus with `return_stats` a dict: `tile_passes` and
+    `shadow_rays` (NEE shadow rays, included in rays_traced)."""
+    if spp <= 0:
+        raise ValueError(f"spp must be positive, got {spp}")
+    if pool_size is None:
+        pool_size = min(width * height * spp, 1 << 15)
+    rgb_sum, rays, stats = trace_wavefront(
+        scene, camera, width, height, spp, rng.seed_from_int(seed), cfg,
+        int(pool_size),
+    )
+    img = rgb_sum.reshape(height, width, 3) / spp
+    if return_stats:
+        return img, rays, stats
+    return img, rays

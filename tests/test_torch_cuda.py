@@ -1,14 +1,18 @@
-"""The hand-written CUDA closest-hit kernel against its plain twin and the
-brute-force oracle. These tests need an NVIDIA card (sm_90a) and nvcc; where
-there is none they skip. On a machine with the card, without JAX:
+"""The hand-written CUDA kernels against their plain twins: the closest-hit
+kernel (also against the brute-force oracle) and the tile cull, and the
+wavefront integrator on the card. These tests need an NVIDIA card (sm_90a)
+and nvcc; where there is none they skip. On a machine with the card,
+without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernel's determinants are 12-term float32 FMA chains, the
-twin's come from a float32 batched matmul, so the two may round differently
-in the last bit: hit columns equal on all but 0.1% of rays (each such ray a
-near-tie or a triangle edge), t at the closest-hit bound of the CPU tests
-(rtol 5e-4, atol 1e-2).
+Tolerances: the closest-hit kernel's determinants are 12-term float32 FMA
+chains, the twin's come from a float32 batched matmul, so the two may round
+differently in the last bit: hit columns equal on all but 0.1% of rays
+(each such ray a near-tie or a triangle edge), t at the closest-hit bound of
+the CPU tests (rtol 5e-4, atol 1e-2). The cull kernel and its twin compute
+the same IEEE operations in the same order: bit-equal. Wavefront vs scan on
+the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6.
 """
 
 import os
@@ -17,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from metalpathtracer_torch.render.camera import Camera
 from metalpathtracer_torch.render.device_scene import upload_scene
+from metalpathtracer_torch.render.integrator import RenderConfig
 from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
 from metalpathtracer_torch.render.kernels import intersect_mm as tmm
-from metalpathtracer_torch.scene import load_scene_xml
+from metalpathtracer_torch.render.pipeline import render_image, render_image_wavefront
+from metalpathtracer_torch.scene import load_scene_xml, presets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_MIN = 1e-4
@@ -35,6 +42,13 @@ def scene():
     torch.backends.cuda.matmul.allow_tf32 = False
     return upload_scene(load_scene_xml(os.path.join(REPO, "scenes", "reference.xml")),
                         "cuda")
+
+
+@pytest.fixture(scope="module")
+def bunny70k():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return upload_scene(presets.reference_bunny70k(), "cuda")  # tile_p 256
 
 
 def _rays(n, seed):
@@ -86,3 +100,87 @@ def test_cuda_wrapper_rejects_bad_inputs(scene):
     with pytest.raises(ValueError):
         tmm.mm_closest_hit(lists, counts, smin, x[:, :].t().contiguous().t(), lb,
                            scene.mm_w, T_MIN)
+
+
+def _cull_args(o, d, seed, tile_box):
+    """cull_tiles' inputs for rays (o, d): features, a 75% live mask and a
+    mix of finite and infinite occlusion bounds."""
+    n = o.shape[0]
+    r = np.random.default_rng(seed)
+    act = torch.as_tensor((r.uniform(size=n) > 0.25).astype(np.float32), device="cuda")
+    occ = np.where(r.uniform(size=n) > 0.5, r.uniform(1.0, 200.0, n), np.inf)
+    return (tmm.ray_features(o, d), act, tile_box, T_MIN,
+            torch.as_tensor(occ.astype(np.float32), device="cuda"))
+
+
+def _assert_cull_equal(args):
+    before = tmm.cull_tiles.launches
+    out = tmm.cull_tiles(*args)
+    torch.cuda.synchronize()
+    assert tmm.cull_tiles.launches == before + 1
+    ref = tmm.cull_pass_reference(*args)
+    for name, k, r in zip(("sgm", "gent", "lane_bound"), out, ref):
+        assert k.dtype == r.dtype and torch.equal(k, r), name
+    return out
+
+
+@pytest.mark.parametrize("n", [128, 4992, 65536])
+def test_cull_kernel_matches_twin(scene, n):
+    o, d = _rays(n, n + 1)
+    sgm, _, _ = _assert_cull_equal(_cull_args(o, d, n, scene.mm_tile_box))
+    assert sgm.any()
+
+
+def test_cull_kernel_matches_twin_over_many_tile_chunks(bunny70k):
+    # 311 tiles: two full chunks of 128 and a partial one
+    o, d = _rays(8192, 11)
+    sgm, _, _ = _assert_cull_equal(_cull_args(o, d, 11, bunny70k.mm_tile_box))
+    assert sgm.any() and not sgm.all()
+
+
+def test_cull_kernel_matches_twin_on_edge_cases(scene):
+    # zero direction components, flat and empty boxes, zero-padded lanes
+    box = torch.zeros((3, 8), device="cuda")
+    box[0, 0:3], box[0, 4:7] = 0.0, 1.0
+    box[1, 0:3] = torch.tensor([0.0, 0.0, 2.0])
+    box[1, 4:7] = torch.tensor([1.0, 1.0, 2.0])
+    box[2, 0:3], box[2, 4:7] = float("inf"), float("-inf")
+    o = torch.zeros((256, 3), device="cuda")
+    d = torch.zeros((256, 3), device="cuda")
+    o[:6] = torch.tensor([[0.5, 0.5, -3], [0.0, 0.5, -3], [-3, 0.5, 2.0],
+                          [2.0, 0.5, 0.5], [0.5, 0.5, 0.5], [-3, -3, -3]])
+    d[:6] = torch.tensor([[0, 0, 1.0], [0, 0, 1.0], [1.0, 0, 0], [0, 1.0, 0],
+                          [0, 0, -1.0], [0.577, 0.577, 0.577]])
+    act = torch.zeros(256, device="cuda")
+    act[:6] = 1.0
+    sgm, gent, lb = _assert_cull_equal(
+        (tmm.ray_features(o, d), act, box, T_MIN, None))
+    assert sgm[0].tolist() == [True, True, True] and not sgm[1].any()
+    assert gent[0, 1].item() == 5.0  # the flat box, crossed at z = 2
+
+
+def test_kernel_at_tile_p_256_matches_twin(bunny70k):
+    assert bunny70k.mm_w.shape[1] == 256
+    o, d = _rays(16384, 5)
+    occ = torch.full((16384,), float("inf"), device="cuda")
+    args = tmm.kernel_inputs(bunny70k, o, d, occ) + (bunny70k.mm_w, T_MIN)
+    t, col = tmm.mm_closest_hit(*args)
+    t_ref, col_ref = tmm.mm_closest_hit_reference(*args)
+    same = col == col_ref
+    assert (~same).float().mean().item() <= 1e-3
+    assert int((col_ref >= 0).sum()) > 1000
+    hit = same & (col_ref >= 0)
+    torch.testing.assert_close(t[hit], t_ref[hit], rtol=5e-4, atol=1e-2)
+
+
+def test_wavefront_on_card_matches_scan(scene):
+    cfg = RenderConfig(max_depth=6, bank_k=2)
+    cam = Camera.reset()
+    a, ra = render_image(scene, cam, 64, 36, 4, seed=7, cfg=cfg)
+    launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    b, rb = render_image_wavefront(scene, cam, 64, 36, 4, seed=7, cfg=cfg,
+                                   pool_size=128)
+    assert tmm.mm_closest_hit.launches > launches[0]
+    assert tmm.cull_tiles.launches > launches[1]
+    torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    assert ra == rb

@@ -187,7 +187,7 @@ def test_cli_writes_png_on_cpu(tmp_path, capsys):
     assert stats["rays"] > 32 * 18 * 2
 
 
-@pytest.mark.parametrize("flag", ["--wavefront", "--checkpoint=x.npz", "--tile-shard"])
+@pytest.mark.parametrize("flag", ["--resume", "--checkpoint=x.npz", "--tile-shard"])
 def test_cli_rejects_flags_not_ported(flag):
     with pytest.raises(SystemExit) as e:
         tcli.build_parser().parse_args(["--scene", "s.xml", flag])
@@ -195,17 +195,19 @@ def test_cli_rejects_flags_not_ported(flag):
 
 
 def test_port_never_imports_jax(tmp_path):
-    # a fresh interpreter: import every module of the port and run its CLI
+    # a fresh interpreter: import every module of the port and run its CLI,
+    # on the scan and on the wavefront path
     code = f"""
 import importlib, pkgutil, sys
 import metalpathtracer_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from metalpathtracer_torch import cli
-rc = cli.main(["--scene", {os.path.join(REPO, "scenes", "reference.xml")!r},
-               "--width", "16", "--height", "9", "--spp", "1", "--max-depth", "2",
-               "--output", {str(tmp_path / "x.png")!r}, "--device", "cpu"])
-assert rc == 0
+argv = ["--scene", {os.path.join(REPO, "scenes", "reference.xml")!r},
+        "--width", "16", "--height", "9", "--spp", "1", "--max-depth", "2",
+        "--output", {str(tmp_path / "x.png")!r}, "--device", "cpu"]
+assert cli.main(argv) == 0
+assert cli.main(argv + ["--wavefront"]) == 0
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not leaked, leaked
 print("no jax")
