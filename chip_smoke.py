@@ -9,14 +9,20 @@ both kernels. Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds;
 2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
-   primary rays and the rays left after one bounce: hit columns equal
-   except at near-ties and triangle edges, t within the CPU tests' bound;
+   primary rays, the rays left after one bounce, and the pool-width set:
+   the arguments of the 100th `mm_closest_hit` call of the flagship
+   wavefront render (32,768 lanes after the tileset sort), captured by
+   wrapping the function: hit columns equal except at near-ties and
+   triangle edges, t within the CPU tests' bound, and the walked list
+   positions equal on every subgroup whose 128 lanes agree on t bit for
+   bit; each set's tested pairs, bound and share of the bound;
 3. `closest_hit_mm_full` on the kernels vs the brute-force oracle on a
    65,536-ray subset (tests/test_intersect_mm.py's criteria);
 4. `cull_tiles` vs its plain version, bit-equal, at 39 tiles (921,600
-   primary rays), 311 tiles (bunny70k) and 1,242 tiles (bunny300k), the
-   latter two on 32,768 rays after one bounce with an active mask and the
-   sphere pass's occlusion bound;
+   primary rays, and the 32,768 pool lanes of the same flagship advance),
+   311 tiles (bunny70k) and 1,242 tiles (bunny300k), the latter two on
+   32,768 rays after one bounce with an active mask and the sphere pass's
+   occlusion bound;
 5. `mm_closest_hit` at tile_p 256 (bunny300k) vs its twin on 32,768
    primary and 32,768 bounce-1 rays, and vs the brute oracle on 8,192;
 6. the scan path: `cli.main` at 1280x720, spp 4, depth 32;
@@ -30,7 +36,10 @@ both kernels. Phases, each raising on failure:
 Each path of phases 6-8 runs with every launch count set to 0 just before
 it and read just after, and with the plain versions counted (they must not
 run). Times are CUDA-event means (kernels) or host clocks around work that
-ends in a synchronise (renders).
+ends in a synchronise (renders). A kernel's bound is the larger of its
+operations at the f32 CUDA-core peak (67 TFLOP/s) and its bytes at the
+memory rate (3.35 TB/s), both of an H100 SXM at 700 W; the closest hit's
+operations are 38 flop per (ray, triangle) pair its subgroups walked.
 
 The second-to-last lines of standard output are the kernels' JSON record and
 the card's name and power limit; the last line is the result JSON. Writes
@@ -40,6 +49,9 @@ Usage:
     python3 chip_smoke.py            # what a check runs
     python3 chip_smoke.py --profile  # also torch.profiler tables of the
                                      # wavefront path and the bunny300k leg
+    python3 chip_smoke.py --sweep    # also time `mm_closest_hit` built
+                                     # with 1, 2, 4 and 8 column slices
+                                     # and 1 and 4 rays per thread
 """
 
 from __future__ import annotations
@@ -79,6 +91,15 @@ KERNELS = {
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
+# the flagship advance whose closest-hit and cull calls are captured
+CAPTURE_CALL = 100
+# an H100 SXM's published peaks (NVIDIA's data sheet, 700 W): f32 outside
+# the tensor cores, and device memory
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
+CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
+H100_SMS = 132  # the SMs the peaks above are summed over
+SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 
 
 def log(msg: str) -> None:
@@ -296,26 +317,80 @@ def primary_and_bounce(scene, w, h, stride=1):
     return {"primary": (o, d, None), "bounce1": (step[0], step[1], step[4])}
 
 
+def closest_hit_set(scene, o, d, act):
+    """`mm_closest_hit`'s arguments for rays (o, d) as `closest_hit_mm_full`
+    makes them (the sphere pass's t as occlusion bound), with the rays."""
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
+    args = tmm.kernel_inputs(scene, o, d, t_s, act, T_MIN) + (scene.mm_w, T_MIN)
+    return dict(args=args, o=o, d=d,
+                active=int(act.sum()) if act is not None else o.shape[0])
+
+
+def captured_set(args, active):
+    """A set from captured `mm_closest_hit` arguments: the rays are read
+    back from the features x = [d, o x d, o, ...]."""
+    x = args[3]
+    return dict(args=args, o=x[:, 6:9], d=x[:, 0:3], active=int((active > 0.5).sum()))
+
+
+def closest_hit_bound(args, walked):
+    """The least time of one `mm_closest_hit` call on the card: the pairs
+    its subgroups walked (walked x 128 x tile_p) at FLOP_PER_PAIR, and the
+    bytes it must move (inputs once: features, lane bounds, counts, the
+    walked list and smin entries, the distinct tiles walked at 64 B per
+    triangle; outputs (t, col) once)."""
+    import torch
+
+    lists, counts, _, x, lane_bound, w, _ = args
+    tile_p = w.shape[1]
+    walked = walked.long()
+    n_walked = int(walked.sum())
+    pos = torch.arange(lists.shape[1], device=lists.device)[None, :] < walked[:, None]
+    tiles = int(lists[pos].unique().numel())
+    nbytes = (x.numel() * 4 + lane_bound.numel() * 4 + counts.numel() * 4
+              + n_walked * 8 + tiles * tile_p * w.shape[2] * 4 + x.shape[0] * 8)
+    pairs = n_walked * 128 * tile_p
+    flop_ms = pairs * FLOP_PER_PAIR / PEAK_F32_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # one subgroup's walk runs on one SM: the longest walk at one SM's share
+    # of the peak is a second lower bound, which the uneven walks can exceed
+    longest_ms = (int(walked.max()) * 128 * tile_p * FLOP_PER_PAIR
+                  / (PEAK_F32_FLOPS / H100_SMS) * 1e3) if walked.numel() else 0.0
+    q = torch.quantile(walked.float(), torch.tensor([0.5, 0.9], device=walked.device))
+    return dict(pairs=pairs, tiles_read=tiles, bytes=nbytes,
+                bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes",
+                walked_p50=float(q[0]), walked_p90=float(q[1]),
+                walked_max=int(walked.max()), longest_walk_ms=longest_ms)
+
+
 def phase_kernel_vs_twin(scene, sets):
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
     record = {}
-    for name, (so, sd, act) in sets.items():
+    for name, st in sets.items():
+        args, so, sd = st["args"], st["o"], st["d"]
         n = so.shape[0]
-        t_s = tmm._sphere_hit_exact(scene, so, sd, T_MIN)[0]
-        args = tmm.kernel_inputs(scene, so, sd, t_s, act, T_MIN) + (scene.mm_w, T_MIN)
-        tk, ck = tmm.mm_closest_hit(*args)
-        tr, cr = tmm.mm_closest_hit_reference(*args)
+        tk, ck, wk = tmm.mm_closest_hit(*args, return_walked=True)
+        tr, cr, wr = tmm.mm_closest_hit_reference(*args, return_walked=True)
         torch.cuda.synchronize()
+        what = f"mm_closest_hit vs twin ({name}, tile_p {scene.mm_w.shape[1]})"
+        # the walk reads only t: subgroups whose lanes agree on t bit for bit
+        # must have walked the same list positions
+        agree = (tk.view(-1, 128) == tr.view(-1, 128)).all(dim=1)
+        if not torch.equal(wk[agree], wr[agree]):
+            raise RuntimeError(f"{what}: walked positions differ on "
+                               f"{int((wk[agree] != wr[agree]).sum())} subgroups")
         tk, ck, tr, cr = tk[:n], ck[:n], tr[:n], cr[:n]
         tri_ids = scene.mm_tri_ids.long()
 
         def prim(col):
             return torch.where(col >= 0, tri_ids[col.clamp(min=0).long()], -1)
 
-        what = f"mm_closest_hit vs twin ({name}, tile_p {scene.mm_w.shape[1]})"
         n_mis, n_tie, n_edge = judge_mismatches(
             scene, so, sd, prim(ck), tk, prim(cr), tr, what)
         same = (ck == cr) & torch.isfinite(tr)
@@ -332,16 +407,73 @@ def phase_kernel_vs_twin(scene, sets):
         k_ms = cuda_ms(lambda: tmm.mm_closest_hit(*args), 20)
         r_ms = cuda_ms(lambda: tmm.mm_closest_hit_reference(*args), 3)
         passing = float(args[1].float().mean())
+        b = closest_hit_bound(args, wk)
+        g = wk.numel()
         record[name] = dict(
-            rays=n, active=int(act.sum()) if act is not None else n,
+            rays=n, active=st["active"], subgroups=g,
             triangle_hits=hits, mismatches=n_mis, near_ties=n_tie, edges=n_edge,
             max_abs_err=float(err.max()) if err.numel() else 0.0,
             ms=k_ms, plain_ms=r_ms, mean_passing_tiles=passing,
+            walked_kernel=int(wk.sum()), walked_twin=int(wr.sum()),
+            walk_compared=int(agree.sum()), **b, share=b["bound_ms"] / k_ms,
         )
         log(f"    {what}: {hits} triangle hits, {n_mis} differ "
             f"({n_tie} near-ties, {n_edge} edges), max |dt| "
             f"{record[name]['max_abs_err']:.3g}; kernel {k_ms:.3f} ms, "
             f"twin {r_ms:.3f} ms, {passing:.2f} passing tiles per subgroup")
+        log(f"    {what}: walked positions kernel {int(wk.sum())} "
+            f"({int(wk.sum()) / g:.2f} per subgroup; median {b['walked_p50']:.0f}, "
+            f"p90 {b['walked_p90']:.0f}, max {b['walked_max']}), twin "
+            f"{int(wr.sum())}, equal on all {int(agree.sum())} of {g} subgroups "
+            f"whose lanes agree on t; {b['pairs']} pairs, {b['tiles_read']} tiles "
+            f"read, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached; the longest walk "
+            f"on one SM {b['longest_walk_ms'] * 1e3:.2f} us")
+    return record
+
+
+def phase_sweep(sets):
+    """`mm_closest_hit` built with each of SWEEP_SLICES column slices per
+    tile and SWEEP_RAYS rays per thread, on every set: results bit-equal to
+    the default build's, and timed (CUDA events, 20 launches each)."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    variants = {f"K={k},R={r}": (f"MM_SLICES={k}", f"MM_RAYS={r}")
+                for r in SWEEP_RAYS for k in SWEEP_SLICES}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as ex:
+        libs = dict(zip(variants, ex.map(
+            lambda d: _build.build("mm_closest_hit", d), variants.values())))
+    log(f"[S] built {len(libs)} variants in {time.perf_counter() - t0:.2f} s")
+    for k, so in libs.items():
+        for line in so.with_name(so.name + ".log").read_text().splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line):
+                log(f"    {k}: {line.strip()}")
+    record = {}
+    for name, st in sets.items():
+        lists, counts, smin, x, lb, w, t_min = st["args"]
+        g, nt = lists.shape
+        t_ref, c_ref = tmm.mm_closest_hit(*st["args"])
+        row = {}
+        for k, defines in variants.items():
+            t = torch.empty_like(t_ref)
+            c = torch.empty_like(c_ref)
+
+            def launch():
+                tmm._launch("mm_closest_hit", (lists, counts, smin, x, lb, w),
+                            (t, c, None), (g, nt, w.shape[1], float(t_min)),
+                            x.device, defines=defines)
+
+            launch()
+            torch.cuda.synchronize()
+            if not (torch.equal(t, t_ref) and torch.equal(c, c_ref)):
+                raise RuntimeError(f"sweep {name}: {k} differs from the default build")
+            row[k] = cuda_ms(launch, 20)
+        record[name] = row
+        log(f"[S] {name}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()))
     return record
 
 
@@ -380,19 +512,39 @@ def phase_oracle(scene, sets, n_each, chunk):
                 mismatches=n_mis, max_abs_err=float(err.max()))
 
 
-def phase_cull(name, scene, o, d, act):
+def cull_args_of(scene, o, d, act):
+    """`cull_tiles`' arguments for rays (o, d) as `closest_hit_mm_full`
+    makes them (the sphere pass's t as occlusion bound)."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
+    a = (torch.ones((o.shape[0],), device=o.device) if act is None
+         else act.to(torch.float32))
+    return tmm.ray_features(o, d), a, scene.mm_tile_box, T_MIN, t_s
+
+
+def cull_bound(args):
+    """The least time of one `cull_tiles` call: CULL_FLOP_PER_PAIR on every
+    (ray, tile) pair, and the bytes of its inputs and outputs once."""
+    x, active, tile_box, _, occ = args
+    n, nt = x.shape[0], tile_box.shape[0]
+    nbytes = (x.numel() + active.numel() + occ.numel() + tile_box.numel()) * 4 \
+        + (n // 128) * nt * 5 + n * 4
+    flop_ms = n * nt * CULL_FLOP_PER_PAIR / PEAK_F32_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(pairs=n * nt, bytes=nbytes, bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes")
+
+
+def phase_cull(name, args):
     """cull_tiles vs cull_pass_reference on the inputs closest_hit_mm_full
     gives them: bit-equal outputs, and both timed."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    n = o.shape[0]
-    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
-    x = tmm.ray_features(o, d)
-    a = (torch.ones((n,), device=o.device) if act is None
-         else act.to(torch.float32))
-    args = (x, a, scene.mm_tile_box, T_MIN, t_s)
     out_k = tmm.cull_tiles(*args)
     out_r = tmm.cull_pass_reference(*args)
     torch.cuda.synchronize()
@@ -405,13 +557,73 @@ def phase_cull(name, scene, o, d, act):
     err = float((out_k[1][fin] - out_r[1][fin]).abs().max()) if fin.any() else 0.0
     k_ms = cuda_ms(lambda: tmm.cull_tiles(*args), 20)
     r_ms = cuda_ms(lambda: tmm.cull_pass_reference(*args), 3)
-    nt = scene.mm_tile_box.shape[0]
-    rec = dict(rays=n, tiles=nt, active=int(a.sum()), max_abs_err=err,
-               passing=float(out_r[0].float().mean()), ms=k_ms, plain_ms=r_ms)
+    n, nt = args[0].shape[0], args[2].shape[0]
+    b = cull_bound(args)
+    rec = dict(rays=n, tiles=nt, active=int((args[1] > 0.5).sum()), max_abs_err=err,
+               passing=float(out_r[0].float().mean()), ms=k_ms, plain_ms=r_ms,
+               **b, share=b["bound_ms"] / k_ms)
     log(f"    cull_tiles vs plain ({name}): {n} rays x {nt} tiles, bit-equal, "
         f"{rec['passing']:.4f} of (subgroup, tile) pairs pass; kernel "
-        f"{k_ms:.3f} ms, plain {r_ms:.3f} ms")
+        f"{k_ms:.3f} ms, plain {r_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
+        f"({b['bound_by']}), {100 * rec['share']:.1f}% of it reached")
     return rec
+
+
+def flagship_argv(w=1280, h=720):
+    return ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", str(w),
+            "--height", str(h), "--spp", "4", "--max-depth", "32", "--stats-json",
+            "--device", "cuda"]
+
+
+class _Captured(Exception):
+    pass
+
+
+def capture_pool_call():
+    """The arguments of the CAPTURE_CALL-th `mm_closest_hit` call of the
+    flagship wavefront render and of the `cull_tiles` call of the same
+    advance, cloned: the render is stopped right after."""
+    import torch
+
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    kernels = tmm.mm_closest_hit, tmm.cull_tiles
+    seen = {"mm": 0, "cull": 0}
+    captured = {}
+
+    def clone(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+    def cull(*args, **kw):
+        seen["cull"] += 1
+        if seen["cull"] == CAPTURE_CALL:
+            captured["cull"] = clone(args)  # (x, active, tile_box, t_min, occ)
+        return kernels[1](*args, **kw)
+
+    def mm(*args, **kw):
+        seen["mm"] += 1
+        if seen["mm"] == CAPTURE_CALL:
+            captured["mm"] = clone(args)
+            raise _Captured
+        return kernels[0](*args, **kw)
+
+    # the kernels count their launches on the module's names, which are
+    # these wrappers while they are in place
+    mm.launches = cull.launches = 0
+    tmm.mm_closest_hit, tmm.cull_tiles = mm, cull
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            cli.main(flagship_argv() + ["--wavefront", "--output",
+                                        str(OUT / "capture.png")])
+        raise RuntimeError(f"the flagship render made only {seen} calls")
+    except _Captured:
+        pass
+    finally:
+        tmm.mm_closest_hit, tmm.cull_tiles = kernels
+    torch.cuda.synchronize()
+    return captured["mm"], captured["cull"]
 
 
 def run_cli(argv, profile_name=None):
@@ -443,9 +655,7 @@ def check_image(npz, shape):
 
 def phase_paths(profile_on: bool, w=1280, h=720):
     """The scan and the wavefront path through the CLI at full size."""
-    base = ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", str(w),
-            "--height", str(h), "--spp", "4", "--max-depth", "32", "--stats-json",
-            "--device", "cuda"]
+    base = flagship_argv(w, h)
     result, images = {}, {}
     for name, extra in (("scan", []), ("wavefront", ["--wavefront"])):
         png, npz = OUT / f"{name}_{w}x{h}.png", OUT / f"{name}_{w}x{h}.npz"
@@ -580,6 +790,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the wavefront path and the bunny300k leg")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time mm_closest_hit built with 1, 2, 4 and 8 "
+                         "column slices per tile and 1 and 4 rays per thread")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -603,8 +816,13 @@ def main(argv=None) -> int:
         f"{scene.mm_tile_box.shape[0]} tiles of {scene.mm_w.shape[1]}")
 
     ref_sets = primary_and_bounce(scene, 1280, 720)
-    log("[2] mm_closest_hit vs twin, reference scene, 921,600 rays")
-    kvt = phase_kernel_vs_twin(scene, ref_sets)
+    mm_pool, cull_pool = capture_pool_call()
+    sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
+    sets["pool"] = captured_set(mm_pool, cull_pool[1])
+    log(f"[2] mm_closest_hit vs twin, reference scene: 921,600 rays, and the "
+        f"{mm_pool[3].shape[0]} lanes of call {CAPTURE_CALL} of the flagship "
+        f"wavefront render")
+    kvt = phase_kernel_vs_twin(scene, sets)
     log("[3] the kernel path vs the brute oracle")
     oracle = phase_oracle(scene, ref_sets, 32768, chunk=1024)
 
@@ -612,37 +830,48 @@ def main(argv=None) -> int:
     leg_sets = {k: primary_and_bounce(s, LEG_W, LEG_H, stride=8)
                 for k, s in big.items()}
     log("[4] cull_tiles vs its plain version")
-    cull = {"reference_primary": phase_cull("reference primary", scene,
-                                            *ref_sets["primary"])}
-    for k, sets in leg_sets.items():
-        cull[f"{k}_bounce1"] = phase_cull(f"{k} bounce 1", big[k], *sets["bounce1"])
+    cull = {"reference_primary": phase_cull(
+                "reference primary", cull_args_of(scene, *ref_sets["primary"])),
+            "reference_pool": phase_cull(
+                f"reference pool, call {CAPTURE_CALL}", cull_pool)}
+    for k, lsets in leg_sets.items():
+        cull[f"{k}_bounce1"] = phase_cull(f"{k} bounce 1",
+                                          cull_args_of(big[k], *lsets["bounce1"]))
     if big["bunny300k"].mm_w.shape[1] != 256:
         raise RuntimeError("bunny300k is not at tile_p 256")
     log("[5] mm_closest_hit at tile_p 256 (bunny300k)")
-    kvt256 = phase_kernel_vs_twin(big["bunny300k"], leg_sets["bunny300k"])
+    sets256 = {k: closest_hit_set(big["bunny300k"], *v)
+               for k, v in leg_sets["bunny300k"].items()}
+    kvt256 = phase_kernel_vs_twin(big["bunny300k"], sets256)
     oracle256 = phase_oracle(big["bunny300k"], leg_sets["bunny300k"], 4096,
                              chunk=4096)
-    del leg_sets
+    sweep = None
+    if args.sweep:
+        log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
+            f"{SWEEP_RAYS} rays per thread")
+        sweep = phase_sweep({**{f"reference_{k}": v for k, v in sets.items()},
+                             **{f"bunny300k_{k}": v for k, v in sets256.items()}})
+    del leg_sets, sets, sets256, mm_pool, cull_pool
 
     paths = phase_paths(args.profile)
     legs = phase_legs(big, args.profile)
     small = phase_small_vs_plain(scene)
 
     main_path = paths["wavefront"]["counts"]
+    mm, cl = kvt["pool"], cull["reference_pool"]  # the main path's shapes
     kernels = {"kernels": [
         dict(name="mm_closest_hit", route="cuda", **KERNELS["mm_closest_hit"],
-             launches=main_path["mm_launches"],
-             max_abs_err=kvt["primary"]["max_abs_err"],
-             ms=kvt["primary"]["ms"], plain_ms=kvt["primary"]["plain_ms"]),
+             launches=main_path["mm_launches"], max_abs_err=mm["max_abs_err"],
+             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
+             bound_by=mm["bound_by"], share=mm["share"], library_ms=None),
         dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
-             launches=main_path["cull_launches"],
-             max_abs_err=cull["bunny300k_bounce1"]["max_abs_err"],
-             ms=cull["bunny300k_bounce1"]["ms"],
-             plain_ms=cull["bunny300k_bounce1"]["plain_ms"]),
+             launches=main_path["cull_launches"], max_abs_err=cl["max_abs_err"],
+             ms=cl["ms"], plain_ms=cl["plain_ms"], bound_ms=cl["bound_ms"],
+             bound_by=cl["bound_by"], share=cl["share"], library_ms=None),
     ]}
     summary = dict(card=card, build_s=build_s, mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
-                   oracle_tile_p256=oracle256, paths=paths, legs=legs,
+                   oracle_tile_p256=oracle256, sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))

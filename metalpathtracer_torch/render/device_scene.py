@@ -34,7 +34,7 @@ class TorchScene:
     mat_bank: torch.Tensor  # float32 (M, 16), M padded to 8
     prim_mat_id: torch.Tensor  # int32 (P,)
     # closest-hit tables (render/kernels/intersect_mm.build_weights)
-    mm_w: torch.Tensor  # float32 (n_tiles, tile_p, 4, 12) weight slab
+    mm_w: torch.Tensor  # float32 (n_tiles, tile_p, 16) compact weight slab
     mm_tri_ids: torch.Tensor  # int32 (n_tiles*tile_p,) column -> primitive
     mm_refine: torch.Tensor  # float32 (n_tiles*tile_p, 8) [n, n.v0, prim, mat]
     mm_tile_box: torch.Tensor  # float32 (n_tiles, 8) [lo3, 0, hi3, 0]
@@ -233,8 +233,9 @@ def upload_scene(host: PackedScene | HostScene, device) -> TorchScene:
 def scene_from_jax(arrays: dict, device) -> TorchScene:
     """The port's scene from a JAX `DeviceScene`'s arrays (field name ->
     numpy array, plus the ints `num_tris` and `num_lights`).
-    Every table is copied; the f32 weight slab is rebuilt from p0/p1/p2 in
-    `mm_tri_ids` column order, since the JAX slab is a bf16 hi/lo split."""
+    Every table is copied; the weight slab is rebuilt from p0/p1/p2 in
+    `mm_tri_ids` column order in the port's compact f32 layout, since the
+    JAX slab is a dense bf16 hi/lo split."""
     tri_ids = np.asarray(arrays["mm_tri_ids"])
     n_tiles = np.asarray(arrays["mm_tile_box"]).shape[0]
     tile_p = tri_ids.shape[0] // n_tiles

@@ -12,17 +12,24 @@ with per-triangle weights (n = e1 x e2):
     sv = -(o x d).e1 - d.(v0 x e1)
     st = o.n - v0.n
 
-so a ray is tested against a tile of triangles by four 12-term dot products
-per triangle, done by the CUDA kernel `csrc/mm_closest_hit.cu`. Before it,
-the CUDA kernel `csrc/cull_tiles.cu` slab-tests every ray against every
-tile box and reduces the result per 128-lane subgroup, from which each
-subgroup's entry-ordered list of passing tiles is sorted. Around them: the
-exact sphere pass and the plane-t refine of the winner.
+Only 19 of the 48 weights are non-zero, so the slab keeps one compact row of
+16 floats per triangle, [n, v0.n, e1, v0 x e1, e2, e2 x v0] (`tri_weight_slab`),
+and the CUDA kernel `csrc/mm_closest_hit.cu` runs each determinant as the FMA
+chain of its non-zero terms over 9 ray features (d, o x d, o). The plain
+twin expands the tiles it gathers to the dense (4, 12) form
+(`expand_slab`) and takes the four 12-term dot products as one batched
+matmul. Before the kernel, the CUDA kernel `csrc/cull_tiles.cu` slab-tests
+every ray against every tile box and reduces the result per 128-lane
+subgroup, from which each subgroup's entry-ordered list of passing tiles is
+sorted. Around them: the exact sphere pass and the plane-t refine of the
+winner.
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
   around Mosaic's reduced-precision f32 matmul; the kernel computes in f32;
-- the 16-feature padding: a Mosaic DMA alignment rule; 12 features here;
+- the dense (features, 4 * tile_p) weight layout and its 16-feature
+  padding: an MXU operand and a Mosaic DMA alignment rule; the slab here is
+  the 16 non-redundant floats of each triangle;
 - the resident/streaming split (VMEM residency cap, SMEM list guard): VMEM
   and SMEM capacity; one kernel reads its lists from global memory;
 - `BLOCK_R` padding: N is padded to a multiple of 128 (one subgroup);
@@ -51,6 +58,7 @@ from metalpathtracer_torch.scene import PRIM_SPHERE, PRIM_TRIANGLE
 T_MIN = 1e-4
 TRI_PARALLEL_EPS = 1e-5
 NUM_FEATURES = 12
+SLAB_FLOATS = 16  # one compact slab row: [n, v0.n, e1, v0 x e1, e2, e2 x v0]
 LANES = 128  # rays per subgroup: one tile list, one CUDA block
 TILE_P_SMALL = 128  # triangles per tile up to TILE_SWITCH_TRIS ...
 TILE_P_LARGE = 256  # ... and beyond
@@ -95,10 +103,11 @@ def _kd_order(cent: np.ndarray, tile_p: int) -> np.ndarray:
 
 
 def tri_weight_slab(v0, v1, v2, tile_p: int) -> np.ndarray:
-    """The f32 weight slab (n_tiles, tile_p, 4, 12) of triangles in column
-    order: for column c, rows [wa, wu, wv, wt] of 12 weights each, so that
-    x . w[tile, c, k] is determinant k of ray x against triangle c.
-    Columns past the last triangle are zero (never accepted: |a| = 0)."""
+    """The compact f32 weight slab (n_tiles, tile_p, 16) of triangles in
+    column order: row [n, v0.n, e1, v0 x e1, e2, e2 x v0] per column, n = e1 x
+    e2 and v0.n the f32 sum of v0 * n. `expand_slab` turns it into the dense
+    determinant weights. Columns past the last triangle are zero (never
+    accepted: |a| = 0)."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -107,24 +116,40 @@ def tri_weight_slab(v0, v1, v2, tile_p: int) -> np.ndarray:
     e1 = v1 - v0
     e2 = v2 - v0
     n = np.cross(e1, e2)
-    z1 = np.zeros((t, 1), np.float32)
-    z3 = np.zeros((t, 3), np.float32)
-    wa = np.concatenate([-n, z3, z3, z1, z1, z1], axis=1)
-    wu = np.concatenate([-np.cross(e2, v0), e2, z3, z1, z1, z1], axis=1)
-    wv = np.concatenate([-np.cross(v0, e1), -e1, z3, z1, z1, z1], axis=1)
-    wt = np.concatenate(
-        [z3, z3, n, z1, z1, -np.sum(v0 * n, 1, keepdims=True)], axis=1
-    )
-    w = np.zeros((t + pad_t, 4, NUM_FEATURES), np.float32)
-    w[:t] = np.stack([wa, wu, wv, wt], axis=1)
-    return w.reshape(-1, tile_p, 4, NUM_FEATURES)
+    w = np.zeros((t + pad_t, SLAB_FLOATS), np.float32)
+    w[:t] = np.concatenate([n, np.sum(v0 * n, 1, keepdims=True), e1,
+                            np.cross(v0, e1), e2, np.cross(e2, v0)], axis=1)
+    return w.reshape(-1, tile_p, SLAB_FLOATS)
+
+
+def expand_slab(w: torch.Tensor) -> torch.Tensor:
+    """Dense determinant weights (..., 4, 12) of compact slab rows (..., 16):
+    for each column, rows [wa, wu, wv, wt] over the features X, so that
+    X . w[..., k] is determinant k (k = a, su, sv, st):
+      wa = [-n, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+      wu = [-(e2 x v0), e2, 0, 0, 0, 0, 0, 0, 0]
+      wv = [-(v0 x e1), -e1, 0, 0, 0, 0, 0, 0, 0]
+      wt = [0, 0, 0, 0, 0, 0, n, 0, 0, -v0.n]
+    (each entry a 3-vector but the last three). Negation is exact, so these
+    are the bits of the formula; a zero row expands to zeros, some of them
+    -0."""
+    n, v0n = w[..., 0:3], w[..., 3:4]
+    e1, v0xe1 = w[..., 4:7], w[..., 7:10]
+    e2, e2xv0 = w[..., 10:13], w[..., 13:16]
+    z1 = torch.zeros_like(v0n)
+    z3 = torch.zeros_like(n)
+    wa = torch.cat([-n, z3, z3, z1, z1, z1], dim=-1)
+    wu = torch.cat([-e2xv0, e2, z3, z1, z1, z1], dim=-1)
+    wv = torch.cat([-v0xe1, -e1, z3, z1, z1, z1], dim=-1)
+    wt = torch.cat([z3, z3, n, z1, z1, -v0n], dim=-1)
+    return torch.stack([wa, wu, wv, wt], dim=-2)
 
 
 def build_weights(prim_type, p0, p1, p2) -> dict:
     """Per-scene intersection tables (numpy, once per scene).
 
     Returns dict with:
-      w: f32 weight slab (n_tiles, tile_p, 4, 12) — see `tri_weight_slab`
+      w: compact f32 weight slab (n_tiles, tile_p, 16) — see `tri_weight_slab`
       tri_ids: int32 (T_padded,) original primitive index per column, -1 pad
       tri_refine: f32 (T_padded, 8) rows [n, n.v0 (f64 sum), prim, mat, 0, 0]
         in column order (mat is filled in by `upload_scene`)
@@ -204,7 +229,7 @@ def build_weights(prim_type, p0, p1, p2) -> dict:
 # each kernel's C entry point `<name>_launch(pointers..., scalars...,
 # device, stream)`: its pointer count and scalar types
 _ENTRY_ARGS = {
-    "mm_closest_hit": (8, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float)),
     "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
 }
@@ -225,8 +250,8 @@ def _check_tensors(kernel: str, expect, device):
 
 
 @functools.cache
-def _entry(kernel: str):
-    lib = _build.load_library(kernel)
+def _entry(kernel: str, defines: tuple = ()):
+    lib = _build.load_library(kernel, defines)
     n_ptr, scalars = _ENTRY_ARGS[kernel]
     fn = getattr(lib, f"{kernel}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [*scalars, ctypes.c_int,
@@ -238,16 +263,19 @@ def _entry(kernel: str):
     return fn, err
 
 
-def _launch(kernel: str, inputs, outputs, scalars, device):
+def _launch(kernel: str, inputs, outputs, scalars, device, defines: tuple = ()):
     """Launch `kernel` on `device`'s current stream: pointers of `inputs`
-    (None passes a null pointer) and `outputs`, then `scalars`. Inputs must
-    be contiguous and 16-byte aligned. Raises on a refused launch."""
+    and `outputs` (None passes a null pointer), then `scalars`. Inputs must
+    be contiguous and 16-byte aligned. `defines` selects a build of the
+    source with those preprocessor definitions (a sweep's variants; the
+    render path takes the source's own constants). Raises on a refused
+    launch."""
     for tensor in inputs:
         if tensor is not None and (not tensor.is_contiguous()
                                    or tensor.data_ptr() % 16):
             raise ValueError(f"{kernel}: inputs must be contiguous and "
                              "16-byte aligned")
-    fn, err = _entry(kernel)
+    fn, err = _entry(kernel, tuple(defines))
     rc = fn(*(None if v is None else v.data_ptr() for v in (*inputs, *outputs)),
             *scalars, device.index or 0,
             torch.cuda.current_stream(device).cuda_stream)
@@ -257,15 +285,19 @@ def _launch(kernel: str, inputs, outputs, scalars, device):
         )
 
 
-def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float):
+def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
+                   return_walked: bool = False):
     """Closest accepted hit per ray over its subgroup's tile list.
 
     lists (G, nt) int32: each 128-lane subgroup's passing tiles, nearest
       entry first; counts (G,) int32 its passing-tile count; smin (G, nt)
       f32 the subgroup-min entry at each list position (+inf past counts);
     x (G*128, 12) f32 ray features; lane_bound (G*128,) f32 each lane's
-      relevance bound; w the (nt, tile_p, 4, 12) f32 weight slab.
-    Returns (t (G*128,) f32, col (G*128,) int32 kernel column, -1 on miss).
+      relevance bound; w the compact (nt, tile_p, 16) f32 weight slab.
+    Returns (t (G*128,) f32, col (G*128,) int32 kernel column, -1 on miss),
+    and with `return_walked` also walked (G,) int32: the list positions
+    each subgroup tested before its early exit, which is what the kernel's
+    work (walked x 128 x tile_p ray-triangle pairs) is counted from.
 
     CUDA tensors launch `csrc/mm_closest_hit.cu` (and count the launch in
     `mm_closest_hit.launches`); CPU tensors take the plain twin
@@ -273,45 +305,49 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float):
     """
     g, nt = lists.shape
     n = g * LANES
+    tile_p = w.shape[1]
     _check_tensors("mm_closest_hit", [
         ("lists", lists, torch.int32, (g, nt)),
         ("counts", counts, torch.int32, (g,)),
         ("smin", smin, torch.float32, (g, nt)),
         ("x", x, torch.float32, (n, NUM_FEATURES)),
         ("lane_bound", lane_bound, torch.float32, (n,)),
-        ("w", w, torch.float32, (nt, w.shape[1], 4, NUM_FEATURES)),
+        ("w", w, torch.float32, (nt, tile_p, SLAB_FLOATS)),
     ], x.device)
     if x.device.type == "cpu":
         return mm_closest_hit_reference(lists, counts, smin, x, lane_bound,
-                                        w, t_min)
+                                        w, t_min, return_walked)
     if x.device.type != "cuda":
         raise ValueError(f"mm_closest_hit: no kernel for device {x.device}")
     t = torch.empty(n, dtype=torch.float32, device=x.device)
     col = torch.empty(n, dtype=torch.int32, device=x.device)
+    walked = (torch.empty(g, dtype=torch.int32, device=x.device)
+              if return_walked else None)
     _launch("mm_closest_hit", (lists, counts, smin, x, lane_bound, w),
-            (t, col), (g, nt, w.shape[1], float(t_min)), x.device)
+            (t, col, walked), (g, nt, tile_p, float(t_min)), x.device)
     mm_closest_hit.launches += 1
-    return t, col
+    return (t, col, walked) if return_walked else (t, col)
 
 
 mm_closest_hit.launches = 0
 
 
 def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,
-                             t_min: float):
+                             t_min: float, return_walked: bool = False):
     """Plain torch twin of the kernel: the same walk over list positions,
     vectorised across subgroups (TWIN_GROUP_CHUNK at a time), with the same
-    early-exit test, acceptance, division and tie rules. The determinants
-    come from a batched f32 matmul, whose summation order may differ from
-    the kernel's FMA chain in the last bits."""
+    early-exit test, acceptance, division and tie rules, and the same
+    walked counts. The gathered tiles are expanded to the dense weights and
+    the determinants come from a batched f32 matmul, whose summation order
+    may differ from the kernel's FMA chains in the last bits."""
     g, nt = lists.shape
     tile_p = w.shape[1]
     dev = x.device
     xg = x.view(g, LANES, NUM_FEATURES)
     lb = lane_bound.view(g, LANES)
-    wf = w.view(nt, tile_p * 4, NUM_FEATURES)
     best_t = torch.full((g, LANES), _INF, dtype=torch.float32, device=dev)
     best_c = torch.full((g, LANES), -1, dtype=torch.int32, device=dev)
+    walked = torch.zeros((g,), dtype=torch.int32, device=dev)
     thr = lb.amax(dim=1)
     live = torch.arange(g, device=dev)
     cnt = counts.to(torch.int64)
@@ -319,9 +355,11 @@ def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,
         live = live[(j < cnt[live]) & (smin[live, j] <= thr[live])]
         if live.numel() == 0:
             break
+        walked[live] += 1
         for part in live.split(TWIN_GROUP_CHUNK):
             tiles = lists[part, j].to(torch.int64)
-            det = torch.bmm(xg[part], wf[tiles].transpose(1, 2))
+            wd = expand_slab(w[tiles]).view(-1, tile_p * 4, NUM_FEATURES)
+            det = torch.bmm(xg[part], wd.transpose(1, 2))
             det = det.view(-1, LANES, tile_p, 4)
             sa, su, sv, st = det.unbind(dim=-1)
             s = torch.where(sa < 0.0, -1.0, 1.0)
@@ -336,7 +374,8 @@ def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,
             col = (tiles[:, None] * tile_p + c_tile).to(torch.int32)
             best_c[part] = torch.where(better, col, best_c[part])
             thr[part] = torch.minimum(best_t[part], lb[part]).amax(dim=1)
-    return best_t.view(-1), best_c.view(-1)
+    out = best_t.view(-1), best_c.view(-1)
+    return (*out, walked) if return_walked else out
 
 
 # --------------------------------------------------------------------------

@@ -35,7 +35,8 @@ from metalpathtracer_torch.render.intersect import closest_hit_bruteforce, ray_t
 from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 from metalpathtracer_tpu.render import upload_scene as j_upload
 from metalpathtracer_tpu.render.pallas import intersect_mm as jmm
-from metalpathtracer_tpu.scene import PRIM_TRIANGLE, HostScene, Material, load_scene_xml
+from metalpathtracer_torch import scene as tscene
+from metalpathtracer_tpu import scene as jscene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_MIN = 1e-4
@@ -46,8 +47,8 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def scenes():
-    host = load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    return j_upload(host), t_upload(host, "cpu")
+    path = os.path.join(REPO, "scenes", "reference.xml")
+    return j_upload(jscene.load_scene_xml(path)), t_upload(tscene.load_scene_xml(path), "cpu")
 
 
 def _rays(n, seed, span=30.0, center=(0.0, 20.0, 40.0)):
@@ -115,7 +116,7 @@ def _exact_t(ts, o, d, idx):
     prim = torch.as_tensor(np.maximum(idx, 0)).long()
     t = ray_triangle(torch.as_tensor(o), torch.as_tensor(d), ts.p0[prim],
                      ts.p1[prim], ts.p2[prim]).numpy()
-    tri = (idx >= 0) & (ts.prim_type[prim].numpy() == PRIM_TRIANGLE)
+    tri = (idx >= 0) & (ts.prim_type[prim].numpy() == tscene.PRIM_TRIANGLE)
     return np.where(tri, t, np.inf)
 
 
@@ -183,15 +184,19 @@ def test_closest_hit_matches_brute_oracle(scenes, n):
 
 def test_giant_sphere_precision():
     # r=10000 ground alone: no triangles, so the exact sphere pass answers
-    s = HostScene()
-    s.add_sphere((0, -10000, 0), 10000.0, Material())
+    def build(m):
+        s = m.HostScene()
+        s.add_sphere((0, -10000, 0), 10000.0, m.Material())
+        return s
+
     dirs = np.array([[0, -1, 0], [0.6, -0.8, 0], [0, -0.7071, 0.7071], [1, 0, 0]],
                     np.float32)
     o = np.array([[0.0, 5.0, 0.0]] * 4, np.float32)
-    ts = t_upload(s, "cpu")
+    ts = t_upload(build(tscene), "cpu")
     assert ts.num_tris == 0
     t_out = tmm.closest_hit_mm_full(ts, torch.as_tensor(o), torch.as_tensor(dirs))
-    j_out = jmm.closest_hit_mm_full(j_upload(s), jnp.asarray(o), jnp.asarray(dirs))
+    j_out = jmm.closest_hit_mm_full(j_upload(build(jscene)), jnp.asarray(o),
+                                    jnp.asarray(dirs))
     _compare_hits(t_out, j_out, ts, o, dirs)
     t = t_out[0].numpy()
     np.testing.assert_allclose(t[0], 5.0, atol=1e-3)
@@ -251,15 +256,138 @@ def test_twin_early_exit_equals_full_scan(scenes, seed):
 
 def test_sphere_tie_picks_the_lowest_slot():
     # two identical spheres: the exact sphere pass reports the first
-    s = HostScene()
-    s.add_sphere((0, 0, -5), 1.0, Material(albedo=(0.1, 0.2, 0.3)))
-    s.add_sphere((0, 0, -5), 1.0, Material(albedo=(0.9, 0.8, 0.7)))
+    def build(m):
+        s = m.HostScene()
+        s.add_sphere((0, 0, -5), 1.0, m.Material(albedo=(0.1, 0.2, 0.3)))
+        s.add_sphere((0, 0, -5), 1.0, m.Material(albedo=(0.9, 0.8, 0.7)))
+        return s
+
     o = np.zeros((3, 3), np.float32)
     d = np.array([[0, 0, -1], [0.1, 0, -1], [0, 1, 0]], np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_out = tmm.closest_hit_mm_full(t_upload(s, "cpu"), torch.as_tensor(o),
+    t_out = tmm.closest_hit_mm_full(t_upload(build(tscene), "cpu"), torch.as_tensor(o),
                                     torch.as_tensor(d))
-    j_out = jmm.closest_hit_mm_full(j_upload(s), jnp.asarray(o), jnp.asarray(d))
+    j_out = jmm.closest_hit_mm_full(j_upload(build(jscene)), jnp.asarray(o),
+                                    jnp.asarray(d))
     np.testing.assert_array_equal(t_out[1].numpy(), [0, 0, -1])
     np.testing.assert_array_equal(t_out[1].numpy(), np.asarray(j_out[1]))
     np.testing.assert_array_equal(t_out[4].numpy()[:2], np.asarray(j_out[4])[:2])
+
+
+def _dense_slab(ts) -> torch.Tensor:
+    """The dense (n_tiles, tile_p, 4, 12) weights of the scene's triangles
+    in column order, from the formula (the layout the slab had before it
+    was compacted)."""
+    tri_ids = ts.mm_tri_ids.numpy()
+    real = tri_ids[tri_ids >= 0]
+    v0, v1, v2 = (ts.p0.numpy()[real], ts.p1.numpy()[real], ts.p2.numpy()[real])
+    e1, e2 = v1 - v0, v2 - v0
+    n = np.cross(e1, e2)
+    t = len(real)
+    z1, z3 = np.zeros((t, 1), np.float32), np.zeros((t, 3), np.float32)
+    w = np.zeros((len(tri_ids), 4, tmm.NUM_FEATURES), np.float32)
+    w[:t] = np.stack([
+        np.concatenate([-n, z3, z3, z1, z1, z1], axis=1),
+        np.concatenate([-np.cross(e2, v0), e2, z3, z1, z1, z1], axis=1),
+        np.concatenate([-np.cross(v0, e1), -e1, z3, z1, z1, z1], axis=1),
+        np.concatenate([z3, z3, n, z1, z1, -np.sum(v0 * n, 1, keepdims=True)], axis=1),
+    ], axis=1)
+    return torch.as_tensor(w.reshape(-1, ts.mm_w.shape[1], 4, tmm.NUM_FEATURES))
+
+
+def _tile_hits(x, wd, t_min):
+    """Per lane of x (128, 12), the closest accepted (t, column) in one dense
+    tile wd (tile_p, 4, 12): the twin's arithmetic on one subgroup and tile."""
+    tile_p = wd.shape[0]
+    det = torch.bmm(x[None], wd.view(1, tile_p * 4, tmm.NUM_FEATURES).transpose(1, 2))
+    sa, su, sv, st = det.view(tmm.LANES, tile_p, 4).unbind(dim=-1)
+    s = torch.where(sa < 0.0, -1.0, 1.0)
+    sas, sus, svs, sts = sa * s, su * s, sv * s, st * s
+    ok = ((sas > tmm.TRI_PARALLEL_EPS) & (sus >= 0.0) & (svs >= 0.0)
+          & (sus + svs <= sas) & (sts > t_min * sas))
+    return torch.min(torch.where(ok, sts / sas, float("inf")), dim=1)
+
+
+def _plain_walk(lists, counts, smin, x, lb, wd, t_min):
+    """The contract written out one subgroup and one list position at a
+    time on the dense weights: (t, col, walked)."""
+    g = lists.shape[0]
+    tile_p = wd.shape[1]
+    t_out = torch.full((g, tmm.LANES), float("inf"))
+    c_out = torch.full((g, tmm.LANES), -1, dtype=torch.int32)
+    walked = []
+    for k in range(g):
+        rays = slice(k * tmm.LANES, (k + 1) * tmm.LANES)
+        best, bcol, n = t_out[k], c_out[k], 0
+        for j in range(int(counts[k])):
+            thr = float(torch.minimum(best, lb[rays]).max())
+            if not float(smin[k, j]) <= thr:
+                break
+            n += 1
+            tile = int(lists[k, j])
+            t, c = _tile_hits(x[rays], wd[tile], t_min)
+            better = t < best
+            best = torch.where(better, t, best)
+            bcol = torch.where(better, (tile * tile_p + c).to(torch.int32), bcol)
+        t_out[k], c_out[k] = best, bcol
+        walked.append(n)
+    return t_out.view(-1), c_out.view(-1), torch.tensor(walked, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n", [128, 2048])
+def test_twin_walk_equals_a_plain_walk(scenes, n):
+    # the twin on the compact slab against the contract on the dense slab:
+    # the same walked positions and the same (t, col), bit for bit
+    _, ts = scenes
+    lists, counts, smin, x, lb = _kernel_args(ts, n, 60 + n)
+    t, col, walked = tmm.mm_closest_hit_reference(lists, counts, smin, x, lb,
+                                                  ts.mm_w, T_MIN, return_walked=True)
+    t_p, col_p, walked_p = _plain_walk(lists, counts, smin, x, lb, _dense_slab(ts),
+                                       T_MIN)
+    assert walked.dtype == torch.int32 and walked.shape == (n // 128,)
+    assert torch.equal(walked, walked_p)
+    assert torch.equal(t, t_p) and torch.equal(col, col_p)
+    assert (walked <= counts).all() and int(walked.sum()) > 0
+    # the wrapper on CPU tensors returns the twin's count
+    assert torch.equal(tmm.mm_closest_hit(lists, counts, smin, x, lb, ts.mm_w, T_MIN,
+                                          return_walked=True)[2], walked)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_twin_on_compact_slab_equals_dense_evaluation(scenes, seed):
+    # the twin gathers compact tiles and expands them; evaluating the dense
+    # slab directly, with the twin's walk as it was before the compact
+    # layout, must give the same (t, col) bit for bit
+    _, ts = scenes
+    lists, counts, smin, x, lb = _kernel_args(ts, 2048, 80 + seed)
+    t, col = tmm.mm_closest_hit_reference(lists, counts, smin, x, lb, ts.mm_w, T_MIN)
+
+    wd = _dense_slab(ts)
+    g, nt = lists.shape
+    tile_p = wd.shape[1]
+    wf = wd.view(nt, tile_p * 4, tmm.NUM_FEATURES)
+    xg = x.view(g, tmm.LANES, tmm.NUM_FEATURES)
+    lbg = lb.view(g, tmm.LANES)
+    best_t = torch.full((g, tmm.LANES), float("inf"))
+    best_c = torch.full((g, tmm.LANES), -1, dtype=torch.int32)
+    thr = lbg.amax(dim=1)
+    live = torch.arange(g)
+    for j in range(nt):
+        live = live[(j < counts[live]) & (smin[live, j] <= thr[live])]
+        if live.numel() == 0:
+            break
+        tiles = lists[live, j].long()
+        det = torch.bmm(xg[live], wf[tiles].transpose(1, 2))
+        sa, su, sv, st = det.view(-1, tmm.LANES, tile_p, 4).unbind(dim=-1)
+        s = torch.where(sa < 0.0, -1.0, 1.0)
+        sas, sus, svs, sts = sa * s, su * s, sv * s, st * s
+        ok = ((sas > tmm.TRI_PARALLEL_EPS) & (sus >= 0.0) & (svs >= 0.0)
+              & (sus + svs <= sas) & (sts > T_MIN * sas))
+        t_tile, c_tile = torch.min(torch.where(ok, sts / sas, float("inf")), dim=2)
+        better = t_tile < best_t[live]
+        best_t[live] = torch.where(better, t_tile, best_t[live])
+        best_c[live] = torch.where(better, (tiles[:, None] * tile_p + c_tile).int(),
+                                   best_c[live])
+        thr[live] = torch.minimum(best_t[live], lbg[live]).amax(dim=1)
+    assert torch.equal(t, best_t.view(-1)) and torch.equal(col, best_c.view(-1))
+    assert (col >= 0).sum() > 100

@@ -6,11 +6,14 @@ without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the closest-hit kernel's determinants are 12-term float32 FMA
-chains, the twin's come from a float32 batched matmul, so the two may round
+Tolerances: the closest-hit kernel's determinants are float32 FMA chains,
+the twin's come from a float32 batched matmul, so the two may round
 differently in the last bit: hit columns equal on all but 0.1% of rays
 (each such ray a near-tie or a triangle edge), t at the closest-hit bound of
-the CPU tests (rtol 5e-4, atol 1e-2). The cull kernel and its twin compute
+the CPU tests (rtol 5e-4, atol 1e-2), and the walked list positions equal
+on every subgroup whose 128 lanes agree on t bit for bit (the early exit
+reads only t). Ties between identical triangles are exact on both sides:
+the lowest column, then the earliest list position. The cull kernel and its twin compute
 the same IEEE operations in the same order: bit-equal. Wavefront vs scan on
 the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6.
 """
@@ -171,6 +174,96 @@ def test_kernel_at_tile_p_256_matches_twin(bunny70k):
     assert int((col_ref >= 0).sum()) > 1000
     hit = same & (col_ref >= 0)
     torch.testing.assert_close(t[hit], t_ref[hit], rtol=5e-4, atol=1e-2)
+
+
+def _assert_walks_agree(t, t_ref, walked, walked_ref):
+    """Walked positions equal on every subgroup whose lanes agree on t bit
+    for bit; nearly every subgroup must."""
+    same = (t.view(-1, 128) == t_ref.view(-1, 128)).all(dim=1)
+    assert same.float().mean().item() >= 0.9
+    assert torch.equal(walked[same], walked_ref[same])
+
+
+@pytest.mark.parametrize("which", ["tile_p128", "tile_p256"])
+def test_kernel_matches_twin_at_pool_width(scene, bunny70k, which):
+    # 32,768 rays: the wavefront pool's width
+    sc = scene if which == "tile_p128" else bunny70k
+    assert sc.mm_w.shape[1] == int(which[6:])
+    n = 1 << 15
+    o, d = _rays(n, 21)
+    occ = torch.full((n,), float("inf"), device="cuda")
+    args = tmm.kernel_inputs(sc, o, d, occ) + (sc.mm_w, T_MIN)
+    t, col, walked = tmm.mm_closest_hit(*args, return_walked=True)
+    t_ref, col_ref, walked_ref = tmm.mm_closest_hit_reference(*args, return_walked=True)
+    assert torch.equal(tmm.mm_closest_hit(*args)[1], col)  # the null walked pointer
+    same = col == col_ref
+    assert (~same).float().mean().item() <= 1e-3
+    hit = same & (col_ref >= 0)
+    assert int(hit.sum()) > n // 10
+    torch.testing.assert_close(t[hit], t_ref[hit], rtol=5e-4, atol=1e-2)
+    assert (walked <= args[1]).all() and int(walked.sum()) > 0
+    _assert_walks_agree(t, t_ref, walked, walked_ref)
+
+
+def _tie_case(order):
+    """One subgroup of 128 rays straight down -z onto one triangle that the
+    slab holds four times: columns 5, 40 and 100 of tile 0 (three column
+    slices at any K up to 4) and column 3 of tile 1. `order` is the list."""
+    tile_p = 128
+    v = np.zeros((2 * tile_p, 3, 3), np.float32)  # zero rows: never accepted
+    tri = np.asarray([[-2.0, -2.0, -5.0], [2.0, -2.0, -5.0], [0.0, 2.0, -5.0]],
+                     np.float32)
+    for c in (5, 40, 100, tile_p + 3):
+        v[c] = tri
+    w = tmm.tri_weight_slab(v[:, 0], v[:, 1], v[:, 2], tile_p)
+    r = np.random.default_rng(3)
+    o = np.zeros((128, 3), np.float32)
+    o[:, :2] = r.uniform(-0.5, 0.5, (128, 2))
+    d = np.tile(np.asarray([[0.0, 0.0, -1.0]], np.float32), (128, 1))
+    dev = "cuda"
+    x = tmm.ray_features(torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev))
+    return (torch.tensor([order], dtype=torch.int32, device=dev),
+            torch.tensor([2], dtype=torch.int32, device=dev),
+            torch.zeros((1, 2), device=dev), x,
+            torch.full((128,), float("inf"), device=dev),
+            torch.as_tensor(w, device=dev), T_MIN)
+
+
+@pytest.mark.parametrize("order,winner", [((0, 1), 5), ((1, 0), 128 + 3)])
+def test_kernel_tie_rules(scene, order, winner):
+    # inside a tile the lowest column wins; across tiles the first in list
+    # order keeps an equal t
+    args = _tie_case(order)
+    t, col, walked = tmm.mm_closest_hit(*args, return_walked=True)
+    t_ref, col_ref, walked_ref = tmm.mm_closest_hit_reference(*args, return_walked=True)
+    assert (col == winner).all() and torch.equal(col, col_ref)
+    assert torch.equal(t, t_ref)
+    torch.testing.assert_close(t, torch.full_like(t, 5.0))
+    assert walked.tolist() == walked_ref.tolist() == [2]
+
+
+def test_kernel_walks_no_tile_and_every_tile(scene):
+    n = 512
+    o, d = _rays(n, 31)
+    occ = torch.full((n,), float("inf"), device="cuda")
+    lists, counts, smin, x, lb = tmm.kernel_inputs(scene, o, d, occ)
+    g, nt = lists.shape
+    # subgroup 0 passes no tile; the others get every tile in id order,
+    # entered at 0, with no lane bound, so no list position exits early
+    counts = torch.full((g,), nt, dtype=torch.int32, device="cuda")
+    counts[0] = 0
+    lists = torch.arange(nt, dtype=torch.int32, device="cuda").repeat(g, 1)
+    smin = torch.zeros((g, nt), device="cuda")
+    lb = torch.full_like(lb, float("inf"))
+    args = (lists, counts, smin, x, lb, scene.mm_w, T_MIN)
+    t, col, walked = tmm.mm_closest_hit(*args, return_walked=True)
+    t_ref, col_ref, walked_ref = tmm.mm_closest_hit_reference(*args, return_walked=True)
+    assert walked.tolist() == walked_ref.tolist() == [0] + [nt] * (g - 1)
+    assert (col[:128] == -1).all() and torch.isinf(t[:128]).all()
+    same = col == col_ref
+    assert (~same).float().mean().item() <= 1e-3 and int((col_ref >= 0).sum()) > 50
+    torch.testing.assert_close(t[same & (col_ref >= 0)], t_ref[same & (col_ref >= 0)],
+                               rtol=5e-4, atol=1e-2)
 
 
 def test_wavefront_on_card_matches_scan(scene):

@@ -33,7 +33,8 @@ from metalpathtracer_torch.render.device_scene import upload_scene as t_upload
 from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 from metalpathtracer_tpu.render import upload_scene as j_upload
 from metalpathtracer_tpu.render.pallas import intersect_mm as jmm
-from metalpathtracer_tpu.scene import load_scene_xml
+from metalpathtracer_torch import scene as tscene
+from metalpathtracer_tpu import scene as jscene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_MIN = 1e-4
@@ -104,11 +105,12 @@ def test_twin_matches_reference_cull_kernel():
 
 
 def test_twin_matches_reference_xla_branch_on_the_reference_scene():
-    host = load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    tile_box = j_upload(host).mm_tile_box
+    path = os.path.join(REPO, "scenes", "reference.xml")
+    tile_box = j_upload(jscene.load_scene_xml(path)).mm_tile_box
     assert tile_box.shape[0] == 39 < jmm.CULL_KERNEL_MIN_TILES  # XLA branch
-    np.testing.assert_array_equal(np.asarray(tile_box),
-                                  t_upload(host, "cpu").mm_tile_box.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(tile_box),
+        t_upload(tscene.load_scene_xml(path), "cpu").mm_tile_box.numpy())
     n = 2048
     o, d = _rays(n, 3)
     active, occ = _masks(n, 3)
@@ -276,12 +278,14 @@ def test_flat_tile_is_hit():
     # finds the brute oracle's hits; the reference's cull (exit > entry)
     # never enters the box, so its tile path misses the quad.
     from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
-    from metalpathtracer_tpu.scene import HostScene, Material
 
-    s = HostScene()
-    s.add_triangle((0, 0, 0), (1, 0, 0), (1, 0, 1), Material())
-    s.add_triangle((0, 0, 0), (1, 0, 1), (0, 0, 1), Material())
-    ts = t_upload(s, "cpu")
+    def build(m):
+        s = m.HostScene()
+        s.add_triangle((0, 0, 0), (1, 0, 0), (1, 0, 1), m.Material())
+        s.add_triangle((0, 0, 0), (1, 0, 1), (0, 0, 1), m.Material())
+        return s
+
+    ts = t_upload(build(tscene), "cpu")
     assert (ts.mm_tile_box[0, 1] == ts.mm_tile_box[0, 5]).item()  # flat in y
     o = np.array([[0.5, 1.0, 0.5], [0.3, -1.0, 0.2], [0.9, 2.0, 0.1]], np.float32)
     d = np.array([[0, -1, 0], [0.1, 1, 0], [-0.2, -1, 0.3]], np.float32)
@@ -291,5 +295,5 @@ def test_flat_tile_is_hit():
     assert (i_o.numpy() >= 0).all()
     np.testing.assert_array_equal(i.numpy(), i_o.numpy())
     np.testing.assert_allclose(t.numpy(), t_o.numpy(), rtol=1e-6)
-    _, j_i = jmm.closest_hit_mm(j_upload(s), jnp.asarray(o), jnp.asarray(d))
+    _, j_i = jmm.closest_hit_mm(j_upload(build(jscene)), jnp.asarray(o), jnp.asarray(d))
     assert (np.asarray(j_i) == -1).all()

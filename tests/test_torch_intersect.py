@@ -23,7 +23,8 @@ from metalpathtracer_torch.render import intersect as ti
 from metalpathtracer_torch.render.device_scene import upload_scene as t_upload
 from metalpathtracer_tpu.render import intersect as ji
 from metalpathtracer_tpu.render import upload_scene as j_upload
-from metalpathtracer_tpu.scene import HostScene, Material, load_scene_xml
+from metalpathtracer_torch import scene as tscene
+from metalpathtracer_tpu import scene as jscene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the suite runs in several pytest-xdist workers at once: one intra-op
@@ -112,8 +113,8 @@ def test_ray_triangle_matches():
 
 @pytest.fixture(scope="module")
 def scenes():
-    host = load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    return j_upload(host), t_upload(host, "cpu")
+    path = os.path.join(REPO, "scenes", "reference.xml")
+    return j_upload(jscene.load_scene_xml(path)), t_upload(tscene.load_scene_xml(path), "cpu")
 
 
 def test_intersect_prims_block_matches(scenes):
@@ -148,9 +149,9 @@ def test_closest_hit_bruteforce_matches(scenes, chunk):
 
 
 def test_closest_hit_bruteforce_two_prims_and_miss():
-    s = HostScene()
-    s.add_sphere((0, 0, -5), 1.0, Material())
-    s.add_triangle((-1, -1, -3), (1, -1, -3), (0, 1, -3), Material())
+    s = tscene.HostScene()
+    s.add_sphere((0, 0, -5), 1.0, tscene.Material())
+    s.add_triangle((-1, -1, -3), (1, -1, -3), (0, 1, -3), tscene.Material())
     ts = t_upload(s, "cpu")
     o = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, -3.5], [0.0, 0.0, 0.0]])
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])

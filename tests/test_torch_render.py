@@ -38,7 +38,8 @@ from metalpathtracer_tpu.render import camera as jcam
 from metalpathtracer_tpu.render import integrator as jint
 from metalpathtracer_tpu.render import render_image as j_render_image
 from metalpathtracer_tpu.render import upload_scene as j_upload
-from metalpathtracer_tpu.scene import presets
+from metalpathtracer_torch.scene import presets
+from metalpathtracer_tpu.scene import presets as jpresets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
@@ -51,14 +52,15 @@ def _cornell_cam(m):
     return m.Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
 
 
-# the cases of tests/test_golden.py
+# the cases of tests/test_golden.py; `scene` and `camera` take the package's
+# presets or camera module, so each side renders its own scene
 GOLDEN = {
-    "cornell_64_diffuse": dict(scene=presets.cornell_spheres, camera=_cornell_cam,
+    "cornell_64_diffuse": dict(scene=lambda p: p.cornell_spheres(), camera=_cornell_cam,
                                width=64, height=64, spp=8, seed=42),
-    "cornell_materials": dict(scene=presets.cornell_materials, camera=_cornell_cam,
+    "cornell_materials": dict(scene=lambda p: p.cornell_materials(), camera=_cornell_cam,
                               width=48, height=48, spp=8, seed=7),
     "reference_scene": dict(
-        scene=lambda: presets.reference_default(
+        scene=lambda p: p.reference_default(
             os.path.join(REPO, "assets", "bunny.obj")),
         camera=lambda m: m.Camera.reset(),
         width=64, height=36, spp=4, seed=3,
@@ -68,8 +70,8 @@ GOLDEN = {
 
 @pytest.fixture(scope="module")
 def cornell_mesh():
-    host = presets.cornell_mesh()  # spheres, a light and 320 triangles
-    return j_upload(host), t_upload(host, "cpu")
+    # spheres, a light and 320 triangles
+    return j_upload(jpresets.cornell_mesh()), t_upload(presets.cornell_mesh(), "cpu")
 
 
 @pytest.mark.parametrize("nee,rr_start", [(False, 0), (True, 1)])
@@ -115,11 +117,12 @@ def test_bounce_step_matches_reference(cornell_mesh, nee, rr_start):
 @pytest.mark.parametrize("name", sorted(GOLDEN))
 def test_render_image_matches_reference(name):
     case = GOLDEN[name]
-    host = case["scene"]()
     size = (case["width"], case["height"], case["spp"])
-    mine, rays = render_image(t_upload(host, "cpu"), case["camera"](tcam), *size,
+    mine, rays = render_image(t_upload(case["scene"](presets), "cpu"),
+                              case["camera"](tcam), *size,
                               seed=case["seed"], cfg=tint.RenderConfig(max_depth=8))
-    theirs, j_rays = j_render_image(j_upload(host), case["camera"](jcam), *size,
+    theirs, j_rays = j_render_image(j_upload(case["scene"](jpresets)),
+                                    case["camera"](jcam), *size,
                                     seed=case["seed"],
                                     cfg=jint.RenderConfig(max_depth=8))
     mine, theirs = mine.numpy(), np.asarray(theirs)
@@ -196,7 +199,8 @@ def test_cli_rejects_flags_not_ported(flag):
 
 def test_port_never_imports_jax(tmp_path):
     # a fresh interpreter: import every module of the port and run its CLI,
-    # on the scan and on the wavefront path
+    # on the scan and on the wavefront path; neither jax nor the JAX package
+    # (metalpathtracer_tpu) may be loaded
     code = f"""
 import importlib, pkgutil, sys
 import metalpathtracer_torch as pkg
@@ -210,6 +214,8 @@ assert cli.main(argv) == 0
 assert cli.main(argv + ["--wavefront"]) == 0
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not leaked, leaked
+reference = sorted(m for m in sys.modules if m.split(".")[0] == "metalpathtracer_tpu")
+assert not reference, reference
 print("no jax")
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

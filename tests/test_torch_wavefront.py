@@ -32,7 +32,9 @@ from metalpathtracer_tpu.render import device_scene as jds
 from metalpathtracer_tpu.render import integrator as jint
 from metalpathtracer_tpu.render import render_image_wavefront as j_render_wavefront
 from metalpathtracer_tpu.render import upload_scene as j_upload
-from metalpathtracer_tpu.scene import load_scene_xml, presets
+from metalpathtracer_torch.scene import load_scene_xml, presets
+from metalpathtracer_tpu import scene as jscene
+from metalpathtracer_tpu.scene import presets as jpresets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(1)
@@ -186,17 +188,17 @@ def test_tileset_key_bits():
 @pytest.fixture(scope="module")
 def jax_wavefront():
     """The one JAX wavefront render of this file."""
-    host = presets.cornell_spheres()
-    img, rays = j_render_wavefront(j_upload(host), _cornell_cam(jcam), 24, 24,
-                                   spp=4, seed=5, cfg=jint.RenderConfig(max_depth=6),
-                                   pool_size=512)
-    return host, np.asarray(img), rays
+    img, rays = j_render_wavefront(j_upload(jpresets.cornell_spheres()),
+                                   _cornell_cam(jcam), 24, 24, spp=4, seed=5,
+                                   cfg=jint.RenderConfig(max_depth=6), pool_size=512)
+    return np.asarray(img), rays
 
 
 def test_wavefront_matches_reference_wavefront(jax_wavefront):
-    host, theirs, j_rays = jax_wavefront
+    theirs, j_rays = jax_wavefront
     mine, rays = render_image_wavefront(
-        tds.upload_scene(host, "cpu"), _cornell_cam(tcam), 24, 24, spp=4, seed=5,
+        tds.upload_scene(presets.cornell_spheres(), "cpu"), _cornell_cam(tcam), 24, 24,
+        spp=4, seed=5,
         cfg=tint.RenderConfig(max_depth=6), pool_size=512)
     mine = mine.numpy()
     assert mine.shape == theirs.shape == (24, 24, 3)
@@ -219,11 +221,11 @@ def test_coarse_boxes_match_reference(nt):
 
 
 def test_scene_from_jax_carries_the_coarse_boxes():
-    host = load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    js = j_upload(host)
+    path = os.path.join(REPO, "scenes", "reference.xml")
+    js = j_upload(jscene.load_scene_xml(path))
     arrays = {f.name: (v if isinstance(v, int) else np.asarray(v))
               for f in dataclasses.fields(js) for v in [getattr(js, f.name)]}
-    mine = tds.upload_scene(host, "cpu")
+    mine = tds.upload_scene(load_scene_xml(path), "cpu")
     theirs = tds.scene_from_jax(arrays, "cpu")
     np.testing.assert_array_equal(mine.mm_coarse_box.numpy(),
                                   np.asarray(js.mm_coarse_box))
