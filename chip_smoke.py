@@ -7,7 +7,8 @@ the shapes the render paths give it, then drives those paths through the
 port's entry points at full size and checks that every advance went through
 both kernels. Phases, each raising on failure:
 
-1. set up: the card, TF32 off, the kernel builds;
+1. set up: the card, TF32 off, the kernel builds, and the instructions
+   the cull kernel's slab-test loop issues per (ray, tile) pair (its SASS);
 2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
    primary rays, the rays left after one bounce, and the pool-width set:
    the arguments of the 100th `mm_closest_hit` call of the flagship
@@ -22,7 +23,8 @@ both kernels. Phases, each raising on failure:
    primary rays, and the 32,768 pool lanes of the same flagship advance),
    311 tiles (bunny70k) and 1,242 tiles (bunny300k), the latter two on
    32,768 rays after one bounce with an active mask and the sphere pass's
-   occlusion bound;
+   occlusion bound; with its issue estimate (the SASS count per pair at
+   one instruction per lane per clock on every SM);
 5. `mm_closest_hit` at tile_p 256 (bunny300k) vs its twin on 32,768
    primary and 32,768 bounce-1 rays, and vs the brute oracle on 8,192;
 6. the scan path: `cli.main` at 1280x720, spp 4, depth 32;
@@ -35,11 +37,16 @@ both kernels. Phases, each raising on failure:
    tests/golden/reference_scene.npz.
 Each path of phases 6-8 runs with every launch count set to 0 just before
 it and read just after, and with the plain versions counted (they must not
-run). Times are CUDA-event means (kernels) or host clocks around work that
-ends in a synchronise (renders). A kernel's bound is the larger of its
-operations at the f32 CUDA-core peak (67 TFLOP/s) and its bytes at the
-memory rate (3.35 TB/s), both of an H100 SXM at 700 W; the closest hit's
-operations are 38 flop per (ray, triangle) pair its subgroups walked.
+run). A kernel's `ms` is its device time: 20 calls captured in one CUDA
+graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
+mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
+which reads the host's enqueue rate where the kernel is shorter than the
+wrapper's host work; plain versions are timed as calls. Renders are timed
+by host clocks around work that ends in a synchronise. A kernel's bound is
+the larger of its operations at the f32 CUDA-core peak (67 TFLOP/s) and
+its bytes at the memory rate (3.35 TB/s), both of an H100 SXM at 700 W;
+the closest hit's operations are 38 flop per (ray, triangle) pair its
+subgroups walked, the cull's 12 per (ray, tile) pair.
 
 The second-to-last lines of standard output are the kernels' JSON record and
 the card's name and power limit; the last line is the result JSON. Writes
@@ -51,7 +58,14 @@ Usage:
                                      # wavefront path and the bunny300k leg
     python3 chip_smoke.py --sweep    # also time `mm_closest_hit` built
                                      # with 1, 2, 4 and 8 column slices
-                                     # and 1 and 4 rays per thread
+                                     # and 1 and 4 rays per thread, and
+                                     # `cull_tiles` with at most 8, 16 and
+                                     # 32 warps per block, aiming at 64, 128
+                                     # and 256 warps per SM, on the device
+    python3 chip_smoke.py --against _archive/parent
+                                     # also time both kernels built from
+                                     # another checkout's sources against
+                                     # this one's, in turns
 """
 
 from __future__ import annotations
@@ -100,6 +114,7 @@ FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
 CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
 H100_SMS = 132  # the SMs the peaks above are summed over
 SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
+SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 
 
 def log(msg: str) -> None:
@@ -114,8 +129,11 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` runs, after one warm-up."""
+def call_ms(fn, reps: int) -> float:
+    """Mean time of one call of `fn` over `reps` calls back to back, after
+    one warm-up, read by CUDA events on the stream: where a call's host
+    work (checks, allocation, the ctypes call) outlasts its kernels, this
+    is the host's enqueue rate, not the device's time."""
     import torch
 
     fn()
@@ -128,6 +146,97 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph, the graph replayed `replays` times between CUDA events, after a
+    warm-up call. The host is out of the reading; the graph's gap between
+    two kernel nodes (well under a microsecond) is in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def cull_sass(so: Path) -> dict:
+    """The cull kernel's SASS (`cuobjdump -sass` of its library, kept in
+    OUT): the innermost loop with the most FMULs is the slab-test loop,
+    whose FMULs are 6 per (ray, tile) pair, so its instructions (NOPs
+    aside) over its pairs are the instructions issued per pair. With the card's top SM
+    clock (nvidia-smi clocks.max.sm) for the issue estimate."""
+    import re
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    (OUT / "sass_cull_tiles.txt").write_text(text)
+    insts, labels, pending = [], {}, []
+    for line in text.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
+                      line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        insts.append((addr, m.group(2), m.group(3)))
+    back = []
+    for addr, op, rest in insts:
+        if not op.startswith("BRA"):
+            continue
+        t = re.search(r"\(\s*(\.L_x_\d+)\s*\)", rest)
+        target = labels.get(t.group(1)) if t else None
+        if target is None:
+            h = re.search(r"0x([0-9a-f]+)", rest)
+            target = int(h.group(1), 16) if h else None
+        if target is not None and target <= addr:
+            back.append((target, addr))
+    loops = []
+    for lo, hi in back:
+        if any(lo <= lo2 and hi2 <= hi and (lo2, hi2) != (lo, hi)
+               for lo2, hi2 in back):
+            continue  # holds another loop: not innermost
+        body = [op for a, op, _ in insts if lo <= a <= hi and op != "NOP"]
+        fmul = sum(op.startswith("FMUL") for op in body)
+        if fmul:
+            loops.append((fmul, len(body), body))
+    if not loops:
+        raise RuntimeError("cull_tiles: no slab-test loop found in the SASS")
+    fmul, n, body = max(loops)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    ops = {}
+    for op in body:
+        key = op.split(".")[0]
+        ops[key] = ops.get(key, 0) + 1
+    pairs = fmul / 6
+    return dict(loop_instructions=n, pairs_per_iteration=pairs, per_pair=n / pairs,
+                opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+                clock_hz=float(clock) * 1e6)
 
 
 def edge_margin(scene, o, d, prim):
@@ -291,7 +400,12 @@ def phase_setup():
         for line in compiler_log.splitlines():
             if "ptxas" in line and ("registers" in line or "spill" in line):
                 log(f"    {name}: {line.strip()}")
-    return card, build_s
+    sass = cull_sass(libs["cull_tiles"])
+    log(f"[1] cull_tiles SASS: the slab-test loop issues {sass['loop_instructions']} "
+        f"instructions for {sass['pairs_per_iteration']:g} (ray, tile) pairs, "
+        f"{sass['per_pair']:.2f} per pair ({sass['opcodes']}); top SM clock "
+        f"{sass['clock_hz'] / 1e6:.0f} MHz")
+    return card, build_s, sass
 
 
 def primary_and_bounce(scene, w, h, stride=1):
@@ -404,8 +518,9 @@ def phase_kernel_vs_twin(scene, sets):
         hits = int((cr >= 0).sum())
         if hits == 0:
             raise RuntimeError(f"{what}: no triangle hits")
-        k_ms = cuda_ms(lambda: tmm.mm_closest_hit(*args), 20)
-        r_ms = cuda_ms(lambda: tmm.mm_closest_hit_reference(*args), 3)
+        k_ms = device_ms(lambda: tmm.mm_closest_hit(*args))
+        c_ms = call_ms(lambda: tmm.mm_closest_hit(*args), 20)
+        r_ms = call_ms(lambda: tmm.mm_closest_hit_reference(*args), 3)
         passing = float(args[1].float().mean())
         b = closest_hit_bound(args, wk)
         g = wk.numel()
@@ -413,14 +528,15 @@ def phase_kernel_vs_twin(scene, sets):
             rays=n, active=st["active"], subgroups=g,
             triangle_hits=hits, mismatches=n_mis, near_ties=n_tie, edges=n_edge,
             max_abs_err=float(err.max()) if err.numel() else 0.0,
-            ms=k_ms, plain_ms=r_ms, mean_passing_tiles=passing,
+            ms=k_ms, call_ms=c_ms, plain_ms=r_ms, mean_passing_tiles=passing,
             walked_kernel=int(wk.sum()), walked_twin=int(wr.sum()),
             walk_compared=int(agree.sum()), **b, share=b["bound_ms"] / k_ms,
         )
         log(f"    {what}: {hits} triangle hits, {n_mis} differ "
             f"({n_tie} near-ties, {n_edge} edges), max |dt| "
-            f"{record[name]['max_abs_err']:.3g}; kernel {k_ms:.3f} ms, "
-            f"twin {r_ms:.3f} ms, {passing:.2f} passing tiles per subgroup")
+            f"{record[name]['max_abs_err']:.3g}; kernel {k_ms:.4f} ms on the "
+            f"device, {c_ms:.4f} ms per call, twin {r_ms:.3f} ms, "
+            f"{passing:.2f} passing tiles per subgroup")
         log(f"    {what}: walked positions kernel {int(wk.sum())} "
             f"({int(wk.sum()) / g:.2f} per subgroup; median {b['walked_p50']:.0f}, "
             f"p90 {b['walked_p90']:.0f}, max {b['walked_max']}), twin "
@@ -432,48 +548,100 @@ def phase_kernel_vs_twin(scene, sets):
     return record
 
 
-def phase_sweep(sets):
-    """`mm_closest_hit` built with each of SWEEP_SLICES column slices per
-    tile and SWEEP_RAYS rays per thread, on every set: results bit-equal to
-    the default build's, and timed (CUDA events, 20 launches each)."""
+def launcher(kernel: str, args, **build):
+    """(launch, outputs): `launch()` runs `kernel` (the build that
+    `_launch`'s `defines` / `csrc` select) on a set's arguments into
+    outputs of its own, uncounted, as the sweep and the comparison with
+    another checkout time it."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    if kernel == "mm_closest_hit":
+        lists, counts, smin, x, lb, w, t_min = args
+        g, nt = lists.shape
+        outs = (torch.empty(g * 128, device=x.device),
+                torch.empty(g * 128, dtype=torch.int32, device=x.device), None)
+        ins, scalars = (lists, counts, smin, x, lb, w), (g, nt, w.shape[1], float(t_min))
+    else:
+        x, active, box, t_min, occ = args
+        g, nt = x.shape[0] // 128, box.shape[0]
+        outs = (torch.empty((g, nt), dtype=torch.bool, device=x.device),
+                torch.empty((g, nt), device=x.device), torch.empty(g * 128, device=x.device))
+        ins, scalars = (x, active, occ, box), (g, nt, float(t_min))
+
+    def launch():
+        tmm._launch(kernel, ins, outs, scalars, x.device, **build)
+
+    return launch, outs[:2] if outs[2] is None else outs
+
+
+def kernel_args(kernel: str, st):
+    return st["args"] if kernel == "mm_closest_hit" else st
+
+
+def phase_sweep(kernel: str, variants: dict, sets: dict):
+    """`kernel` built with each of `variants` (name -> -D defines), on every
+    set: outputs bit-equal to the default build's, and each timed on the
+    device (device_ms)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
-    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    variants = {f"K={k},R={r}": (f"MM_SLICES={k}", f"MM_RAYS={r}")
-                for r in SWEEP_RAYS for k in SWEEP_SLICES}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as ex:
         libs = dict(zip(variants, ex.map(
-            lambda d: _build.build("mm_closest_hit", d), variants.values())))
-    log(f"[S] built {len(libs)} variants in {time.perf_counter() - t0:.2f} s")
+            lambda d: _build.build(kernel, d), variants.values())))
+    log(f"[S] {kernel}: built {len(libs)} variants in {time.perf_counter() - t0:.2f} s")
     for k, so in libs.items():
         for line in so.with_name(so.name + ".log").read_text().splitlines():
             if "ptxas" in line and ("registers" in line or "spill" in line):
                 log(f"    {k}: {line.strip()}")
     record = {}
     for name, st in sets.items():
-        lists, counts, smin, x, lb, w, t_min = st["args"]
-        g, nt = lists.shape
-        t_ref, c_ref = tmm.mm_closest_hit(*st["args"])
+        args = kernel_args(kernel, st)
+        launch, ref = launcher(kernel, args)
+        launch()
         row = {}
         for k, defines in variants.items():
-            t = torch.empty_like(t_ref)
-            c = torch.empty_like(c_ref)
-
-            def launch():
-                tmm._launch("mm_closest_hit", (lists, counts, smin, x, lb, w),
-                            (t, c, None), (g, nt, w.shape[1], float(t_min)),
-                            x.device, defines=defines)
-
+            launch, outs = launcher(kernel, args, defines=defines)
             launch()
             torch.cuda.synchronize()
-            if not (torch.equal(t, t_ref) and torch.equal(c, c_ref)):
-                raise RuntimeError(f"sweep {name}: {k} differs from the default build")
-            row[k] = cuda_ms(launch, 20)
+            if not all(torch.equal(a, b) for a, b in zip(outs, ref)):
+                raise RuntimeError(f"sweep {kernel} {name}: {k} differs from the "
+                                   "default build")
+            row[k] = device_ms(launch)
         record[name] = row
-        log(f"[S] {name}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in row.items()))
+        log(f"[S] {kernel} {name}: "
+            + ", ".join(f"{k} {ms * 1e3:.2f} us" for k, ms in row.items()))
+    return record
+
+
+def phase_against(other: Path, kernel_sets: dict):
+    """Each kernel built from `other`'s sources (a checkout of another
+    commit) and from this one's, on every set: outputs bit-equal, and both
+    timed on the device in turns other, this, this, other."""
+    import torch
+
+    csrc = other / "metalpathtracer_torch" / "csrc"
+    record = {}
+    for kernel, sets in kernel_sets.items():
+        for name, st in sets.items():
+            args = kernel_args(kernel, st)
+            runs = {"other": launcher(kernel, args, csrc=csrc),
+                    "this": launcher(kernel, args)}
+            for launch, _ in runs.values():
+                launch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(runs["other"][1], runs["this"][1])):
+                raise RuntimeError(f"{kernel} {name}: {other}'s build differs")
+            times = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                times[who].append(device_ms(runs[who][0]))
+            record[f"{kernel}/{name}"] = times
+            log(f"[A] {kernel} {name}: other " + ", ".join(
+                f"{t * 1e3:.2f}" for t in times["other"]) + " us; this "
+                + ", ".join(f"{t * 1e3:.2f}" for t in times["this"]) + " us")
     return record
 
 
@@ -538,9 +706,11 @@ def cull_bound(args):
                 bound_by="operations" if flop_ms >= byte_ms else "bytes")
 
 
-def phase_cull(name, args):
+def phase_cull(name, args, sass):
     """cull_tiles vs cull_pass_reference on the inputs closest_hit_mm_full
-    gives them: bit-equal outputs, and both timed."""
+    gives them: bit-equal outputs, and both timed. `sass` (cull_sass) gives
+    the issue estimate: the loop's instructions per pair at one per lane
+    per clock of every SM at the card's top SM clock."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
@@ -555,17 +725,21 @@ def phase_cull(name, args):
                                f"at {bad} places")
     fin = torch.isfinite(out_r[1])
     err = float((out_k[1][fin] - out_r[1][fin]).abs().max()) if fin.any() else 0.0
-    k_ms = cuda_ms(lambda: tmm.cull_tiles(*args), 20)
-    r_ms = cuda_ms(lambda: tmm.cull_pass_reference(*args), 3)
+    k_ms = device_ms(lambda: tmm.cull_tiles(*args))
+    c_ms = call_ms(lambda: tmm.cull_tiles(*args), 20)
+    r_ms = call_ms(lambda: tmm.cull_pass_reference(*args), 3)
     n, nt = args[0].shape[0], args[2].shape[0]
     b = cull_bound(args)
+    issue_ms = n * nt * sass["per_pair"] / (H100_SMS * 128 * sass["clock_hz"]) * 1e3
     rec = dict(rays=n, tiles=nt, active=int((args[1] > 0.5).sum()), max_abs_err=err,
-               passing=float(out_r[0].float().mean()), ms=k_ms, plain_ms=r_ms,
-               **b, share=b["bound_ms"] / k_ms)
+               passing=float(out_r[0].float().mean()), ms=k_ms, call_ms=c_ms,
+               plain_ms=r_ms, **b, share=b["bound_ms"] / k_ms, issue_ms=issue_ms,
+               issue_share=issue_ms / k_ms)
     log(f"    cull_tiles vs plain ({name}): {n} rays x {nt} tiles, bit-equal, "
-        f"{rec['passing']:.4f} of (subgroup, tile) pairs pass; kernel "
-        f"{k_ms:.3f} ms, plain {r_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
-        f"({b['bound_by']}), {100 * rec['share']:.1f}% of it reached")
+        f"{rec['passing']:.4f} of (subgroup, tile) pairs pass; kernel {k_ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us "
+        f"per call, plain {r_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
+        f"({b['bound_by']}), {100 * rec['share']:.1f}% of it reached; issue "
+        f"estimate {issue_ms * 1e3:.2f} us ({100 * rec['issue_share']:.1f}%)")
     return rec
 
 
@@ -737,9 +911,17 @@ def profile(fn, name) -> str:
     busy_us = sum(e.device_time for e in events)
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events)) if events else 0.0
+    ours = {}
+    for e in events:
+        for k in ("mm_closest_hit_kernel", "cull_tiles_kernel"):
+            if k in e.name:
+                n, us = ours.get(k, (0, 0.0))
+                ours[k] = (n + 1, us + e.device_time)
     summary = (f"device kernel time {busy_us / 1e3:.1f} ms over a device span of "
                f"{span_us / 1e3:.1f} ms ({len(events)} kernels), profiled wall "
-               f"{wall:.3f} s")
+               f"{wall:.3f} s; " + ", ".join(
+                   f"{k} {n} launches, {us / 1e3:.2f} ms ({us / n:.1f} us each)"
+                   for k, (n, us) in ours.items()))
     log(f"    profile {name}: {summary}; table in {OUT / f'profile_{name}.txt'}")
     return summary
 
@@ -792,11 +974,16 @@ def main(argv=None) -> int:
                     help="also profile the wavefront path and the bunny300k leg")
     ap.add_argument("--sweep", action="store_true",
                     help="also time mm_closest_hit built with 1, 2, 4 and 8 "
-                         "column slices per tile and 1 and 4 rays per thread")
+                         "column slices per tile and 1 and 4 rays per thread, "
+                         "and cull_tiles with at most 8, 16 and 32 warps per "
+                         "block aiming at 64, 128 and 256 warps per SM")
+    ap.add_argument("--against", metavar="DIR",
+                    help="also time both kernels built from the sources of "
+                         "the checkout DIR against this one's, in turns")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
-    card, build_s = phase_setup()
+    card, build_s, sass = phase_setup()
     import torch
 
     from metalpathtracer_torch.render.device_scene import upload_scene
@@ -830,13 +1017,11 @@ def main(argv=None) -> int:
     leg_sets = {k: primary_and_bounce(s, LEG_W, LEG_H, stride=8)
                 for k, s in big.items()}
     log("[4] cull_tiles vs its plain version")
-    cull = {"reference_primary": phase_cull(
-                "reference primary", cull_args_of(scene, *ref_sets["primary"])),
-            "reference_pool": phase_cull(
-                f"reference pool, call {CAPTURE_CALL}", cull_pool)}
+    cull_sets = {"reference_primary": cull_args_of(scene, *ref_sets["primary"]),
+                 "reference_pool": cull_pool}
     for k, lsets in leg_sets.items():
-        cull[f"{k}_bounce1"] = phase_cull(f"{k} bounce 1",
-                                          cull_args_of(big[k], *lsets["bounce1"]))
+        cull_sets[f"{k}_bounce1"] = cull_args_of(big[k], *lsets["bounce1"])
+    cull = {k: phase_cull(k, v, sass) for k, v in cull_sets.items()}
     if big["bunny300k"].mm_w.shape[1] != 256:
         raise RuntimeError("bunny300k is not at tile_p 256")
     log("[5] mm_closest_hit at tile_p 256 (bunny300k)")
@@ -845,13 +1030,25 @@ def main(argv=None) -> int:
     kvt256 = phase_kernel_vs_twin(big["bunny300k"], sets256)
     oracle256 = phase_oracle(big["bunny300k"], leg_sets["bunny300k"], 4096,
                              chunk=4096)
-    sweep = None
+    mm_sets = {**{f"reference_{k}": v for k, v in sets.items()},
+               **{f"bunny300k_{k}": v for k, v in sets256.items()}}
+    sweep = against = None
     if args.sweep:
         log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
-            f"{SWEEP_RAYS} rays per thread")
-        sweep = phase_sweep({**{f"reference_{k}": v for k, v in sets.items()},
-                             **{f"bunny300k_{k}": v for k, v in sets256.items()}})
-    del leg_sets, sets, sets256, mm_pool, cull_pool
+            f"{SWEEP_RAYS} rays per thread; cull_tiles with at most {SWEEP_WARPS} "
+            f"warps per block, aiming at {SWEEP_FILL} warps per SM")
+        sweep = {
+            "mm_closest_hit": phase_sweep("mm_closest_hit", {
+                f"K={k},R={r}": (f"MM_SLICES={k}", f"MM_RAYS={r}")
+                for r in SWEEP_RAYS for k in SWEEP_SLICES}, mm_sets),
+            "cull_tiles": phase_sweep("cull_tiles", {
+                f"W={w},F={f}": (f"CULL_WARPS={w}", f"CULL_FILL={f}")
+                for f in SWEEP_FILL for w in SWEEP_WARPS}, cull_sets)}
+    if args.against:
+        log(f"[A] both kernels built from {args.against} and from this checkout")
+        against = phase_against(Path(args.against).resolve(),
+                                {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets})
+    del leg_sets, sets, sets256, mm_sets, mm_pool, cull_pool, cull_sets
 
     paths = phase_paths(args.profile)
     legs = phase_legs(big, args.profile)
@@ -862,14 +1059,17 @@ def main(argv=None) -> int:
     kernels = {"kernels": [
         dict(name="mm_closest_hit", route="cuda", **KERNELS["mm_closest_hit"],
              launches=main_path["mm_launches"], max_abs_err=mm["max_abs_err"],
-             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
+             ms=mm["ms"], call_ms=mm["call_ms"], plain_ms=mm["plain_ms"],
+             bound_ms=mm["bound_ms"],
              bound_by=mm["bound_by"], share=mm["share"], library_ms=None),
         dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
              launches=main_path["cull_launches"], max_abs_err=cl["max_abs_err"],
-             ms=cl["ms"], plain_ms=cl["plain_ms"], bound_ms=cl["bound_ms"],
+             ms=cl["ms"], call_ms=cl["call_ms"], plain_ms=cl["plain_ms"],
+             bound_ms=cl["bound_ms"],
              bound_by=cl["bound_by"], share=cl["share"], library_ms=None),
     ]}
-    summary = dict(card=card, build_s=build_s, mm_vs_twin=kvt, oracle=oracle,
+    summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
+                   mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
                    oracle_tile_p256=oracle256, sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small,

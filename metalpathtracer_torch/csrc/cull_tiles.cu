@@ -1,9 +1,9 @@
 // Ray vs tile-AABB cull with per-subgroup reductions, for Hopper.
 //
 // Replaces the Pallas kernel _cull_kernel of the JAX reference
-// (metalpathtracer_tpu/render/pallas/intersect_mm.py, launched from
-// _cull_pass). For every 128-lane subgroup g and tile j it computes
-//   sgm[g, j]  = does any lane of g enter tile j's box?
+// (metalpathtracer_tpu/render/pallas/intersect_mm.py:712, launched from
+// _cull_pass :905). For every 128-lane subgroup g and tile j it computes
+//   sgm[g, j]  = does any live lane of g enter tile j's box?
 //   gent[g, j] = the smallest entry distance of those lanes (+inf if none)
 // and for every lane the largest entry distance over the tiles it enters
 // (lane_bound, -inf if none). These are what the entry-ordered tile lists
@@ -14,7 +14,8 @@
 // (render/kernels/intersect_mm.py::cull_pass_reference) is bit-equal:
 //   inv = clip(1/d, -1e30, 1e30)    IEEE division; no inf * 0 NaN below
 //   occ = active > 0.5 ? occ : -inf  (an inactive lane enters nothing)
-//   per axis t0 = (lo - o) * inv, t1 = (hi - o) * inv;
+//   per axis t0 = (lo - o) * inv, t1 = (hi - o) * inv, a subtraction and a
+//   multiplication each rounded (never contracted into an FMA);
 //   en = max(min(t0x, t1x), t_min), ex = max(t0x, t1x), then
 //   en = max(en, min(t0, t1)), ex = min(ex, max(t0, t1)) for y and z;
 //   hit = ex >= en && en <= occ.
@@ -24,125 +25,259 @@
 // hit. With >= a ray that only grazes a box's edge enters it, which costs
 // work and changes no closest hit.
 // min and max propagate NaN as torch.minimum/maximum do (CUDA's fminf and
-// fmaxf drop it), so a NaN entry never hits on either side. A hit's entry
-// is never NaN, so the reductions over hits may use fminf/fmaxf.
+// fmaxf drop it): PTX min.NaN / max.NaN, one instruction each. A hit's
+// entry is never NaN, so the reductions over hits may drop NaN; they run
+// on an order-preserving integer image of the float (negative floats have
+// their low 31 bits flipped), which orders -0 below +0 where a float min
+// leaves the sign of an equal zero open: only the sign of a zero entry can
+// differ from the twin's, and only at t_min <= 0.
 //
-// Work split: one block of 128 threads per subgroup, one ray per thread.
-// Tile boxes are staged through shared memory kTileChunk at a time. Each
-// thread keeps its lane's max entry in a register; each warp reduces a
-// tile's any-hit with a ballot and its min entry with shuffles, and the
-// four warps combine through shared memory, two barriers per chunk.
+// What bounds it on an H100 SXM: the slab test's min/max. A (ray, tile)
+// pair is 12 flop (6 subtractions, 6 multiplications; the 12 of the bound
+// in chip_smoke.py, 7.3 us on bunny300k's 32,768 rays x 1,242 tiles at the
+// 67 TFLOP/s f32 peak), but also 11 min/max, 2 compares and 2 predicated
+// min/max of the reductions: the loop issues 34.1 instructions per pair
+// (its SASS, read by chip_smoke.py: 13 FMNMX, 6 FADD, 6 FMUL, 2 FSETP and
+// ~7 of per-tile work), 41.5 us on bunny300k at one instruction per lane
+// per clock of every SM (1.98 GHz). Min/max and compares outnumber the
+// FADD/FMUL, and Hopper is likely to issue them at half the FP32 add rate
+// (not measured here), so they, with the per-tile integer work, set the
+// pace; the kernel reaches 60-70% of the issue estimate. The bytes (48 B
+// per ray, 32 B per tile in, 5 B per (subgroup, tile) and 4 B per ray out)
+// bind only at few tiles: 921,600 rays x 39 tiles move 56.7 MB, 16.9 us
+// at 3.35 TB/s.
 //
-// What bounds it on an H100: issue rate on the (ray, tile) pairs -- ~20
-// floating-point operations for the slab test and a 5-step shuffle
-// reduction per pair. The inputs (48 B per ray, 32 B per tile) and outputs
-// (5 B per subgroup and tile) are small next to that. A transposed warp
-// reduction (one shuffle per tile instead of five) is left for later work.
+// The design. What held the first version (one ray per thread, 128
+// threads per subgroup, a warp reduction per tile) back, and what this one
+// does about each:
+//   1. A cross-lane reduction per (ray, tile) pair: 5 shuffles, a ballot
+//      and a shared store per tile per warp, for 32 pairs. Here one warp
+//      holds the whole subgroup, kRays = 4 rays per lane (lane l takes
+//      rays l, l + 32, l + 64, l + 96), in registers, and a block's warps
+//      split the tiles (warp w takes tiles w, w + warps, ...). For each
+//      tile a lane reduces its 4 rays in registers, then the warp reduces
+//      once, gent and sgm together as one redux.sync min on the integer
+//      image of the entry (a lane whose rays enter nothing offers NaN, the
+//      largest key), for 128 pairs, written by lane 0 straight to device
+//      memory (each tile has one warp). lane_bound is a per-lane register
+//      max over the warp's tiles, combined over the warps once per block by
+//      shared atomicMax. The TPU kernel puts tiles on lanes and rays on
+//      sublanes; that layout (each thread holding tiles and looping over
+//      the rays, a redux per ray) measured slower on this card at every
+//      tile count tried, most at few tiles: 39 tiles fill 39 of a warp's
+//      64 tile slots, where 128 rays always fill 4 warps' lanes exactly.
+//   2. Too few warps: 256 blocks of 4 warps at pool width. Here the launch
+//      picks the warps per block (block_warps): enough for kFill warps on
+//      every SM, at most kWarps, and at least kMinTilesPerWarp tiles each:
+//      16 on the bunny legs' 32,768 rays, 9 at the flagship's pool call
+//      (39 tiles), 3 at the scan's 921,600 rays, where 7,200 blocks fill
+//      the card and blocks of few warps leave a short last wave. Every
+//      warp of a block has the same tile count to within one.
+//   3. NaN-propagating min/max of two compares and a select each: now PTX
+//      min.NaN / max.NaN, one instruction each.
+//   4. Box staging with 6 scalar loads and a / 6 and % 6 each, two
+//      barriers per chunk, no overlap: a warp reads each of its boxes as
+//      two float4 loads of one address for all lanes (32 B per tile), the
+//      next tile's while it tests this one (two tiles per loop iteration,
+//      so no register copies). The rays are staged once per block in
+//      shared memory instead (origin, clipped reciprocal and folded bound,
+//      32 B each, one thread a ray), so no warp repeats the loads and the
+//      12 IEEE divisions of its lane's rays; the block has two barriers.
+//   5. cudaSetDevice on every launch: now only when the device is not
+//      already current.
+// kWarps and kFill are compile-time constants; `chip_smoke.py --sweep`
+// builds this file with -DCULL_WARPS=8, 16, 32 x -DCULL_FILL=64, 128, 256
+// and times each at the render paths' shapes. At 16 warps ptxas gives the
+// loop 77 registers (a block then fits once per SM); capping it at 64 for
+// two blocks was measured slower on the 921,600-ray and bunny300k sets.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef CULL_WARPS
+#define CULL_WARPS 16
+#endif
+#ifndef CULL_FILL
+#define CULL_FILL 128
+#endif
+
 namespace {
 
-constexpr int kLanes = 128;  // rays per subgroup = threads per block
-constexpr int kWarps = kLanes / 32;
-constexpr int kFeatures = 12;    // x = [d, o x d, o, o.d, |o|^2, 1]
-constexpr int kBoxFloats = 8;    // tile_box row [lo3, 0, hi3, 0]
-constexpr int kTileChunk = 128;  // tiles staged per chunk
+constexpr int kLanes = 128;                 // rays per subgroup
+constexpr int kRays = kLanes / 32;          // rays per lane
+constexpr int kWarps = CULL_WARPS;          // most tile-splitting warps per block
+constexpr int kFill = CULL_FILL;            // warps per SM a launch aims for
+constexpr int kMinTilesPerWarp = 4;         // tiles a warp takes at least
+constexpr int kFeatures = 12;               // x = [d, o x d, o, o.d, |o|^2, 1]
+constexpr int kNanKey = 0x7fffffff;         // order_key of the NaN below
 constexpr float kRecipClip = 1e30f;
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;  // NaN if either is NaN
+static_assert(kWarps >= 1 && kWarps <= 32, "CULL_WARPS: 1 to 32");
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-__global__ void __launch_bounds__(kLanes)
+// an int whose signed order is the float's (an involution: key_value
+// inverts it); the NaN 0x7fffffff maps to itself, above every number
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+__device__ __forceinline__ float clipped_recip(float d) {
+  return max_nan(min_nan(__fdiv_rn(1.0f, d), kRecipClip), -kRecipClip);
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
 cull_tiles_kernel(const float* __restrict__ x,         // (G*128, 12)
                   const float* __restrict__ active,    // (G*128,)
                   const float* __restrict__ occ,       // (G*128,) or null
-                  const float* __restrict__ tile_box,  // (n_tiles, 8)
+                  const float4* __restrict__ tile_box, // (n_tiles, 8)
                   uint8_t* __restrict__ sgm,           // (G, n_tiles)
                   float* __restrict__ gent,            // (G, n_tiles)
                   float* __restrict__ lane_bound,      // (G*128,)
                   int n_tiles, float t_min) {
-  __shared__ float sbox[6][kTileChunk];         // lo xyz, hi xyz
-  __shared__ float smin[kWarps][kTileChunk];    // per-warp min entry
-  __shared__ uint32_t sany[kWarps][kTileChunk]; // per-warp any-hit
+  __shared__ float4 s_ray[kLanes][2];  // {o, folded bound}, {clipped inv, 0}
+  __shared__ int s_lb[kLanes];         // lane bound keys, combined over the warps
 
   const int g = blockIdx.x;
-  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
-  const size_t ray = (size_t)g * kLanes + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const float inf = __int_as_float(0x7f800000);
+  const float nan = __int_as_float(kNanKey);
+  const int key_neg_inf = order_key(-inf);
 
-  const float* xr = x + ray * kFeatures;
-  float o[3], inv[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    o[a] = xr[6 + a];
-    inv[a] = nan_max(nan_min(__fdiv_rn(1.0f, xr[a]), kRecipClip), -kRecipClip);
+  // the subgroup's rays, staged once per block, one thread each
+  for (int i = threadIdx.x; i < kLanes; i += blockDim.x) {
+    const size_t ray = (size_t)g * kLanes + i;
+    const float4* xr = reinterpret_cast<const float4*>(x + ray * kFeatures);
+    const float4 a = xr[0], b = xr[1], c = xr[2];  // d = a.xyz, o = b.z b.w c.x
+    const float bound = active[ray] > 0.5f ? (occ ? occ[ray] : inf) : -inf;
+    s_ray[i][0] = make_float4(b.z, b.w, c.x, bound);
+    s_ray[i][1] = make_float4(clipped_recip(a.x), clipped_recip(a.y),
+                              clipped_recip(a.z), 0.f);
+    s_lb[i] = key_neg_inf;
   }
-  const float occ_in = occ ? occ[ray] : inf;
-  const float bound = active[ray] > 0.5f ? occ_in : -inf;
-  float lb = -inf;
+  __syncthreads();
 
-  for (int c0 = 0; c0 < n_tiles; c0 += kTileChunk) {
-    const int w = min(kTileChunk, n_tiles - c0);
-    for (int k = threadIdx.x; k < 6 * w; k += kLanes) {
-      const int j = k / 6, f = k % 6;  // f: lo x, y, z, hi x, y, z
-      sbox[f][j] = tile_box[(size_t)(c0 + j) * kBoxFloats + (f < 3 ? f : f + 1)];
-    }
-    __syncthreads();
-
-    for (int j = 0; j < w; ++j) {
-      float t0 = (sbox[0][j] - o[0]) * inv[0];
-      float t1 = (sbox[3][j] - o[0]) * inv[0];
-      float en = nan_max(nan_min(t0, t1), t_min);
-      float ex = nan_max(t0, t1);
-      t0 = (sbox[1][j] - o[1]) * inv[1];
-      t1 = (sbox[4][j] - o[1]) * inv[1];
-      en = nan_max(en, nan_min(t0, t1));
-      ex = nan_min(ex, nan_max(t0, t1));
-      t0 = (sbox[2][j] - o[2]) * inv[2];
-      t1 = (sbox[5][j] - o[2]) * inv[2];
-      en = nan_max(en, nan_min(t0, t1));
-      ex = nan_min(ex, nan_max(t0, t1));
-      const bool hit = ex >= en && en <= bound;
-
-      lb = fmaxf(lb, hit ? en : -inf);
-      float m = hit ? en : inf;
+  // this lane's rays lane + 32 q, in registers
+  float ox[kRays], oy[kRays], oz[kRays], ix[kRays], iy[kRays], iz[kRays];
+  float bound[kRays], lb[kRays];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      }
-      const uint32_t any = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) {
-        smin[warp][j] = m;
-        sany[warp][j] = any;
-      }
-    }
-    __syncthreads();
-
-    // thread j combines the four warps' partials of tile c0 + j; the next
-    // chunk's first barrier orders these reads before its writes
-    const int j = threadIdx.x;
-    if (j < w) {
-      float m = smin[0][j];
-      uint32_t any = sany[0][j];
-#pragma unroll
-      for (int k = 1; k < kWarps; ++k) {
-        m = fminf(m, smin[k][j]);
-        any |= sany[k][j];
-      }
-      const size_t out = (size_t)g * n_tiles + c0 + j;
-      gent[out] = m;
-      sgm[out] = any != 0u;
-    }
+  for (int q = 0; q < kRays; ++q) {
+    const float4 a = s_ray[lane + 32 * q][0], b = s_ray[lane + 32 * q][1];
+    ox[q] = a.x;
+    oy[q] = a.y;
+    oz[q] = a.z;
+    bound[q] = a.w;
+    ix[q] = b.x;
+    iy[q] = b.y;
+    iz[q] = b.z;
+    lb[q] = -inf;
   }
-  lane_bound[ray] = lb;
+
+  // tile j against the lane's rays, then the warp's min entry and any-hit.
+  // The lane's min starts at NaN, which fminf drops: it stays NaN exactly
+  // where none of the lane's rays enters, and NaN's key is the largest
+  auto test_tile = [&](const float4& lo, const float4& hi, float* gent_j,
+                       uint8_t* sgm_j) {
+    float gmin = nan;
+#pragma unroll
+    for (int q = 0; q < kRays; ++q) {
+      float t0 = __fmul_rn(__fsub_rn(lo.x, ox[q]), ix[q]);
+      float t1 = __fmul_rn(__fsub_rn(hi.x, ox[q]), ix[q]);
+      float en = max_nan(min_nan(t0, t1), t_min);
+      float ex = max_nan(t0, t1);
+      t0 = __fmul_rn(__fsub_rn(lo.y, oy[q]), iy[q]);
+      t1 = __fmul_rn(__fsub_rn(hi.y, oy[q]), iy[q]);
+      en = max_nan(en, min_nan(t0, t1));
+      ex = min_nan(ex, max_nan(t0, t1));
+      t0 = __fmul_rn(__fsub_rn(lo.z, oz[q]), iz[q]);
+      t1 = __fmul_rn(__fsub_rn(hi.z, oz[q]), iz[q]);
+      en = max_nan(en, min_nan(t0, t1));
+      ex = min_nan(ex, max_nan(t0, t1));
+      if (ex >= en && en <= bound[q]) {
+        gmin = fminf(gmin, en);
+        lb[q] = fmaxf(lb[q], en);
+      }
+    }
+    const int kmin = __reduce_min_sync(0xffffffffu, order_key(gmin));
+    const bool any = kmin != kNanKey;
+    const float value = any ? key_value(kmin) : inf;
+    if (lane == 0) {
+      *gent_j = value;
+      *sgm_j = any;
+    }
+  };
+
+  // warp w takes tiles w, w + warps, ...: two at a time, each box loaded
+  // while the one before it is tested; the pointers step over `warps` tiles
+  const size_t off = (size_t)g * n_tiles + warp;
+  float* gent_j = gent + off;
+  uint8_t* sgm_j = sgm + off;
+  const float4* box = tile_box + 2 * (size_t)warp;
+  const int box_step = 2 * warps;
+  float4 lo_a, hi_a, lo_b, hi_b;
+  int j = warp;
+  if (j < n_tiles) {
+    lo_a = __ldg(box);
+    hi_a = __ldg(box + 1);
+  }
+  while (j < n_tiles) {
+    box += box_step;
+    if (j + warps < n_tiles) {
+      lo_b = __ldg(box);
+      hi_b = __ldg(box + 1);
+    }
+    test_tile(lo_a, hi_a, gent_j, sgm_j);
+    j += warps;
+    if (j >= n_tiles) break;
+    gent_j += warps;
+    sgm_j += warps;
+    box += box_step;
+    if (j + warps < n_tiles) {
+      lo_a = __ldg(box);
+      hi_a = __ldg(box + 1);
+    }
+    test_tile(lo_b, hi_b, gent_j, sgm_j);
+    j += warps;
+    gent_j += warps;
+    sgm_j += warps;
+  }
+#pragma unroll
+  for (int q = 0; q < kRays; ++q) {
+    const int k = order_key(lb[q]);
+    if (k != key_neg_inf) atomicMax(&s_lb[lane + 32 * q], k);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kLanes; i += blockDim.x) {
+    lane_bound[(size_t)g * kLanes + i] = key_value(s_lb[i]);
+  }
+}
+
+// Warps per block: enough blocks x warps for kFill warps on every SM, at
+// most kWarps, and at least kMinTilesPerWarp tiles a warp (below that the
+// per-tile work is short next to a warp's start: its ray reads, its
+// reductions' barrier).
+int block_warps(int n_groups, int n_tiles, int sms) {
+  const long want = ((long)sms * kFill + n_groups - 1) / n_groups;
+  long w = want < kWarps ? want : kWarps;
+  if (w > n_tiles / kMinTilesPerWarp) w = n_tiles / kMinTilesPerWarp;
+  return w < 1 ? 1 : (int)w;
 }
 
 }  // namespace
@@ -152,12 +287,26 @@ extern "C" int cull_tiles_launch(const void* x, const void* active,
                                  void* sgm, void* gent, void* lane_bound,
                                  int n_groups, int n_tiles, float t_min,
                                  int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
+  if (current != device) {
+    e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // the SM count of each device, read once
+  static int sms[64] = {0};
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    e = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                               device);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (n_groups > 0) {
-    cull_tiles_kernel<<<n_groups, kLanes, 0, (cudaStream_t)stream>>>(
+    const int threads = 32 * block_warps(n_groups, n_tiles, sms[device]);
+    cull_tiles_kernel<<<n_groups, threads, 0, (cudaStream_t)stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(active),
-        static_cast<const float*>(occ), static_cast<const float*>(tile_box),
+        static_cast<const float*>(occ), static_cast<const float4*>(tile_box),
         static_cast<uint8_t*>(sgm), static_cast<float*>(gent),
         static_cast<float*>(lane_bound), n_tiles, t_min);
   }

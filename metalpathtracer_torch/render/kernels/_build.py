@@ -42,12 +42,13 @@ def _nvcc() -> str:
     return candidate
 
 
-def build(name: str, defines: tuple = ()) -> Path:
-    """Compile `csrc/<name>.cu` unless a library of the same source and
+def build(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> Path:
+    """Compile `<csrc>/<name>.cu` unless a library of the same source and
     flags exists; `defines` ("NAME=value", ...) become -D flags (a sweep's
-    variants of a compile-time constant). The compiler's output goes to
-    `<library>.log`."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    variants of a compile-time constant), and `csrc` may name another
+    checkout's sources (a comparison with an earlier kernel). The
+    compiler's output goes to `<library>.log`."""
+    src = (Path(csrc) / f"{name}.cu").read_bytes()
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
@@ -55,7 +56,7 @@ def build(name: str, defines: tuple = ()) -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so.with_name(so.name + ".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -68,5 +69,5 @@ def build(name: str, defines: tuple = ()) -> Path:
 
 
 @functools.cache
-def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, defines)))
+def load_library(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, defines, csrc)))

@@ -250,8 +250,8 @@ def _check_tensors(kernel: str, expect, device):
 
 
 @functools.cache
-def _entry(kernel: str, defines: tuple = ()):
-    lib = _build.load_library(kernel, defines)
+def _entry(kernel: str, defines: tuple = (), csrc=_build.CSRC_DIR):
+    lib = _build.load_library(kernel, defines, csrc)
     n_ptr, scalars = _ENTRY_ARGS[kernel]
     fn = getattr(lib, f"{kernel}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [*scalars, ctypes.c_int,
@@ -263,19 +263,21 @@ def _entry(kernel: str, defines: tuple = ()):
     return fn, err
 
 
-def _launch(kernel: str, inputs, outputs, scalars, device, defines: tuple = ()):
+def _launch(kernel: str, inputs, outputs, scalars, device, defines: tuple = (),
+            csrc=_build.CSRC_DIR):
     """Launch `kernel` on `device`'s current stream: pointers of `inputs`
     and `outputs` (None passes a null pointer), then `scalars`. Inputs must
     be contiguous and 16-byte aligned. `defines` selects a build of the
-    source with those preprocessor definitions (a sweep's variants; the
-    render path takes the source's own constants). Raises on a refused
-    launch."""
+    source with those preprocessor definitions (a sweep's variants), and
+    `csrc` a build of another checkout's source of the same entry point (a
+    comparison); the render path takes the package's own source and
+    constants. Raises on a refused launch."""
     for tensor in inputs:
         if tensor is not None and (not tensor.is_contiguous()
                                    or tensor.data_ptr() % 16):
             raise ValueError(f"{kernel}: inputs must be contiguous and "
                              "16-byte aligned")
-    fn, err = _entry(kernel, tuple(defines))
+    fn, err = _entry(kernel, tuple(defines), csrc)
     rc = fn(*(None if v is None else v.data_ptr() for v in (*inputs, *outputs)),
             *scalars, device.index or 0,
             torch.cuda.current_stream(device).cuda_stream)

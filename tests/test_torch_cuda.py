@@ -14,7 +14,8 @@ the CPU tests (rtol 5e-4, atol 1e-2), and the walked list positions equal
 on every subgroup whose 128 lanes agree on t bit for bit (the early exit
 reads only t). Ties between identical triangles are exact on both sides:
 the lowest column, then the earliest list position. The cull kernel and its twin compute
-the same IEEE operations in the same order: bit-equal. Wavefront vs scan on
+the same IEEE operations in the same order, and reduce over sets whose
+order does not matter: bit-equal (torch.equal, which holds -0 == +0). Wavefront vs scan on
 the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6.
 """
 
@@ -160,6 +161,92 @@ def test_cull_kernel_matches_twin_on_edge_cases(scene):
         (tmm.ray_features(o, d), act, box, T_MIN, None))
     assert sgm[0].tolist() == [True, True, True] and not sgm[1].any()
     assert gent[0, 1].item() == 5.0  # the flat box, crossed at z = 2
+
+
+@pytest.fixture(scope="module")
+def bunny300k_boxes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return upload_scene(presets.reference_bunny300k(), "cuda").mm_tile_box
+
+
+def _random_boxes(nt, seed):
+    """`nt` AABBs of sizes 0.5-8 where the rays go, on the card."""
+    r = np.random.default_rng(seed)
+    lo = r.uniform(-40, 20, (nt, 3))
+    box = np.zeros((nt, 8), np.float32)
+    box[:, 0:3] = lo
+    box[:, 4:7] = lo + r.uniform(0.5, 8.0, (nt, 3))
+    return torch.as_tensor(box, device="cuda")
+
+
+@pytest.mark.parametrize("nt", [1, 31, 33, 129, 1242])
+def test_cull_kernel_matches_twin_at_tile_counts(scene, bunny300k_boxes, nt):
+    # fewer tiles than the warps that split them, and counts on both sides
+    # of multiples of 32; 1,242 are bunny300k's boxes
+    box = bunny300k_boxes if nt == 1242 else _random_boxes(nt, nt)
+    assert box.shape[0] == nt
+    o, d = _rays(4096, nt)
+    sgm, _, lb = _assert_cull_equal(_cull_args(o, d, nt, box))
+    assert sgm.any() and (lb > float("-inf")).any()
+
+
+@pytest.mark.parametrize("n", [1 << 15, 921600])
+def test_cull_kernel_matches_twin_at_pool_width(scene, n):
+    # 32,768 lanes: the wavefront pool's width (16 warps per block), and
+    # the scan's 921,600 (7,200 subgroups of 2 warps); on the reference
+    # scene's boxes
+    o, d = _rays(n, 41)
+    sgm, _, _ = _assert_cull_equal(_cull_args(o, d, 41, scene.mm_tile_box))
+    assert sgm.any() and not sgm.all()
+
+
+@pytest.mark.parametrize("case", ["inactive_subgroup", "t_min_0", "occ_-inf",
+                                  "occ_+inf", "occ_none"])
+def test_cull_kernel_matches_twin_on_masks_and_bounds(scene, case):
+    n = 1024
+    o, d = _rays(n, 43)
+    x, act, box, t_min, occ = _cull_args(o, d, 43, _random_boxes(129, 43))
+    if case == "inactive_subgroup":
+        act[256:384] = 0.0
+    elif case == "t_min_0":
+        t_min = 0.0
+    elif case == "occ_none":
+        occ = None
+    else:
+        occ = torch.full((n,), float(case[4:]), device="cuda")
+    sgm, gent, lb = _assert_cull_equal((x, act, box, t_min, occ))
+    if case in ("inactive_subgroup", "occ_-inf"):
+        dead = slice(256, 384) if case == "inactive_subgroup" else slice(0, n)
+        assert not sgm[dead.start // 128:dead.stop // 128].any()
+        assert torch.isinf(gent[dead.start // 128:dead.stop // 128]).all()
+        assert (lb[dead] == float("-inf")).all()
+    else:
+        assert sgm.any()
+
+
+@pytest.mark.parametrize("permute", ["tiles", "lanes"])
+def test_cull_kernel_is_equivariant_under_permutation(bunny70k, permute):
+    # tiles permuted: the columns of sgm and gent permute, lane_bound stays;
+    # lanes permuted inside each subgroup: lane_bound permutes, sgm and gent
+    # stay -- whatever order the kernel's reductions take
+    n = 4096
+    o, d = _rays(n, 47)
+    x, act, box, t_min, occ = _cull_args(o, d, 47, bunny70k.mm_tile_box)
+    sgm, gent, lb = _assert_cull_equal((x, act, box, t_min, occ))
+    r = np.random.default_rng(48)
+    if permute == "tiles":
+        perm = torch.as_tensor(r.permutation(box.shape[0]), device="cuda")
+        sgm_p, gent_p, lb_p = _assert_cull_equal((x, act, box[perm], t_min, occ))
+        assert torch.equal(sgm_p, sgm[:, perm]) and torch.equal(gent_p, gent[:, perm])
+        assert torch.equal(lb_p, lb)
+    else:
+        idx = torch.as_tensor(np.concatenate(
+            [k * 128 + r.permutation(128) for k in range(n // 128)]), device="cuda")
+        sgm_p, gent_p, lb_p = _assert_cull_equal(
+            (x[idx].contiguous(), act[idx], box, t_min, occ[idx]))
+        assert torch.equal(sgm_p, sgm) and torch.equal(gent_p, gent)
+        assert torch.equal(lb_p, lb[idx])
 
 
 def test_kernel_at_tile_p_256_matches_twin(bunny70k):

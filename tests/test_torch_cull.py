@@ -251,6 +251,48 @@ def test_twin_steps_through_rays_in_chunks(monkeypatch):
         assert torch.equal(a, b)
 
 
+def _equivariance_case(which, seed):
+    """Twin inputs on the reference scene's 39 tile boxes or on 200 random
+    boxes: 1,024 rays (8 subgroups), a 75% live mask, mixed occlusion."""
+    n = 1024
+    if which == "reference":
+        path = os.path.join(REPO, "scenes", "reference.xml")
+        box = t_upload(tscene.load_scene_xml(path), "cpu").mm_tile_box
+    else:
+        box = torch.as_tensor(_random_boxes(200, seed))
+    o, d = _rays(n, seed)
+    active, occ = _masks(n, seed)
+    return (tmm.ray_features(torch.as_tensor(o), torch.as_tensor(d)),
+            torch.as_tensor(active), box, T_MIN, torch.as_tensor(occ))
+
+
+@pytest.mark.parametrize("which", ["reference", "random"])
+@pytest.mark.parametrize("permute", ["tiles", "lanes"])
+def test_twin_is_equivariant_under_permutation(which, permute):
+    # the kernel reduces over tiles and lanes in an order of its own
+    # (threads, warps, shared atomics): the twin's outputs must not depend
+    # on either order. Permuting the tiles permutes the columns of sgm and
+    # gent and leaves lane_bound; permuting the lanes inside each subgroup
+    # permutes lane_bound and leaves sgm and gent.
+    x, active, box, t_min, occ = _equivariance_case(which, 11)
+    sgm, gent, lb = tmm.cull_pass_reference(x, active, box, t_min, occ)
+    assert sgm.any() and not sgm.all() and (lb > -INF).any()
+    r = np.random.default_rng(12)
+    if permute == "tiles":
+        perm = torch.as_tensor(r.permutation(box.shape[0]))
+        sgm_p, gent_p, lb_p = tmm.cull_pass_reference(x, active, box[perm], t_min, occ)
+        assert torch.equal(sgm_p, sgm[:, perm]) and torch.equal(gent_p, gent[:, perm])
+        assert torch.equal(lb_p, lb)
+    else:
+        g = x.shape[0] // 128
+        idx = torch.as_tensor(np.concatenate(
+            [k * 128 + r.permutation(128) for k in range(g)]))
+        sgm_p, gent_p, lb_p = tmm.cull_pass_reference(x[idx], active[idx], box,
+                                                      t_min, occ[idx])
+        assert torch.equal(sgm_p, sgm) and torch.equal(gent_p, gent)
+        assert torch.equal(lb_p, lb[idx])
+
+
 def test_wrapper_counts_no_launch_on_cpu_and_rejects_bad_inputs():
     n = 256
     o, d = _rays(n, 9)
