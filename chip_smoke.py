@@ -10,17 +10,20 @@ both kernels. Phases, each raising on failure:
 1. set up: the card, TF32 off, the kernel builds, and the instructions
    the cull kernel's slab-test loop issues per (ray, tile) pair (its SASS);
 2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
-   primary rays, the rays left after one bounce, and the pool-width set:
-   the arguments of the 100th `mm_closest_hit` call of the flagship
-   wavefront render (32,768 lanes after the tileset sort), captured by
-   wrapping the function: hit columns equal except at near-ties and
+   primary rays, the rays left after one bounce, the pool-width set (the
+   arguments of the 100th `mm_closest_hit` call of the flagship wavefront
+   render: 32,768 lanes after the tileset sort) and two sets of a viewer
+   frame at 512x288, depth 8 (the 5th call on its 16,384-lane pool and
+   the first on the 1,024 lanes it drains at), all captured by wrapping
+   the function: hit columns equal except at near-ties and
    triangle edges, t within the CPU tests' bound, and the walked list
    positions equal on every subgroup whose 128 lanes agree on t bit for
    bit; each set's tested pairs, bound and share of the bound;
 3. `closest_hit_mm_full` on the kernels vs the brute-force oracle on a
    65,536-ray subset (tests/test_intersect_mm.py's criteria);
 4. `cull_tiles` vs its plain version, bit-equal, at 39 tiles (921,600
-   primary rays, and the 32,768 pool lanes of the same flagship advance),
+   primary rays, the 32,768 pool lanes of the same flagship advance, and
+   the viewer frame's 16,384 and 1,024 lanes of the same two advances),
    311 tiles (bunny70k) and 1,242 tiles (bunny300k), the latter two on
    32,768 rays after one bounce with an active mask and the sphere pass's
    occlusion bound; with its issue estimate (the SASS count per pair at
@@ -34,10 +37,36 @@ both kernels. Phases, each raising on failure:
    bunny300k at 512x512, spp 2, depth 8, pool 2^15;
 9. small renders (320x180, spp 2, depth 8) of both paths on the kernels vs
    on the plain versions, and the golden reference-scene case vs
-   tests/golden/reference_scene.npz.
-Each path of phases 6-8 runs with every launch count set to 0 just before
-it and read just after, and with the plain versions counted (they must not
-run). A kernel's `ms` is its device time: 20 calls captured in one CUDA
+   tests/golden/reference_scene.npz;
+10. the checkpointed CLI: `cli.main --checkpoint --checkpoint-every 2` at
+    1280x720, depth 32, to 2 spp, then `--resume` to 4 spp, and the same to
+    4 spp without interruption: the two images bit-equal, both against
+    phase 6's within the render limit, as many launches as phase 6 made,
+    and a resume with another `--fov` exits 2 and leaves the file as it was;
+11. the progressive wavefront: four `accumulate_wavefront` steps of 1 spp
+    at 1280x720, depth 32, pool 2^15 against four `accumulate` steps, step
+    for step within the render limit, with the sample ids continuing;
+12. the viewer at its defaults (512x288, depth 8, 1 spp per frame): its
+    loop in this process on a counted path, five frames with torch's
+    synchronising calls counted (`SyncCounter`) and ten without, each
+    timed, the fifth frame's accumulation held against five `accumulate`
+    steps within the render limit and the frame shown against the
+    accumulation it resolves; then `python3 -m metalpathtracer_torch.viewer
+    --max-frames 60 --no-mouse` in a child under a pty with
+    `MPT_VIEWER_TRACE=1`, the child's stderr and the pty drained while it
+    runs; a `w` key written into the pty after frame 30 must bring the
+    displayed frame back to 1 spp; frames per second over frames 10 on and
+    kernel launches per frame are read from the child's trace lines (how
+    many frames reach the terminal is the terminal's own rate: the writer
+    is latest-wins);
+13. the BVH study path: `closest_hit_bvh` against the brute oracle on phase
+    3's 65,536 rays (phase 3's criteria), its time beside
+    `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
+    bvh` at 320x180, spp 2, depth 8 against the `mm` render; it must launch
+    neither kernel.
+No earlier path runs at a smaller depth than before. Each path of phases
+6-8 and 10-12 runs with every launch count set to 0 just before it and read
+just after, and with the plain versions counted (they must not run). A kernel's `ms` is its device time: 20 calls captured in one CUDA
 graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
 mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
 which reads the host's enqueue rate where the kernel is shorter than the
@@ -78,6 +107,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -358,6 +388,46 @@ def counted_path():
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
 
 
+class SyncCounter:
+    """Counts the synchronising CUDA calls torch makes (`torch.cuda`'s sync
+    debug mode set to warn; the warnings are counted, not shown), in all
+    and by the source line that made them (`sites`). The mode flags reads
+    of device values on the host and also uploads of host scalars and
+    small tensors from pageable memory."""
+
+    def __init__(self):
+        self.count = 0
+        self.sites: dict[str, int] = {}
+
+    def __enter__(self):
+        import torch
+
+        self._mode = torch.cuda.get_sync_debug_mode()
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def count(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                self.count += 1
+                site = f"{Path(filename).name}:{lineno}"
+                self.sites[site] = self.sites.get(site, 0) + 1
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self._catch.__exit__(*exc)
+        return False
+
+
 def compare_images(a, b, what: str):
     """Two renders of one estimator: under IMG_FRAC of pixels differ by more
     than 1e-3 and the means agree within IMG_MEAN."""
@@ -442,11 +512,13 @@ def closest_hit_set(scene, o, d, act):
                 active=int(act.sum()) if act is not None else o.shape[0])
 
 
-def captured_set(args, active):
+def captured_set(args, active, min_hits=1):
     """A set from captured `mm_closest_hit` arguments: the rays are read
-    back from the features x = [d, o x d, o, ...]."""
+    back from the features x = [d, o x d, o, ...]. `min_hits`: the triangle
+    hits the set must hold for the comparison to count."""
     x = args[3]
-    return dict(args=args, o=x[:, 6:9], d=x[:, 0:3], active=int((active > 0.5).sum()))
+    return dict(args=args, o=x[:, 6:9], d=x[:, 0:3], min_hits=min_hits,
+                active=int((active > 0.5).sum()))
 
 
 def closest_hit_bound(args, walked):
@@ -516,7 +588,7 @@ def phase_kernel_vs_twin(scene, sets):
         if not bool(torch.isinf(tk[both_miss]).all()):
             raise RuntimeError(f"{what}: a miss has a finite t")
         hits = int((cr >= 0).sum())
-        if hits == 0:
+        if hits < st.get("min_hits", 1):
             raise RuntimeError(f"{what}: no triangle hits")
         k_ms = device_ms(lambda: tmm.mm_closest_hit(*args))
         c_ms = call_ms(lambda: tmm.mm_closest_hit(*args), 20)
@@ -645,11 +717,10 @@ def phase_against(other: Path, kernel_sets: dict):
     return record
 
 
-def phase_oracle(scene, sets, n_each, chunk):
+def oracle_rays(sets, n_each):
+    """`n_each` primary rays and `n_each` live bounce-1 rays, picked by a
+    seeded permutation."""
     import torch
-
-    from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
-    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
     g = torch.Generator(device="cpu").manual_seed(0)
     o_p, d_p, _ = sets["primary"]
@@ -657,8 +728,17 @@ def phase_oracle(scene, sets, n_each, chunk):
     live = act.nonzero().flatten().cpu()
     pick_p = torch.randperm(o_p.shape[0], generator=g)[:n_each].to(o_p.device)
     pick_b = live[torch.randperm(live.numel(), generator=g)[:n_each]].to(o_p.device)
-    o = torch.cat([o_p[pick_p], o_b[pick_b]])
-    d = torch.cat([d_p[pick_p], d_b[pick_b]])
+    return (torch.cat([o_p[pick_p], o_b[pick_b]]),
+            torch.cat([d_p[pick_p], d_b[pick_b]]))
+
+
+def phase_oracle(scene, sets, n_each, chunk):
+    import torch
+
+    from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    o, d = oracle_rays(sets, n_each)
     before = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
     t1, i1, *_ = tmm.closest_hit_mm_full(scene, o, d, T_MIN)
     if (tmm.mm_closest_hit.launches, tmm.cull_tiles.launches) != (
@@ -753,32 +833,36 @@ class _Captured(Exception):
     pass
 
 
-def capture_pool_call():
-    """The arguments of the CAPTURE_CALL-th `mm_closest_hit` call of the
-    flagship wavefront render and of the `cull_tiles` call of the same
-    advance, cloned: the render is stopped right after."""
+def capture_calls(run, picks: dict, stop: bool):
+    """`run()` with both kernels wrapped. `picks` maps a name to
+    `pick(i, lanes, k)`: asked at every `mm_closest_hit` call (the i-th of
+    the run, the k-th on that many lanes, both from 1), and where it says
+    yes that call's arguments and those of the `cull_tiles` call of the
+    same advance are cloned under the name. With `stop` the run is ended
+    once every pick is filled. Returns {name: (mm_args, cull_args)}."""
     import torch
 
-    from metalpathtracer_torch import cli
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles
-    seen = {"mm": 0, "cull": 0}
+    seen = {"mm": 0, "by_lanes": {}, "cull": None}
     captured = {}
 
     def clone(args):
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
     def cull(*args, **kw):
-        seen["cull"] += 1
-        if seen["cull"] == CAPTURE_CALL:
-            captured["cull"] = clone(args)  # (x, active, tile_box, t_min, occ)
+        seen["cull"] = args  # (x, active, tile_box, t_min, occ)
         return kernels[1](*args, **kw)
 
     def mm(*args, **kw):
+        lanes = args[3].shape[0]
         seen["mm"] += 1
-        if seen["mm"] == CAPTURE_CALL:
-            captured["mm"] = clone(args)
+        k = seen["by_lanes"][lanes] = seen["by_lanes"].get(lanes, 0) + 1
+        for name, pick in picks.items():
+            if name not in captured and pick(seen["mm"], lanes, k):
+                captured[name] = clone(args), clone(seen["cull"])
+        if stop and len(captured) == len(picks):
             raise _Captured
         return kernels[0](*args, **kw)
 
@@ -786,18 +870,70 @@ def capture_pool_call():
     # these wrappers while they are in place
     mm.launches = cull.launches = 0
     tmm.mm_closest_hit, tmm.cull_tiles = mm, cull
-    out = io.StringIO()
     try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
-            cli.main(flagship_argv() + ["--wavefront", "--output",
-                                        str(OUT / "capture.png")])
-        raise RuntimeError(f"the flagship render made only {seen} calls")
+        run()
     except _Captured:
         pass
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles = kernels
     torch.cuda.synchronize()
-    return captured["mm"], captured["cull"]
+    if len(captured) != len(picks):
+        raise RuntimeError(f"captured {sorted(captured)} of {sorted(picks)}: the run "
+                           f"made {seen['mm']} calls, by lanes {seen['by_lanes']}")
+    return captured
+
+
+def capture_pool_call():
+    """The CAPTURE_CALL-th `mm_closest_hit` call of the flagship wavefront
+    render and the `cull_tiles` call of the same advance."""
+    from metalpathtracer_torch import cli
+
+    def run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            cli.main(flagship_argv() + ["--wavefront", "--output",
+                                        str(OUT / "capture.png")])
+
+    return capture_calls(run, {"pool": lambda i, lanes, k: i == CAPTURE_CALL},
+                         stop=True)["pool"]
+
+
+VIEWER_SIZE, VIEWER_DEPTH = (512, 288), 8  # the viewer's defaults
+VIEWER_DRAIN = 1024  # the lanes a wavefront frame drains at
+
+
+class NullDisplay:
+    """Stands in for the viewer's display writer: keeps the last frame."""
+
+    def post(self, img, status):
+        self.last = img
+
+    def post_text(self, text):
+        pass
+
+
+def viewer_loop(scene):
+    from metalpathtracer_torch import viewer
+    from metalpathtracer_torch.render.integrator import RenderConfig
+
+    display = NullDisplay()
+    return viewer._ViewerLoop(scene, *VIEWER_SIZE, 1,
+                              RenderConfig(max_depth=VIEWER_DEPTH), 0, "wavefront",
+                              display), display
+
+
+def capture_viewer_calls(scene):
+    """Of one viewer frame at the defaults: the 5th `mm_closest_hit` call on
+    the viewer's pool and the first on the drain's lanes, each with its
+    `cull_tiles` call."""
+    from metalpathtracer_torch import viewer
+
+    loop, _ = viewer_loop(scene)
+    return capture_calls(
+        lambda: loop.step(lambda: []),
+        {"viewer_pool": lambda i, lanes, k: lanes == viewer.POOL_SIZE and k == 5,
+         "viewer_drain": lambda i, lanes, k: lanes == VIEWER_DRAIN and k == 1},
+        stop=False)
 
 
 def run_cli(argv, profile_name=None):
@@ -840,6 +976,8 @@ def phase_paths(profile_on: bool, w=1280, h=720):
         images[name] = check_image(npz, (h, w, 3))
         result[name] = dict(stats=stats, counts=counts,
                             image_mean=float(images[name].mean()))
+        if name == "scan":
+            result[name]["image"] = images[name]
         log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps, launches: mm_closest_hit "
@@ -968,6 +1106,356 @@ def phase_small_vs_plain(scene):
     return result
 
 
+def radiance(npz):
+    import numpy as np
+
+    with np.load(npz) as z:
+        return z["radiance"]
+
+
+def phase_checkpoint(scan):
+    """The checkpointed CLI at full size: to 2 spp, resumed to 4, against 4
+    spp without interruption and against the scan path (`scan`: phase 6's
+    image and counts)."""
+    import numpy as np
+
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    ck, whole = OUT / "ck.npz", OUT / "ck_whole.npz"
+    for f in (ck, whole):
+        f.unlink(missing_ok=True)
+
+    def argv(name, path, spp):
+        return flagship_argv() + [
+            "--spp", str(spp), "--checkpoint", str(path), "--checkpoint-every", "2",
+            "--output", str(OUT / f"{name}.png"), "--npz", str(OUT / f"{name}.npz")]
+
+    first, c1 = run_cli(argv("ck_first", ck, 2))
+    resumed, c2 = run_cli(argv("ck_resumed", ck, 4) + ["--resume"])
+    straight, c3 = run_cli(argv("ck_straight", whole, 4))
+    a, b = radiance(OUT / "ck_resumed.npz"), radiance(OUT / "ck_straight.npz")
+    if a.shape != scan["image"].shape or not np.array_equal(a, b):
+        raise RuntimeError("the resumed render differs from the uninterrupted one: "
+                           f"{int((a != b).sum())} values")
+    frac, dmean = compare_images(a, scan["image"], "checkpointed vs scan image")
+    launches = {k: c1[k] + c2[k] for k in ("steps", "mm_launches", "cull_launches")}
+    for got in (launches, c3):
+        for k in ("steps", "mm_launches", "cull_launches"):
+            if got[k] != scan["counts"]["steps"]:
+                raise RuntimeError(f"checkpointed render: {k} {got[k]}, the scan "
+                                   f"path made {scan['counts']['steps']}")
+    # one write of the 1280x720 state, timed alone
+    state, seed, meta = load_checkpoint(str(ck), "cuda")
+    if state.spp != 4:
+        raise RuntimeError(f"the checkpoint holds {state.spp} spp")
+    t0 = time.perf_counter()
+    save_checkpoint(str(OUT / "ck_copy.npz"), state, seed, meta=meta)
+    write_s = time.perf_counter() - t0
+    # another --fov: refused with exit code 2, the file left as it was
+    before = ck.read_bytes()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv("ck_refused", ck, 6) + ["--resume", "--fov", "50"])
+    if rc != 2 or "camera:" not in err.getvalue() or ck.read_bytes() != before:
+        raise RuntimeError(f"a resume with another --fov returned {rc}")
+    log(f"[10] checkpointed CLI: to 2 spp {first['seconds']} s, resumed to 4 spp "
+        f"{resumed['seconds']} s, 4 spp without interruption {straight['seconds']} s "
+        f"(one checkpoint write {write_s:.3f} s); resumed and uninterrupted images "
+        f"bit-equal; vs scan {frac:.5f} of pixels differ by > 1e-3, means by "
+        f"{dmean:.2e}; launches per 4 spp: mm_closest_hit {c3['mm_launches']}, "
+        f"cull_tiles {c3['cull_launches']}; another --fov exits 2")
+    return dict(first_s=first["seconds"], resumed_s=resumed["seconds"],
+                straight_s=straight["seconds"], write_s=write_s, counts=c3,
+                vs_scan_divergent=frac, vs_scan_mean_diff=dmean)
+
+
+def phase_progressive(scene, scan_image, depth=32):
+    """Four accumulate_wavefront steps of 1 spp at the size of `scan_image`
+    (phase 6's, 1280x720) against four accumulate steps, step for step."""
+    import torch
+
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+
+    h, w = scan_image.shape[:2]
+    cfg, cam = RenderConfig(max_depth=depth), Camera.reset()
+    means = {}
+    record = {}
+    for name in ("scan", "wavefront"):
+        state = tpipe.init_accum(w, h, scene.device)
+        means[name], rays, secs = [], 0, []
+        with counted_path() as counts:
+            for _ in range(4):
+                t0 = time.perf_counter()
+                if name == "scan":
+                    state = tpipe.accumulate(state, scene, cam, w, h, 1, 0, cfg)
+                else:
+                    state, r = tpipe.accumulate_wavefront(state, scene, cam, w, h, 1,
+                                                          0, cfg, pool_size=POOL)
+                    rays += r
+                means[name].append(tpipe.to_image(state, clamp=False).cpu().numpy())
+                secs.append(time.perf_counter() - t0)
+        if state.spp != 4:
+            raise RuntimeError(f"{name}: {state.spp} spp after four steps")
+        record[name] = dict(step_s=secs, rays=rays, counts=counts)
+    worst = (0.0, 0.0)
+    for k, (a, b) in enumerate(zip(means["wavefront"], means["scan"])):
+        worst = max(worst, compare_images(a, b, f"progressive step {k + 1}"))
+    # the samples are 0..3, not four times sample 0: the mean after four
+    # steps is the scan path's 4-spp image, and step 2 added another sample
+    frac, dmean = compare_images(means["wavefront"][3], scan_image,
+                                 "progressive wavefront vs scan image")
+    first, second = means["wavefront"][0], 2 * means["wavefront"][1] - means["wavefront"][0]
+    if float(abs(first - second).mean()) < 1e-3:
+        raise RuntimeError("step 2 repeated step 1's sample")
+    wf = record["wavefront"]
+    log(f"[11] progressive wavefront: 4 steps of 1 spp in "
+        + ", ".join(f"{t:.3f}" for t in wf["step_s"]) + f" s, {wf['rays']} rays, "
+        f"launches: mm_closest_hit {wf['counts']['mm_launches']}, cull_tiles "
+        f"{wf['counts']['cull_launches']}; accumulate steps in "
+        + ", ".join(f"{t:.3f}" for t in record["scan"]["step_s"]) + " s; step for "
+        f"step at most {worst[0]:.5f} of pixels differ by > 1e-3, means by "
+        f"{worst[1]:.2e}; after 4 steps vs the scan image {frac:.5f}, {dmean:.2e}")
+    torch.cuda.empty_cache()
+    return dict(record, worst_divergent=worst[0], worst_mean_diff=worst[1],
+                vs_scan_divergent=frac)
+
+
+VIEWER_FRAMES, VIEWER_KEY_AFTER, VIEWER_STEADY_FROM = 60, 30, 10
+
+
+def phase_viewer(scene, child_argv=()):
+    """The viewer at its defaults: its loop in this process on a counted
+    path, then the program itself in a child under a pty (`child_argv`:
+    further arguments for it)."""
+    import os
+    import pty
+    import re
+    import statistics
+    import threading
+
+    import numpy as np
+
+    from metalpathtracer_torch import viewer
+    from metalpathtracer_torch.render import pipeline as tpipe
+
+    size = VIEWER_SIZE
+    counted_frames, plain_frames = 5, 10
+
+    def step_frames(loop, first, n):
+        dts = []
+        for k in range(first, first + n):
+            t0 = time.perf_counter()
+            if not loop.step(lambda: []) or loop.shown_spp != k:
+                raise RuntimeError(f"viewer loop: frame {k} shows "
+                                   f"{loop.shown_spp} spp")
+            dts.append(time.perf_counter() - t0)
+        return dts
+
+    with counted_path() as counts:
+        loop, display = viewer_loop(scene)
+        with SyncCounter() as syncs:
+            dt_counted = step_frames(loop, 1, counted_frames)
+        fifth, last_shown = loop.state, display.last
+        dt_plain = step_frames(loop, counted_frames + 1, plain_frames)
+    if last_shown.shape != (size[1], size[0], 3) or not np.array_equal(
+            last_shown, viewer._srgb_u8(fifth).cpu().numpy()):
+        raise RuntimeError("viewer loop: the frame shown is not its accumulation")
+    want = tpipe.init_accum(*size, scene.device)
+    for _ in range(counted_frames):
+        want = tpipe.accumulate(want, scene, loop.cam, *size, 1, loop.seed, loop.cfg)
+    frac, dmean = compare_images(tpipe.to_image(fifth, clamp=False).cpu().numpy(),
+                                 tpipe.to_image(want, clamp=False).cpu().numpy(),
+                                 "viewer frame 5 vs five accumulate steps")
+    dispatched = loop.state.spp
+    log(f"[12] viewer loop in process at {size[0]}x{size[1]}, depth {VIEWER_DEPTH}: "
+        f"{dispatched} frames, launches: mm_closest_hit {counts['mm_launches']}, "
+        f"cull_tiles {counts['cull_launches']} "
+        f"({counts['mm_launches'] / dispatched:.1f} per frame); frame 5 vs five "
+        f"accumulate steps: {frac:.5f} of pixels differ by > 1e-3, means by "
+        f"{dmean:.2e}; frames 2-5 with synchronising calls counted "
+        f"{statistics.median(dt_counted[1:]):.3f} s each (median), frames 6-15 "
+        f"without {statistics.median(dt_plain):.3f} s; "
+        f"{syncs.count / counted_frames:.1f} synchronising calls per frame, by "
+        "source line: " + ", ".join(
+            f"{site} {n / counted_frames:.1f}" for site, n in
+            sorted(syncs.sites.items(), key=lambda kv: -kv[1])[:12]))
+
+    master, slave = pty.openpty()
+    env = dict(os.environ, MPT_VIEWER_TRACE="1", PYTHONPATH=str(ROOT))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "metalpathtracer_torch.viewer", "--scene",
+         str(ROOT / "scenes" / "reference.xml"), "--max-frames", str(VIEWER_FRAMES),
+         "--no-mouse", *child_argv],
+        stdin=slave, stdout=slave, stderr=subprocess.PIPE, close_fds=True,
+        cwd=str(ROOT), env=env)
+    os.close(slave)
+    lines, shown = [], dict(bytes=0, blocks=False, statuses=[])
+    key_sent = threading.Event()
+
+    def drain_stderr():
+        for raw in child.stderr:
+            line = raw.decode(errors="replace").rstrip()
+            lines.append(line)
+            if line.startswith(f"frame {VIEWER_KEY_AFTER}:") and not key_sent.is_set():
+                key_sent.set()
+                os.write(master, b"w")
+
+    def drain_pty():
+        while True:
+            try:
+                data = os.read(master, 1 << 20)
+            except OSError:
+                return
+            if not data:
+                return
+            shown["bytes"] += len(data)
+            shown["blocks"] |= "▀".encode() in data
+            shown["statuses"] += re.findall(rb"(\d+) spp \|", data)
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (drain_stderr, drain_pty)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        rc = child.wait(timeout=420)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        # with the child gone the pty's read fails and its thread ends
+        for th in threads:
+            th.join(timeout=30)
+        os.close(master)
+    wall = time.perf_counter() - t0
+    (OUT / "viewer_stderr.txt").write_text("\n".join(lines))
+    pat = re.compile(r"frame (\d+): dispatch ([\d.]+)s poll ([\d.]+)s fetch ([\d.]+)s "
+                     r"dt ([\d.]+)s spp (\d+) mm (\d+) cull (\d+)$")
+    frames = [tuple(float(v) for v in m.groups())
+              for m in map(pat.match, lines) if m]
+    if rc != 0 or len(frames) != VIEWER_FRAMES:
+        raise RuntimeError(f"viewer child: exit code {rc}, {len(frames)} frames; "
+                           + " | ".join(lines[-5:]))
+    # the writer is latest-wins: how many frames reach the terminal is the
+    # terminal's rate, so only that it drew at all is held
+    if not key_sent.is_set() or not shown["blocks"]:
+        raise RuntimeError(f"viewer child: key sent {key_sent.is_set()}, drew "
+                           f"{shown['blocks']}, {shown['bytes']} bytes")
+    spp = [int(f[5]) for f in frames]
+    reset_at = [k for k in range(1, len(spp)) if spp[k] == 1]
+    # one key: one reset, after the key's frame, from a count that had grown
+    if (len(reset_at) != 1 or not VIEWER_KEY_AFTER < reset_at[0] <= VIEWER_KEY_AFTER + 4
+            or spp[:reset_at[0]] != list(range(1, reset_at[0] + 1))
+            or spp[reset_at[0]:] != list(range(1, len(spp) - reset_at[0] + 1))):
+        raise RuntimeError(f"viewer child: displayed spp {spp}")
+    steady = [f for f in frames if f[0] >= VIEWER_STEADY_FROM]
+    fps = len(steady) / sum(f[4] for f in steady)
+    dts = sorted(f[4] for f in steady)
+    rec = dict(
+        frames=len(frames), wall_s=wall, fps=fps, dt_median_s=statistics.median(dts),
+        dt_min_s=dts[0], dt_max_s=dts[-1], reset_at_frame=reset_at[0],
+        reset_frame_dt_s=frames[reset_at[0]][4],
+        mm_launches_per_frame=statistics.median(f[6] for f in steady),
+        cull_launches_per_frame=statistics.median(f[7] for f in steady),
+        pty_bytes=shown["bytes"], statuses_seen=len(shown["statuses"]))
+    if min(rec["mm_launches_per_frame"], rec["cull_launches_per_frame"]) < 1:
+        raise RuntimeError(f"viewer child: a frame launched no kernel: {rec}")
+    log(f"[12] viewer child under a pty: {len(frames)} frames at {size[0]}x{size[1]}, "
+        f"depth {VIEWER_DEPTH}, "
+        f"1 spp per frame in {wall:.1f} s with start-up; frames "
+        f"{VIEWER_STEADY_FROM} on: {fps:.3f} "
+        f"frames per second (dt median {rec['dt_median_s']:.3f} s, "
+        f"{dts[0]:.3f}-{dts[-1]:.3f} s); per frame: mm_closest_hit "
+        f"{rec['mm_launches_per_frame']:g} launches, cull_tiles "
+        f"{rec['cull_launches_per_frame']:g}; the key "
+        f"after frame {VIEWER_KEY_AFTER} reset the display to 1 spp at frame "
+        f"{reset_at[0]} (that frame's dt {rec['reset_frame_dt_s']:.3f} s); "
+        f"{shown['bytes'] / 1e6:.1f} MB reached the terminal, "
+        f"{len(shown['statuses'])} whole frames with their status line")
+    rec["loop"] = dict(
+        counts=counts, frames=dispatched, syncs_per_frame=syncs.count / counted_frames,
+        dt_counted_s=dt_counted, dt_plain_s=dt_plain, vs_accumulate_divergent=frac,
+        vs_accumulate_mean_diff=dmean)
+    return rec
+
+
+def phase_bvh(sets, n_each, chunk):
+    """closest_hit_bvh against the brute oracle and beside
+    closest_hit_mm_full on phase 3's rays, and a CLI render through it. The
+    reference scene is uploaded once more, with its BVH, which no other
+    phase reads."""
+    import torch
+
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.traverse import closest_hit_bvh
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    host = load_scene_xml(str(ROOT / "scenes" / "reference.xml"))
+    t0 = time.perf_counter()
+    upload_scene(host, "cuda")
+    bare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = upload_scene(host, "cuda", bvh=True)
+    upload_s = time.perf_counter() - t0
+    log(f"[13] reference scene built and uploaded in {bare_s:.2f} s without its "
+        f"BVH, {upload_s:.2f} s with it")
+    o, d = oracle_rays(sets, n_each)
+    before = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    closest_hit_bvh(scene, o[:1024], d[:1024])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t1, i1 = closest_hit_bvh(scene, o, d, T_MIN)
+    torch.cuda.synchronize()
+    bvh_ms = (time.perf_counter() - t0) * 1e3
+    if (tmm.mm_closest_hit.launches, tmm.cull_tiles.launches) != before:
+        raise RuntimeError("closest_hit_bvh launched a tile kernel")
+    mm_ms = call_ms(lambda: tmm.closest_hit_mm_full(scene, o, d, T_MIN), 5)
+    t0_, i0 = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=chunk)
+    what = f"BVH walk vs brute oracle ({scene.num_tris} triangles)"
+    n_mis, n_tie, n_edge = judge_mismatches(scene, o, d, i1, t1, i0, t0_, what)
+    same = (i1 == i0) & torch.isfinite(t0_)
+    err = (t1[same] - t0_[same]).abs()
+    if not bool((err <= T_RTOL * t0_[same].abs() + T_ATOL).all()):
+        raise RuntimeError(f"{what}: t off by {float(err.max())}")
+    log(f"[13] {what}, {o.shape[0]} rays (stack of {scene.max_depth + 2}, "
+        f"{scene.node_a.shape[0]} nodes): {int((i0 >= 0).sum())} hits, {n_mis} "
+        f"differ, max |dt| {float(err.max()):.3g}; the walk {bvh_ms:.1f} ms, "
+        f"closest_hit_mm_full {mm_ms:.3f} ms per call on the same rays")
+
+    images = {}
+    seconds = {}
+    for kind in ("bvh", "mm"):
+        argv = ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", "320",
+                "--height", "180", "--spp", "2", "--max-depth", "8", "--device", "cuda",
+                "--stats-json", "--intersector", kind, "--output",
+                str(OUT / f"small_{kind}.png"), "--npz", str(OUT / f"small_{kind}.npz")]
+        launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise RuntimeError(f"cli.main --intersector {kind} returned {rc}")
+        ran = tmm.mm_closest_hit.launches - launches[0]
+        if (ran > 0) != (kind == "mm"):
+            raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
+        seconds[kind] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
+        images[kind] = check_image(OUT / f"small_{kind}.npz", (180, 320, 3))
+    frac, dmean = compare_images(images["bvh"], images["mm"], "bvh vs mm render")
+    log(f"[13] cli --intersector bvh 320x180 spp 2 depth 8: {seconds['bvh']} s "
+        f"(mm: {seconds['mm']} s); {frac:.5f} of pixels differ by > 1e-3, means by "
+        f"{dmean:.2e}; no tile kernel launched")
+    return dict(rays=o.shape[0], mismatches=n_mis, max_abs_err=float(err.max()),
+                walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds,
+                upload_s=upload_s, upload_without_bvh_s=bare_s,
+                render_divergent=frac, render_mean_diff=dmean)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1004,11 +1492,18 @@ def main(argv=None) -> int:
 
     ref_sets = primary_and_bounce(scene, 1280, 720)
     mm_pool, cull_pool = capture_pool_call()
+    of_viewer = capture_viewer_calls(scene)
     sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
     sets["pool"] = captured_set(mm_pool, cull_pool[1])
-    log(f"[2] mm_closest_hit vs twin, reference scene: 921,600 rays, and the "
+    # the drain's lanes are the longest paths: they may all be among spheres
+    for k, (mm_args, cull_args) in of_viewer.items():
+        sets[k] = captured_set(mm_args, cull_args[1],
+                               min_hits=0 if k == "viewer_drain" else 1)
+    log(f"[2] mm_closest_hit vs twin, reference scene: 921,600 rays, the "
         f"{mm_pool[3].shape[0]} lanes of call {CAPTURE_CALL} of the flagship "
-        f"wavefront render")
+        f"wavefront render, and of a viewer frame the "
+        + " and ".join(str(v[0][3].shape[0]) for v in of_viewer.values())
+        + " lanes of a pool call and a drain call")
     kvt = phase_kernel_vs_twin(scene, sets)
     log("[3] the kernel path vs the brute oracle")
     oracle = phase_oracle(scene, ref_sets, 32768, chunk=1024)
@@ -1018,7 +1513,8 @@ def main(argv=None) -> int:
                 for k, s in big.items()}
     log("[4] cull_tiles vs its plain version")
     cull_sets = {"reference_primary": cull_args_of(scene, *ref_sets["primary"]),
-                 "reference_pool": cull_pool}
+                 "reference_pool": cull_pool,
+                 **{f"reference_{k}": v[1] for k, v in of_viewer.items()}}
     for k, lsets in leg_sets.items():
         cull_sets[f"{k}_bounce1"] = cull_args_of(big[k], *lsets["bounce1"])
     cull = {k: phase_cull(k, v, sass) for k, v in cull_sets.items()}
@@ -1048,31 +1544,45 @@ def main(argv=None) -> int:
         log(f"[A] both kernels built from {args.against} and from this checkout")
         against = phase_against(Path(args.against).resolve(),
                                 {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets})
-    del leg_sets, sets, sets256, mm_sets, mm_pool, cull_pool, cull_sets
+    del leg_sets, sets, sets256, mm_sets, mm_pool, cull_pool, cull_sets, of_viewer
 
     paths = phase_paths(args.profile)
     legs = phase_legs(big, args.profile)
     small = phase_small_vs_plain(scene)
+    scan = dict(image=paths["scan"].pop("image"), counts=paths["scan"]["counts"])
+    checkpointed = phase_checkpoint(scan)
+    progressive = phase_progressive(scene, scan["image"])
+    viewer = phase_viewer(scene)
+    bvh = phase_bvh(ref_sets, 32768, chunk=1024)
 
     main_path = paths["wavefront"]["counts"]
     mm, cl = kvt["pool"], cull["reference_pool"]  # the main path's shapes
+    # every counted path's launches, beside the main path's
+    per_path = {"scan": paths["scan"]["counts"], "wavefront": main_path,
+                **{k: v["counts"] for k, v in legs.items()},
+                "checkpointed": checkpointed["counts"],
+                "progressive_wavefront": progressive["wavefront"]["counts"],
+                "viewer_15_frames": viewer["loop"]["counts"]}
     kernels = {"kernels": [
         dict(name="mm_closest_hit", route="cuda", **KERNELS["mm_closest_hit"],
              launches=main_path["mm_launches"], max_abs_err=mm["max_abs_err"],
              ms=mm["ms"], call_ms=mm["call_ms"], plain_ms=mm["plain_ms"],
              bound_ms=mm["bound_ms"],
-             bound_by=mm["bound_by"], share=mm["share"], library_ms=None),
+             bound_by=mm["bound_by"], share=mm["share"], library_ms=None,
+             launches_by_path={k: v["mm_launches"] for k, v in per_path.items()}),
         dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
              launches=main_path["cull_launches"], max_abs_err=cl["max_abs_err"],
              ms=cl["ms"], call_ms=cl["call_ms"], plain_ms=cl["plain_ms"],
              bound_ms=cl["bound_ms"],
-             bound_by=cl["bound_by"], share=cl["share"], library_ms=None),
+             bound_by=cl["bound_by"], share=cl["share"], library_ms=None,
+             launches_by_path={k: v["cull_launches"] for k, v in per_path.items()}),
     ]}
     summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
                    mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
                    oracle_tile_p256=oracle256, sweep=sweep, paths=paths, legs=legs,
-                   small_vs_plain=small,
+                   small_vs_plain=small, checkpointed=checkpointed,
+                   progressive=progressive, viewer=viewer, bvh=bvh,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {summary['total_s']:.1f} s")

@@ -1,1 +1,1 @@
-"""Render output: the PNG writer."""
+"""Render output: the PNG writer and progressive checkpoints."""

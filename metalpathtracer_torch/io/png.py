@@ -1,4 +1,4 @@
-"""Minimal dependency-free PNG encoder for render output.
+"""Minimal dependency-free PNG encoder (and reader) for render output.
 
 Copy of `metalpathtracer_tpu/io/png.py` (numpy only): the JAX package's
 `io/__init__` also loads its checkpoint module, which imports jax, so the
@@ -51,3 +51,42 @@ def write_png(path: str, img: np.ndarray, srgb: bool = True) -> None:
     )
     with open(path, "wb") as f:
         f.write(png)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read back an 8-bit RGB PNG written by `write_png` (tests/round-trip
+    only: no interlace, no palette, filter-0 scanlines)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos = 8
+    w = h = None
+    idat = b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        tag = data[pos + 4 : pos + 8]
+        payload = data[pos + 8 : pos + 8 + length]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", payload[:10])
+            if depth != 8 or ctype != 2:
+                raise ValueError("only 8-bit RGB supported")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    stride = w * 3 + 1
+    rows = []
+    prev = np.zeros(w * 3, np.uint8)
+    for y in range(h):
+        line = raw[y * stride : (y + 1) * stride]
+        filt, body = line[0], np.frombuffer(line[1:], np.uint8).copy()
+        if filt == 0:
+            row = body
+        elif filt == 2:  # Up
+            row = (body + prev).astype(np.uint8)
+        else:
+            raise ValueError(f"unsupported PNG filter {filt}")
+        rows.append(row)
+        prev = row
+    return np.stack(rows).reshape(h, w, 3)

@@ -2,8 +2,10 @@
 
 Port of `metalpathtracer_tpu/render/device_scene.py`, holding only what the
 render path reads: the primitive SoA and `geom_table` (brute oracle), the
-material bank, the closest-hit tables, the wavefront's coarse boxes, the
-sphere SoA and the light table. The BVH is not ported yet.
+material bank, the linearized BVH of the study intersector
+(`render/traverse.py`; built only on request, since no other path reads
+it), the closest-hit tables, the wavefront's coarse boxes, the sphere SoA
+and the light table.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from metalpathtracer_torch.accel.bvh import build_bvh
 from metalpathtracer_torch.render.kernels.intersect_mm import (
     TILE_P_LARGE,
     TILE_P_SMALL,
@@ -33,6 +36,13 @@ class TorchScene:
     # materials: distinct rows [albedo(3), type, emission(3), power, fuzz, 0...]
     mat_bank: torch.Tensor  # float32 (M, 16), M padded to 8
     prim_mat_id: torch.Tensor  # int32 (P,)
+    # linearized BVH (accel/bvh.py): node i owns row i, the root is node 0;
+    # no rows (and max_depth 0) on a scene uploaded without its BVH
+    node_lo: torch.Tensor  # float32 (M, 3)
+    node_hi: torch.Tensor  # float32 (M, 3)
+    node_a: torch.Tensor  # int32 (M,) leaf: first slot; internal: left child
+    node_b: torch.Tensor  # int32 (M,) leaf: +count; internal: -right child
+    prim_indices: torch.Tensor  # int32 (P,) leaf slots -> primitives
     # closest-hit tables (render/kernels/intersect_mm.build_weights)
     mm_w: torch.Tensor  # float32 (n_tiles, tile_p, 16) compact weight slab
     mm_tri_ids: torch.Tensor  # int32 (n_tiles*tile_p,) column -> primitive
@@ -58,6 +68,7 @@ class TorchScene:
     light_pick_p: torch.Tensor  # float32 (L,)
     light_cdf: torch.Tensor  # float32 (L,) inclusive CDF of pick_p
     prim_light_id: torch.Tensor  # int32 (P,) light row per prim, -1 if none
+    max_depth: int  # deepest BVH node (root = 1): bounds the traversal stack
     num_tris: int
     num_lights: int
 
@@ -160,21 +171,38 @@ def _build_light_table(packed: PackedScene) -> dict:
     )
 
 
-def _to_device(arrays: dict, num_tris: int, num_lights: int,
+def _to_device(arrays: dict, max_depth: int, num_tris: int, num_lights: int,
                device) -> TorchScene:
     return TorchScene(
         # np.array copies: tables from a JAX scene are read-only views
         **{k: torch.as_tensor(np.array(v), device=device)
            for k, v in arrays.items()},
+        max_depth=int(max_depth),
         num_tris=int(num_tris),
         num_lights=int(num_lights),
     )
 
 
-def upload_scene(host: PackedScene | HostScene, device) -> TorchScene:
-    """Pack the scene (if needed), build its tables and move them to
-    `device`."""
+def upload_scene(host: PackedScene | HostScene, device,
+                 bvh: bool = False) -> TorchScene:
+    """Pack the scene (if needed), build its tables, and move them to
+    `device`. The BVH is read by `intersector="bvh"` alone, and building it
+    costs more than every other table together on a large mesh: `bvh=True`
+    builds it, and without it the node tables stay empty (`closest_hit_bvh`
+    then raises)."""
     packed = host.pack() if isinstance(host, HostScene) else host
+    prim_indices = np.zeros(packed.num_padded, np.int32)
+    if bvh:
+        tree = build_bvh(packed)
+        prim_indices[: tree.prim_indices.shape[0]] = tree.prim_indices
+        nodes = dict(node_lo=tree.node_lo, node_hi=tree.node_hi,
+                     node_a=tree.node_a, node_b=tree.node_b)
+        bvh_depth = tree.max_depth
+    else:
+        nodes = dict(node_lo=np.zeros((0, 3), np.float32),
+                     node_hi=np.zeros((0, 3), np.float32),
+                     node_a=np.zeros(0, np.int32), node_b=np.zeros(0, np.int32))
+        bvh_depth = 0
     w = build_weights(packed.prim_type, packed.p0, packed.p1, packed.p2)
 
     p = packed.num_padded
@@ -213,6 +241,8 @@ def upload_scene(host: PackedScene | HostScene, device) -> TorchScene:
         geom_table=geom,
         mat_bank=mat_bank.astype(np.float32),
         prim_mat_id=prim_mat_id,
+        **nodes,
+        prim_indices=prim_indices,
         mm_w=w["w"],
         mm_tri_ids=w["tri_ids"],
         mm_refine=refine,
@@ -227,12 +257,12 @@ def upload_scene(host: PackedScene | HostScene, device) -> TorchScene:
             "pick_p", "cdf")},
         prim_light_id=lights["prim_light_id"],
     )
-    return _to_device(arrays, w["n_tris"], lights["n"], device)
+    return _to_device(arrays, bvh_depth, w["n_tris"], lights["n"], device)
 
 
 def scene_from_jax(arrays: dict, device) -> TorchScene:
     """The port's scene from a JAX `DeviceScene`'s arrays (field name ->
-    numpy array, plus the ints `num_tris` and `num_lights`).
+    numpy array, plus the ints `max_depth`, `num_tris` and `num_lights`).
     Every table is copied; the weight slab is rebuilt from p0/p1/p2 in
     `mm_tri_ids` column order in the port's compact f32 layout, since the
     JAX slab is a dense bf16 hi/lo split."""
@@ -247,6 +277,7 @@ def scene_from_jax(arrays: dict, device) -> TorchScene:
     if w.shape[0] != n_tiles:
         raise ValueError("mm_tri_ids does not match mm_tile_box")
     tables = {f.name: arrays[f.name] for f in dataclasses.fields(TorchScene)
-              if f.name not in ("mm_w", "num_tris", "num_lights")}
+              if f.name not in ("mm_w", "max_depth", "num_tris", "num_lights")}
     tables["mm_w"] = w
-    return _to_device(tables, arrays["num_tris"], arrays["num_lights"], device)
+    return _to_device(tables, arrays["max_depth"], arrays["num_tris"],
+                      arrays["num_lights"], device)

@@ -40,6 +40,7 @@ from metalpathtracer_torch.render.kernels.intersect_mm import (
     _cull_hit_mask,
     closest_hit_mm_full,
 )
+from metalpathtracer_torch.render.traverse import closest_hit_bvh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,9 @@ class RenderConfig:
     """Integrator configuration."""
 
     max_depth: int = 32
-    # closest-hit backend: "auto" and "mm" take the tile kernel,
-    # "brute" the brute-force oracle
+    # closest-hit backend: "auto" and "mm" take the tile kernels, "bvh" the
+    # lockstep BVH walk (a study path; "auto" never selects it), "brute"
+    # the brute-force oracle
     intersector: str = "auto"
     brute_chunk: int = 128
     # wavefront: reorder the pool by each lane's tile-set signature, so that
@@ -82,9 +84,12 @@ def _trace_rays(scene, o, d, cfg, active=None, occ_t=None):
     if kind in ("auto", "mm"):
         return closest_hit_mm_full(scene, o, d, T_MIN, active=active,
                                    occ_t=occ_t)
-    if kind != "brute":
+    if kind == "bvh":
+        t, idx = closest_hit_bvh(scene, o, d, T_MIN)
+    elif kind == "brute":
+        t, idx = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=cfg.brute_chunk)
+    else:
         raise ValueError(f"unknown intersector {cfg.intersector!r}")
-    t, idx = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=cfg.brute_chunk)
     geom_row = scene.geom_table[idx.clamp(min=0).to(torch.int64)]
     _, normal, front_face = surface_interaction_packed(geom_row, o, d, t)
     return (t, idx, normal, front_face, None,
@@ -377,9 +382,12 @@ def _tileset_key(scene, o, d, alive):
 
 def trace_wavefront(scene, camera, width, height, spp, seed,
                     cfg: RenderConfig = DEFAULT_CONFIG,
-                    pool_size: int | None = None):
+                    pool_size: int | None = None,
+                    sample_offset: int = 0):
     """Persistent-wavefront path tracing with lane regeneration. `seed` is
-    the u32 seed word.
+    the u32 seed word; the samples traced are `sample_offset` ..
+    `sample_offset + spp - 1` of every pixel (a progressive render passes
+    the samples it already holds).
 
     A fixed pool of lanes works through the queue of work items, each
     `bank_k` adjacent pixels x `spb` samples. When a path ends, its radiance
@@ -441,7 +449,8 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
 
     def pix_samp_of(item, schunk):
         pixel = (item % groups) * bank_k + schunk // spb
-        sample = (item // groups) * spb + schunk % spb
+        # int64; the RNG wraps it to a u32 word
+        sample = (item // groups) * spb + schunk % spb + sample_offset
         return pixel, sample
 
     def ray_for(item, schunk):

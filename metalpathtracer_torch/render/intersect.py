@@ -1,10 +1,10 @@
 """Ray-primitive intersection oracles, vectorized over (ray, primitive) blocks.
 
 Port of `metalpathtracer_tpu/render/intersect.py`: the exact sphere
-quadratic and Moller-Trumbore tests, the chunked brute-force closest hit,
-and the surface frame of a hit. Together they are the brute oracle the
-closest-hit kernel is tested against. Epsilons: ray t_min 1e-4, triangle
-parallel test 1e-5.
+quadratic and Moller-Trumbore tests, the slab test of the BVH walk, the
+chunked brute-force closest hit, and the surface frame of a hit. Together
+they are the brute oracle the closest-hit kernel is tested against.
+Epsilons: ray t_min 1e-4, triangle parallel test 1e-5.
 """
 
 from __future__ import annotations
@@ -69,6 +69,24 @@ def ray_triangle(o, d, v0, v1, v2, t_min=T_MIN):
         & (t > t_min)
     )
     return torch.where(ok, t, INF)
+
+
+def ray_aabb(o, inv_d, box_lo, box_hi, t_min, t_max):
+    """Slab test of rays against boxes, broadcastable over (..., 3);
+    `t_max` is the ray's current closest hit. Returns bool.
+
+    0 * inf = NaN when a direction component is 0 and the origin lies on
+    the box plane; such an axis does not constrain the interval, so that
+    axis-parallel rays do not falsely miss."""
+    t0 = (box_lo - o) * inv_d
+    t1 = (box_hi - o) * inv_d
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    lo = torch.where(torch.isnan(lo), -INF, lo)
+    hi = torch.where(torch.isnan(hi), INF, hi)
+    enter = torch.clamp(lo.amax(dim=-1), min=t_min)
+    exit_ = torch.minimum(hi.amin(dim=-1), t_max)
+    return exit_ > enter
 
 
 def intersect_prims_block(o, d, prim_type, p0, p1, p2, t_min=T_MIN):

@@ -1,12 +1,20 @@
-"""Rendering pipeline: ray generation and sample batching.
+"""Rendering pipeline: ray generation, sample batching, progressive state.
 
-Port of `generate_rays`, `render_tile`, `render_image` and
-`render_image_wavefront` from `metalpathtracer_tpu/render/pipeline.py`.
-Samples of a pass are traced one after another and summed; passes split
-spp as the reference does, so the sums are taken in the same order.
+Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays`,
+`render_tile`, `render_image`, `render_image_wavefront`, and the
+progressive state `AccumState` with `init_accum`, `accumulate`,
+`accumulate_wavefront` and `to_image`. Samples of a pass are traced one
+after another and summed; passes split spp as the reference does, so the
+sums are taken in the same order.
+
+Progressive accumulation keeps `(rgb_sum, spp)`, not a running average, so
+a resumed render adds exactly what an uninterrupted one adds; the division
+and the display clamp happen in `to_image`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -62,8 +70,9 @@ def render_tile(scene, camera, width, height, pixel_id, sample_ids, seed, cfg):
 
 def render_image(scene, camera: Camera, width: int, height: int, spp: int,
                  seed: int = 0, cfg: RenderConfig = DEFAULT_CONFIG,
-                 spp_per_pass: int | None = None):
-    """Render a full image on the scene's device. Returns (image (H, W, 3)
+                 spp_per_pass: int | None = None, sample_offset: int = 0):
+    """Render a full image on the scene's device: samples `sample_offset`
+    .. `sample_offset + spp - 1` of every pixel. Returns (image (H, W, 3)
     float32 linear mean, rays_traced int)."""
     if spp <= 0:
         raise ValueError(f"spp must be positive, got {spp}")
@@ -77,7 +86,7 @@ def render_image(scene, camera: Camera, width: int, height: int, spp: int,
     done = 0
     while done < spp:
         k = min(spp_per_pass, spp - done)
-        sample_ids = list(range(done, done + k))
+        sample_ids = range(sample_offset + done, sample_offset + done + k)
         part, r = render_tile(scene, camera, width, height, pixel_id,
                               sample_ids, seed_u32, cfg)
         rgb = rgb + part.reshape(height, width, 3)
@@ -108,3 +117,73 @@ def render_image_wavefront(scene, camera: Camera, width: int, height: int,
     if return_stats:
         return img, rays, stats
     return img, rays
+
+
+# ---------------------------------------------------------------------------
+# Progressive accumulation: an explicit state that can be checkpointed
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AccumState:
+    """`rgb_sum` lives on the render device; `spp` is a host int, so that
+    reading it never waits for the device. A checkpoint stores it as the
+    reference's int32 scalar (`io/checkpoint.py`)."""
+
+    rgb_sum: torch.Tensor  # float32 (H, W, 3) sum of per-sample radiance
+    spp: int  # samples accumulated so far
+
+
+def init_accum(width: int, height: int, device) -> AccumState:
+    return AccumState(
+        rgb_sum=torch.zeros((height, width, 3), dtype=torch.float32,
+                            device=device),
+        spp=0,
+    )
+
+
+def accumulate(state: AccumState, scene, camera: Camera, width: int,
+               height: int, n_samples: int, seed,
+               cfg: RenderConfig = DEFAULT_CONFIG) -> AccumState:
+    """Add `n_samples` new samples to the progressive state; `seed` is the
+    u32 seed word. The sample counter doubles as the RNG sample id, so a
+    camera change is just a fresh `init_accum`. Returns a new state: the
+    one passed in is not modified and stays valid."""
+    pixel_id = torch.arange(width * height, dtype=torch.int64,
+                            device=scene.device)
+    sample_ids = range(state.spp, state.spp + n_samples)
+    rgb_sum, _ = render_tile(scene, camera, width, height, pixel_id,
+                             sample_ids, seed, cfg)
+    return AccumState(
+        rgb_sum=state.rgb_sum + rgb_sum.reshape(height, width, 3),
+        spp=state.spp + n_samples,
+    )
+
+
+def accumulate_wavefront(state: AccumState, scene, camera: Camera, width: int,
+                         height: int, n_samples: int, seed,
+                         cfg: RenderConfig = DEFAULT_CONFIG,
+                         pool_size: int | None = None):
+    """`accumulate` on the persistent-wavefront integrator, the interactive
+    front end's path: sample ids continue at `state.spp` (`sample_offset`),
+    so progressive estimates match the scan route's up to addition order.
+    Returns (new state, rays_traced int); the state passed in is not
+    modified."""
+    fb, rays, _ = trace_wavefront(
+        scene, camera, width, height, n_samples, seed, cfg, pool_size,
+        sample_offset=state.spp,
+    )
+    return (
+        AccumState(
+            rgb_sum=state.rgb_sum + fb.reshape(height, width, 3),
+            spp=state.spp + n_samples,
+        ),
+        rays,
+    )
+
+
+def to_image(state: AccumState, clamp: bool = True) -> torch.Tensor:
+    """Resolve the progressive state to a linear image: the running mean,
+    clamped to [0, 1] for display unless `clamp` is off."""
+    img = state.rgb_sum / float(max(state.spp, 1))
+    return torch.clamp(img, 0.0, 1.0) if clamp else img

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
 kernel (also against the brute-force oracle) and the tile cull, and the
-wavefront integrator on the card. These tests need an NVIDIA card (sm_90a)
+wavefront integrator, the progressive path (checkpointed CLI, progressive
+wavefront, the viewer's frames) and the BVH study path on the card. These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
 without JAX:
 
@@ -16,7 +17,12 @@ reads only t). Ties between identical triangles are exact on both sides:
 the lowest column, then the earliest list position. The cull kernel and its twin compute
 the same IEEE operations in the same order, and reduce over sets whose
 order does not matter: bit-equal (torch.equal, which holds -0 == +0). Wavefront vs scan on
-the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6.
+the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6; the same for
+`accumulate_wavefront` vs `accumulate`. A resumed checkpointed render vs the
+uninterrupted one: bit-equal (the same passes in the same order). The BVH
+walk vs the brute oracle: the same per-pair arithmetic, so bit-equal t and
+equal primitives; its render vs `mm`'s: under 2% of pixels differ by > 1e-3,
+means within 5e-3.
 """
 
 import os
@@ -30,7 +36,9 @@ from metalpathtracer_torch.render.device_scene import upload_scene
 from metalpathtracer_torch.render.integrator import RenderConfig
 from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
 from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+from metalpathtracer_torch.render import pipeline as tpipe
 from metalpathtracer_torch.render.pipeline import render_image, render_image_wavefront
+from metalpathtracer_torch.render.traverse import closest_hit_bvh
 from metalpathtracer_torch.scene import load_scene_xml, presets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -364,3 +372,114 @@ def test_wavefront_on_card_matches_scan(scene):
     assert tmm.cull_tiles.launches > launches[1]
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
     assert ra == rb
+
+
+def _launches():
+    return tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+
+
+def test_checkpointed_cli_on_card_resumes_bit_equal(scene, tmp_path, capsys):
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.io.checkpoint import load_checkpoint
+
+    def argv(out, ck, npz):
+        return ["--scene", os.path.join(REPO, "scenes", "reference.xml"), "--width",
+                "64", "--height", "36", "--max-depth", "6", "--device", "cuda",
+                "--output", str(tmp_path / out), "--checkpoint", str(tmp_path / ck),
+                "--checkpoint-every", "2", "--npz", str(tmp_path / npz)]
+
+    before = _launches()
+    assert cli.main(argv("a.png", "ck.npz", "a.npz") + ["--spp", "2"]) == 0
+    assert cli.main(argv("a.png", "ck.npz", "a.npz") + ["--spp", "4", "--resume"]) == 0
+    state, _, _ = load_checkpoint(str(tmp_path / "ck.npz"), "cuda")
+    assert state.spp == 4 and state.rgb_sum.is_cuda
+    assert cli.main(argv("b.png", "ck2.npz", "b.npz") + ["--spp", "4"]) == 0
+    after = _launches()
+    assert after[0] > before[0] and after[1] > before[1]
+    with np.load(tmp_path / "a.npz") as a, np.load(tmp_path / "b.npz") as b:
+        assert np.array_equal(a["radiance"], b["radiance"])
+        assert a["radiance"].mean() > 0.05
+    saved = (tmp_path / "ck.npz").read_bytes()
+    capsys.readouterr()
+    assert cli.main(argv("c.png", "ck.npz", "c.npz")
+                    + ["--spp", "6", "--resume", "--fov", "50"]) == 2
+    assert "camera:" in capsys.readouterr().err
+    assert (tmp_path / "ck.npz").read_bytes() == saved
+
+
+def test_accumulate_wavefront_on_card_matches_accumulate(scene):
+    cfg = RenderConfig(max_depth=6)
+    cam = Camera.reset()
+    scan = wave = tpipe.init_accum(64, 36, "cuda")
+    for step in range(4):
+        before = _launches()
+        scan = tpipe.accumulate(scan, scene, cam, 64, 36, 1, 7, cfg)
+        wave, rays = tpipe.accumulate_wavefront(wave, scene, cam, 64, 36, 1, 7, cfg,
+                                                pool_size=256)
+        assert min(a - b for a, b in zip(_launches(), before)) >= 2
+        assert wave.spp == scan.spp == step + 1 and wave.rgb_sum.is_cuda
+        torch.testing.assert_close(tpipe.to_image(wave, clamp=False),
+                                   tpipe.to_image(scan, clamp=False),
+                                   rtol=1e-5, atol=1e-6)
+        _, scan_rays = render_image(scene, cam, 64, 36, 1, seed=7, cfg=cfg,
+                                    sample_offset=step)
+        assert rays == scan_rays
+    batch, _ = render_image(scene, cam, 64, 36, 4, seed=7, cfg=cfg, spp_per_pass=1)
+    assert torch.equal(tpipe.to_image(scan, clamp=False), batch)
+
+
+def test_closest_hit_bvh_on_card_matches_brute_oracle(scene):
+    scene = upload_scene(load_scene_xml(os.path.join(REPO, "scenes", "reference.xml")),
+                         "cuda", bvh=True)
+    o, d = _rays(8192, 13)
+    before = _launches()
+    t, idx = closest_hit_bvh(scene, o, d)
+    assert _launches() == before  # the study path runs neither kernel
+    t0, i0 = closest_hit_bruteforce(scene, o, d, chunk=1024)
+    assert torch.equal(idx, i0) and torch.equal(t, t0)
+    assert int((idx >= 3).sum()) > 1000
+    cfg = RenderConfig(max_depth=4, intersector="bvh")
+    a, _ = render_image(scene, Camera.reset(), 64, 36, 2, seed=3, cfg=cfg)
+    b, _ = render_image(scene, Camera.reset(), 64, 36, 2, seed=3,
+                        cfg=RenderConfig(max_depth=4))
+    assert ((a - b).abs() > 1e-3).float().mean().item() < 0.02
+    assert abs(float(a.mean()) - float(b.mean())) < 5e-3
+
+
+def test_viewer_frames_on_card(scene):
+    from metalpathtracer_torch import viewer
+
+    class Display:
+        posts = []
+
+        def post(self, img, status):
+            self.posts.append((img.copy(), status))
+
+        def post_text(self, text):
+            pass
+
+    s = viewer._ViewerLoop(scene, 128, 72, 1, RenderConfig(max_depth=4), 0,
+                           "wavefront", Display())
+    before = _launches()
+    for k in range(1, 4):
+        assert s.step(lambda: []) and s.shown_spp == k == s.state.spp
+    assert min(a - b for a, b in zip(_launches(), before)) >= 5
+    # every frame lands in the one pinned buffer; a shown frame is a copy
+    host = s._host
+    assert host.is_pinned() and not host.is_cuda
+    # three frames of the loop are three accumulate_wavefront steps
+    want = tpipe.init_accum(128, 72, "cuda")
+    for _ in range(3):
+        want, _ = tpipe.accumulate_wavefront(want, scene, s.cam, 128, 72, 1, 0, s.cfg,
+                                             pool_size=128 * 72)
+    want = viewer._srgb_u8(want).cpu().numpy().astype(np.int16)
+    assert (np.abs(Display.posts[-1][0].astype(np.int16) - want) <= 1).mean() > 0.98
+    assert s.step(lambda: [("key", "w")]) and s.shown_spp == 4
+    assert s.step(lambda: []) and s.shown_spp == 1 and s._host is host
+    assert not np.array_equal(Display.posts[-1][0], Display.posts[-2][0])
+    fresh, _ = tpipe.accumulate_wavefront(
+        tpipe.init_accum(128, 72, "cuda"), scene, s.cam, 128, 72, 1, 0, s.cfg,
+        pool_size=128 * 72)
+    want = viewer._srgb_u8(fresh).cpu().numpy().astype(np.int16)
+    got = Display.posts[-1][0].astype(np.int16)
+    assert got.shape == (72, 128, 3) and (np.abs(got - want) <= 1).mean() > 0.98

@@ -190,19 +190,44 @@ def test_cli_writes_png_on_cpu(tmp_path, capsys):
     assert stats["rays"] > 32 * 18 * 2
 
 
-@pytest.mark.parametrize("flag", ["--resume", "--checkpoint=x.npz", "--tile-shard"])
+@pytest.mark.parametrize("flag", ["--tile-shard"])
 def test_cli_rejects_flags_not_ported(flag):
+    # the one flag of the reference still to port: argparse rejects it
     with pytest.raises(SystemExit) as e:
         tcli.build_parser().parse_args(["--scene", "s.xml", flag])
     assert e.value.code == 2
 
 
+@pytest.mark.parametrize("flag", ["--resume", "--checkpoint=x.npz"])
+def test_cli_accepts_checkpoint_flags(flag):
+    args = tcli.build_parser().parse_args(["--scene", "s.xml", flag])
+    assert args.resume == (flag == "--resume")
+    assert args.checkpoint == ("x.npz" if flag.startswith("--checkpoint") else None)
+    assert args.checkpoint_every == 16
+
+
+def test_cli_has_every_flag_of_the_reference_but_tile_shard():
+    from metalpathtracer_tpu import cli as jcli
+
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    mine, theirs = flags(tcli.build_parser()), flags(jcli.build_parser())
+    assert theirs - mine == {"--tile-shard"}
+    assert mine - theirs == {"--device"}
+    assert tcli.build_parser().parse_args(["--scene", "s"]).device == "cuda"
+    choices = {a.dest: a.choices for a in tcli.build_parser()._actions}
+    assert choices["intersector"] == ["auto", "mm", "bvh", "brute"]
+
+
 def test_port_never_imports_jax(tmp_path):
     # a fresh interpreter: import every module of the port and run its CLI,
-    # on the scan and on the wavefront path; neither jax nor the JAX package
+    # on the scan and on the wavefront path, the checkpoint branch with a
+    # resume, the BVH intersector, and two frames of the viewer (on a pty of
+    # its own, drained by a thread); neither jax nor the JAX package
     # (metalpathtracer_tpu) may be loaded
     code = f"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, pty, sys, threading, time
 import metalpathtracer_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
@@ -212,6 +237,38 @@ argv = ["--scene", {os.path.join(REPO, "scenes", "reference.xml")!r},
         "--output", {str(tmp_path / "x.png")!r}, "--device", "cpu"]
 assert cli.main(argv) == 0
 assert cli.main(argv + ["--wavefront"]) == 0
+assert cli.main(argv + ["--intersector", "bvh"]) == 0
+ck = ["--checkpoint", {str(tmp_path / "ck.npz")!r}, "--checkpoint-every", "1"]
+assert cli.main(argv + ck) == 0
+assert cli.main(argv[:7] + ["2"] + argv[8:] + ck + ["--resume"]) == 0
+from metalpathtracer_torch.io.checkpoint import load_checkpoint
+assert load_checkpoint(ck[1], "cpu")[0].spp == 2
+from metalpathtracer_torch import viewer
+master, slave = pty.openpty()
+shown = []
+def drain():
+    while True:
+        try:
+            data = os.read(master, 65536)
+        except OSError:
+            return
+        if not data:
+            return
+        shown.append(data)
+threading.Thread(target=drain, daemon=True).start()
+saved = os.dup(0), os.dup(1)
+os.dup2(slave, 0); os.dup2(slave, 1)
+try:
+    assert viewer.main(["--scene", argv[1], "--width", "32", "--height", "16",
+                        "--max-depth", "2", "--max-frames", "2", "--no-mouse",
+                        "--device", "cpu"]) == 0
+    sys.stdout.flush()
+finally:
+    os.dup2(saved[0], 0); os.dup2(saved[1], 1)
+deadline = time.time() + 30  # the drain thread may still be reading
+while b"2 spp |" not in b"".join(shown) and time.time() < deadline:
+    time.sleep(0.05)
+assert b"2 spp |" in b"".join(shown), shown[-1:]
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not leaked, leaked
 reference = sorted(m for m in sys.modules if m.split(".")[0] == "metalpathtracer_tpu")

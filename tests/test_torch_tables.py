@@ -145,7 +145,7 @@ def _jax_arrays(js) -> dict:
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_scene_from_jax_equals_upload_scene(name):
-    mine = upload_scene(_port_scene(name), "cpu")
+    mine = upload_scene(_port_scene(name), "cpu", bvh=True)
     theirs = scene_from_jax(_jax_arrays(j_upload(_jax_scene(name))), "cpu")
     for f in dataclasses.fields(mine):
         a, b = getattr(mine, f.name), getattr(theirs, f.name)
