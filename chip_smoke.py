@@ -63,9 +63,38 @@ both kernels. Phases, each raising on failure:
     3's 65,536 rays (phase 3's criteria), its time beside
     `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
     bvh` at 320x180, spp 2, depth 8 against the `mm` render; it must launch
-    neither kernel.
+    neither kernel;
+14. the sharded path (`parallel/sharding.py` over `torch.distributed`):
+    a. `cli.main --tile-shard` and `--tile-shard --wavefront` on the
+       flagship in a world of one: images bit-equal to phases 6 and 7's,
+       the same rays, the same launches of each kernel;
+    b. the reference's config 5 at full width: `scenes/multimesh.xml`,
+       1920x1080, depth 8, `init_accum_sharded` and four
+       `accumulate_sharded` steps of 4 spp in a world of one, against
+       `render_image_wavefront` of the same 16 spp (rtol 1e-6, atol 1e-7,
+       equal rays);
+    c. two ranks on the one card: this script started twice as a rank
+       (`--shard-rank`), both on `cuda:0`, joined by gloo over a file store
+       (NCCL refuses two ranks on one device, so the joins stage through
+       the host); each runs `cli.main --tile-shard` on the flagship on both
+       integrators and two `accumulate_sharded` steps of config 5; rank 0's
+       scan image is bit-equal to part a's; its wavefront image and its
+       accumulation (against part b's after two steps) are equal but for
+       pixels where a ray meets two triangles at one t (`same_but_ties`: at
+       most 1e-4 of the pixels; none on two ranks), every rank launched
+       both kernels on every bounce step and no plain version, and the
+       per-rank launches are summed.
+       The same jobs run in a world of one rank started the same way, and
+       the seconds of both are printed side by side;
+15. next-event estimation and Russian roulette on the card (NEE,
+    `rr_start` 3), each held to the same render on the CPU (plain
+    versions) within the render limit: the reference's config 4
+    (`scenes/cornell_glass.xml`, 512x512, depth 16; spp cut from 1024 to 2;
+    spheres alone, so it launches no kernel) and `scenes/multimesh.xml` at
+    320x180, spp 2, depth 8 on both integrators, whose shadow rays go
+    through both kernels.
 No earlier path runs at a smaller depth than before. Each path of phases
-6-8 and 10-12 runs with every launch count set to 0 just before it and read
+6-8, 10-12, 14 and 15 runs with every launch count set to 0 just before it and read
 just after, and with the plain versions counted (they must not run). A kernel's `ms` is its device time: 20 calls captured in one CUDA
 graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
 mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
@@ -95,6 +124,12 @@ Usage:
                                      # also time both kernels built from
                                      # another checkout's sources against
                                      # this one's, in turns
+    python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
+                                     # one rank on each of 4 cards, joined
+                                     # by nccl (a machine with 4 cards)
+    python3 chip_smoke.py --shard-rank SPEC.json RANK
+                                     # one rank of phase 14c's worlds (the
+                                     # script starts these itself)
 """
 
 from __future__ import annotations
@@ -143,6 +178,12 @@ PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
 CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
 H100_SMS = 132  # the SMs the peaks above are summed over
+# the reference's config 5 (benchmarks/run_configs.py): multimesh at 1080p,
+# depth 8, 16 spp accumulated tile-sharded in steps of spp / 4
+CONFIG5_SIZE, CONFIG5_DEPTH, CONFIG5_SPP = (1920, 1080), 8, 16
+CONFIG5_STEP = CONFIG5_SPP // 4
+# a collective of phase 14c's ranks, and a whole world of them, may take
+RANK_TIMEOUT_S, WORLD_LIMIT_S = 120, 420
 SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 
@@ -1456,6 +1497,311 @@ def phase_bvh(sets, n_each, chunk):
                 render_divergent=frac, render_mean_diff=dmean)
 
 
+def same_but_ties(a, b, what: str) -> int:
+    """Two wavefront renders of one image under different queue layouts (a
+    whole image and its row blocks): a ray that meets two triangles at one t
+    (a shared edge) takes whichever its subgroup's tile order reaches first,
+    and the subgroups differ with the layout. So the images are equal but
+    for such pixels: at most MAX_MISMATCH of the pixels may differ at all,
+    and those within the render limit. Returns how many differ."""
+    differing = int((a != b).any(axis=-1).sum())
+    if differing > MAX_MISMATCH * a.shape[0] * a.shape[1]:
+        raise RuntimeError(f"{what}: {differing} pixels differ")
+    compare_images(a, b, what)
+    return differing
+
+
+def phase_sharded_cli(paths):
+    """14a: the CLI's tile-sharded branches in a world of one against the
+    unsharded renders of phases 6 and 7 (`paths`)."""
+    import numpy as np
+
+    result = {}
+    for name, extra in (("scan", []), ("wavefront", ["--wavefront"])):
+        npz = OUT / f"tile_shard_{name}.npz"
+        stats, counts = run_cli(flagship_argv() + extra + [
+            "--tile-shard", "--output", str(OUT / f"tile_shard_{name}.png"),
+            "--npz", str(npz)])
+        want = paths[name]
+        if not np.array_equal(radiance(npz), radiance(OUT / f"{name}_1280x720.npz")):
+            raise RuntimeError(f"--tile-shard {name}: the image differs from the "
+                               "unsharded one")
+        if stats["rays"] != want["stats"]["rays"] or any(
+                counts[k] != want["counts"][k] for k in ("mm_launches", "cull_launches")):
+            raise RuntimeError(f"--tile-shard {name}: {stats['rays']} rays, {counts}; "
+                               f"unsharded {want['stats']['rays']}, {want['counts']}")
+        result[name] = dict(stats=stats, counts=counts)
+        log(f"[14a] cli --tile-shard {name} in a world of one: {stats['seconds']} s, "
+            f"{stats['rays']} rays, launches: mm_closest_hit {counts['mm_launches']}, "
+            f"cull_tiles {counts['cull_launches']}; image bit-equal to phase "
+            f"{6 if name == 'scan' else 7}'s")
+    return result
+
+
+def phase_config5():
+    """14b: config 5 in a world of one: four accumulate_sharded steps
+    against one render_image_wavefront of the same spp. Returns the record
+    and the accumulation after two steps (on the host), which 14c's ranks
+    must reproduce."""
+    import torch
+
+    from metalpathtracer_torch.parallel import sharding
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.pipeline import render_image_wavefront
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    w, h = CONFIG5_SIZE
+    t0 = time.perf_counter()
+    scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "multimesh.xml")), "cuda")
+    upload_s = time.perf_counter() - t0
+    cfg, cam, mesh = RenderConfig(max_depth=CONFIG5_DEPTH), Camera.reset(), sharding.make_mesh()
+    if mesh.size != 1:
+        raise RuntimeError(f"phase 14b runs in a world of one, not {mesh.shape}")
+    state = sharding.init_accum_sharded(w, h, mesh, scene.device)
+    rays, secs, after_two = 0, [], None
+    with counted_path() as counts:
+        while state.spp < CONFIG5_SPP:
+            t0 = time.perf_counter()
+            state, r = sharding.accumulate_sharded(state, scene, cam, CONFIG5_STEP,
+                                                   seed=5, cfg=cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rays += r
+            if state.spp == 2 * CONFIG5_STEP:
+                after_two = state.rgb_sum.cpu()
+    img = (sharding.gather_accum(state, mesh).rgb_sum / CONFIG5_SPP)
+    with counted_path() as whole_counts:
+        t0 = time.perf_counter()
+        want, want_rays = render_image_wavefront(scene, cam, w, h, CONFIG5_SPP, seed=5,
+                                                 cfg=cfg)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+    if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()) or not float(
+            img.mean()) > 0.05:
+        raise RuntimeError(f"config 5: bad image {tuple(img.shape)}, mean {float(img.mean())}")
+    worst = float((img - want).abs().max())
+    if not torch.allclose(img, want, rtol=1e-6, atol=1e-7) or rays != want_rays:
+        raise RuntimeError(f"config 5: four steps differ from one render by {worst}; "
+                           f"rays {rays} vs {want_rays}")
+    from metalpathtracer_torch.io.png import write_png
+
+    write_png(str(OUT / "config5.png"), img.cpu().numpy())
+    step_s = sum(secs)
+    log(f"[14b] config 5 (multimesh, {scene.num_tris} triangles in "
+        f"{scene.mm_tile_box.shape[0]} tiles, uploaded in {upload_s:.2f} s) at {w}x{h}, "
+        f"depth {CONFIG5_DEPTH}, {CONFIG5_SPP} spp in steps of {CONFIG5_STEP}, world of "
+        "one: accumulate_sharded steps " + ", ".join(f"{t:.3f}" for t in secs)
+        + f" s ({step_s:.3f} s, {rays / step_s / 1e6:.3f} Mrays/s), {rays} rays, launches: "
+        f"mm_closest_hit {counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
+        f"render_image_wavefront of {CONFIG5_SPP} spp {whole_s:.3f} s "
+        f"({whole_counts['mm_launches']} launches); max |difference| {worst:.3g} "
+        f"(rtol 1e-6, atol 1e-7), rays equal; image mean {float(img.mean()):.4f}")
+    del scene
+    torch.cuda.empty_cache()
+    return dict(upload_s=upload_s, step_s=secs, rays=rays, counts=counts,
+                whole_s=whole_s, whole_counts=whole_counts, max_abs_diff=worst,
+                image_mean=float(img.mean())), after_two
+
+
+def rank_jobs(tag: str):
+    """What each rank of phase 14c runs: the flagship through the CLI's
+    tile-sharded branches, and two accumulate_sharded steps of config 5."""
+    def cli_job(name, extra):
+        return dict(name=name, kind="cli", argv=flagship_argv() + extra + [
+            "--tile-shard", "--output", str(OUT / f"{tag}_{name}.png"),
+            "--npz", str(OUT / f"{tag}_{name}.npz")])
+
+    return [
+        cli_job("scan", []), cli_job("wavefront", ["--wavefront"]),
+        dict(name="config5", kind="accumulate",
+             scene={"xml": str(ROOT / "scenes" / "multimesh.xml")}, camera="reset",
+             width=CONFIG5_SIZE[0], height=CONFIG5_SIZE[1],
+             steps=[CONFIG5_STEP, CONFIG5_STEP], seed=5,
+             cfg={"max_depth": CONFIG5_DEPTH}, mesh={"axis": "tiles"}),
+    ]
+
+
+def shard_rank(spec_file: str, rank: int) -> int:
+    """One rank of a world of phase 14c: the spec's jobs, each on a counted
+    path (every bounce step through both kernels, no plain version)."""
+    import torch
+
+    from metalpathtracer_torch.parallel import worker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worker.run_rank(json.loads(Path(spec_file).read_text()), rank, around=counted_path)
+    return 0
+
+
+def phase_ranks(sharded_cli, after_two, card, cards=1):
+    """14c: the jobs of `rank_jobs` in a world of one rank and in a world of
+    several, each rank a child of this script: two ranks that share cuda:0
+    and join by gloo, or with `cards` > 1 one rank on each of that many
+    cards, joined by nccl."""
+    import numpy as np
+    import torch
+
+    from metalpathtracer_torch.parallel import worker
+
+    ranks = 2 if cards == 1 else cards
+    where = "on the one card" if cards == 1 else f"on {cards} cards (nccl)"
+    record = {}
+    for key, world in (("alone", 1), ("together", ranks)):
+        tag = f"world{world}"
+        out = OUT / tag
+        if out.exists():
+            for f in out.iterdir():
+                f.unlink()
+        spec = dict(world=world, store=str(out / "store"),
+                    backend="gloo" if cards == 1 else "nccl",
+                    device="cuda:0" if cards == 1 else "cuda",
+                    timeout_s=RANK_TIMEOUT_S, threads=4,
+                    out_dir=str(out), jobs=rank_jobs(tag))
+        wall = worker.launch(spec, WORLD_LIMIT_S, command=[
+            sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank"])
+        rec = dict(wall_s=wall)
+        for job in spec["jobs"]:
+            name = job["name"]
+            results = [worker.load_result(out, name, r) for r in range(world)]
+            launches = {k: sum(res["counts"][k] for res in results)
+                        for k in ("steps", "mm_launches", "cull_launches")}
+            by_rank = [res["counts"]["mm_launches"] for res in results]
+            if job["kind"] == "cli":
+                if any(res["rc"] != 0 for res in results) or any(
+                        res["stdout"] for res in results[1:]):
+                    raise RuntimeError(f"{tag} {name}: a rank failed or rank > 0 wrote")
+                stats = json.loads(results[0]["stdout"].strip().splitlines()[-1])
+                mine = radiance(OUT / f"{tag}_{name}.npz")
+                want = radiance(OUT / f"tile_shard_{name}.npz")
+                # the scan's subgroups are 128 pixels in a row on any layout
+                if name == "scan" and not np.array_equal(mine, want):
+                    raise RuntimeError(f"{tag} scan: the image differs from the "
+                                       "world of one's")
+                differing = same_but_ties(mine, want, f"{tag} {name} vs a world of one")
+                if stats["rays"] != sharded_cli[name]["stats"]["rays"]:
+                    raise RuntimeError(f"{tag} {name}: {stats['rays']} rays")
+                rec[name] = dict(seconds=stats["seconds"], rays=stats["rays"],
+                                 launches=launches, mm_launches_by_rank=by_rank,
+                                 pixels_differing=differing)
+                (OUT / f"{tag}_{name}.npz").unlink()  # 6 MB each: compared, not kept
+            else:
+                for res in results:
+                    if res["spp"] != 2 * CONFIG5_STEP or not torch.equal(
+                            res["rgb_sum"], results[0]["rgb_sum"]):
+                        raise RuntimeError(f"{tag} {name}: the ranks hold different "
+                                           "accumulations")
+                differing = same_but_ties(
+                    results[0]["rgb_sum"].numpy(), after_two.numpy(),
+                    f"{tag} {name} vs phase 14b after two steps")
+                rec[name] = dict(seconds=sum(results[0]["seconds"]),
+                                 step_s=results[0]["seconds"],
+                                 rays=sum(results[0]["rays"]), launches=launches,
+                                 mm_launches_by_rank=by_rank,
+                                 pixels_differing=differing)
+        for f in out.glob("*.pt"):  # 25 MB a rank: not kept among the artifacts
+            f.unlink()
+        record[key] = rec
+    for name in ("scan", "wavefront", "config5"):
+        one, more = record["alone"][name], record["together"][name]
+        if one["rays"] != more["rays"]:
+            raise RuntimeError(f"{ranks} ranks {name}: rays {more['rays']} vs "
+                               f"{one['rays']}")
+        log(f"[14c] {name}: one rank alone {one['seconds']:.3f} s "
+            f"({one['launches']['mm_launches']} launches of each kernel), {ranks} "
+            f"ranks {where} together {more['seconds']:.3f} s (mm_closest_hit "
+            f"{' + '.join(map(str, more['mm_launches_by_rank']))} = "
+            f"{more['launches']['mm_launches']}, cull_tiles "
+            f"{more['launches']['cull_launches']}), {more['rays']} rays, "
+            f"{more['pixels_differing']} pixels differ from the world of one's "
+            f"({one['pixels_differing']} of the lone rank's); {card}")
+    log(f"[14c] whole worlds with start-up and uploads: one rank "
+        f"{record['alone']['wall_s']:.1f} s, {ranks} ranks "
+        f"{record['together']['wall_s']:.1f} s")
+    return record
+
+
+def phase_nee(card):
+    """15: NEE + Russian roulette renders on the card against the same
+    renders on the CPU."""
+    import torch
+
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.pipeline import (
+        render_image,
+        render_image_wavefront,
+    )
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    def both(name):
+        host = load_scene_xml(str(ROOT / "scenes" / name))
+        return upload_scene(host, "cuda"), upload_scene(host, "cpu")
+
+    record = {}
+    # config 4 of benchmarks/run_configs.py, spp cut from 1024 to 2
+    cam = Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
+    cfg = RenderConfig(max_depth=16, nee=True, rr_start=3)
+    on_card, on_cpu = both("cornell_glass.xml")
+    launches = _launches()
+    t0 = time.perf_counter()
+    a, ra = render_image(on_card, cam, 512, 512, 2, seed=4, cfg=cfg)
+    a = a.cpu().numpy()
+    card_s = time.perf_counter() - t0
+    if _launches() != launches:
+        raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
+    t0 = time.perf_counter()
+    b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
+    cpu_s = time.perf_counter() - t0
+    frac, dmean = compare_images(a, b.numpy(), "config 4 (NEE, rr_start 3) card vs CPU")
+    if not a.mean() > 0.05 or abs(ra - rb) > 0.01 * rb:
+        raise RuntimeError(f"config 4: mean {a.mean()}, rays {ra} vs {rb}")
+    record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
+                             divergent=frac, mean_diff=dmean)
+    log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
+        f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
+        f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
+        "kernel launched (spheres alone)")
+
+    # a scene with triangles and a light: the shadow rays go through the kernels
+    cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
+    on_card, on_cpu = both("multimesh.xml")
+    for name, fn in (("scan", render_image), ("wavefront", render_image_wavefront)):
+        kwargs = dict(return_stats=True) if name == "wavefront" else {}
+        with counted_path() as counts:
+            t0 = time.perf_counter()
+            out = fn(on_card, Camera.reset(), 320, 180, 2, seed=4, cfg=cfg, **kwargs)
+            a = out[0].cpu().numpy()
+            card_s = time.perf_counter() - t0
+        b = fn(on_cpu, Camera.reset(), 320, 180, 2, seed=4, cfg=cfg)
+        frac, dmean = compare_images(a, b[0].numpy(), f"multimesh NEE {name} card vs CPU")
+        if abs(out[1] - b[1]) > 0.01 * b[1]:
+            raise RuntimeError(f"multimesh NEE {name}: rays {out[1]} vs {b[1]}")
+        shadow = out[2]["shadow_rays"] if name == "wavefront" else None
+        if shadow is not None and not 0 < shadow < out[1]:
+            raise RuntimeError(f"multimesh NEE wavefront: {shadow} shadow rays")
+        record[f"multimesh_{name}"] = dict(card_s=card_s, rays=out[1], cpu_rays=b[1],
+                                           shadow_rays=shadow, counts=counts,
+                                           divergent=frac, mean_diff=dmean)
+        log(f"[15] multimesh NEE, rr_start 3, {name} 320x180 spp 2 depth 8: "
+            f"{card_s:.3f} s on the card, {out[1]} vs {b[1]} rays"
+            + (f" ({shadow} shadow rays)" if shadow is not None else "")
+            + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
+            f"{counts['cull_launches']} over {counts['steps']} bounce steps; "
+            f"{frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
+    torch.cuda.empty_cache()
+    return record
+
+
+def _launches():
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    return tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1468,11 +1814,30 @@ def main(argv=None) -> int:
     ap.add_argument("--against", metavar="DIR",
                     help="also time both kernels built from the sources of "
                          "the checkout DIR against this one's, in turns")
+    ap.add_argument("--cards", type=int, default=1, metavar="N",
+                    help="run phases 1, 6, 7 and 14 alone, phase 14c with one "
+                         "rank on each of N cards joined by nccl")
+    ap.add_argument("--shard-rank", nargs=2, metavar=("SPEC", "RANK"),
+                    help="run as one rank of a world of phase 14c (the script "
+                         "starts these itself)")
     args = ap.parse_args(argv)
+    if args.shard_rank:
+        return shard_rank(args.shard_rank[0], int(args.shard_rank[1]))
 
     t_start = time.perf_counter()
     card, build_s, sass = phase_setup()
     import torch
+
+    if args.cards > 1:
+        if args.cards > torch.cuda.device_count():
+            raise SystemExit(f"chip_smoke: --cards {args.cards}, but "
+                             f"{torch.cuda.device_count()} are visible")
+        paths = phase_paths(False)
+        sharded_cli = phase_sharded_cli(paths)
+        _, after_two = phase_config5()
+        phase_ranks(sharded_cli, after_two, card, cards=args.cards)
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.scene import load_scene_xml, presets
@@ -1554,6 +1919,15 @@ def main(argv=None) -> int:
     progressive = phase_progressive(scene, scan["image"])
     viewer = phase_viewer(scene)
     bvh = phase_bvh(ref_sets, 32768, chunk=1024)
+    del scene, big, ref_sets
+    torch.cuda.empty_cache()
+    sharded_cli = phase_sharded_cli(paths)
+    config5, after_two = phase_config5()
+    two_ranks = phase_ranks(sharded_cli, after_two, card)
+    del after_two
+    for name in ("scan", "wavefront"):  # compared; what comes back stays small
+        (OUT / f"tile_shard_{name}.npz").unlink()
+    nee = phase_nee(card)
 
     main_path = paths["wavefront"]["counts"]
     mm, cl = kvt["pool"], cull["reference_pool"]  # the main path's shapes
@@ -1562,7 +1936,14 @@ def main(argv=None) -> int:
                 **{k: v["counts"] for k, v in legs.items()},
                 "checkpointed": checkpointed["counts"],
                 "progressive_wavefront": progressive["wavefront"]["counts"],
-                "viewer_15_frames": viewer["loop"]["counts"]}
+                "viewer_15_frames": viewer["loop"]["counts"],
+                "tile_shard_scan": sharded_cli["scan"]["counts"],
+                "tile_shard_wavefront": sharded_cli["wavefront"]["counts"],
+                "config5_accumulate_sharded": config5["counts"],
+                **{f"two_ranks_{k}": two_ranks["together"][k]["launches"]
+                   for k in ("scan", "wavefront", "config5")},
+                "nee_multimesh_scan": nee["multimesh_scan"]["counts"],
+                "nee_multimesh_wavefront": nee["multimesh_wavefront"]["counts"]}
     kernels = {"kernels": [
         dict(name="mm_closest_hit", route="cuda", **KERNELS["mm_closest_hit"],
              launches=main_path["mm_launches"], max_abs_err=mm["max_abs_err"],
@@ -1583,6 +1964,8 @@ def main(argv=None) -> int:
                    oracle_tile_p256=oracle256, sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,
+                   sharded_cli=sharded_cli, config5=config5, two_ranks=two_ranks,
+                   nee=nee,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {summary['total_s']:.1f} s")

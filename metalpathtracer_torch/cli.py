@@ -1,10 +1,18 @@
 """Command-line renderer on PyTorch.
 
 Port of `metalpathtracer_tpu/cli.py`: load a scene, render it with the
-scan or the persistent-wavefront integrator, or progressively with
-checkpoints and resume, and write a PNG (and optionally the linear
-radiance as npz). The one flag of the reference that is not ported yet,
-`--tile-shard`, is not defined, so argparse rejects it.
+scan or the persistent-wavefront integrator, progressively with
+checkpoints and resume, or tile-sharded over the ranks of a process group,
+and write a PNG (and optionally the linear radiance as npz).
+
+`--tile-shard` splits the image's rows over a `torch.distributed` world,
+one process per device: the one a launcher describes in the environment
+(`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`, as
+`torchrun` sets them; backend nccl for CUDA devices, gloo for the CPU), or
+a group the caller initialised; with neither, a world of one. Under a
+launcher a bare `--device cuda` means this rank's `LOCAL_RANK`-th card
+(in a caller's group: the card the caller made current).
+Rank 0 alone writes the image and the stats line.
 
 Usage:
     python -m metalpathtracer_torch.cli --scene scenes/reference.xml \
@@ -13,6 +21,9 @@ Usage:
     python -m metalpathtracer_torch.cli --scene scenes/cornell.xml \
         --spp 128 --checkpoint runs/cornell.npz --checkpoint-every 16 \
         [--resume]
+    torchrun --nproc-per-node 4 -m metalpathtracer_torch.cli \
+        --scene scenes/multimesh.xml --width 1920 --height 1080 --spp 16 \
+        --tile-shard [--wavefront]
 """
 
 from __future__ import annotations
@@ -65,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from --checkpoint if it exists")
     p.add_argument("--checkpoint-every", type=int, default=16,
                    help="samples between checkpoint writes")
+    p.add_argument("--tile-shard", action="store_true",
+                   help="shard pixel rows across the ranks of the process "
+                        "group (one process per device)")
     p.add_argument("--stats-json", action="store_true",
                    help="print a machine-readable stats line")
     p.add_argument("--device", default="cuda",
@@ -79,9 +93,60 @@ def _vec3(s: str):
     return tuple(parts)
 
 
+def _join_world(device):
+    """The world a `--tile-shard` run renders in: (rank, device, whether
+    this call initialised the group). A bare "cuda" becomes, under a
+    launcher, this rank's `LOCAL_RANK`-th card, and in a group the caller
+    initialised, the card the caller made current."""
+    import torch
+    import torch.distributed as dist
+
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if device.type == "cuda" and device.index is None:
+        if launched:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        elif dist.is_initialized() and torch.cuda.device_count() > 0:
+            device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda" and device.index is not None:
+        if device.index >= torch.cuda.device_count():
+            raise ValueError(
+                f"no device {device}: {torch.cuda.device_count()} CUDA "
+                "devices are visible to this rank")
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return dist.get_rank(), device, False
+    if not launched:
+        return 0, device, False
+    dist.init_process_group(
+        "gloo" if device.type == "cpu" else "nccl",
+        rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
+    return dist.get_rank(), device, True
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    import torch
+
+    device = torch.device(args.device)
+    if not args.tile_shard:
+        return _render(args, device, 0)
+    try:
+        rank, device, ours = _join_world(device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _render(args, device, rank)
+    finally:
+        if ours:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, device, rank: int) -> int:
+    """Render as `main` parsed it. Every rank of a `--tile-shard` world
+    renders its rows and holds the whole image; `rank` 0 reports and
+    writes."""
     import dataclasses
 
     import numpy as np
@@ -104,23 +169,24 @@ def main(argv=None) -> int:
     )
     from metalpathtracer_torch.scene import load_scene_xml
 
-    device = torch.device(args.device)
+    def say(text):
+        if rank == 0:
+            print(text, file=sys.stderr)
+
     host = load_scene_xml(args.scene)
-    print(
+    say(
         f"Scene loaded: {host.primitive_count} primitives "
         f"({host.primitive_count - host.triangle_count} spheres, "
-        f"{host.triangle_count} triangles)",
-        file=sys.stderr,
+        f"{host.triangle_count} triangles)"
     )
     t0 = time.time()
     # the BVH serves the study intersector alone
     scene = upload_scene(host, device, bvh=args.intersector == "bvh")
-    print(
+    say(
         f"tables: {scene.mm_tile_box.shape[0]} tiles of {scene.mm_w.shape[1]}"
         + (f"; BVH: {scene.node_a.shape[0]} nodes, depth {scene.max_depth}"
            if args.intersector == "bvh" else "")
-        + f"; built+uploaded to {device} in {time.time() - t0:.2f}s",
-        file=sys.stderr,
+        + f"; built+uploaded to {device} in {time.time() - t0:.2f}s"
     )
 
     pos = _vec3(args.camera_pos)
@@ -145,11 +211,26 @@ def main(argv=None) -> int:
     output = args.output
     if output is None:
         base = os.path.splitext(os.path.basename(args.scene))[0]
-        os.makedirs("runs", exist_ok=True)
-        output = os.path.join("runs", f"{base}.png")
+        output = os.path.join("runs", f"{base}.png")  # made where it is written
 
     t0 = time.time()
-    if args.checkpoint:
+    if args.tile_shard:
+        from metalpathtracer_torch.parallel import (
+            render_image_sharded,
+            render_image_wavefront_sharded,
+        )
+
+        if args.wavefront:
+            img, rays = render_image_wavefront_sharded(
+                scene, cam, args.width, args.height, args.spp,
+                seed=args.seed, cfg=cfg, pool_size=args.pool_size,
+            )
+        else:
+            img, rays = render_image_sharded(
+                scene, cam, args.width, args.height, args.spp,
+                seed=args.seed, cfg=cfg,
+            )
+    elif args.checkpoint:
         import hashlib
 
         # fingerprint the run: resuming with another scene, camera or
@@ -207,6 +288,8 @@ def main(argv=None) -> int:
         )
     img = img.cpu().numpy()  # waits for the device
     dt = time.time() - t0
+    if rank != 0:
+        return 0
 
     os.makedirs(os.path.dirname(os.path.abspath(output)), exist_ok=True)
     write_png(output, img)

@@ -383,11 +383,18 @@ def _tileset_key(scene, o, d, alive):
 def trace_wavefront(scene, camera, width, height, spp, seed,
                     cfg: RenderConfig = DEFAULT_CONFIG,
                     pool_size: int | None = None,
-                    sample_offset: int = 0):
+                    sample_offset: int = 0,
+                    pixel_offset: int = 0,
+                    n_pixels: int | None = None):
     """Persistent-wavefront path tracing with lane regeneration. `seed` is
     the u32 seed word; the samples traced are `sample_offset` ..
     `sample_offset + spp - 1` of every pixel (a progressive render passes
     the samples it already holds).
+
+    `pixel_offset` / `n_pixels` restrict the queue to the contiguous pixel
+    range `pixel_offset` .. `pixel_offset + n_pixels - 1` (a tile shard):
+    pixel ids stay global for ray generation and the RNG, while the queue's
+    shape and the returned framebuffer cover the local range alone.
 
     A fixed pool of lanes works through the queue of work items, each
     `bank_k` adjacent pixels x `spb` samples. When a path ends, its radiance
@@ -402,7 +409,7 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     drain width) is read once per window. Once it fails, the live lanes are
     compacted to `DRAIN_WIDTH` and advanced until none is left.
 
-    Returns (rgb_sum (width*height, 3) f32, rays int, stats): stats has
+    Returns (rgb_sum (n_pixels, 3) f32, rays int, stats): stats has
     `tile_passes` (closest-hit tile passes, 2^20 ray-triangle tests each)
     and `shadow_rays` (NEE shadow rays, included in rays). Divide rgb_sum
     by spp.
@@ -412,7 +419,7 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     if cfg.sort_key != "tileset":
         raise ValueError(f"unknown sort key {cfg.sort_key!r}")
     dev = scene.device
-    n_pix = width * height
+    n_pix = n_pixels if n_pixels is not None else width * height
     if n_pix * spp > (1 << 31):
         raise ValueError(f"{n_pix * spp} work items overflow the queue")
     pool = int(pool_size) if pool_size is not None else min(n_pix * spp, 1 << 15)
@@ -448,7 +455,8 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     f32 = dict(dtype=torch.float32, device=dev)
 
     def pix_samp_of(item, schunk):
-        pixel = (item % groups) * bank_k + schunk // spb
+        # item % groups names a local framebuffer row; the pixel id is global
+        pixel = (item % groups) * bank_k + schunk // spb + pixel_offset
         # int64; the RNG wraps it to a u32 word
         sample = (item // groups) * spb + schunk % spb + sample_offset
         return pixel, sample

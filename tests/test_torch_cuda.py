@@ -22,7 +22,11 @@ the card: tests/test_torch_wavefront.py's rtol 1e-5, atol 1e-6; the same for
 uninterrupted one: bit-equal (the same passes in the same order). The BVH
 walk vs the brute oracle: the same per-pair arithmetic, so bit-equal t and
 equal primitives; its render vs `mm`'s: under 2% of pixels differ by > 1e-3,
-means within 5e-3.
+means within 5e-3. Row blocks of the sharded path vs the whole image: the
+scan bit-equal (its subgroups are 128 pixels in a row on either layout);
+the wavefront equal but for rays that meet two triangles at exactly one t,
+where the subgroup's tile order picks the winner and the subgroups follow
+the queue: at most 1e-4 of the pixels may differ at all.
 """
 
 import os
@@ -483,3 +487,40 @@ def test_viewer_frames_on_card(scene):
     want = viewer._srgb_u8(fresh).cpu().numpy().astype(np.int16)
     got = Display.posts[-1][0].astype(np.int16)
     assert got.shape == (72, 128, 3) and (np.abs(got - want) <= 1).mean() > 0.98
+
+
+def test_sharded_row_blocks_on_card_match_the_whole_image(scene):
+    from metalpathtracer_torch.parallel import sharding as sh
+
+    w, h, spp, n = 512, 288, 2, 4  # a block is 36,864 pixels: 288 subgroups
+    cfg, cam = RenderConfig(max_depth=8), Camera.reset()
+    whole, rays = render_image(scene, cam, w, h, spp, seed=2, cfg=cfg,
+                               spp_per_pass=spp)
+    parts = [sh.shard_render(scene, cam, w, h, spp, 2, cfg, i, n) for i in range(n)]
+    assert torch.equal(torch.cat([p[0] for p in parts]) / spp, whole)
+    assert sum(p[1] for p in parts) == rays
+    whole, rays = render_image_wavefront(scene, cam, w, h, spp, seed=2, cfg=cfg)
+    parts = [sh.shard_render_wavefront(scene, cam, w, h, spp, 2, cfg, None, i, n)
+             for i in range(n)]
+    img = torch.cat([p[0] for p in parts]) / spp
+    differing = int((img != whole).any(dim=-1).sum())
+    assert differing <= 1e-4 * w * h, differing
+    assert sum(p[1] for p in parts) == rays
+
+
+def test_sharded_entry_points_on_card_in_a_world_of_one(scene):
+    from metalpathtracer_torch.parallel import sharding as sh
+
+    cfg, cam = RenderConfig(max_depth=8), Camera.reset()
+    a, ra = render_image_wavefront(scene, cam, 320, 180, 2, seed=1, cfg=cfg)
+    b, rb = sh.render_image_wavefront_sharded(scene, cam, 320, 180, 2, seed=1, cfg=cfg)
+    assert torch.equal(a, b) and ra == rb and b.is_cuda
+    mesh = sh.make_mesh()
+    state = sh.init_accum_sharded(320, 180, mesh, "cuda")
+    want = tpipe.init_accum(320, 180, "cuda")
+    for _ in range(2):
+        state, r = sh.accumulate_sharded(state, scene, cam, 1, seed=1, cfg=cfg,
+                                         mesh=mesh)
+        want, r_want = tpipe.accumulate_wavefront(want, scene, cam, 320, 180, 1, 1, cfg)
+        assert r == r_want
+    assert state.spp == 2 and torch.equal(state.rgb_sum, want.rgb_sum)

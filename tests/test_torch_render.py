@@ -192,10 +192,115 @@ def test_cli_writes_png_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--tile-shard"])
 def test_cli_rejects_flags_not_ported(flag):
-    # the one flag of the reference still to port: argparse rejects it
-    with pytest.raises(SystemExit) as e:
-        tcli.build_parser().parse_args(["--scene", "s.xml", flag])
+    # no flag of the reference is left to port: the one argparse rejected
+    # while the sharded path was missing is defined, and off by default
+    parser = tcli.build_parser()
+    assert parser.parse_args(["--scene", "s.xml", flag]).tile_shard is True
+    assert parser.parse_args(["--scene", "s.xml"]).tile_shard is False
+    with pytest.raises(SystemExit) as e:  # still no flag the reference lacks
+        parser.parse_args(["--scene", "s.xml", "--sample-shard"])
     assert e.value.code == 2
+
+
+def _cli_radiance(tmp_path, name, extra, size=("32", "32")):
+    npz = tmp_path / f"{name}.npz"
+    argv = ["--scene", os.path.join(REPO, "scenes", "cornell.xml"), "--width",
+            size[0], "--height", size[1], "--spp", "2", "--max-depth", "4",
+            "--device", "cpu", "--stats-json", "--output",
+            str(tmp_path / f"{name}.png"), "--npz", str(npz)]
+    assert tcli.main(argv + extra) == 0
+    with np.load(npz) as z:
+        return z["radiance"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--wavefront"]], ids=["scan", "wavefront"])
+def test_cli_tile_shard_in_a_world_of_one(tmp_path, capsys, extra):
+    # no launcher and no process group: the sharded branch renders the
+    # whole image, equal to the unsharded branch's
+    plain = _cli_radiance(tmp_path, "plain", extra)
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    sharded = _cli_radiance(tmp_path, "sharded", extra + ["--tile-shard"])
+    sharded_stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    np.testing.assert_array_equal(sharded, plain)
+    assert sharded_stats["rays"] == stats["rays"] and set(sharded_stats) == STATS_KEYS
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+
+
+def test_cli_tile_shard_takes_precedence_over_checkpoint(tmp_path, capsys):
+    # the reference's if / elif order: --tile-shard wins, no file is written
+    ck = tmp_path / "ck.npz"
+    plain = _cli_radiance(tmp_path, "plain", [])
+    sharded = _cli_radiance(tmp_path, "sharded",
+                            ["--tile-shard", "--checkpoint", str(ck)])
+    np.testing.assert_array_equal(sharded, plain)
+    assert not ck.exists()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_tile_shard_under_a_two_rank_launcher(tmp_path):
+    # what a launcher does: one process per rank, the world described in the
+    # environment; gloo on the CPU. One PNG and one stats line, from rank 0,
+    # and the image equals the unsharded one
+    plain = _cli_radiance(tmp_path, "plain", [])
+    argv = [sys.executable, "-m", "metalpathtracer_torch.cli", "--scene",
+            os.path.join(REPO, "scenes", "cornell.xml"), "--width", "32", "--height",
+            "32", "--spp", "2", "--max-depth", "4", "--device", "cpu", "--stats-json",
+            "--tile-shard"]
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+    ranks = []
+    for rank in range(2):
+        out = tmp_path / f"rank{rank}"
+        out.mkdir()
+        ranks.append(subprocess.Popen(
+            argv + ["--output", str(out / "img.png"), "--npz", str(out / "img.npz")],
+            cwd=REPO, env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=120) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in ranks] == [0, 0], outs
+    # rank 1 is silent (but for what torch's own store may warn of)
+    assert outs[1][0] == ""
+    assert "Scene loaded" in outs[0][1] and "wrote" in outs[0][1]
+    assert "Scene loaded" not in outs[1][1] and "wrote" not in outs[1][1]
+    lines = outs[0][0].strip().splitlines()
+    assert len(lines) == 1 and set(json.loads(lines[0])) == STATS_KEYS
+    assert sorted(f.name for f in (tmp_path / "rank0").iterdir()) == ["img.npz", "img.png"]
+    assert list((tmp_path / "rank1").iterdir()) == []
+    with np.load(tmp_path / "rank0" / "img.npz") as z:
+        np.testing.assert_array_equal(z["radiance"], plain)
+
+
+@pytest.mark.parametrize("device,env", [("cuda:7", {}), ("cuda", {
+    "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "7"})],
+    ids=["explicit_index", "local_rank"])
+def test_cli_tile_shard_refuses_a_device_it_does_not_have(monkeypatch, capsys,
+                                                          device, env):
+    # an index past the visible cards is an error: no wrap-around, no CPU
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert torch.cuda.device_count() <= 7
+    rc = tcli.main(["--scene", os.path.join(REPO, "scenes", "cornell.xml"),
+                    "--tile-shard", "--device", device])
+    assert rc == 2
+    assert "no device cuda:7" in capsys.readouterr().err
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("flag", ["--resume", "--checkpoint=x.npz"])
@@ -213,7 +318,7 @@ def test_cli_has_every_flag_of_the_reference_but_tile_shard():
         return {s for a in parser._actions for s in a.option_strings}
 
     mine, theirs = flags(tcli.build_parser()), flags(jcli.build_parser())
-    assert theirs - mine == {"--tile-shard"}
+    assert theirs - mine == set()  # --tile-shard was the last one
     assert mine - theirs == {"--device"}
     assert tcli.build_parser().parse_args(["--scene", "s"]).device == "cuda"
     choices = {a.dest: a.choices for a in tcli.build_parser()._actions}
@@ -222,8 +327,10 @@ def test_cli_has_every_flag_of_the_reference_but_tile_shard():
 
 def test_port_never_imports_jax(tmp_path):
     # a fresh interpreter: import every module of the port and run its CLI,
-    # on the scan and on the wavefront path, the checkpoint branch with a
-    # resume, the BVH intersector, and two frames of the viewer (on a pty of
+    # on the scan and on the wavefront path, both tile-sharded branches (a
+    # world of one, and a gloo group of one that the launcher's environment
+    # describes), the checkpoint branch with a resume, the BVH intersector,
+    # and two frames of the viewer (on a pty of
     # its own, drained by a thread); neither jax nor the JAX package
     # (metalpathtracer_tpu) may be loaded
     code = f"""
@@ -238,6 +345,19 @@ argv = ["--scene", {os.path.join(REPO, "scenes", "reference.xml")!r},
 assert cli.main(argv) == 0
 assert cli.main(argv + ["--wavefront"]) == 0
 assert cli.main(argv + ["--intersector", "bvh"]) == 0
+assert cli.main(argv + ["--tile-shard"]) == 0
+assert cli.main(argv + ["--tile-shard", "--wavefront"]) == 0
+import socket
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+import torch.distributed as dist
+assert cli.main(argv + ["--tile-shard", "--wavefront"]) == 0
+assert not dist.is_initialized()
+for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+    del os.environ[k]
 ck = ["--checkpoint", {str(tmp_path / "ck.npz")!r}, "--checkpoint-every", "1"]
 assert cli.main(argv + ck) == 0
 assert cli.main(argv[:7] + ["2"] + argv[8:] + ck + ["--resume"]) == 0
