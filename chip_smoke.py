@@ -5,10 +5,12 @@ Builds the hand-written CUDA kernels from `metalpathtracer_torch/csrc/` (one
 `nvcc` each, started together), holds each to its plain PyTorch version at
 the shapes the render paths give it, then drives those paths through the
 port's entry points at full size and checks that every advance went through
-both kernels. Phases, each raising on failure:
+the three kernels (the closest hit, the tile cull, the RNG's threefry).
+Phases, each raising on failure:
 
-1. set up: the card, TF32 off, the kernel builds, and the instructions
-   the cull kernel's slab-test loop issues per (ray, tile) pair (its SASS);
+1. set up: the card, TF32 off, the kernel builds, the instructions the
+   cull kernel's slab-test loop issues per (ray, tile) pair and those of
+   each threefry mode's kernel (their SASS);
 2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
    primary rays, the rays left after one bounce, the pool-width set (the
    arguments of the 100th `mm_closest_hit` call of the flagship wavefront
@@ -36,8 +38,8 @@ both kernels. Phases, each raising on failure:
 8. the large-scene legs: `render_image_wavefront` on bunny70k and
    bunny300k at 512x512, spp 2, depth 8, pool 2^15;
 9. small renders (320x180, spp 2, depth 8) of both paths on the kernels vs
-   on the plain versions, and the golden reference-scene case vs
-   tests/golden/reference_scene.npz;
+   on the plain versions, and vs on the RNG's twin alone (bit-equal), and
+   the golden reference-scene case vs tests/golden/reference_scene.npz;
 10. the checkpointed CLI: `cli.main --checkpoint --checkpoint-every 2` at
     1280x720, depth 32, to 2 spp, then `--resume` to 4 spp, and the same to
     4 spp without interruption: the two images bit-equal, both against
@@ -51,7 +53,8 @@ both kernels. Phases, each raising on failure:
     synchronising calls counted (`SyncCounter`) and ten without, each
     timed, the fifth frame's accumulation held against five `accumulate`
     steps within the render limit and the frame shown against the
-    accumulation it resolves; then `python3 -m metalpathtracer_torch.viewer
+    accumulation it resolves, and the flagged calls per frame, in all and
+    from the RNG's modules; then `python3 -m metalpathtracer_torch.viewer
     --max-frames 60 --no-mouse` in a child under a pty with
     `MPT_VIEWER_TRACE=1`, the child's stderr and the pty drained while it
     runs; a `w` key written into the pty after frame 30 must bring the
@@ -90,12 +93,26 @@ both kernels. Phases, each raising on failure:
     `rr_start` 3), each held to the same render on the CPU (plain
     versions) within the render limit: the reference's config 4
     (`scenes/cornell_glass.xml`, 512x512, depth 16; spp cut from 1024 to 2;
-    spheres alone, so it launches no kernel) and `scenes/multimesh.xml` at
+    spheres alone, so it launches no tile kernel) and `scenes/multimesh.xml` at
     320x180, spp 2, depth 8 on both integrators, whose shadow rays go
-    through both kernels.
+    through both kernels;
+16. `threefry` vs its plain twin (run after phase 5, with the other
+    kernels' comparisons), at the shapes the paths give it: the draws of
+    the flagship's advance CAPTURE_CALL (the lobe and Fresnel draws with
+    per-lane sample ids and bounces, the restart's jitter; 32,768 lanes),
+    the scan's 921,600-lane jitter and first-bounce draws, a viewer frame's
+    pool call 5 (16,384 lanes) and drain call 1, and the Mosaic probe's own
+    call (`benchmarks/mosaic_probe.py`: seed 42, an (8, 128) int32 tile of
+    ids, sample 3, bounce 0, purpose 7, unit vectors): uniforms bit-equal,
+    unit vectors bit-equal or within 4 ulp of 1.0 (the gap printed); each
+    with its device, call and plain time and its bound, the larger of its
+    bytes at the memory rate and its integer instructions (the SASS count)
+    at 64 a clock on every SM.
 No earlier path runs at a smaller depth than before. Each path of phases
 6-8, 10-12, 14 and 15 runs with every launch count set to 0 just before it and read
-just after, and with the plain versions counted (they must not run). A kernel's `ms` is its device time: 20 calls captured in one CUDA
+just after, and with the plain versions counted (they must not run); a
+bounce step must launch both tile kernels once and threefry at least twice.
+A kernel's `ms` is its device time: 20 calls captured in one CUDA
 graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
 mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
 which reads the host's enqueue rate where the kernel is shorter than the
@@ -121,9 +138,10 @@ Usage:
                                      # 32 warps per block, aiming at 64, 128
                                      # and 256 warps per SM, on the device
     python3 chip_smoke.py --against _archive/parent
-                                     # also time both kernels built from
-                                     # another checkout's sources against
-                                     # this one's, in turns
+                                     # also time both tile kernels built
+                                     # from another checkout's sources
+                                     # against this one's, and the flagship
+                                     # CLI renders of both trees, in turns
     python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
                                      # one rank on each of 4 cards, joined
                                      # by nccl (a machine with 4 cards)
@@ -139,6 +157,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +185,8 @@ KERNELS = {
                            also_replaces=f"{TPU_FILE}:555"),
     "cull_tiles": dict(source="metalpathtracer_torch/csrc/cull_tiles.cu",
                        replaces=f"{TPU_FILE}:712"),
+    "threefry": dict(source="metalpathtracer_torch/csrc/threefry.cu",
+                     replaces="benchmarks/mosaic_probe.py:42"),
 }
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
@@ -178,6 +199,24 @@ PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
 CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
 H100_SMS = 132  # the SMs the peaks above are summed over
+# int32 instructions an SM issues a clock: 16 INT32 units in each of its 4
+# partitions (NVIDIA's Hopper architecture white paper); the integer
+# multiply-adds (IMAD, which the compiler also uses for adds, shifts and
+# moves) issue on the FMA pipe at the same rate (the CUDA programming
+# guide's throughput table, compute capability 9.0); and an SM issues at
+# most one warp instruction a clock in each partition, on any pipe
+INT32_PER_SM_CLOCK = 64
+ISSUE_PER_SM_CLOCK = 128
+# SASS opcodes (before the first '.') on the int32 ALU pipe and on the FMA
+# pipe's integer side; any other (VIADD, whose pipe is not published, loads,
+# float work) counts in the issue total alone
+SASS_ALU_OPS = frozenset(("IADD3", "IADD", "SHF", "SHL", "SHR", "LOP3", "LOP", "LEA",
+                          "ISETP", "SEL", "PRMT", "IMNMX", "IABS"))
+SASS_FMA_INT_OPS = frozenset(("IMAD", "IMUL"))
+SASS_INST = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+# the draws' purposes (core/rng.py), and the probe's 7
+PURPOSE_NAMES = {0: "jitter", 1: "lobe", 2: "fresnel", 3: "rr", 4: "light",
+                 6: "light_pick", 7: "probe"}
 # the reference's config 5 (benchmarks/run_configs.py): multimesh at 1080p,
 # depth 8, 16 spp accumulated tile-sharded in steps of spp / 4
 CONFIG5_SIZE, CONFIG5_DEPTH, CONFIG5_SPP = (1920, 1080), 8, 16
@@ -251,29 +290,21 @@ def cull_sass(so: Path) -> dict:
     whose FMULs are 6 per (ray, tile) pair, so its instructions (NOPs
     aside) over its pairs are the instructions issued per pair. With the card's top SM
     clock (nvidia-smi clocks.max.sm) for the issue estimate."""
-    import re
-
-    from metalpathtracer_torch.render.kernels import _build
-
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    (OUT / "sass_cull_tiles.txt").write_text(text)
+    text = sass(so, "cull_tiles")
     insts, labels, pending = [], {}, []
     for line in text.splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
         if label:
             pending.append(label.group(1))
             continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
-                      line)
+        m = SASS_INST.search(line)
         if not m:
             continue
         addr = int(m.group(1), 16)
         for name in pending:
             labels[name] = addr
         pending = []
-        insts.append((addr, m.group(2), m.group(3)))
+        insts.append((addr, m.group(3), m.group(4)))
     back = []
     for addr, op, rest in insts:
         if not op.startswith("BRA"):
@@ -297,9 +328,6 @@ def cull_sass(so: Path) -> dict:
     if not loops:
         raise RuntimeError("cull_tiles: no slab-test loop found in the SASS")
     fmul, n, body = max(loops)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
     ops = {}
     for op in body:
         key = op.split(".")[0]
@@ -307,7 +335,89 @@ def cull_sass(so: Path) -> dict:
     pairs = fmul / 6
     return dict(loop_instructions=n, pairs_per_iteration=pairs, per_pair=n / pairs,
                 opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
-                clock_hz=float(clock) * 1e6)
+                clock_hz=top_sm_clock_hz())
+
+
+def sass(so: Path, name: str) -> str:
+    """`cuobjdump -sass` of a kernel's library, kept in OUT."""
+    from metalpathtracer_torch.render.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    (OUT / f"sass_{name}.txt").write_text(text)
+    return text
+
+
+def top_sm_clock_hz() -> float:
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    return float(clock) * 1e6
+
+
+def threefry_sass(so: Path) -> dict:
+    """Per mode, the threefry kernel function's instructions up to its
+    first EXIT without a predicate, as (address, opcode, predicated), and
+    the address ranges its three operand branches skip (pixel, sample,
+    bounce: the first three branches, each jumping over the loads of a
+    per-lane operand when that operand is passed by value). The pair and
+    triple functions branch nowhere else, which is checked: what a lane
+    issues is then the function but for the skipped ranges (`lane_issue`)."""
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    names = {v: k for k, v in tfk.MODES.items()}
+    per_mode = {}
+    for chunk in sass(so, "threefry").split("Function : ")[1:]:
+        m = re.search(r"threefry_kernelILi(\d)E", chunk.splitlines()[0])
+        if not m:
+            continue
+        mode = names[int(m.group(1))]
+        insts = []
+        for i in map(SASS_INST.search, chunk.splitlines()):
+            if not i or i.group(3) == "NOP":
+                continue
+            insts.append((int(i.group(1), 16), i.group(3), bool(i.group(2)),
+                          i.group(4)))
+            if i.group(3) == "EXIT" and not i.group(2):
+                break
+        branches = [(a, int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16))
+                    for a, op, _, rest in insts if op.startswith("BRA")]
+        operands = branches[:3]
+        for lo, hi in operands:
+            if hi <= lo or not any(lo < a < hi and op.startswith("LDG")
+                                   for a, op, _, _ in insts):
+                raise RuntimeError(f"threefry {mode}: branch {lo:#x} -> {hi:#x} "
+                                   f"skips no operand load")
+        if mode != "unit_vector" and len(branches) != 3:
+            raise RuntimeError(f"threefry {mode}: {len(branches)} branches in the "
+                               f"SASS, the lane count follows 3")
+        per_mode[mode] = dict(instructions=[(a, op, p) for a, op, p, _ in insts],
+                              operands=operands)
+    if sorted(per_mode) != sorted(tfk.MODES):
+        raise RuntimeError(f"threefry: SASS functions for {sorted(per_mode)}")
+    return dict(per_mode=per_mode, clock_hz=top_sm_clock_hz())
+
+
+def lane_issue(fn, per_lane) -> dict:
+    """What one lane of a threefry function (`threefry_sass`'s) issues when
+    its operands (pixel, sample, bounce) are tensors where `per_lane` is
+    true and values elsewhere: the instructions outside the ranges skipped
+    for values, on the int32 ALU pipe, on the FMA pipe's integer side, and
+    in all. An instruction under a predicate is left out, since a lane may
+    skip it, so each count is a lower one."""
+    skip = [r for r, lane in zip(fn["operands"], per_lane) if not lane]
+    alu = fma = issued = 0
+    for addr, op, predicated in fn["instructions"]:
+        if predicated or any(lo < addr < hi for lo, hi in skip):
+            continue
+        key = op.split(".")[0]
+        issued += 1
+        alu += key in SASS_ALU_OPS
+        fma += key in SASS_FMA_INT_OPS
+    return dict(alu=alu, fma=fma, issued=issued,
+                clocks=max(alu / INT32_PER_SM_CLOCK, fma / INT32_PER_SM_CLOCK,
+                           issued / ISSUE_PER_SM_CLOCK))
 
 
 def edge_margin(scene, o, d, prim):
@@ -376,29 +486,37 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route the closest hit through both kernels' plain versions."""
+def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
+    """Route the kernels named in `which` through their plain versions."""
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernels = tmm.mm_closest_hit, tmm.cull_tiles
-    tmm.mm_closest_hit = tmm.mm_closest_hit_reference
-    tmm.cull_tiles = tmm.cull_pass_reference
+    plain = {"mm_closest_hit": (tmm, tmm.mm_closest_hit_reference),
+             "cull_tiles": (tmm, tmm.cull_pass_reference),
+             "threefry": (tfk, tfk.threefry_reference)}
+    kernels = {k: getattr(plain[k][0], k) for k in which}
+    for k in which:
+        setattr(plain[k][0], k, plain[k][1])
     try:
         yield
     finally:
-        tmm.mm_closest_hit, tmm.cull_tiles = kernels
+        for k, fn in kernels.items():
+            setattr(plain[k][0], k, fn)
 
 
 @contextlib.contextmanager
 def counted_path():
     """Count one path's bounce steps, kernel launches and plain-version
-    calls: every count is 0 on entry; the dict is filled on exit."""
+    calls: every count is 0 on entry; the dict is filled on exit. Every
+    bounce step must launch both tile kernels once and the RNG's at least
+    twice (the lobe and the Fresnel draw), and no plain version may run."""
     from metalpathtracer_torch.render import integrator as tint
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    calls = dict(steps=0, plain_mm=0, plain_cull=0)
+    calls = dict(steps=0, plain_mm=0, plain_cull=0, plain_threefry=0)
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
-                 tmm.cull_pass_reference)
+                 tmm.cull_pass_reference, tfk.threefry_reference)
 
     def counter(key, fn):
         def wrapped(*a, **k):
@@ -409,6 +527,7 @@ def counted_path():
     tint._bounce_step = counter("steps", originals[0])
     tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
     tmm.cull_pass_reference = counter("plain_cull", originals[2])
+    tfk.threefry_reference = counter("plain_threefry", originals[3])
     result = {}
     try:
         import torch
@@ -416,17 +535,21 @@ def counted_path():
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
         tmm.cull_tiles.launches = 0
+        tfk.threefry.launches = 0
         yield result
     finally:
         (tint._bounce_step, tmm.mm_closest_hit_reference,
-         tmm.cull_pass_reference) = originals
+         tmm.cull_pass_reference, tfk.threefry_reference) = originals
     result.update(calls, mm_launches=tmm.mm_closest_hit.launches,
-                  cull_launches=tmm.cull_tiles.launches)
-    if calls["plain_mm"] or calls["plain_cull"]:
+                  cull_launches=tmm.cull_tiles.launches,
+                  threefry_launches=tfk.threefry.launches)
+    if calls["plain_mm"] or calls["plain_cull"] or calls["plain_threefry"]:
         raise RuntimeError(f"the path ran a plain version: {calls}")
     if calls["steps"] == 0 or min(result["mm_launches"],
                                   result["cull_launches"]) < calls["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
+    if result["threefry_launches"] < 2 * calls["steps"]:
+        raise RuntimeError(f"the bounce steps launched too few RNG kernels: {result}")
 
 
 class SyncCounter:
@@ -516,12 +639,21 @@ def phase_setup():
         f"instructions for {sass['pairs_per_iteration']:g} (ray, tile) pairs, "
         f"{sass['per_pair']:.2f} per pair ({sass['opcodes']}); top SM clock "
         f"{sass['clock_hz'] / 1e6:.0f} MHz")
-    return card, build_s, sass
+    tsass = threefry_sass(libs["threefry"])
+    fns = tsass["per_mode"]
+    log("[1] threefry SASS, instructions of each mode's kernel to its exit: "
+        + ", ".join(f"{k} {len(v['instructions'])}" for k, v in fns.items())
+        + "; a lane with every operand per lane issues (int32 ALU, IMAD, all): "
+        + ", ".join("{} ({alu}, {fma}, {issued})".format(k, **lane_issue(fns[k], (True,) * 3))
+                    for k in ("pair", "triple")) + "; a unit vector counts as a pair")
+    return card, build_s, sass, tsass
 
 
-def primary_and_bounce(scene, w, h, stride=1):
+def primary_and_bounce(scene, w, h, stride=1, draws=None):
     """Primary rays of every `stride`-th pixel of a w x h view from the
-    default camera, and the rays one bounce later (with its live mask)."""
+    default camera, and the rays one bounce later (with its live mask).
+    `draws`, a list, receives the `threefry` calls' arguments (the jitter,
+    the first bounce's lobe and Fresnel draws)."""
     import torch
 
     from metalpathtracer_torch.core import rng
@@ -533,12 +665,15 @@ def primary_and_bounce(scene, w, h, stride=1):
     seed = rng.seed_from_int(0)
     pix = torch.arange(0, w * h, stride, dtype=torch.int64, device=dev)
     n = pix.shape[0]
-    o, d = generate_rays(Camera.reset(), w, h, pix, 0, seed)
-    step = tint._bounce_step(
-        scene, o, d, torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
-        torch.ones((n,), dtype=torch.bool, device=dev), torch.zeros((n,), device=dev),
-        pix, 0, 0, seed, tint.RenderConfig(),
-    )
+    with recorded_draws() as recorded:
+        o, d = generate_rays(Camera.reset(), w, h, pix, 0, seed)
+        step = tint._bounce_step(
+            scene, o, d, torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev), torch.zeros((n,), device=dev),
+            pix, 0, 0, seed, tint.RenderConfig(),
+        )
+    if draws is not None:
+        draws.extend(recorded)
     return {"primary": (o, d, None), "bounce1": (step[0], step[1], step[4])}
 
 
@@ -663,12 +798,12 @@ def phase_kernel_vs_twin(scene, sets):
 
 def launcher(kernel: str, args, **build):
     """(launch, outputs): `launch()` runs `kernel` (the build that
-    `_launch`'s `defines` / `csrc` select) on a set's arguments into
+    `_build.launch`'s `defines` / `csrc` select) on a set's arguments into
     outputs of its own, uncounted, as the sweep and the comparison with
     another checkout time it."""
     import torch
 
-    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import _build
 
     if kernel == "mm_closest_hit":
         lists, counts, smin, x, lb, w, t_min = args
@@ -684,7 +819,7 @@ def launcher(kernel: str, args, **build):
         ins, scalars = (x, active, occ, box), (g, nt, float(t_min))
 
     def launch():
-        tmm._launch(kernel, ins, outs, scalars, x.device, **build)
+        _build.launch(kernel, ins, outs, scalars, x.device, **build)
 
     return launch, outs[:2] if outs[2] is None else outs
 
@@ -755,6 +890,50 @@ def phase_against(other: Path, kernel_sets: dict):
             log(f"[A] {kernel} {name}: other " + ", ".join(
                 f"{t * 1e3:.2f}" for t in times["other"]) + " us; this "
                 + ", ".join(f"{t * 1e3:.2f}" for t in times["this"]) + " us")
+    return record
+
+
+def phase_against_renders(other: Path):
+    """The flagship through each tree's `cli.main`, on both integrators, in
+    turns other, this, this, other: each turn a child whose working
+    directory is the tree calls it twice, so each reading is a pair (a
+    fresh process's seconds, with its first launches and imports; then
+    the same render again). The images must equal the other tree's where
+    both trees draw the same randoms and run the same kernels. A small
+    render of each tree first builds its kernels."""
+    import numpy as np
+
+    code = ("import json, sys\nfrom metalpathtracer_torch import cli\n"
+            "for _ in range(int(sys.argv[1])):\n    assert cli.main(sys.argv[2:]) == 0\n")
+
+    def cli(tree, argv, times):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(times), *argv, "--output",
+             str(OUT / "against.png")], cwd=str(tree), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tree} {argv}: exit {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        return [json.loads(line)["seconds"] for line in
+                proc.stdout.strip().splitlines()[-times:]]
+
+    for tree in (other, ROOT):
+        cli(tree, flagship_argv(64, 36), 1)
+    record = {}
+    for name, extra in (("scan", []), ("wavefront", ["--wavefront"])):
+        seconds, images = {"other": [], "this": []}, {}
+        for k, who in enumerate(("other", "this", "this", "other")):
+            npz = OUT / f"against_{name}_{k}.npz"
+            seconds[who].append(cli(other if who == "other" else ROOT,
+                                    flagship_argv() + extra + ["--npz", str(npz)], 2))
+            images.setdefault(who, radiance(npz))
+            npz.unlink()
+        same = bool(np.array_equal(images["other"], images["this"]))
+        record[name] = dict(seconds=seconds, images_equal=same)
+        log(f"[A] cli {name} 1280x720 spp 4 depth 32 (fresh process, again): other "
+            + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["other"]) + " s; this "
+            + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["this"])
+            + f" s; images equal: {same}")
     return record
 
 
@@ -874,23 +1053,30 @@ class _Captured(Exception):
     pass
 
 
+def _clone(args):
+    import torch
+
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
 def capture_calls(run, picks: dict, stop: bool):
-    """`run()` with both kernels wrapped. `picks` maps a name to
+    """`run()` with the three kernels wrapped. `picks` maps a name to
     `pick(i, lanes, k)`: asked at every `mm_closest_hit` call (the i-th of
     the run, the k-th on that many lanes, both from 1), and where it says
     yes that call's arguments and those of the `cull_tiles` call of the
-    same advance are cloned under the name. With `stop` the run is ended
-    once every pick is filled. Returns {name: (mm_args, cull_args)}."""
+    same advance are cloned under the name, and so are the arguments of
+    every `threefry` call after it until the next `mm_closest_hit` call
+    (the advance's draws: the scatter's, then the restart's jitter). With
+    `stop` the run is ended at the call after the last pick. Returns
+    {name: (mm_args, cull_args, [threefry_args, ...])}."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernels = tmm.mm_closest_hit, tmm.cull_tiles
-    seen = {"mm": 0, "by_lanes": {}, "cull": None}
+    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry
+    seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None}
     captured = {}
-
-    def clone(args):
-        return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
     def cull(*args, **kw):
         seen["cull"] = args  # (x, active, tile_box, t_min, occ)
@@ -899,24 +1085,31 @@ def capture_calls(run, picks: dict, stop: bool):
     def mm(*args, **kw):
         lanes = args[3].shape[0]
         seen["mm"] += 1
+        seen["drawing"] = None
+        if stop and len(captured) == len(picks):
+            raise _Captured
         k = seen["by_lanes"][lanes] = seen["by_lanes"].get(lanes, 0) + 1
         for name, pick in picks.items():
             if name not in captured and pick(seen["mm"], lanes, k):
-                captured[name] = clone(args), clone(seen["cull"])
-        if stop and len(captured) == len(picks):
-            raise _Captured
+                captured[name] = _clone(args), _clone(seen["cull"]), []
+                seen["drawing"] = name
         return kernels[0](*args, **kw)
+
+    def draw(*args, **kw):
+        if seen["drawing"] is not None:
+            captured[seen["drawing"]][2].append(_clone(args))
+        return kernels[2](*args, **kw)
 
     # the kernels count their launches on the module's names, which are
     # these wrappers while they are in place
-    mm.launches = cull.launches = 0
-    tmm.mm_closest_hit, tmm.cull_tiles = mm, cull
+    mm.launches = cull.launches = draw.launches = 0
+    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry = mm, cull, draw
     try:
         run()
     except _Captured:
         pass
     finally:
-        tmm.mm_closest_hit, tmm.cull_tiles = kernels
+        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry = kernels
     torch.cuda.synchronize()
     if len(captured) != len(picks):
         raise RuntimeError(f"captured {sorted(captured)} of {sorted(picks)}: the run "
@@ -924,9 +1117,28 @@ def capture_calls(run, picks: dict, stop: bool):
     return captured
 
 
+@contextlib.contextmanager
+def recorded_draws():
+    """Every `threefry` call's arguments, cloned into the yielded list."""
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    kernel, draws = tfk.threefry, []
+
+    def draw(*args, **kw):
+        draws.append(_clone(args))
+        return kernel(*args, **kw)
+
+    draw.launches = 0
+    tfk.threefry = draw
+    try:
+        yield draws
+    finally:
+        tfk.threefry = kernel
+
+
 def capture_pool_call():
     """The CAPTURE_CALL-th `mm_closest_hit` call of the flagship wavefront
-    render and the `cull_tiles` call of the same advance."""
+    render, and the `cull_tiles` and `threefry` calls of the same advance."""
     from metalpathtracer_torch import cli
 
     def run():
@@ -966,7 +1178,7 @@ def viewer_loop(scene):
 def capture_viewer_calls(scene):
     """Of one viewer frame at the defaults: the 5th `mm_closest_hit` call on
     the viewer's pool and the first on the drain's lanes, each with its
-    `cull_tiles` call."""
+    `cull_tiles` and `threefry` calls."""
     from metalpathtracer_torch import viewer
 
     loop, _ = viewer_loop(scene)
@@ -988,7 +1200,8 @@ def run_cli(argv, profile_name=None):
         raise RuntimeError(f"cli.main returned {rc}")
     stats = json.loads(out.getvalue().strip().splitlines()[-1])
     if profile_name:
-        stats["profile"] = profile(lambda: cli.main(argv), profile_name)
+        stats["profile"] = profile(lambda: cli.main(argv), profile_name,
+                                   counts["steps"])
     return stats, counts
 
 
@@ -1022,7 +1235,8 @@ def phase_paths(profile_on: bool, w=1280, h=720):
         log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps, launches: mm_closest_hit "
-            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
+            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+            f"threefry {counts['threefry_launches']}; "
             f"image mean {images[name].mean():.4f}")
     frac, dmean = compare_images(images["wavefront"], images["scan"],
                                  "wavefront vs scan image")
@@ -1062,19 +1276,20 @@ def phase_legs(scenes, profile_on: bool):
                    image_mean=float(img.mean()), counts=counts,
                    tiles=scene.mm_tile_box.shape[0], **stats)
         if profile_on and name == "bunny300k":
-            rec["profile"] = profile(leg, f"leg_{name}")
+            rec["profile"] = profile(leg, f"leg_{name}", counts["steps"])
         result[name] = rec
         torch.cuda.empty_cache()
         log(f"[8] {name} ({scene.num_tris} triangles, {rec['tiles']} tiles): "
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
             f"{counts['steps']} bounce steps, launches: mm_closest_hit "
-            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
-            f"image mean {img.mean():.4f}")
+            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+            f"threefry {counts['threefry_launches']}; image mean {img.mean():.4f}")
     return result
 
 
-def profile(fn, name) -> str:
-    """Run fn once more under torch.profiler; keep the kernel table."""
+def profile(fn, name, steps: int) -> str:
+    """Run fn once more under torch.profiler; keep the kernel table. `steps`:
+    the bounce steps (advances) of one run, for the kernels a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1092,12 +1307,13 @@ def profile(fn, name) -> str:
                - min(e.time_range.start for e in events)) if events else 0.0
     ours = {}
     for e in events:
-        for k in ("mm_closest_hit_kernel", "cull_tiles_kernel"):
+        for k in ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel"):
             if k in e.name:
                 n, us = ours.get(k, (0, 0.0))
                 ours[k] = (n + 1, us + e.device_time)
     summary = (f"device kernel time {busy_us / 1e3:.1f} ms over a device span of "
-               f"{span_us / 1e3:.1f} ms ({len(events)} kernels), profiled wall "
+               f"{span_us / 1e3:.1f} ms ({len(events)} kernels, {len(events) / steps:.1f} "
+               f"a bounce step), profiled wall "
                f"{wall:.3f} s; " + ", ".join(
                    f"{k} {n} launches, {us / 1e3:.2f} ms ({us / n:.1f} us each)"
                    for k, (n, us) in ours.items()))
@@ -1107,8 +1323,10 @@ def profile(fn, name) -> str:
 
 def phase_small_vs_plain(scene):
     """Both paths at 320x180 spp 2 depth 8 on the kernels vs on the plain
-    versions, and the golden reference-scene case."""
+    versions and vs on the RNG's twin alone, and the golden reference-scene
+    case."""
     import numpy as np
+    import torch
 
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
@@ -1123,13 +1341,20 @@ def phase_small_vs_plain(scene):
     result = {}
     for name, fn in (("scan", render_image), ("wavefront", render_image_wavefront)):
         a, ra = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+        # the RNG kernel against its twin: the same draws, so the same image
+        with plain_versions(("threefry",)):
+            c, rc = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+        if not torch.equal(a, c) or ra != rc:
+            raise RuntimeError(f"{name}: the render with the RNG's twin differs "
+                               f"at {int((a != c).sum())} values, rays {ra} vs {rc}")
         with plain_versions():
             b, rb = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
         frac, dmean = compare_images(a.cpu().numpy(), b.cpu().numpy(),
                                      f"{name} kernels vs plain versions")
         result[name] = dict(divergent=frac, mean_diff=dmean, rays=ra, plain_rays=rb)
         log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
-            f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}")
+            f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}; "
+            "with the RNG's twin alone: bit-equal")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
@@ -1180,12 +1405,14 @@ def phase_checkpoint(scan):
         raise RuntimeError("the resumed render differs from the uninterrupted one: "
                            f"{int((a != b).sum())} values")
     frac, dmean = compare_images(a, scan["image"], "checkpointed vs scan image")
-    launches = {k: c1[k] + c2[k] for k in ("steps", "mm_launches", "cull_launches")}
+    launches = {k: c1[k] + c2[k] for k in
+                ("steps", "mm_launches", "cull_launches", "threefry_launches")}
     for got in (launches, c3):
-        for k in ("steps", "mm_launches", "cull_launches"):
-            if got[k] != scan["counts"]["steps"]:
+        for k in ("steps", "mm_launches", "cull_launches", "threefry_launches"):
+            want = scan["counts"]["threefry_launches" if k[0] == "t" else "steps"]
+            if got[k] != want:
                 raise RuntimeError(f"checkpointed render: {k} {got[k]}, the scan "
-                                   f"path made {scan['counts']['steps']}")
+                                   f"path made {want}")
     # one write of the 1280x720 state, timed alone
     state, seed, meta = load_checkpoint(str(ck), "cuda")
     if state.spp != 4:
@@ -1205,7 +1432,8 @@ def phase_checkpoint(scan):
         f"(one checkpoint write {write_s:.3f} s); resumed and uninterrupted images "
         f"bit-equal; vs scan {frac:.5f} of pixels differ by > 1e-3, means by "
         f"{dmean:.2e}; launches per 4 spp: mm_closest_hit {c3['mm_launches']}, "
-        f"cull_tiles {c3['cull_launches']}; another --fov exits 2")
+        f"cull_tiles {c3['cull_launches']}, threefry {c3['threefry_launches']}; "
+        "another --fov exits 2")
     return dict(first_s=first["seconds"], resumed_s=resumed["seconds"],
                 straight_s=straight["seconds"], write_s=write_s, counts=c3,
                 vs_scan_divergent=frac, vs_scan_mean_diff=dmean)
@@ -1255,7 +1483,8 @@ def phase_progressive(scene, scan_image, depth=32):
     log(f"[11] progressive wavefront: 4 steps of 1 spp in "
         + ", ".join(f"{t:.3f}" for t in wf["step_s"]) + f" s, {wf['rays']} rays, "
         f"launches: mm_closest_hit {wf['counts']['mm_launches']}, cull_tiles "
-        f"{wf['counts']['cull_launches']}; accumulate steps in "
+        f"{wf['counts']['cull_launches']}, threefry {wf['counts']['threefry_launches']}; "
+        "accumulate steps in "
         + ", ".join(f"{t:.3f}" for t in record["scan"]["step_s"]) + " s; step for "
         f"step at most {worst[0]:.5f} of pixels differ by > 1e-3, means by "
         f"{worst[1]:.2e}; after 4 steps vs the scan image {frac:.5f}, {dmean:.2e}")
@@ -1311,15 +1540,20 @@ def phase_viewer(scene, child_argv=()):
                                  tpipe.to_image(want, clamp=False).cpu().numpy(),
                                  "viewer frame 5 vs five accumulate steps")
     dispatched = loop.state.spp
+    rng_syncs = sum(n for site, n in syncs.sites.items()
+                    if site.split(":")[0] in ("rng.py", "threefry.py"))
     log(f"[12] viewer loop in process at {size[0]}x{size[1]}, depth {VIEWER_DEPTH}: "
         f"{dispatched} frames, launches: mm_closest_hit {counts['mm_launches']}, "
         f"cull_tiles {counts['cull_launches']} "
-        f"({counts['mm_launches'] / dispatched:.1f} per frame); frame 5 vs five "
+        f"({counts['mm_launches'] / dispatched:.1f} per frame), threefry "
+        f"{counts['threefry_launches']} ({counts['threefry_launches'] / dispatched:.1f} "
+        f"per frame); frame 5 vs five "
         f"accumulate steps: {frac:.5f} of pixels differ by > 1e-3, means by "
         f"{dmean:.2e}; frames 2-5 with synchronising calls counted "
         f"{statistics.median(dt_counted[1:]):.3f} s each (median), frames 6-15 "
         f"without {statistics.median(dt_plain):.3f} s; "
-        f"{syncs.count / counted_frames:.1f} synchronising calls per frame, by "
+        f"{syncs.count / counted_frames:.1f} flagged synchronising calls per frame, "
+        f"{rng_syncs / counted_frames:.1f} of them from the RNG's modules; by "
         "source line: " + ", ".join(
             f"{site} {n / counted_frames:.1f}" for site, n in
             sorted(syncs.sites.items(), key=lambda kv: -kv[1])[:12]))
@@ -1418,6 +1652,7 @@ def phase_viewer(scene, child_argv=()):
         f"{len(shown['statuses'])} whole frames with their status line")
     rec["loop"] = dict(
         counts=counts, frames=dispatched, syncs_per_frame=syncs.count / counted_frames,
+        rng_syncs_per_frame=rng_syncs / counted_frames,
         dt_counted_s=dt_counted, dt_plain_s=dt_plain, vs_accumulate_divergent=frac,
         vs_accumulate_mean_diff=dmean)
     return rec
@@ -1527,13 +1762,15 @@ def phase_sharded_cli(paths):
             raise RuntimeError(f"--tile-shard {name}: the image differs from the "
                                "unsharded one")
         if stats["rays"] != want["stats"]["rays"] or any(
-                counts[k] != want["counts"][k] for k in ("mm_launches", "cull_launches")):
+                counts[k] != want["counts"][k]
+                for k in ("mm_launches", "cull_launches", "threefry_launches")):
             raise RuntimeError(f"--tile-shard {name}: {stats['rays']} rays, {counts}; "
                                f"unsharded {want['stats']['rays']}, {want['counts']}")
         result[name] = dict(stats=stats, counts=counts)
         log(f"[14a] cli --tile-shard {name} in a world of one: {stats['seconds']} s, "
             f"{stats['rays']} rays, launches: mm_closest_hit {counts['mm_launches']}, "
-            f"cull_tiles {counts['cull_launches']}; image bit-equal to phase "
+            f"cull_tiles {counts['cull_launches']}, threefry "
+            f"{counts['threefry_launches']}; image bit-equal to phase "
             f"{6 if name == 'scan' else 7}'s")
     return result
 
@@ -1594,7 +1831,8 @@ def phase_config5():
         f"depth {CONFIG5_DEPTH}, {CONFIG5_SPP} spp in steps of {CONFIG5_STEP}, world of "
         "one: accumulate_sharded steps " + ", ".join(f"{t:.3f}" for t in secs)
         + f" s ({step_s:.3f} s, {rays / step_s / 1e6:.3f} Mrays/s), {rays} rays, launches: "
-        f"mm_closest_hit {counts['mm_launches']}, cull_tiles {counts['cull_launches']}; "
+        f"mm_closest_hit {counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+        f"threefry {counts['threefry_launches']}; "
         f"render_image_wavefront of {CONFIG5_SPP} spp {whole_s:.3f} s "
         f"({whole_counts['mm_launches']} launches); max |difference| {worst:.3g} "
         f"(rtol 1e-6, atol 1e-7), rays equal; image mean {float(img.mean()):.4f}")
@@ -1667,7 +1905,8 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             name = job["name"]
             results = [worker.load_result(out, name, r) for r in range(world)]
             launches = {k: sum(res["counts"][k] for res in results)
-                        for k in ("steps", "mm_launches", "cull_launches")}
+                        for k in ("steps", "mm_launches", "cull_launches",
+                                  "threefry_launches")}
             by_rank = [res["counts"]["mm_launches"] for res in results]
             if job["kind"] == "cli":
                 if any(res["rc"] != 0 for res in results) or any(
@@ -1714,7 +1953,8 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             f"ranks {where} together {more['seconds']:.3f} s (mm_closest_hit "
             f"{' + '.join(map(str, more['mm_launches_by_rank']))} = "
             f"{more['launches']['mm_launches']}, cull_tiles "
-            f"{more['launches']['cull_launches']}), {more['rays']} rays, "
+            f"{more['launches']['cull_launches']}, threefry "
+            f"{more['launches']['threefry_launches']}), {more['rays']} rays, "
             f"{more['pixels_differing']} pixels differ from the world of one's "
             f"({one['pixels_differing']} of the lone rank's); {card}")
     log(f"[14c] whole worlds with start-up and uploads: one rank "
@@ -1731,6 +1971,7 @@ def phase_nee(card):
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.kernels import threefry as tfk
     from metalpathtracer_torch.render.pipeline import (
         render_image,
         render_image_wavefront,
@@ -1747,12 +1988,16 @@ def phase_nee(card):
     cfg = RenderConfig(max_depth=16, nee=True, rr_start=3)
     on_card, on_cpu = both("cornell_glass.xml")
     launches = _launches()
+    draws = tfk.threefry.launches
     t0 = time.perf_counter()
     a, ra = render_image(on_card, cam, 512, 512, 2, seed=4, cfg=cfg)
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     if _launches() != launches:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
+    draws = tfk.threefry.launches - draws
+    if draws == 0:
+        raise RuntimeError("config 4 launched no RNG kernel")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
     cpu_s = time.perf_counter() - t0
@@ -1760,11 +2005,11 @@ def phase_nee(card):
     if not a.mean() > 0.05 or abs(ra - rb) > 0.01 * rb:
         raise RuntimeError(f"config 4: mean {a.mean()}, rays {ra} vs {rb}")
     record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
-                             divergent=frac, mean_diff=dmean)
+                             divergent=frac, mean_diff=dmean, threefry_launches=draws)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
-        "kernel launched (spheres alone)")
+        f"tile kernel launched (spheres alone), threefry {draws} launches")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -1790,9 +2035,104 @@ def phase_nee(card):
             f"{card_s:.3f} s on the card, {out[1]} vs {b[1]} rays"
             + (f" ({shadow} shadow rays)" if shadow is not None else "")
             + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
-            f"{counts['cull_launches']} over {counts['steps']} bounce steps; "
+            f"{counts['cull_launches']}, threefry {counts['threefry_launches']} over "
+            f"{counts['steps']} bounce steps; "
             f"{frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
     torch.cuda.empty_cache()
+    return record
+
+
+def draw_sets(scan_draws, pool_draws, of_viewer):
+    """Phase 16's draws by name: the probe's call and those captured (the
+    scan's 921,600-lane jitter and first bounce, the flagship's advance at
+    call CAPTURE_CALL, a viewer frame's pool call 5 and drain call 1)."""
+    import torch
+
+    dev = pool_draws[0][1].device
+    probe = torch.arange(1024, dtype=torch.int32, device=dev).reshape(8, 128)
+    sets = {"probe": (42, probe, 3, 0, 7, "unit_vector")}
+    for where, draws in (("scan", scan_draws), ("pool", pool_draws),
+                         *((k, v[2]) for k, v in of_viewer.items())):
+        for args in draws:
+            name = f"{where}_{PURPOSE_NAMES.get(args[4], args[4])}"
+            while name in sets:
+                name += "'"
+            sets[name] = args
+    return sets
+
+
+def draw_bound(args, tsass):
+    """The least time of one `threefry` call: its bytes (each tensor
+    operand read once, the output written once) at the memory rate, and
+    what its lanes issue (`lane_issue` of the mode's function with this
+    call's operands) at the pipes' rates on every SM at the card's top SM
+    clock. A unit vector is counted at the pair's lane: its own function
+    adds the mapping's float work and branches to sinf/cosf's range
+    reduction for |t| > 105,615, which no t in [0, 2 pi) takes."""
+    import math
+
+    import torch
+
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    lanes = [v for v in args[1:4] if isinstance(v, torch.Tensor)]
+    n = math.prod(tfk._broadcast_shapes(v.shape for v in lanes))
+    mode = args[5]
+    nbytes = sum(v.numel() * v.element_size() for v in lanes) + n * 4 * (
+        2 if mode == "pair" else 3)
+    lane = lane_issue(tsass["per_mode"]["triple" if mode == "triple" else "pair"],
+                      [isinstance(v, torch.Tensor) for v in args[1:4]])
+    op_ms = n * lane["clocks"] / (H100_SMS * tsass["clock_hz"]) * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(lanes=n, bytes=nbytes, lane_issue=lane, bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
+def phase_threefry(sets, tsass):
+    """16: `threefry` vs its plain twin at every captured shape: uniforms
+    bit-equal, unit vectors bit-equal or within 4 ulp of 1.0 (the gap
+    stated); each timed on the device, per call and plain."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    ulp = float(torch.finfo(torch.float32).eps)
+    record = {}
+    for name, args in sets.items():
+        got = tfk.threefry(*args)
+        want = tfk.threefry_reference(*args)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise RuntimeError(f"threefry {name}: shape {tuple(got.shape)} vs "
+                               f"{tuple(want.shape)}")
+        differ = int((got != want).sum())
+        err = float((got - want).abs().max()) if differ else 0.0
+        if differ and (args[5] != "unit_vector" or err > 4 * ulp):
+            raise RuntimeError(f"threefry {name} ({args[5]}): {differ} values differ "
+                               f"from the twin, by at most {err:.3g}")
+        k_ms = device_ms(lambda: tfk.threefry(*args))
+        c_ms = call_ms(lambda: tfk.threefry(*args), 20)
+        p_ms = call_ms(lambda: tfk.threefry_reference(*args), 3)
+        b = draw_bound(args, tsass)
+        record[name] = dict(mode=args[5], purpose=args[4], differ=differ,
+                            max_abs_err=err, max_ulp=err / ulp, ms=k_ms, call_ms=c_ms,
+                            plain_ms=p_ms, **b, share=b["bound_ms"] / k_ms)
+        kinds = ", ".join("int" if isinstance(v, int) else
+                          f"{str(v.dtype)[6:]}{tuple(v.shape)}" for v in args[1:4])
+        lane = b["lane_issue"]
+        log(f"    threefry {name} ({args[5]}, {b['lanes']} lanes; pixel, sample, "
+            f"bounce: {kinds}): "
+            + ("bit-equal to the twin" if not differ else
+               f"{differ} values differ by at most {err / ulp:.1f} ulp of 1.0")
+            + f"; kernel {k_ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us per "
+            f"call, twin {p_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
+            f"({b['bound_by']}: {b['bytes']} bytes; a lane issues {lane['alu']} int32 "
+            f"ALU, {lane['fma']} IMAD, {lane['issued']} in all), "
+            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached")
+        if b["bound_ms"] > k_ms:
+            raise RuntimeError(f"threefry {name}: the kernel took {k_ms * 1e3:.2f} us, "
+                               f"less than its bound {b['bound_ms'] * 1e3:.2f} us: "
+                               f"the bound counts more than the call must do")
     return record
 
 
@@ -1812,8 +2152,9 @@ def main(argv=None) -> int:
                          "and cull_tiles with at most 8, 16 and 32 warps per "
                          "block aiming at 64, 128 and 256 warps per SM")
     ap.add_argument("--against", metavar="DIR",
-                    help="also time both kernels built from the sources of "
-                         "the checkout DIR against this one's, in turns")
+                    help="also time both tile kernels built from the sources "
+                         "of the checkout DIR against this one's, and run both "
+                         "trees' flagship CLI renders, in turns, images compared")
     ap.add_argument("--cards", type=int, default=1, metavar="N",
                     help="run phases 1, 6, 7 and 14 alone, phase 14c with one "
                          "rank on each of N cards joined by nccl")
@@ -1825,7 +2166,7 @@ def main(argv=None) -> int:
         return shard_rank(args.shard_rank[0], int(args.shard_rank[1]))
 
     t_start = time.perf_counter()
-    card, build_s, sass = phase_setup()
+    card, build_s, sass, tsass = phase_setup()
     import torch
 
     if args.cards > 1:
@@ -1855,13 +2196,14 @@ def main(argv=None) -> int:
     log(f"[1] reference scene: {scene.num_tris} triangles in "
         f"{scene.mm_tile_box.shape[0]} tiles of {scene.mm_w.shape[1]}")
 
-    ref_sets = primary_and_bounce(scene, 1280, 720)
-    mm_pool, cull_pool = capture_pool_call()
+    scan_draws = []
+    ref_sets = primary_and_bounce(scene, 1280, 720, draws=scan_draws)
+    mm_pool, cull_pool, pool_draws = capture_pool_call()
     of_viewer = capture_viewer_calls(scene)
     sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
     sets["pool"] = captured_set(mm_pool, cull_pool[1])
     # the drain's lanes are the longest paths: they may all be among spheres
-    for k, (mm_args, cull_args) in of_viewer.items():
+    for k, (mm_args, cull_args, _) in of_viewer.items():
         sets[k] = captured_set(mm_args, cull_args[1],
                                min_hits=0 if k == "viewer_drain" else 1)
     log(f"[2] mm_closest_hit vs twin, reference scene: 921,600 rays, the "
@@ -1893,6 +2235,14 @@ def main(argv=None) -> int:
                              chunk=4096)
     mm_sets = {**{f"reference_{k}": v for k, v in sets.items()},
                **{f"bunny300k_{k}": v for k, v in sets256.items()}}
+    log("[16] threefry vs its plain twin: the probe's call, the scan's 921,600-lane "
+        f"draws, the draws of the flagship's advance {CAPTURE_CALL} and of a viewer "
+        "frame's pool call 5 and drain call 1")
+    t0 = time.perf_counter()
+    draws = phase_threefry(draw_sets(scan_draws, pool_draws, of_viewer), tsass)
+    log(f"[16] {len(draws)} draws compared and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del scan_draws, pool_draws
     sweep = against = None
     if args.sweep:
         log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
@@ -1909,6 +2259,7 @@ def main(argv=None) -> int:
         log(f"[A] both kernels built from {args.against} and from this checkout")
         against = phase_against(Path(args.against).resolve(),
                                 {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets})
+        against["renders"] = phase_against_renders(Path(args.against).resolve())
     del leg_sets, sets, sets256, mm_sets, mm_pool, cull_pool, cull_sets, of_viewer
 
     paths = phase_paths(args.profile)
@@ -1930,7 +2281,8 @@ def main(argv=None) -> int:
     nee = phase_nee(card)
 
     main_path = paths["wavefront"]["counts"]
-    mm, cl = kvt["pool"], cull["reference_pool"]  # the main path's shapes
+    # the main path's shapes: the pool call, and its advance's lobe draw
+    mm, cl, tf = kvt["pool"], cull["reference_pool"], draws["pool_lobe"]
     # every counted path's launches, beside the main path's
     per_path = {"scan": paths["scan"]["counts"], "wavefront": main_path,
                 **{k: v["counts"] for k, v in legs.items()},
@@ -1957,11 +2309,22 @@ def main(argv=None) -> int:
              bound_ms=cl["bound_ms"],
              bound_by=cl["bound_by"], share=cl["share"], library_ms=None,
              launches_by_path={k: v["cull_launches"] for k, v in per_path.items()}),
+        # torch.rand is Philox, another function: no PyTorch call computes it
+        dict(name="threefry", route="cuda", **KERNELS["threefry"],
+             launches=main_path["threefry_launches"],
+             max_abs_err=max(v["max_abs_err"] for v in draws.values()),
+             ms=tf["ms"], call_ms=tf["call_ms"], plain_ms=tf["plain_ms"],
+             bound_ms=tf["bound_ms"], bound_by=tf["bound_by"], share=tf["share"],
+             library_ms=None,
+             launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()}),
     ]}
     summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
                    mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
-                   oracle_tile_p256=oracle256, sweep=sweep, paths=paths, legs=legs,
+                   oracle_tile_p256=oracle256,
+                   threefry_lane={k: lane_issue(tsass["per_mode"][k], (True,) * 3)
+                                  for k in ("pair", "triple")},
+                   threefry_vs_twin=draws, sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,
                    sharded_cli=sharded_cli, config5=config5, two_ranks=two_ranks,

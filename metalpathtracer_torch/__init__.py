@@ -11,7 +11,8 @@ What is ported so far are the CLI's two render paths:
 wavefront, `trace_wavefront`) -> `_bounce_step` -> `_trace_rays` ->
 `render.kernels.intersect_mm.closest_hit_mm_full`, whose triangle pass runs
 the hand-written CUDA kernels `csrc/cull_tiles.cu` and
-`csrc/mm_closest_hit.cu`.
+`csrc/mm_closest_hit.cu`; every random draw (`core.rng`) runs the third,
+`csrc/threefry.cu`, through `render.kernels.threefry`.
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

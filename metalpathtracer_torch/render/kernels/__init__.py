@@ -1,1 +1,2 @@
-"""The hand-written closest-hit kernel, its plain twin and its tables."""
+"""The hand-written CUDA kernels (closest hit, tile cull, the RNG's threefry),
+their plain twins, their tables, and how they are built and launched."""

@@ -44,9 +44,6 @@ TPU workarounds of the reference that are not ported, and why:
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -226,67 +223,6 @@ def build_weights(prim_type, p0, p1, p2) -> dict:
 # --------------------------------------------------------------------------
 
 
-# each kernel's C entry point `<name>_launch(pointers..., scalars...,
-# device, stream)`: its pointer count and scalar types
-_ENTRY_ARGS = {
-    "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float)),
-    "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
-}
-
-
-def _check_tensors(kernel: str, expect, device):
-    """Raise unless every (name, tensor, dtype, shape) of `expect` has its
-    dtype and shape and lies on `device`."""
-    for name, tensor, dtype, shape in expect:
-        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
-            raise ValueError(
-                f"{kernel}: {name} must be {dtype} {shape}, "
-                f"got {tensor.dtype} {tuple(tensor.shape)}"
-            )
-        if tensor.device != device:
-            raise ValueError(f"{kernel}: {name} is on {tensor.device}, "
-                             f"not {device}")
-
-
-@functools.cache
-def _entry(kernel: str, defines: tuple = (), csrc=_build.CSRC_DIR):
-    lib = _build.load_library(kernel, defines, csrc)
-    n_ptr, scalars = _ENTRY_ARGS[kernel]
-    fn = getattr(lib, f"{kernel}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [*scalars, ctypes.c_int,
-                                               ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{kernel}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
-
-
-def _launch(kernel: str, inputs, outputs, scalars, device, defines: tuple = (),
-            csrc=_build.CSRC_DIR):
-    """Launch `kernel` on `device`'s current stream: pointers of `inputs`
-    and `outputs` (None passes a null pointer), then `scalars`. Inputs must
-    be contiguous and 16-byte aligned. `defines` selects a build of the
-    source with those preprocessor definitions (a sweep's variants), and
-    `csrc` a build of another checkout's source of the same entry point (a
-    comparison); the render path takes the package's own source and
-    constants. Raises on a refused launch."""
-    for tensor in inputs:
-        if tensor is not None and (not tensor.is_contiguous()
-                                   or tensor.data_ptr() % 16):
-            raise ValueError(f"{kernel}: inputs must be contiguous and "
-                             "16-byte aligned")
-    fn, err = _entry(kernel, tuple(defines), csrc)
-    rc = fn(*(None if v is None else v.data_ptr() for v in (*inputs, *outputs)),
-            *scalars, device.index or 0,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{kernel} launch failed: CUDA error {rc} ({err(rc).decode()})"
-        )
-
-
 def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
                    return_walked: bool = False):
     """Closest accepted hit per ray over its subgroup's tile list.
@@ -308,7 +244,7 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
     g, nt = lists.shape
     n = g * LANES
     tile_p = w.shape[1]
-    _check_tensors("mm_closest_hit", [
+    _build.check_tensors("mm_closest_hit", [
         ("lists", lists, torch.int32, (g, nt)),
         ("counts", counts, torch.int32, (g,)),
         ("smin", smin, torch.float32, (g, nt)),
@@ -325,7 +261,7 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
     col = torch.empty(n, dtype=torch.int32, device=x.device)
     walked = (torch.empty(g, dtype=torch.int32, device=x.device)
               if return_walked else None)
-    _launch("mm_closest_hit", (lists, counts, smin, x, lane_bound, w),
+    _build.launch("mm_closest_hit", (lists, counts, smin, x, lane_bound, w),
             (t, col, walked), (g, nt, tile_p, float(t_min)), x.device)
     mm_closest_hit.launches += 1
     return (t, col, walked) if return_walked else (t, col)
@@ -443,7 +379,7 @@ def cull_tiles(x, active, tile_box, t_min: float, occ=None):
     """
     n, nt = x.shape[0], tile_box.shape[0]
     f32 = torch.float32
-    _check_tensors("cull_tiles", [
+    _build.check_tensors("cull_tiles", [
         ("x", x, f32, (n, NUM_FEATURES)),
         ("active", active, f32, (n,)),
         ("tile_box", tile_box, f32, (nt, 8)),
@@ -458,7 +394,7 @@ def cull_tiles(x, active, tile_box, t_min: float, occ=None):
     sgm = torch.empty((g, nt), dtype=torch.bool, device=x.device)
     gent = torch.empty((g, nt), dtype=f32, device=x.device)
     lane_bound = torch.empty((n,), dtype=f32, device=x.device)
-    _launch("cull_tiles", (x, active, occ, tile_box), (sgm, gent, lane_bound),
+    _build.launch("cull_tiles", (x, active, occ, tile_box), (sgm, gent, lane_bound),
             (g, nt, float(t_min)), x.device)
     cull_tiles.launches += 1
     return sgm, gent, lane_bound

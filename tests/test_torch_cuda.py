@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
-kernel (also against the brute-force oracle) and the tile cull, and the
+kernel (also against the brute-force oracle), the tile cull and the RNG's
+threefry (bit-equal in every mode, also inside a CUDA graph), and the
 wavefront integrator, the progressive path (checkpointed CLI, progressive
 wavefront, the viewer's frames) and the BVH study path on the card. These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
@@ -524,3 +525,63 @@ def test_sharded_entry_points_on_card_in_a_world_of_one(scene):
         want, r_want = tpipe.accumulate_wavefront(want, scene, cam, 320, 180, 1, 1, cfg)
         assert r == r_want
     assert state.spp == 2 and torch.equal(state.rgb_sum, want.rgb_sum)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _draw_operands(n, kind, card):
+    """The RNG's operands as the paths pass them: the scan's (int sample and
+    bounce), the wavefront's (per-lane int64 tensors) and the probe's kind
+    (int32 ids, a 0-d bounce tensor on the card, a one-element sample)."""
+    r = np.random.default_rng(n)
+    pix = torch.as_tensor(r.integers(0, 2**32, n).astype(np.int64), device=card)
+    if kind == "scan":
+        return pix, 3, 1
+    if kind == "wavefront":
+        return (pix, torch.as_tensor(r.integers(0, 2**33, n), device=card),
+                torch.as_tensor(r.integers(0, 32, n), device=card))
+    return (pix.to(torch.int32), torch.tensor([2**32 + 3], device=card),
+            torch.tensor(7, dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("kind", ["scan", "wavefront", "probe"])
+@pytest.mark.parametrize("mode", ["pair", "triple", "unit_vector"])
+@pytest.mark.parametrize("n", [1024, 32768, 921600])
+def test_threefry_kernel_matches_twin(card, n, mode, kind):
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    pix, sample, bounce = _draw_operands(n, kind, card)
+    before = tfk.threefry.launches
+    got = tfk.threefry(-5, pix, sample, bounce, 4, mode)
+    torch.cuda.synchronize()
+    assert tfk.threefry.launches == before + 1
+    want = tfk.threefry_reference(-5, pix, sample, bounce, 4, mode)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_threefry_kernel_in_a_cuda_graph(card):
+    # no operand is read on the host: the draws can be captured and replayed
+    from metalpathtracer_torch.core import rng as trng
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    pix, sample, bounce = _draw_operands(32768, "wavefront", card)
+    trng.uniform2(9, pix, sample, bounce, 2)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        u = trng.uniform2(9, pix, sample, bounce, 2)
+        v = trng.random_unit_vector(9, pix, sample, bounce)
+        w = trng.uniform3(9, pix, 4, 0, 0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(u), tfk.threefry_reference(9, pix, sample, bounce, 2,
+                                                              "pair"))
+    assert torch.equal(v, tfk.threefry_reference(9, pix, sample, bounce, 1,
+                                                 "unit_vector"))
+    assert torch.equal(torch.stack(w), tfk.threefry_reference(9, pix, 4, 0, 0, "triple"))

@@ -393,6 +393,16 @@ leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not leaked, leaked
 reference = sorted(m for m in sys.modules if m.split(".")[0] == "metalpathtracer_tpu")
 assert not reference, reference
+# the RNG and its kernel module import neither, not even lazily
+import ast, inspect
+for name in ("metalpathtracer_torch.core.rng",
+             "metalpathtracer_torch.render.kernels.threefry"):
+    tree = ast.parse(inspect.getsource(sys.modules[name]))
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+    imported += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    bad = [m for m in imported if m.split(".")[0] in ("jax", "metalpathtracer_tpu")]
+    assert not bad, (name, bad)
 print("no jax")
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
