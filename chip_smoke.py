@@ -9,8 +9,9 @@ the three kernels (the closest hit, the tile cull, the RNG's threefry).
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
-   cull kernel's slab-test loop issues per (ray, tile) pair and those of
-   each threefry mode's kernel (their SASS);
+   cull kernel's slab-test loop issues per (ray, tile) pair and those every
+   lane of the threefry kernel issues for each count of counter blocks in
+   a bundle (their SASS);
 2. `mm_closest_hit` vs its plain twin on the reference scene's 921,600
    primary rays, the rays left after one bounce, the pool-width set (the
    arguments of the 100th `mm_closest_hit` call of the flagship wavefront
@@ -96,22 +97,29 @@ Phases, each raising on failure:
     spheres alone, so it launches no tile kernel) and `scenes/multimesh.xml` at
     320x180, spp 2, depth 8 on both integrators, whose shadow rays go
     through both kernels;
-16. `threefry` vs its plain twin (run after phase 5, with the other
-    kernels' comparisons), at the shapes the paths give it: the draws of
-    the flagship's advance CAPTURE_CALL (the lobe and Fresnel draws with
-    per-lane sample ids and bounces, the restart's jitter; 32,768 lanes),
-    the scan's 921,600-lane jitter and first-bounce draws, a viewer frame's
-    pool call 5 (16,384 lanes) and drain call 1, and the Mosaic probe's own
-    call (`benchmarks/mosaic_probe.py`: seed 42, an (8, 128) int32 tile of
-    ids, sample 3, bounce 0, purpose 7, unit vectors): uniforms bit-equal,
-    unit vectors bit-equal or within 4 ulp of 1.0 (the gap printed); each
-    with its device, call and plain time and its bound, the larger of its
-    bytes at the memory rate and its integer instructions (the SASS count)
-    at 64 a clock on every SM.
+16. `threefry_bundle` vs its plain twin (run after phase 5, with the other
+    kernels' comparisons), at the bundles the paths give it: the bounce
+    step's (lobe and Fresnel, per-lane sample ids and bounces; 32,768
+    lanes) and the restart's jitter of the flagship's advance
+    CAPTURE_CALL, the scan's 921,600-lane jitter and first bounce step, a
+    viewer frame's pool call 5 (16,384 lanes) and drain call 1, config 4's
+    first bounce step (its five draws: lobe, Fresnel, light pick, light,
+    Russian roulette; 262,144 lanes) and the Mosaic probe's own call as a
+    bundle of one (`benchmarks/mosaic_probe.py`: seed 42, an (8, 128) int32
+    tile of ids, sample 3, bounce 0, purpose 7, unit vectors): uniforms
+    bit-equal, unit vectors bit-equal or within 4 ulp of 1.0 (the gap
+    printed); each with its device, call and plain time and its bound, the
+    larger of its bytes at the memory rate and what its lanes issue (the
+    SASS count) at the pipes' rates on every SM; a bounce step's bundle
+    also against its draws as separate launches (bundles of one, Fresnel,
+    light pick and Russian roulette as pairs, as `uniform1` drew them
+    before the bundle), and with `--against` against the other tree's
+    kernel in turns.
 No earlier path runs at a smaller depth than before. Each path of phases
 6-8, 10-12, 14 and 15 runs with every launch count set to 0 just before it and read
 just after, and with the plain versions counted (they must not run); a
-bounce step must launch both tile kernels once and threefry at least twice.
+bounce step must launch both tile kernels once and the threefry kernel
+exactly once (its bundle), with at least two draws.
 A kernel's `ms` is its device time: 20 calls captured in one CUDA
 graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
 mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
@@ -133,12 +141,14 @@ Usage:
                                      # wavefront path and the bunny300k leg
     python3 chip_smoke.py --sweep    # also time `mm_closest_hit` built
                                      # with 1, 2, 4 and 8 column slices
-                                     # and 1 and 4 rays per thread, and
+                                     # and 1 and 4 rays per thread,
                                      # `cull_tiles` with at most 8, 16 and
                                      # 32 warps per block, aiming at 64, 128
-                                     # and 256 warps per SM, on the device
+                                     # and 256 warps per SM, and `threefry`
+                                     # with 64, 128 and 256 threads a block,
+                                     # on the device
     python3 chip_smoke.py --against _archive/parent
-                                     # also time both tile kernels built
+                                     # also time the three kernels built
                                      # from another checkout's sources
                                      # against this one's, and the flagship
                                      # CLI renders of both trees, in turns
@@ -225,6 +235,7 @@ CONFIG5_STEP = CONFIG5_SPP // 4
 RANK_TIMEOUT_S, WORLD_LIMIT_S = 120, 420
 SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
+SWEEP_THREADS = (64, 128, 256)
 
 
 def log(msg: str) -> None:
@@ -357,59 +368,81 @@ def top_sm_clock_hz() -> float:
 
 
 def threefry_sass(so: Path) -> dict:
-    """Per mode, the threefry kernel function's instructions up to its
-    first EXIT without a predicate, as (address, opcode, predicated), and
-    the address ranges its three operand branches skip (pixel, sample,
-    bounce: the first three branches, each jumping over the loads of a
-    per-lane operand when that operand is passed by value). The pair and
-    triple functions branch nowhere else, which is checked: what a lane
-    issues is then the function but for the skipped ranges (`lane_issue`)."""
-    from metalpathtracer_torch.render.kernels import threefry as tfk
-
-    names = {v: k for k, v in tfk.MODES.items()}
-    per_mode = {}
+    """Per count K of counter blocks in a bundle (1 to 8), the threefry
+    kernel function built for K: its body's instructions (up to its first
+    EXIT without a predicate) as (address, opcode, predicated), and the
+    address spans of the body its forward branches may skip (the loads of
+    an operand passed by value, the stores of the modes a bundle does not
+    draw). A branch out of the body either leaves it (its span runs to the
+    EXIT) or comes back (its span runs to where it lands: sinf's and cosf's
+    range reduction for |t| > 105,615, which no t in [0, 2 pi) takes, lands
+    right after it). What every lane of every bundle of K blocks issues is
+    then the body outside every span (`lane_issue`): the rounds of the K
+    chains and their injections. Raises on an indirect branch, and where
+    fewer than 60 integer instructions a block (20 rounds of add, rotate,
+    xor) lie outside the spans."""
+    per_blocks = {}
     for chunk in sass(so, "threefry").split("Function : ")[1:]:
         m = re.search(r"threefry_kernelILi(\d)E", chunk.splitlines()[0])
         if not m:
             continue
-        mode = names[int(m.group(1))]
-        insts = []
-        for i in map(SASS_INST.search, chunk.splitlines()):
-            if not i or i.group(3) == "NOP":
+        k = int(m.group(1))
+        insts = [(int(i.group(1), 16), i.group(3), bool(i.group(2)), i.group(4))
+                 for i in map(SASS_INST.search, chunk.splitlines())
+                 if i and i.group(3) != "NOP"]
+        if any(op.startswith(("BRX", "JMX")) for _, op, _, _ in insts):
+            raise RuntimeError(f"threefry K={k}: an indirect branch")
+        body = next(n for n, (_, op, p, _) in enumerate(insts)
+                    if op == "EXIT" and not p) + 1
+        end = insts[body - 1][0]
+        index = {a: n for n, (a, _, _, _) in enumerate(insts)}
+
+        def target(rest):
+            return int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16)
+
+        def landing(t):
+            """Where lanes branching to `t` past the EXIT come back into
+            the body, or None where they exit."""
+            n = index[t]
+            for _ in range(len(insts)):
+                a, op, p, rest = insts[n]
+                if op == "EXIT" and not p:
+                    return None
+                if op.startswith("BRA") and not p:
+                    if target(rest) <= end:
+                        return target(rest)
+                    n = index[target(rest)]
+                else:
+                    n += 1
+            raise RuntimeError(f"threefry K={k}: the code at {t:#x} never ends")
+
+        spans = []
+        for a, op, _, rest in insts[:body]:
+            if not op.startswith("BRA") or target(rest) <= a:
                 continue
-            insts.append((int(i.group(1), 16), i.group(3), bool(i.group(2)),
-                          i.group(4)))
-            if i.group(3) == "EXIT" and not i.group(2):
-                break
-        branches = [(a, int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16))
-                    for a, op, _, rest in insts if op.startswith("BRA")]
-        operands = branches[:3]
-        for lo, hi in operands:
-            if hi <= lo or not any(lo < a < hi and op.startswith("LDG")
-                                   for a, op, _, _ in insts):
-                raise RuntimeError(f"threefry {mode}: branch {lo:#x} -> {hi:#x} "
-                                   f"skips no operand load")
-        if mode != "unit_vector" and len(branches) != 3:
-            raise RuntimeError(f"threefry {mode}: {len(branches)} branches in the "
-                               f"SASS, the lane count follows 3")
-        per_mode[mode] = dict(instructions=[(a, op, p) for a, op, p, _ in insts],
-                              operands=operands)
-    if sorted(per_mode) != sorted(tfk.MODES):
-        raise RuntimeError(f"threefry: SASS functions for {sorted(per_mode)}")
-    return dict(per_mode=per_mode, clock_hz=top_sm_clock_hz())
+            land = target(rest) if target(rest) <= end else landing(target(rest))
+            spans.append((a, end + 1 if land is None else land))
+        fn = dict(instructions=[(a, op, p) for a, op, p, _ in insts[:body]],
+                  spans=spans)
+        lane = lane_issue(fn)
+        if lane["alu"] + lane["fma"] < 60 * k:
+            raise RuntimeError(f"threefry K={k}: {lane} outside the branches, fewer "
+                               "than the rounds of its blocks")
+        per_blocks[k] = fn
+    if sorted(per_blocks) != list(range(1, 9)):
+        raise RuntimeError(f"threefry: SASS functions for K = {sorted(per_blocks)}")
+    return dict(per_blocks=per_blocks, clock_hz=top_sm_clock_hz())
 
 
-def lane_issue(fn, per_lane) -> dict:
-    """What one lane of a threefry function (`threefry_sass`'s) issues when
-    its operands (pixel, sample, bounce) are tensors where `per_lane` is
-    true and values elsewhere: the instructions outside the ranges skipped
-    for values, on the int32 ALU pipe, on the FMA pipe's integer side, and
-    in all. An instruction under a predicate is left out, since a lane may
-    skip it, so each count is a lower one."""
-    skip = [r for r, lane in zip(fn["operands"], per_lane) if not lane]
+def lane_issue(fn) -> dict:
+    """What every lane of a threefry function (`threefry_sass`'s) issues,
+    whatever its bundle's modes and operand layouts: the instructions
+    outside every span a forward branch may skip and without a predicate,
+    on the int32 ALU pipe, on the FMA pipe's integer side, and in all.
+    Each count is a lower one: what a lane may skip is left out."""
     alu = fma = issued = 0
     for addr, op, predicated in fn["instructions"]:
-        if predicated or any(lo < addr < hi for lo, hi in skip):
+        if predicated or any(lo < addr < hi for lo, hi in fn["spans"]):
             continue
         key = op.split(".")[0]
         issued += 1
@@ -487,36 +520,40 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
 
 @contextlib.contextmanager
 def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
-    """Route the kernels named in `which` through their plain versions."""
+    """Route the kernels named in `which` through their plain versions (the
+    threefry kernel's wrapper is `threefry_bundle`, which every draw goes
+    through)."""
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    plain = {"mm_closest_hit": (tmm, tmm.mm_closest_hit_reference),
-             "cull_tiles": (tmm, tmm.cull_pass_reference),
-             "threefry": (tfk, tfk.threefry_reference)}
-    kernels = {k: getattr(plain[k][0], k) for k in which}
+    plain = {"mm_closest_hit": (tmm, "mm_closest_hit", tmm.mm_closest_hit_reference),
+             "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
+             "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference)}
+    kernels = {k: getattr(plain[k][0], plain[k][1]) for k in which}
     for k in which:
-        setattr(plain[k][0], k, plain[k][1])
+        setattr(plain[k][0], plain[k][1], plain[k][2])
     try:
         yield
     finally:
         for k, fn in kernels.items():
-            setattr(plain[k][0], k, fn)
+            setattr(plain[k][0], plain[k][1], fn)
 
 
 @contextlib.contextmanager
 def counted_path():
-    """Count one path's bounce steps, kernel launches and plain-version
-    calls: every count is 0 on entry; the dict is filled on exit. Every
-    bounce step must launch both tile kernels once and the RNG's at least
-    twice (the lobe and the Fresnel draw), and no plain version may run."""
+    """Count one path's bounce steps, kernel launches, threefry draws and
+    plain-version calls: every count is 0 on entry; the dict is filled on
+    exit. Every bounce step must launch both tile kernels once and the
+    threefry kernel exactly once (one bundle), with at least two draws (the
+    lobe and the Fresnel draw), and no plain version may run."""
     from metalpathtracer_torch.render import integrator as tint
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     calls = dict(steps=0, plain_mm=0, plain_cull=0, plain_threefry=0)
+    odd_steps = []  # (bundle launches, draws) of a step that broke the rule
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
-                 tmm.cull_pass_reference, tfk.threefry_reference)
+                 tmm.cull_pass_reference, tfk.threefry_bundle_reference)
 
     def counter(key, fn):
         def wrapped(*a, **k):
@@ -524,10 +561,20 @@ def counted_path():
             return fn(*a, **k)
         return wrapped
 
-    tint._bounce_step = counter("steps", originals[0])
+    def step(*a, **k):
+        calls["steps"] += 1
+        bundle = tfk.threefry_bundle
+        launches, draws = bundle.launches, bundle.draws
+        out = originals[0](*a, **k)
+        launches, draws = bundle.launches - launches, bundle.draws - draws
+        if launches != 1 or draws < 2:
+            odd_steps.append((launches, draws))
+        return out
+
+    tint._bounce_step = step
     tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
     tmm.cull_pass_reference = counter("plain_cull", originals[2])
-    tfk.threefry_reference = counter("plain_threefry", originals[3])
+    tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
     result = {}
     try:
         import torch
@@ -535,21 +582,24 @@ def counted_path():
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
         tmm.cull_tiles.launches = 0
-        tfk.threefry.launches = 0
+        tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
         yield result
     finally:
         (tint._bounce_step, tmm.mm_closest_hit_reference,
-         tmm.cull_pass_reference, tfk.threefry_reference) = originals
+         tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
     result.update(calls, mm_launches=tmm.mm_closest_hit.launches,
                   cull_launches=tmm.cull_tiles.launches,
-                  threefry_launches=tfk.threefry.launches)
+                  threefry_launches=tfk.threefry_bundle.launches,
+                  threefry_draws=tfk.threefry_bundle.draws)
     if calls["plain_mm"] or calls["plain_cull"] or calls["plain_threefry"]:
         raise RuntimeError(f"the path ran a plain version: {calls}")
     if calls["steps"] == 0 or min(result["mm_launches"],
                                   result["cull_launches"]) < calls["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
-    if result["threefry_launches"] < 2 * calls["steps"]:
-        raise RuntimeError(f"the bounce steps launched too few RNG kernels: {result}")
+    if odd_steps:
+        raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
+                           f"of at least two draws, e.g. (launches, draws) "
+                           f"{odd_steps[0]}: {result}")
 
 
 class SyncCounter:
@@ -640,20 +690,21 @@ def phase_setup():
         f"{sass['per_pair']:.2f} per pair ({sass['opcodes']}); top SM clock "
         f"{sass['clock_hz'] / 1e6:.0f} MHz")
     tsass = threefry_sass(libs["threefry"])
-    fns = tsass["per_mode"]
-    log("[1] threefry SASS, instructions of each mode's kernel to its exit: "
-        + ", ".join(f"{k} {len(v['instructions'])}" for k, v in fns.items())
-        + "; a lane with every operand per lane issues (int32 ALU, IMAD, all): "
-        + ", ".join("{} ({alu}, {fma}, {issued})".format(k, **lane_issue(fns[k], (True,) * 3))
-                    for k in ("pair", "triple")) + "; a unit vector counts as a pair")
+    fns = tsass["per_blocks"]
+    log("[1] threefry SASS, instructions of the kernel for K counter blocks to its "
+        "exit: " + ", ".join(f"K={k} {len(v['instructions'])}" for k, v in fns.items())
+        + "; what every lane issues (int32 ALU, IMAD, all): "
+        + ", ".join("K={} ({alu}, {fma}, {issued})".format(k, **lane_issue(v))
+                    for k, v in fns.items()))
     return card, build_s, sass, tsass
 
 
-def primary_and_bounce(scene, w, h, stride=1, draws=None):
-    """Primary rays of every `stride`-th pixel of a w x h view from the
-    default camera, and the rays one bounce later (with its live mask).
-    `draws`, a list, receives the `threefry` calls' arguments (the jitter,
-    the first bounce's lobe and Fresnel draws)."""
+def primary_and_bounce(scene, w, h, stride=1, draws=None, cam=None, cfg=None):
+    """Primary rays of every `stride`-th pixel of a w x h view from `cam`
+    (the default camera), and the rays one bounce later under `cfg` (the
+    default config), with its live mask. `draws`, a list, receives the
+    `threefry_bundle` calls' arguments (the jitter, the first bounce
+    step's draws)."""
     import torch
 
     from metalpathtracer_torch.core import rng
@@ -666,11 +717,11 @@ def primary_and_bounce(scene, w, h, stride=1, draws=None):
     pix = torch.arange(0, w * h, stride, dtype=torch.int64, device=dev)
     n = pix.shape[0]
     with recorded_draws() as recorded:
-        o, d = generate_rays(Camera.reset(), w, h, pix, 0, seed)
+        o, d = generate_rays(cam or Camera.reset(), w, h, pix, 0, seed)
         step = tint._bounce_step(
             scene, o, d, torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
             torch.ones((n,), dtype=torch.bool, device=dev), torch.zeros((n,), device=dev),
-            pix, 0, 0, seed, tint.RenderConfig(),
+            pix, 0, 0, seed, cfg or tint.RenderConfig(),
         )
     if draws is not None:
         draws.extend(recorded)
@@ -804,7 +855,18 @@ def launcher(kernel: str, args, **build):
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render.kernels import threefry as tfk
 
+    if kernel == "threefry":
+        seed, pix, sample, bounce, draws = args
+        device = pix.device
+        ins, flat, views, scalars = tfk.launch_plan(seed, pix, sample, bounce, draws,
+                                                    device)
+
+        def launch_bundle():
+            _build.launch("threefry", ins, (flat,), scalars, device, align=4, **build)
+
+        return launch_bundle, views
     if kernel == "mm_closest_hit":
         lists, counts, smin, x, lb, w, t_min = args
         g, nt = lists.shape
@@ -822,6 +884,49 @@ def launcher(kernel: str, args, **build):
         _build.launch(kernel, ins, outs, scalars, x.device, **build)
 
     return launch, outs[:2] if outs[2] is None else outs
+
+
+def other_threefry(csrc: Path, args):
+    """(launch, outputs) of a bundle's draws on the threefry kernel of
+    another checkout's sources `csrc`: through `launcher` where its entry
+    takes a bundle, else through the earlier entry of one draw a launch
+    (the four pointers, n, mode, seed, purpose, then (layout, value) of
+    pixel, sample and bounce), one launch a draw, a "single" drawn as a
+    pair whose first row is compared."""
+    import ctypes
+
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    if "uint64_t d0" in (csrc / "threefry.cu").read_text():
+        return launcher("threefry", args, csrc=csrc)
+    fn = _build.load_library("threefry", (), csrc).threefry_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_uint32, ctypes.c_uint32]
+                   + [ctypes.c_int, ctypes.c_uint32] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    seed, pix, sample, bounce, draws = args
+    device = pix.device
+    ins, _, views, scalars = tfk.launch_plan(seed, pix, sample, bounce, draws, device)
+    n, layouts = scalars[0], scalars[-6:]
+    ptrs = [None if t is None else t.data_ptr() for t in ins]
+    outs = [torch.empty((2, *v.shape) if mode == "single" else v.shape, device=device)
+            for v, (_, mode) in zip(views, draws)]
+    per_draw = [(out.data_ptr(), ("pair" if mode == "single" else mode), purpose)
+                for out, (purpose, mode) in zip(outs, draws)]
+
+    def launch():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for ptr, mode, purpose in per_draw:
+            rc = fn(*ptrs, ptr, n, ("pair", "triple", "unit_vector").index(mode),
+                    int(seed) & 0xFFFFFFFF, int(purpose) & 0xFFFFFFFF, *layouts,
+                    device.index or 0, stream)
+            if rc != 0:
+                raise RuntimeError(f"{csrc}'s threefry launch failed: CUDA error {rc}")
+
+    return launch, [o[0] if mode == "single" else o for o, (_, mode) in zip(outs, draws)]
 
 
 def kernel_args(kernel: str, st):
@@ -876,7 +981,8 @@ def phase_against(other: Path, kernel_sets: dict):
     for kernel, sets in kernel_sets.items():
         for name, st in sets.items():
             args = kernel_args(kernel, st)
-            runs = {"other": launcher(kernel, args, csrc=csrc),
+            runs = {"other": other_threefry(csrc, args) if kernel == "threefry"
+                    else launcher(kernel, args, csrc=csrc),
                     "this": launcher(kernel, args)}
             for launch, _ in runs.values():
                 launch()
@@ -1065,16 +1171,16 @@ def capture_calls(run, picks: dict, stop: bool):
     the run, the k-th on that many lanes, both from 1), and where it says
     yes that call's arguments and those of the `cull_tiles` call of the
     same advance are cloned under the name, and so are the arguments of
-    every `threefry` call after it until the next `mm_closest_hit` call
-    (the advance's draws: the scatter's, then the restart's jitter). With
-    `stop` the run is ended at the call after the last pick. Returns
-    {name: (mm_args, cull_args, [threefry_args, ...])}."""
+    every `threefry_bundle` call after it until the next `mm_closest_hit`
+    call (the advance's bundles: the bounce step's, then the restart's
+    jitter). With `stop` the run is ended at the call after the last pick.
+    Returns {name: (mm_args, cull_args, [bundle_args, ...])}."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry
+    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
     seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None}
     captured = {}
 
@@ -1102,14 +1208,14 @@ def capture_calls(run, picks: dict, stop: bool):
 
     # the kernels count their launches on the module's names, which are
     # these wrappers while they are in place
-    mm.launches = cull.launches = draw.launches = 0
-    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry = mm, cull, draw
+    mm.launches = cull.launches = draw.launches = draw.draws = 0
+    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
     try:
         run()
     except _Captured:
         pass
     finally:
-        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry = kernels
+        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
     torch.cuda.synchronize()
     if len(captured) != len(picks):
         raise RuntimeError(f"captured {sorted(captured)} of {sorted(picks)}: the run "
@@ -1119,21 +1225,22 @@ def capture_calls(run, picks: dict, stop: bool):
 
 @contextlib.contextmanager
 def recorded_draws():
-    """Every `threefry` call's arguments, cloned into the yielded list."""
+    """Every `threefry_bundle` call's arguments, cloned into the yielded
+    list."""
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernel, draws = tfk.threefry, []
+    kernel, draws = tfk.threefry_bundle, []
 
     def draw(*args, **kw):
         draws.append(_clone(args))
         return kernel(*args, **kw)
 
-    draw.launches = 0
-    tfk.threefry = draw
+    draw.launches = draw.draws = 0
+    tfk.threefry_bundle = draw
     try:
         yield draws
     finally:
-        tfk.threefry = kernel
+        tfk.threefry_bundle = kernel
 
 
 def capture_pool_call():
@@ -1906,7 +2013,7 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             results = [worker.load_result(out, name, r) for r in range(world)]
             launches = {k: sum(res["counts"][k] for res in results)
                         for k in ("steps", "mm_launches", "cull_launches",
-                                  "threefry_launches")}
+                                  "threefry_launches", "threefry_draws")}
             by_rank = [res["counts"]["mm_launches"] for res in results]
             if job["kind"] == "cli":
                 if any(res["rc"] != 0 for res in results) or any(
@@ -1963,6 +2070,13 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
     return record
 
 
+def config4_camera():
+    """Config 4's camera (`benchmarks/run_configs.py`)."""
+    from metalpathtracer_torch.render.camera import Camera
+
+    return Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
+
+
 def phase_nee(card):
     """15: NEE + Russian roulette renders on the card against the same
     renders on the CPU."""
@@ -1984,19 +2098,20 @@ def phase_nee(card):
 
     record = {}
     # config 4 of benchmarks/run_configs.py, spp cut from 1024 to 2
-    cam = Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
+    cam = config4_camera()
     cfg = RenderConfig(max_depth=16, nee=True, rr_start=3)
     on_card, on_cpu = both("cornell_glass.xml")
     launches = _launches()
-    draws = tfk.threefry.launches
+    bundles, draws = tfk.threefry_bundle.launches, tfk.threefry_bundle.draws
     t0 = time.perf_counter()
     a, ra = render_image(on_card, cam, 512, 512, 2, seed=4, cfg=cfg)
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     if _launches() != launches:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
-    draws = tfk.threefry.launches - draws
-    if draws == 0:
+    bundles = tfk.threefry_bundle.launches - bundles
+    draws = tfk.threefry_bundle.draws - draws
+    if bundles == 0:
         raise RuntimeError("config 4 launched no RNG kernel")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
@@ -2005,11 +2120,13 @@ def phase_nee(card):
     if not a.mean() > 0.05 or abs(ra - rb) > 0.01 * rb:
         raise RuntimeError(f"config 4: mean {a.mean()}, rays {ra} vs {rb}")
     record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
-                             divergent=frac, mean_diff=dmean, threefry_launches=draws)
+                             divergent=frac, mean_diff=dmean, threefry_launches=bundles,
+                             threefry_draws=draws)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
-        f"tile kernel launched (spheres alone), threefry {draws} launches")
+        f"tile kernel launched (spheres alone), threefry {bundles} launches, "
+        f"{draws} draws")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -2035,26 +2152,48 @@ def phase_nee(card):
             f"{card_s:.3f} s on the card, {out[1]} vs {b[1]} rays"
             + (f" ({shadow} shadow rays)" if shadow is not None else "")
             + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
-            f"{counts['cull_launches']}, threefry {counts['threefry_launches']} over "
-            f"{counts['steps']} bounce steps; "
+            f"{counts['cull_launches']}, threefry {counts['threefry_launches']} "
+            f"({counts['threefry_draws']} draws) over {counts['steps']} bounce steps; "
             f"{frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
     torch.cuda.empty_cache()
     return record
 
 
-def draw_sets(scan_draws, pool_draws, of_viewer):
-    """Phase 16's draws by name: the probe's call and those captured (the
-    scan's 921,600-lane jitter and first bounce, the flagship's advance at
-    call CAPTURE_CALL, a viewer frame's pool call 5 and drain call 1)."""
+def config4_draws():
+    """The bundle of config 4's first bounce step (the reference's
+    `benchmarks/run_configs.py` config 4: `scenes/cornell_glass.xml` at
+    512x512 with NEE and `rr_start` 3, so five draws), and its jitter."""
+    import torch
+
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")),
+                         "cuda")
+    draws = []
+    primary_and_bounce(scene, 512, 512, draws=draws, cam=config4_camera(),
+                       cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
+    torch.cuda.synchronize()
+    return draws
+
+
+def draw_sets(scan_draws, pool_draws, of_viewer, config4):
+    """Phase 16's bundles by name: the probe's call (a bundle of one) and
+    those captured (the scan's 921,600-lane jitter and first bounce step,
+    the flagship's advance at call CAPTURE_CALL, a viewer frame's pool call
+    5 and drain call 1, config 4's first bounce step)."""
     import torch
 
     dev = pool_draws[0][1].device
     probe = torch.arange(1024, dtype=torch.int32, device=dev).reshape(8, 128)
-    sets = {"probe": (42, probe, 3, 0, 7, "unit_vector")}
+    sets = {"probe": (42, probe, 3, 0, ((7, "unit_vector"),))}
     for where, draws in (("scan", scan_draws), ("pool", pool_draws),
-                         *((k, v[2]) for k, v in of_viewer.items())):
+                         *((k, v[2]) for k, v in of_viewer.items()),
+                         ("config4", config4)):
         for args in draws:
-            name = f"{where}_{PURPOSE_NAMES.get(args[4], args[4])}"
+            name = f"{where}_" + "+".join(PURPOSE_NAMES.get(p, str(p))
+                                          for p, _ in args[4])
             while name in sets:
                 name += "'"
             sets[name] = args
@@ -2062,13 +2201,11 @@ def draw_sets(scan_draws, pool_draws, of_viewer):
 
 
 def draw_bound(args, tsass):
-    """The least time of one `threefry` call: its bytes (each tensor
-    operand read once, the output written once) at the memory rate, and
-    what its lanes issue (`lane_issue` of the mode's function with this
-    call's operands) at the pipes' rates on every SM at the card's top SM
-    clock. A unit vector is counted at the pair's lane: its own function
-    adds the mapping's float work and branches to sinf/cosf's range
-    reduction for |t| > 105,615, which no t in [0, 2 pi) takes."""
+    """The least time of one `threefry_bundle` call: its bytes (each tensor
+    operand read once, every draw's output written once) at the memory
+    rate, and what every lane issues (`lane_issue` of the kernel built for
+    the bundle's counter blocks) at the pipes' rates on every SM at the
+    card's top SM clock."""
     import math
 
     import torch
@@ -2077,21 +2214,40 @@ def draw_bound(args, tsass):
 
     lanes = [v for v in args[1:4] if isinstance(v, torch.Tensor)]
     n = math.prod(tfk._broadcast_shapes(v.shape for v in lanes))
-    mode = args[5]
-    nbytes = sum(v.numel() * v.element_size() for v in lanes) + n * 4 * (
-        2 if mode == "pair" else 3)
-    lane = lane_issue(tsass["per_mode"]["triple" if mode == "triple" else "pair"],
-                      [isinstance(v, torch.Tensor) for v in args[1:4]])
+    draws = args[4]
+    nbytes = sum(v.numel() * v.element_size() for v in lanes) + n * 4 * sum(
+        tfk.ROWS[mode] for _, mode in draws)
+    blocks = sum(2 if mode == "triple" else 1 for _, mode in draws)
+    lane = lane_issue(tsass["per_blocks"][blocks])
     op_ms = n * lane["clocks"] / (H100_SMS * tsass["clock_hz"]) * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(lanes=n, bytes=nbytes, lane_issue=lane, bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
+def separate_calls(args):
+    """A bundle's draws as the launches before the bundle made them: one
+    bundle of one each, a "single" drawn as a pair (`uniform1` took a
+    pair's first row). Returns (launch all, the outputs to compare with
+    the bundle's)."""
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    seed, pix, sample, bounce, draws = args
+
+    def launch():
+        outs = [tfk.threefry(seed, pix, sample, bounce, purpose,
+                             "pair" if mode == "single" else mode)
+                for purpose, mode in draws]
+        return [o[0] if mode == "single" else o for o, (_, mode) in zip(outs, draws)]
+
+    return launch
+
+
 def phase_threefry(sets, tsass):
-    """16: `threefry` vs its plain twin at every captured shape: uniforms
-    bit-equal, unit vectors bit-equal or within 4 ulp of 1.0 (the gap
-    stated); each timed on the device, per call and plain."""
+    """16: `threefry_bundle` vs its plain twin at every captured bundle:
+    uniforms bit-equal, unit vectors bit-equal or within 4 ulp of 1.0 (the
+    gap stated); each timed on the device, per call and plain, and a bundle
+    of several draws also as separate launches (`separate_calls`)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import threefry as tfk
@@ -2099,36 +2255,55 @@ def phase_threefry(sets, tsass):
     ulp = float(torch.finfo(torch.float32).eps)
     record = {}
     for name, args in sets.items():
-        got = tfk.threefry(*args)
-        want = tfk.threefry_reference(*args)
+        launches = tfk.threefry_bundle.launches
+        got = tfk.threefry_bundle(*args)
+        if tfk.threefry_bundle.launches != launches + 1:
+            raise RuntimeError(f"threefry {name}: the bundle made "
+                               f"{tfk.threefry_bundle.launches - launches} launches")
+        want = tfk.threefry_bundle_reference(*args)
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise RuntimeError(f"threefry {name}: shape {tuple(got.shape)} vs "
-                               f"{tuple(want.shape)}")
-        differ = int((got != want).sum())
-        err = float((got - want).abs().max()) if differ else 0.0
-        if differ and (args[5] != "unit_vector" or err > 4 * ulp):
-            raise RuntimeError(f"threefry {name} ({args[5]}): {differ} values differ "
-                               f"from the twin, by at most {err:.3g}")
-        k_ms = device_ms(lambda: tfk.threefry(*args))
-        c_ms = call_ms(lambda: tfk.threefry(*args), 20)
-        p_ms = call_ms(lambda: tfk.threefry_reference(*args), 3)
+        differ, err = 0, 0.0
+        for (purpose, mode), g, w in zip(args[4], got, want):
+            if g.shape != w.shape:
+                raise RuntimeError(f"threefry {name} ({purpose}, {mode}): shape "
+                                   f"{tuple(g.shape)} vs {tuple(w.shape)}")
+            bad = int((g != w).sum())
+            e = float((g - w).abs().max()) if bad else 0.0
+            if bad and (mode != "unit_vector" or e > 4 * ulp):
+                raise RuntimeError(f"threefry {name} ({purpose}, {mode}): {bad} values "
+                                   f"differ from the twin, by at most {e:.3g}")
+            differ, err = differ + bad, max(err, e)
+        k_ms = device_ms(lambda: tfk.threefry_bundle(*args))
+        c_ms = call_ms(lambda: tfk.threefry_bundle(*args), 20)
+        p_ms = call_ms(lambda: tfk.threefry_bundle_reference(*args), 3)
         b = draw_bound(args, tsass)
-        record[name] = dict(mode=args[5], purpose=args[4], differ=differ,
-                            max_abs_err=err, max_ulp=err / ulp, ms=k_ms, call_ms=c_ms,
-                            plain_ms=p_ms, **b, share=b["bound_ms"] / k_ms)
+        rec = dict(draws=[list(d) for d in args[4]], differ=differ, max_abs_err=err,
+                   max_ulp=err / ulp, ms=k_ms, call_ms=c_ms, plain_ms=p_ms, **b,
+                   share=b["bound_ms"] / k_ms)
+        line = ""
+        if len(args[4]) > 1:
+            launch = separate_calls(args)
+            for g, s in zip(got, launch()):
+                if not torch.equal(g, s):
+                    raise RuntimeError(f"threefry {name}: a separate draw differs "
+                                       "from the bundle's")
+            rec["separate_ms"] = device_ms(launch)
+            line = (f"; as {len(args[4])} separate launches "
+                    f"{rec['separate_ms'] * 1e3:.2f} us on the device")
+        record[name] = rec
         kinds = ", ".join("int" if isinstance(v, int) else
                           f"{str(v.dtype)[6:]}{tuple(v.shape)}" for v in args[1:4])
         lane = b["lane_issue"]
-        log(f"    threefry {name} ({args[5]}, {b['lanes']} lanes; pixel, sample, "
-            f"bounce: {kinds}): "
+        log(f"    threefry {name} ("
+            + ", ".join(mode for _, mode in args[4])
+            + f"; {b['lanes']} lanes; pixel, sample, bounce: {kinds}): "
             + ("bit-equal to the twin" if not differ else
                f"{differ} values differ by at most {err / ulp:.1f} ulp of 1.0")
             + f"; kernel {k_ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us per "
             f"call, twin {p_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
             f"({b['bound_by']}: {b['bytes']} bytes; a lane issues {lane['alu']} int32 "
             f"ALU, {lane['fma']} IMAD, {lane['issued']} in all), "
-            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached")
+            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached" + line)
         if b["bound_ms"] > k_ms:
             raise RuntimeError(f"threefry {name}: the kernel took {k_ms * 1e3:.2f} us, "
                                f"less than its bound {b['bound_ms'] * 1e3:.2f} us: "
@@ -2149,10 +2324,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time mm_closest_hit built with 1, 2, 4 and 8 "
                          "column slices per tile and 1 and 4 rays per thread, "
-                         "and cull_tiles with at most 8, 16 and 32 warps per "
-                         "block aiming at 64, 128 and 256 warps per SM")
+                         "cull_tiles with at most 8, 16 and 32 warps per "
+                         "block aiming at 64, 128 and 256 warps per SM, and "
+                         "threefry with 64, 128 and 256 threads a block")
     ap.add_argument("--against", metavar="DIR",
-                    help="also time both tile kernels built from the sources "
+                    help="also time the three kernels built from the sources "
                          "of the checkout DIR against this one's, and run both "
                          "trees' flagship CLI renders, in turns, images compared")
     ap.add_argument("--cards", type=int, default=1, metavar="N",
@@ -2235,32 +2411,41 @@ def main(argv=None) -> int:
                              chunk=4096)
     mm_sets = {**{f"reference_{k}": v for k, v in sets.items()},
                **{f"bunny300k_{k}": v for k, v in sets256.items()}}
-    log("[16] threefry vs its plain twin: the probe's call, the scan's 921,600-lane "
-        f"draws, the draws of the flagship's advance {CAPTURE_CALL} and of a viewer "
-        "frame's pool call 5 and drain call 1")
+    log("[16] threefry_bundle vs its plain twin: the probe's call, the scan's "
+        f"921,600-lane bundles, the bundles of the flagship's advance {CAPTURE_CALL}, "
+        "of a viewer frame's pool call 5 and drain call 1, and of config 4's first "
+        "bounce step")
     t0 = time.perf_counter()
-    draws = phase_threefry(draw_sets(scan_draws, pool_draws, of_viewer), tsass)
-    log(f"[16] {len(draws)} draws compared and timed in "
+    draw_args = draw_sets(scan_draws, pool_draws, of_viewer, config4_draws())
+    draws = phase_threefry(draw_args, tsass)
+    log(f"[16] {len(draws)} bundles compared and timed in "
         f"{time.perf_counter() - t0:.1f} s")
     del scan_draws, pool_draws
     sweep = against = None
     if args.sweep:
         log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
             f"{SWEEP_RAYS} rays per thread; cull_tiles with at most {SWEEP_WARPS} "
-            f"warps per block, aiming at {SWEEP_FILL} warps per SM")
+            f"warps per block, aiming at {SWEEP_FILL} warps per SM; threefry with "
+            f"{SWEEP_THREADS} threads a block")
         sweep = {
             "mm_closest_hit": phase_sweep("mm_closest_hit", {
                 f"K={k},R={r}": (f"MM_SLICES={k}", f"MM_RAYS={r}")
                 for r in SWEEP_RAYS for k in SWEEP_SLICES}, mm_sets),
             "cull_tiles": phase_sweep("cull_tiles", {
                 f"W={w},F={f}": (f"CULL_WARPS={w}", f"CULL_FILL={f}")
-                for f in SWEEP_FILL for w in SWEEP_WARPS}, cull_sets)}
+                for f in SWEEP_FILL for w in SWEEP_WARPS}, cull_sets),
+            "threefry": phase_sweep("threefry", {
+                f"T={t}": (f"THREEFRY_THREADS={t}",) for t in SWEEP_THREADS},
+                draw_args)}
     if args.against:
-        log(f"[A] both kernels built from {args.against} and from this checkout")
+        log(f"[A] the three kernels built from {args.against} and from this checkout")
         against = phase_against(Path(args.against).resolve(),
-                                {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets})
+                                {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets,
+                                 "threefry": {k: v for k, v in draw_args.items()
+                                              if len(v[4]) > 1}})
         against["renders"] = phase_against_renders(Path(args.against).resolve())
     del leg_sets, sets, sets256, mm_sets, mm_pool, cull_pool, cull_sets, of_viewer
+    del draw_args
 
     paths = phase_paths(args.profile)
     legs = phase_legs(big, args.profile)
@@ -2281,8 +2466,8 @@ def main(argv=None) -> int:
     nee = phase_nee(card)
 
     main_path = paths["wavefront"]["counts"]
-    # the main path's shapes: the pool call, and its advance's lobe draw
-    mm, cl, tf = kvt["pool"], cull["reference_pool"], draws["pool_lobe"]
+    # the main path's shapes: the pool call, and its advance's bounce step
+    mm, cl, tf = kvt["pool"], cull["reference_pool"], draws["pool_lobe+fresnel"]
     # every counted path's launches, beside the main path's
     per_path = {"scan": paths["scan"]["counts"], "wavefront": main_path,
                 **{k: v["counts"] for k, v in legs.items()},
@@ -2316,14 +2501,15 @@ def main(argv=None) -> int:
              ms=tf["ms"], call_ms=tf["call_ms"], plain_ms=tf["plain_ms"],
              bound_ms=tf["bound_ms"], bound_by=tf["bound_by"], share=tf["share"],
              library_ms=None,
-             launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()}),
+             launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()},
+             draws_by_path={k: v["threefry_draws"] for k, v in per_path.items()}),
     ]}
     summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
                    mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
                    oracle_tile_p256=oracle256,
-                   threefry_lane={k: lane_issue(tsass["per_mode"][k], (True,) * 3)
-                                  for k in ("pair", "triple")},
+                   threefry_lane={k: lane_issue(v)
+                                  for k, v in tsass["per_blocks"].items()},
                    threefry_vs_twin=draws, sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,

@@ -12,7 +12,8 @@ wavefront, `trace_wavefront`) -> `_bounce_step` -> `_trace_rays` ->
 `render.kernels.intersect_mm.closest_hit_mm_full`, whose triangle pass runs
 the hand-written CUDA kernels `csrc/cull_tiles.cu` and
 `csrc/mm_closest_hit.cu`; every random draw (`core.rng`) runs the third,
-`csrc/threefry.cu`, through `render.kernels.threefry`.
+`csrc/threefry.cu`, through `render.kernels.threefry` (a bounce step's
+draws in one launch).
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

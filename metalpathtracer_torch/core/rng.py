@@ -6,9 +6,11 @@ same randoms whatever device, batch or lane renders it, and the port draws
 bit for bit the same u32 words as the JAX reference.
 
 The draws (`uniform1`, `uniform2`, `uniform3`, `random_unit_vector`) go
-through `render/kernels/threefry.py::threefry`: on the card one launch of
-the CUDA kernel `csrc/threefry.cu` a draw, on the CPU its plain twin, which
-is that module's `threefry2x32` (re-exported here) and the mappings.
+through `render/kernels/threefry.py::threefry`, and `draws` makes several
+of one (seed, pixel, sample, bounce) through `threefry_bundle`: on the card
+one launch of the CUDA kernel `csrc/threefry.cu` a call, on the CPU its
+plain twin, which is that module's `threefry2x32` (re-exported here) and
+the mappings.
 """
 
 from __future__ import annotations
@@ -36,6 +38,16 @@ def _draw(seed, pixel_id, sample_id, bounce, purpose, mode):
     return _kernel.threefry(seed, pixel_id, sample_id, bounce, purpose, mode)
 
 
+def draws(seed, pixel_id, sample_id, bounce, spec):
+    """Every draw of `spec`, a tuple of (purpose, mode) with the modes of
+    `render/kernels/threefry.py`, for one (seed, pixel, sample, bounce): a
+    tuple of tensors in `spec`'s order, each what `uniform1` ("single"),
+    `uniform2` ("pair", stacked), `uniform3` ("triple", stacked) or
+    `random_unit_vector` ("unit_vector") gives for its purpose."""
+    # looked up on the module at every call, as `_draw` is
+    return _kernel.threefry_bundle(seed, pixel_id, sample_id, bounce, spec)
+
+
 def uniform2(seed, pixel_id, sample_id, bounce, purpose):
     """Two independent U[0,1) float32 tensors shaped like `pixel_id`.
 
@@ -48,7 +60,8 @@ def uniform2(seed, pixel_id, sample_id, bounce, purpose):
 
 
 def uniform1(seed, pixel_id, sample_id, bounce, purpose):
-    return _draw(seed, pixel_id, sample_id, bounce, purpose, "pair")[0]
+    """The first of `uniform2`'s uniforms, drawn alone."""
+    return _draw(seed, pixel_id, sample_id, bounce, purpose, "single")
 
 
 def uniform3(seed, pixel_id, sample_id, bounce, purpose):

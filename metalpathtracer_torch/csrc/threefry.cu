@@ -1,20 +1,23 @@
-// Threefry-2x32 draws of the port's counter-based RNG, for Hopper.
+// Threefry-2x32 draws of the port's counter-based RNG, for Hopper: every
+// draw of a bounce step in one launch.
 //
 // Replaces the Pallas kernel `kernel` of the JAX package's Mosaic probe
 // (benchmarks/mosaic_probe.py:42, launched by pallas_call :66), whose
 // function is the reference's core/rng.py sampler: threefry2x32 (:53),
-// bits_to_uniform (:80) and random_unit_vector (:109). For each lane i it
-// computes Threefry-2x32, 20 rounds, of
+// bits_to_uniform (:80) and random_unit_vector (:109). For each lane i and
+// each draw of a bundle it computes Threefry-2x32, 20 rounds, of
 //   key     (k0, k1) = (seed, pixel_id[i])
 //   counter (c0, c1) = (sample_id[i], (bounce[i] << 8) | purpose)
 // in native uint32 (wrapping adds, rotates as funnel shifts), with the key
 // schedule and the injection after each block of 4 rounds of
-// metalpathtracer_torch/core/rng.py::threefry2x32, and writes one of:
-//   pair (mode 0):        out (2, n): bits_to_uniform of both words;
-//   triple (mode 1):      out (3, n): the pair, then the first word of a
-//                         second block whose c1 has the bit 0x80000000 set;
-//   unit vector (mode 2): out (n, 3): z = 2 u0 - 1, t = 2 pi u1,
-//                         r = sqrt(max(0, 1 - z^2)), (r cos t, r sin t, z).
+// metalpathtracer_torch/core/rng.py::threefry2x32, and writes, from output
+// element `offset` on, one of:
+//   pair (mode 0):        (2, n): bits_to_uniform of both words;
+//   triple (mode 1):      (3, n): the pair, then the first word of a second
+//                         block whose c1 has the bit 0x80000000 set;
+//   unit vector (mode 2): (n, 3): z = 2 u0 - 1, t = 2 pi u1,
+//                         r = sqrt(max(0, 1 - z^2)), (r cos t, r sin t, z);
+//   single (mode 3):      (n,): the first word's uniform (uniform1).
 // bits_to_uniform is (float)(w >> 8) * 2^-24, exact. The mapping to the
 // sphere rounds every operation on its own (__fmul_rn, __fsub_rn: no FMA
 // contraction), uses the float32 rounding of the double 2 pi, and the
@@ -22,11 +25,15 @@
 // plain version (render/kernels/threefry.py::threefry_reference) on the
 // card gives the same bits.
 //
-// Operands: pixel_id, sample_id and bounce are each a value passed by
-// value (layout 0), a per-lane int32 or int64 array (layout 4 or 8), or one
-// element read by every lane (layout -4 or -8: a 0-d tensor on the device
-// is never read on the host). A value's low 32 bits are its word, which is
-// the reduction mod 2^32 of the plain version.
+// A launch is a bundle: the lane operands once, and up to kMaxDraws draws
+// (purpose, mode, output row), passed by value. The host side expands the
+// draws into counter blocks (a triple is a pair and a single on c1 with the
+// top bit set), at most kMaxBlocks, and launches the kernel built for that
+// many blocks. Operands: pixel_id, sample_id and bounce are each a value
+// passed by value (layout 0), a per-lane int32 or int64 array (layout 4 or
+// 8), or one element read by every lane (layout -4 or -8: a 0-d tensor on
+// the device is never read on the host). A value's low 32 bits are its
+// word, which is the reduction mod 2^32 of the plain version.
 //
 // The probe's Mosaic workarounds are not ported: the seed is a kernel
 // argument, not an SMEM operand; the uniform is a u32 -> f32 conversion,
@@ -34,20 +41,31 @@
 // (8, 128) tiles.
 //
 // What bounds it on an H100 SXM: one block is ~75 integer instructions (20
-// rounds of add, funnel shift and xor, 5 injections of 3-input adds), and a
-// lane moves 8 to 24 bytes in and 8 or 12 out, so at the int32 issue rate
-// (64 a clock on each of 132 SMs) and 3.35 TB/s the two bounds are close:
-// 921,600 lanes need ~4 us of either. At the paths' shapes (1,024 to
-// 921,600 lanes) a call is a few microseconds, below the host's cost of a
-// launch; what the kernel buys is ~160 fewer torch launches per draw. One
-// thread per lane, 256 threads a block; nothing is staged.
+// rounds of add, funnel shift and xor, 5 injections), and a lane reads 8 to
+// 24 bytes of operands and writes 4 to 12 a draw, so at 921,600 lanes a
+// bounce step's two draws need ~6.6 us of bytes and about as long at the
+// int32 issue rate (64 a clock on each of 132 SMs). At the paths' other
+// shapes (1,024 to 32,768 lanes) a call is the launch, the first load's
+// latency and the drain, whatever it draws: the design pays those once a
+// bounce step instead of once a draw. Each thread loads its lane's
+// operands once and runs the bundle's 20-round chains interleaved round by
+// round (unrolled over the blocks), so the chains' add, rotate and xor
+// steps hide each other's latency; each result is stored once. One thread
+// a lane, THREEFRY_THREADS (256) a block; nothing is staged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef THREEFRY_THREADS
+#define THREEFRY_THREADS 256
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = THREEFRY_THREADS;
+constexpr int kMaxDraws = 8;
+constexpr int kMaxBlocks = 8;
+constexpr int kPair = 0, kTriple = 1, kUnitVector = 2, kSingle = 3;
 constexpr uint32_t kParity = 0x1BD11BDAu;  // threefry key-schedule parity
 constexpr uint32_t kHigh = 0x80000000u;    // c1 bit of uniform3's second block
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
@@ -59,6 +77,19 @@ struct Operand {
   uint32_t value;
 };
 
+// one counter block of a bundle: the bits ORed into c1 below the bounce
+// (purpose, and kHigh for a triple's second block), what is written from
+// its words (kPair, kUnitVector or kSingle) and from which output element
+struct Block {
+  uint32_t c1;
+  int mode;
+  long long offset;
+};
+
+struct Blocks {
+  Block b[kMaxBlocks];
+};
+
 __device__ __forceinline__ uint32_t word(const Operand& a, long long i) {
   if (a.layout == 0) return a.value;
   const long long k = a.layout > 0 ? i : 0;
@@ -68,70 +99,106 @@ __device__ __forceinline__ uint32_t word(const Operand& a, long long i) {
   return (uint32_t)static_cast<const int*>(a.ptr)[k];
 }
 
-__device__ __forceinline__ void rounds(uint32_t& x0, uint32_t& x1, int r0,
-                                       int r1, int r2, int r3) {
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r0); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r1); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r2); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r3); x1 ^= x0;
+// one round, rotating by R, of every chain
+template <int R, int K>
+__device__ __forceinline__ void one_round(uint32_t (&x0)[K], uint32_t (&x1)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    x0[j] += x1[j];
+    x1[j] = __funnelshift_l(x1[j], x1[j], R);
+    x1[j] ^= x0[j];
+  }
 }
 
-// Threefry-2x32, 20 rounds, of key (k0, k1) on the counter (x0, x1), in place
+template <int R0, int R1, int R2, int R3, int K>
+__device__ __forceinline__ void rounds(uint32_t (&x0)[K], uint32_t (&x1)[K]) {
+  one_round<R0>(x0, x1);
+  one_round<R1>(x0, x1);
+  one_round<R2>(x0, x1);
+  one_round<R3>(x0, x1);
+}
+
+template <int K>
+__device__ __forceinline__ void inject(uint32_t (&x0)[K], uint32_t (&x1)[K],
+                                       uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    x0[j] += a;
+    x1[j] += b;
+  }
+}
+
+// Threefry-2x32, 20 rounds, of key (k0, k1) on K counters (x0, x1), in place
+template <int K>
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
+                                             uint32_t (&x0)[K], uint32_t (&x1)[K]) {
   const uint32_t k2 = kParity ^ k0 ^ k1;
-  x0 += k0; x1 += k1;
-  rounds(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
-  rounds(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
-  rounds(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
-  rounds(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
-  rounds(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
+  inject(x0, x1, k0, k1);
+  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k1, k2 + 1u);
+  rounds<17, 29, 16, 24>(x0, x1); inject(x0, x1, k2, k0 + 2u);
+  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k0, k1 + 3u);
+  rounds<17, 29, 16, 24>(x0, x1); inject(x0, x1, k1, k2 + 4u);
+  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k2, k0 + 5u);
 }
 
 __device__ __forceinline__ float to_uniform(uint32_t w) {
   return __fmul_rn(__uint2float_rn(w >> 8), kTwoTo24);
 }
 
-template <int kMode>
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-threefry_kernel(Operand pixel, Operand sample, Operand bounce,
-                float* __restrict__ out, long long n, uint32_t seed,
-                uint32_t purpose) {
+threefry_kernel(Operand pixel, Operand sample, Operand bounce, Blocks blocks,
+                float* __restrict__ out, long long n, uint32_t seed) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const uint32_t k1 = word(pixel, i);
   const uint32_t c0 = word(sample, i);
-  const uint32_t c1 = (word(bounce, i) << 8) | purpose;
-  uint32_t x0 = c0, x1 = c1;
-  threefry2x32(seed, k1, x0, x1);
-  const float u0 = to_uniform(x0), u1 = to_uniform(x1);
-  if (kMode == 2) {
-    const float z = __fsub_rn(__fmul_rn(2.0f, u0), 1.0f);
-    const float t = __fmul_rn(kTwoPi, u1);
-    const float r = sqrtf(fmaxf(__fsub_rn(1.0f, __fmul_rn(z, z)), 0.0f));
-    out[3 * i] = __fmul_rn(r, cosf(t));
-    out[3 * i + 1] = __fmul_rn(r, sinf(t));
-    out[3 * i + 2] = z;
-    return;
+  const uint32_t high = word(bounce, i) << 8;
+  uint32_t x0[K], x1[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    x0[j] = c0;
+    x1[j] = high | blocks.b[j].c1;
   }
-  out[i] = u0;
-  out[n + i] = u1;
-  if (kMode == 1) {
-    uint32_t y0 = c0, y1 = c1 | kHigh;
-    threefry2x32(seed, k1, y0, y1);
-    out[2 * n + i] = to_uniform(y0);
+  threefry2x32<K>(seed, k1, x0, x1);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float* o = out + blocks.b[j].offset;
+    const float u0 = to_uniform(x0[j]);
+    if (blocks.b[j].mode == kUnitVector) {
+      const float z = __fsub_rn(__fmul_rn(2.0f, u0), 1.0f);
+      const float t = __fmul_rn(kTwoPi, to_uniform(x1[j]));
+      const float r = sqrtf(fmaxf(__fsub_rn(1.0f, __fmul_rn(z, z)), 0.0f));
+      o[3 * i] = __fmul_rn(r, cosf(t));
+      o[3 * i + 1] = __fmul_rn(r, sinf(t));
+      o[3 * i + 2] = z;
+    } else {
+      o[i] = u0;
+      if (blocks.b[j].mode == kPair) o[n + i] = to_uniform(x1[j]);
+    }
   }
+}
+
+template <int K>
+void launch_blocks(const Operand& p, const Operand& s, const Operand& b,
+                   const Blocks& blocks, float* out, long long n, uint32_t seed,
+                   cudaStream_t st) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  threefry_kernel<K><<<grid, kThreads, 0, st>>>(p, s, b, blocks, out, n, seed);
 }
 
 }  // namespace
 
+// `count` draws d0..d7, each packed as purpose (bits 0-31) | mode << 32 |
+// the first output row << 40 (its elements start at row * n of `out`)
 extern "C" int threefry_launch(const void* pixel_id, const void* sample_id,
                                const void* bounce, void* out, long long n,
-                               int mode, uint32_t seed, uint32_t purpose,
-                               int pixel_layout, uint32_t pixel_value,
-                               int sample_layout, uint32_t sample_value,
-                               int bounce_layout, uint32_t bounce_value,
-                               int device, void* stream) {
+                               uint32_t seed, int count, uint64_t d0, uint64_t d1,
+                               uint64_t d2, uint64_t d3, uint64_t d4, uint64_t d5,
+                               uint64_t d6, uint64_t d7, int pixel_layout,
+                               uint32_t pixel_value, int sample_layout,
+                               uint32_t sample_value, int bounce_layout,
+                               uint32_t bounce_value, int device, void* stream) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
@@ -139,20 +206,38 @@ extern "C" int threefry_launch(const void* pixel_id, const void* sample_id,
     e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
   }
-  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (count < 1 || count > kMaxDraws) return (int)cudaErrorInvalidValue;
+  const uint64_t draws[kMaxDraws] = {d0, d1, d2, d3, d4, d5, d6, d7};
+  Blocks blocks{};
+  int k = 0;
+  for (int j = 0; j < count; ++j) {
+    const uint32_t purpose = (uint32_t)draws[j];
+    const int mode = (int)((draws[j] >> 32) & 0xFF);
+    const long long offset = (long long)(draws[j] >> 40) * n;
+    if (mode < kPair || mode > kSingle) return (int)cudaErrorInvalidValue;
+    if (k + (mode == kTriple ? 2 : 1) > kMaxBlocks) return (int)cudaErrorInvalidValue;
+    if (mode == kTriple) {
+      blocks.b[k++] = Block{purpose, kPair, offset};
+      blocks.b[k++] = Block{purpose | kHigh, kSingle, offset + 2 * n};
+    } else {
+      blocks.b[k++] = Block{purpose, mode, offset};
+    }
+  }
   if (n <= 0) return (int)cudaSuccess;
   const Operand p{pixel_id, pixel_layout, pixel_value};
   const Operand s{sample_id, sample_layout, sample_value};
   const Operand b{bounce, bounce_layout, bounce_value};
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   float* o = static_cast<float*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 0) {
-    threefry_kernel<0><<<blocks, kThreads, 0, st>>>(p, s, b, o, n, seed, purpose);
-  } else if (mode == 1) {
-    threefry_kernel<1><<<blocks, kThreads, 0, st>>>(p, s, b, o, n, seed, purpose);
-  } else {
-    threefry_kernel<2><<<blocks, kThreads, 0, st>>>(p, s, b, o, n, seed, purpose);
+  switch (k) {
+    case 1: launch_blocks<1>(p, s, b, blocks, o, n, seed, st); break;
+    case 2: launch_blocks<2>(p, s, b, blocks, o, n, seed, st); break;
+    case 3: launch_blocks<3>(p, s, b, blocks, o, n, seed, st); break;
+    case 4: launch_blocks<4>(p, s, b, blocks, o, n, seed, st); break;
+    case 5: launch_blocks<5>(p, s, b, blocks, o, n, seed, st); break;
+    case 6: launch_blocks<6>(p, s, b, blocks, o, n, seed, st); break;
+    case 7: launch_blocks<7>(p, s, b, blocks, o, n, seed, st); break;
+    default: launch_blocks<8>(p, s, b, blocks, o, n, seed, st); break;
   }
   return (int)cudaGetLastError();
 }

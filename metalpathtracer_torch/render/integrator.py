@@ -199,6 +199,18 @@ def _light_pdf_toward(scene, origin, d, t, idx):
     return torch.where((lid >= 0) & (idx >= 0), pdf, 0.0)
 
 
+def _step_draws(use_nee: bool, rr: bool) -> tuple:
+    """The (purpose, mode) of each draw of a bounce step, for `rng.draws`:
+    the scatter's lobe direction and Fresnel choice; the light pick and the
+    light's point with NEE; the Russian roulette draw where it is on."""
+    spec = ((rng.PURPOSE_LOBE, "unit_vector"), (rng.PURPOSE_FRESNEL, "single"))
+    if use_nee:
+        spec += ((rng.PURPOSE_LIGHT_PICK, "single"), (rng.PURPOSE_LIGHT, "pair"))
+    if rr:
+        spec += ((rng.PURPOSE_RR, "single"),)
+    return spec
+
+
 def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
                  pixel_id, sample_id, bounce, seed, cfg):
     """Advance every lane one bounce. `bounce`, the index the RNG draws key
@@ -250,6 +262,11 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         emit = emit * w_bsdf[:, None]
     light = light + torch.where(count_emission[:, None], emit, 0.0)
 
+    # every draw of the step in one call (one launch on the card)
+    drawn = rng.draws(seed, pixel_id, sample_id, bounce,
+                      _step_draws(use_nee, cfg.rr_start > 0))
+    unit_vec, u_fres = drawn[0], drawn[1]
+
     # next-event estimation + MIS on the Lambertian and glossy lobes; both
     # satisfy f * cos = albedo * pdf_b, so the light route contributes
     #   tp * albedo * L * pdf_b(ldir) / pdf_l * w_light
@@ -257,12 +274,9 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         is_diffuse = (mat_type == 0.0) | (mat_type == 2.0)
         is_glossy = (mat_type < 0.0) & (fuzz > 0.0) & (fuzz < 1.0)
         refl = vm.reflect(d, normal)
-        u_pick = rng.uniform1(seed, pixel_id, sample_id, bounce,
-                              rng.PURPOSE_LIGHT_PICK)
-        ul1, ul2 = rng.uniform2(seed, pixel_id, sample_id, bounce,
-                                rng.PURPOSE_LIGHT)
+        u_pick, ul = drawn[2], drawn[3]
         ldir, ldist, lrad, pdf_l, lprim, lvalid = _sample_light(
-            scene, point, u_pick, ul1, ul2
+            scene, point, u_pick, ul[0], ul[1]
         )
         cos_s = vm.dot(normal, ldir)
         pdf_b_l = torch.where(
@@ -293,8 +307,6 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         nee_ran = hit_live & (is_diffuse | is_glossy) & ~emissive
 
     # scatter
-    unit_vec = rng.random_unit_vector(seed, pixel_id, sample_id, bounce)
-    u_fres = rng.uniform1(seed, pixel_id, sample_id, bounce, rng.PURPOSE_FRESNEL)
     d_out, offset_sign = bsdf.sample_bsdf(
         d, normal, front_face, mat_type, fuzz, unit_vec, u_fres
     )
@@ -308,7 +320,7 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     # Russian roulette (unbiased early termination), from bounce rr_start
     # on; `bounce` is an int (scan) or a per-lane tensor (wavefront)
     if cfg.rr_start > 0:
-        u_rr = rng.uniform1(seed, pixel_id, sample_id, bounce, rng.PURPOSE_RR)
+        u_rr = drawn[-1]
         p = torch.clamp(new_tp.amax(dim=-1), 0.05, 1.0)
         do_rr = torch.as_tensor(bounce >= cfg.rr_start, device=o.device)
         new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)[..., None]

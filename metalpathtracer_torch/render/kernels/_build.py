@@ -84,9 +84,10 @@ ENTRY_ARGS = {
     "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float)),
     "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
-    # n, mode, seed, purpose, then (layout, value) of pixel, sample, bounce
-    "threefry": (4, (ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32,
-                     ctypes.c_uint32) + (ctypes.c_int, ctypes.c_uint32) * 3),
+    # n, seed, the draw count and 8 packed draws, then (layout, value) of
+    # pixel, sample, bounce
+    "threefry": (4, (ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int)
+                 + (ctypes.c_uint64,) * 8 + (ctypes.c_int, ctypes.c_uint32) * 3),
 }
 
 

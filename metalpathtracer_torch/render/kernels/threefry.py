@@ -4,19 +4,24 @@ Port of the Pallas kernel of `benchmarks/mosaic_probe.py` (`kernel`, :42),
 which computes the reference's `core/rng.py` sampler inside one kernel:
 threefry-2x32 of (seed, pixel id, sample id, bounce, purpose), the top 24
 bits of each word as a uniform, and a uniform point on the unit sphere.
-`threefry` draws for every lane in one of three modes:
+`threefry_bundle` makes every draw of a list for every lane in one launch;
+each draw has a purpose and one of four modes:
 
-    "pair"         (2, *shape) f32: both words' uniforms (uniform2, uniform1)
+    "single"       (*shape) f32: the first word's uniform (uniform1)
+    "pair"         (2, *shape) f32: both words' uniforms (uniform2)
     "triple"       (3, *shape) f32: the pair and the first word of a second
                    block with c1's top bit set (uniform3)
     "unit_vector"  (*shape, 3) f32: random_unit_vector's point
 
+`threefry` is one draw: a bundle of one.
+
 CUDA operands launch the CUDA kernel `csrc/threefry.cu` (and count the
-launch in `threefry.launches`); CPU operands take the plain twin
-`threefry_reference`: `threefry2x32` below, whose words are bit-equal to
-the reference's, and the mappings op by op. Any other device raises. The
-twin and the kernel draw the same words and the same uniforms; the unit
-vectors round every operation alike.
+launch in `threefry_bundle.launches`, its draws in `threefry_bundle.draws`);
+CPU operands take the plain twin `threefry_bundle_reference`, which is
+`threefry_reference` per draw: `threefry2x32` below, whose words are
+bit-equal to the reference's, and the mappings op by op. Any other device
+raises. The twin and the kernel draw the same words and the same uniforms;
+the unit vectors round every operation alike.
 
 torch has almost no uint32 arithmetic, so the twin keeps u32 words in
 int64 tensors holding values in [0, 2^32), and masks every add and shift
@@ -33,7 +38,10 @@ import torch
 
 from metalpathtracer_torch.render.kernels import _build
 
-MODES = {"pair": 0, "triple": 1, "unit_vector": 2}
+MODES = {"pair": 0, "triple": 1, "unit_vector": 2, "single": 3}
+ROWS = {"single": 1, "pair": 2, "triple": 3, "unit_vector": 3}  # n floats each
+MAX_DRAWS = 8  # draws in a bundle
+MAX_BLOCKS = 8  # counter blocks in a bundle: a triple takes two, others one
 _INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA  # threefry key-schedule parity constant
@@ -95,11 +103,13 @@ def _counter1(bounce, purpose, high: int = 0):
 
 
 def threefry_reference(seed, pixel_id, sample_id, bounce, purpose, mode: str):
-    """Plain torch twin of the kernel: the int64 threefry above and the
-    op-by-op mappings, stacked as the kernel writes them."""
+    """Plain torch twin of one draw of the kernel: the int64 threefry above
+    and the op-by-op mappings, stacked as the kernel writes them."""
     c1 = _counter1(bounce, purpose)
     b0, b1 = threefry2x32(seed, pixel_id, sample_id, c1)
     u0, u1 = bits_to_uniform(b0), bits_to_uniform(b1)
+    if mode == "single":
+        return u0
     if mode == "pair":
         return torch.stack([u0, u1])
     if mode == "triple":
@@ -112,6 +122,13 @@ def threefry_reference(seed, pixel_id, sample_id, bounce, purpose, mode: str):
     t = (2.0 * math.pi) * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return torch.stack([r * torch.cos(t), r * torch.sin(t), z], dim=-1)
+
+
+def threefry_bundle_reference(seed, pixel_id, sample_id, bounce, draws):
+    """Plain torch twin of `threefry_bundle`: `threefry_reference` for each
+    (purpose, mode) of `draws`, as a tuple."""
+    return tuple(threefry_reference(seed, pixel_id, sample_id, bounce, purpose, mode)
+                 for purpose, mode in draws)
 
 
 def _broadcast_shapes(shapes):
@@ -154,44 +171,83 @@ def _operand(name: str, v, shape, n: int, device):
     return v, _INDEX_BYTES[v.dtype], 0
 
 
-def threefry(seed, pixel_id, sample_id, bounce, purpose, mode: str):
-    """Draws of `mode` (see the module) for every lane of the broadcast
-    shape of `pixel_id`, `sample_id` and `bounce`: each an int or an integer
-    tensor, reduced mod 2^32. `seed` and `purpose` are ints. The operands'
-    device picks the route: CUDA launches `csrc/threefry.cu`, the CPU runs
-    `threefry_reference`, any other device raises. On the card no operand
-    is read on the host and a Python int never becomes a tensor, so a call
-    can be captured in a CUDA graph."""
-    if mode not in MODES:
-        raise ValueError(f"threefry: unknown mode {mode!r}")
+def _bundle(draws) -> tuple:
+    """`draws` as a tuple of (purpose, mode), or ValueError."""
+    draws = tuple(draws)
+    for _, mode in draws:
+        if mode not in MODES:
+            raise ValueError(f"threefry: unknown mode {mode!r}")
+    blocks = sum(2 if mode == "triple" else 1 for _, mode in draws)
+    if not 0 < len(draws) <= MAX_DRAWS or blocks > MAX_BLOCKS:
+        raise ValueError(f"threefry: a bundle holds 1 to {MAX_DRAWS} draws of at "
+                         f"most {MAX_BLOCKS} counter blocks, got {draws}")
+    return draws
+
+
+def threefry_bundle(seed, pixel_id, sample_id, bounce, draws):
+    """Every draw of `draws`, a sequence of (purpose, mode) (see the module),
+    for every lane of the broadcast shape of `pixel_id`, `sample_id` and
+    `bounce`: each an int or an integer tensor, reduced mod 2^32. Returns
+    one tensor a draw, in order, all views of one allocation. `seed` and
+    the purposes are ints. The operands' device picks the route: CUDA
+    launches `csrc/threefry.cu` once, the CPU runs
+    `threefry_bundle_reference`, any other device raises. On the card no
+    operand is read on the host and a Python int never becomes a tensor, so
+    a call can be captured in a CUDA graph."""
+    draws = _bundle(draws)
     lanes = [v for v in (pixel_id, sample_id, bounce)
              if isinstance(v, torch.Tensor)]
     device = lanes[0].device if lanes else torch.device("cpu")
     if device.type == "cpu":
-        return threefry_reference(seed, pixel_id, sample_id, bounce, purpose,
-                                  mode)
+        return threefry_bundle_reference(seed, pixel_id, sample_id, bounce, draws)
     if device.type != "cuda":
         raise ValueError(f"threefry: no kernel for device {device}")
+    inputs, flat, outs, scalars = launch_plan(seed, pixel_id, sample_id, bounce,
+                                              draws, device)
+    if flat.numel() == 0:
+        return outs
+    _build.launch("threefry", inputs, (flat,), scalars, device, align=4)
+    threefry_bundle.launches += 1
+    threefry_bundle.draws += len(draws)
+    return outs
+
+
+def launch_plan(seed, pixel_id, sample_id, bounce, draws, device):
+    """What `threefry_bundle` hands the kernel on `device` (CUDA): (the
+    operand tensors, the one output allocation, the draws' views of it,
+    the scalars of `_build.launch`). A sweep or a comparison launches the
+    same plan on another build."""
     if not (isinstance(seed, numbers.Integral)
-            and isinstance(purpose, numbers.Integral)):
-        raise ValueError("threefry: seed and purpose must be Python ints on "
+            and all(isinstance(p, numbers.Integral) for p, _ in draws)):
+        raise ValueError("threefry: seed and purposes must be Python ints on "
                          "the card")
+    lanes = [v for v in (pixel_id, sample_id, bounce) if isinstance(v, torch.Tensor)]
     shape = _broadcast_shapes(v.shape for v in lanes)
     n = math.prod(shape)
     ops = [_operand(name, v, shape, n, device) for name, v in
            (("pixel_id", pixel_id), ("sample_id", sample_id), ("bounce", bounce))]
-    out_shape = (*shape, 3) if mode == "unit_vector" else \
-        (3 if mode == "triple" else 2, *shape)
-    out = torch.empty(out_shape, dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    scalars = [n, MODES[mode], int(seed) & _MASK, int(purpose) & _MASK]
+    flat = torch.empty(sum(ROWS[mode] for _, mode in draws) * n,
+                       dtype=torch.float32, device=device)
+    outs, packed, row = [], [], 0
+    for purpose, mode in draws:
+        view = flat[row * n:(row + ROWS[mode]) * n]
+        outs.append(view.view(shape) if mode == "single" else
+                    view.view(*shape, 3) if mode == "unit_vector" else
+                    view.view(ROWS[mode], *shape))
+        packed.append((int(purpose) & _MASK) | MODES[mode] << 32 | row << 40)
+        row += ROWS[mode]
+    scalars = [n, int(seed) & _MASK, len(draws), *packed,
+               *(0,) * (MAX_DRAWS - len(draws))]
     for _, layout, value in ops:
         scalars += [layout, value]
-    _build.launch("threefry", [t for t, _, _ in ops], (out,), scalars, device,
-                  align=4)
-    threefry.launches += 1
-    return out
+    return [t for t, _, _ in ops], flat, tuple(outs), scalars
 
 
-threefry.launches = 0
+threefry_bundle.launches = 0
+threefry_bundle.draws = 0
+
+
+def threefry(seed, pixel_id, sample_id, bounce, purpose, mode: str):
+    """One draw of `mode` with `purpose`: `threefry_bundle` of one (looked
+    up on the module, so that a caller who swaps it reroutes this too)."""
+    return threefry_bundle(seed, pixel_id, sample_id, bounce, ((purpose, mode),))[0]

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
 kernel (also against the brute-force oracle), the tile cull and the RNG's
-threefry (bit-equal in every mode, also inside a CUDA graph), and the
+threefry (bit-equal in every mode and every bundle of draws the paths make,
+one launch a bundle, also inside a CUDA graph), and the
 wavefront integrator, the progressive path (checkpointed CLI, progressive
 wavefront, the viewer's frames) and the BVH study path on the card. These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
@@ -556,10 +557,10 @@ def test_threefry_kernel_matches_twin(card, n, mode, kind):
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     pix, sample, bounce = _draw_operands(n, kind, card)
-    before = tfk.threefry.launches
+    before = tfk.threefry_bundle.launches
     got = tfk.threefry(-5, pix, sample, bounce, 4, mode)
     torch.cuda.synchronize()
-    assert tfk.threefry.launches == before + 1
+    assert tfk.threefry_bundle.launches == before + 1
     want = tfk.threefry_reference(-5, pix, sample, bounce, 4, mode)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want), int((got != want).sum())
@@ -585,3 +586,77 @@ def test_threefry_kernel_in_a_cuda_graph(card):
     assert torch.equal(v, tfk.threefry_reference(9, pix, sample, bounce, 1,
                                                  "unit_vector"))
     assert torch.equal(torch.stack(w), tfk.threefry_reference(9, pix, 4, 0, 0, "triple"))
+
+
+# the bundles the paths make: a bounce step's (lobe and Fresnel; with NEE and
+# Russian roulette all five), and a bundle of one in each mode
+BUNDLES = {
+    "step": ((1, "unit_vector"), (2, "single")),
+    "nee_rr_step": ((1, "unit_vector"), (2, "single"), (6, "single"), (4, "pair"),
+                    (3, "single")),
+    "pair": ((0, "pair"),),
+    "triple": ((4, "triple"),),
+    "unit_vector": ((7, "unit_vector"),),
+    "single": ((3, "single"),),
+}
+
+
+def _same_draws(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g, w), int((g != w).sum())
+
+
+@pytest.mark.parametrize("kind", ["scan", "wavefront", "probe"])
+@pytest.mark.parametrize("spec", sorted(BUNDLES))
+@pytest.mark.parametrize("n", [1, 1024, 32768, 921600])
+def test_threefry_bundle_matches_twin(card, n, spec, kind):
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    pix, sample, bounce = _draw_operands(n, kind, card)
+    draws = BUNDLES[spec]
+    launches, drawn = tfk.threefry_bundle.launches, tfk.threefry_bundle.draws
+    got = tfk.threefry_bundle(-5, pix, sample, bounce, draws)
+    torch.cuda.synchronize()
+    assert tfk.threefry_bundle.launches == launches + 1
+    assert tfk.threefry_bundle.draws == drawn + len(draws)
+    _same_draws(got, tfk.threefry_bundle_reference(-5, pix, sample, bounce, draws))
+
+
+@pytest.mark.parametrize("spec", sorted(BUNDLES))
+@pytest.mark.parametrize("n", [1, 1024, 32768, 921600])
+def test_threefry_bundle_in_a_cuda_graph(card, n, spec):
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    pix, sample, bounce = _draw_operands(n, "wavefront", card)
+    draws = BUNDLES[spec]
+    tfk.threefry_bundle(3, pix, sample, bounce, draws)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    launches = tfk.threefry_bundle.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tfk.threefry_bundle(3, pix, sample, bounce, draws)
+    assert tfk.threefry_bundle.launches == launches + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _same_draws(got, tfk.threefry_bundle_reference(3, pix, sample, bounce, draws))
+
+
+def test_bounce_step_launches_one_bundle(scene):
+    # NEE and Russian roulette on: five draws, one launch
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    n = 4096
+    o, d = _rays(n, 5)
+    pix = torch.arange(n, device="cuda")
+    cfg = RenderConfig(max_depth=8, nee=True, rr_start=1)
+    launches, drawn = tfk.threefry_bundle.launches, tfk.threefry_bundle.draws
+    tint._bounce_step(scene, o, d, torch.zeros((n, 3), device="cuda"),
+                      torch.ones((n, 3), device="cuda"),
+                      torch.ones((n,), dtype=torch.bool, device="cuda"),
+                      torch.zeros((n,), device="cuda"), pix, 0, 2, 7, cfg)
+    torch.cuda.synchronize()
+    assert tfk.threefry_bundle.launches == launches + 1
+    assert tfk.threefry_bundle.draws == drawn + (5 if scene.num_lights else 3)
