@@ -114,22 +114,49 @@ Phases, each raising on failure:
     also against its draws as separate launches (bundles of one, Fresnel,
     light pick and Russian roulette as pairs, as `uniform1` drew them
     before the bundle), and with `--against` against the other tree's
-    kernel in turns.
-No earlier path runs at a smaller depth than before. Each path of phases
-6-8, 10-12, 14 and 15 runs with every launch count set to 0 just before it and read
-just after, and with the plain versions counted (they must not run); a
-bounce step must launch both tile kernels once and the threefry kernel
-exactly once (its bundle), with at least two draws.
-A kernel's `ms` is its device time: 20 calls captured in one CUDA
-graph, replayed between CUDA events (`device_ms`); its `call_ms` is the
-mean of 20 wrapper calls back to back between CUDA events (`call_ms`),
-which reads the host's enqueue rate where the kernel is shorter than the
-wrapper's host work; plain versions are timed as calls. Renders are timed
-by host clocks around work that ends in a synchronise. A kernel's bound is
-the larger of its operations at the f32 CUDA-core peak (67 TFLOP/s) and
-its bytes at the memory rate (3.35 TB/s), both of an H100 SXM at 700 W;
-the closest hit's operations are 38 flop per (ray, triangle) pair its
-subgroups walked, the cull's 12 per (ray, tile) pair.
+    kernel in turns;
+17. the wavefront's windows as CUDA graphs (`render/graphs.py`) against the
+    eager loop (`graphs.eager()`), on the flagship, four progressive
+    1-spp steps, the viewer's loop for 60 frames with a `w` key after frame
+    30, one config-5 step and the bunny300k leg: a counted render on each
+    loop, then the graph path's first render with its captures and their
+    seconds, then GRAPH_REPEATS timed renders of each loop in turns
+    (median and range); every render's images `torch.equal` and its
+    launches on the card (the kernels' tallies) equal to the eager loop's
+    (the flagship's also to PR 8's 408 / 408 / 817); host reads a render
+    (one a window or drain block), flagged synchronising calls inside
+    windows (0 on both loops); the busy share of one profiled render of
+    each loop (the union of its device intervals over its own wall time;
+    its kernel events held against its tallies) and, on the graph loop,
+    the replays' share of one unprofiled render between CUDA events; then the
+    closest hit, the cull and the threefry bundle of call GRAPH_CALL inside
+    a captured flagship window, as the last replay computed them: each
+    bit-equal to an eager launch of its kernel at the same inputs, and held
+    against its plain version by phases 2, 4 and 16's criteria.
+No earlier path runs at a smaller depth than before. Every path through
+`trace_wavefront` (phases 7, 8, 9, 11, 12, 14, 15) runs its windows as CUDA
+graph replays, as a user's call does; the captures of kernel calls (phases
+2, 4, 16) and the plain versions run on the eager loop, since a replay runs
+no Python and a plain version reads the device on the host. Each path of
+phases 6-8, 10-12, 14, 15 and 17 runs with every launch count set to 0 just
+before it and read just after, and with the plain versions counted (they
+must not run). A launch is counted where it runs: each kernel adds to a
+tally on the device (`render/kernels/_build.py`), which a graph replay
+moves as an eager launch does; the wrappers' Python counts hold the
+eager launches and those traced into a capture, and must equal the
+tallies where nothing was replayed. Every traced bounce step must launch
+both tile kernels once and the threefry kernel exactly once (its bundle),
+with at least two draws. A
+kernel's `ms` is its device time: 20 calls captured in one CUDA graph,
+replayed between CUDA events (`device_ms`); its `call_ms` is the mean of 20
+wrapper calls back to back between CUDA events (`call_ms`), which reads the
+host's enqueue rate where the kernel is shorter than the wrapper's host
+work; plain versions are timed as calls. Renders are timed by host clocks
+around work that ends in a synchronise. A kernel's bound is the larger of
+its operations at the f32 CUDA-core peak (67 TFLOP/s) and its bytes at the
+memory rate (3.35 TB/s), both of an H100 SXM at 700 W; the closest hit's
+operations are 38 flop per (ray, triangle) pair its subgroups walked, the
+cull's 12 per (ray, tile) pair.
 
 The second-to-last lines of standard output are the kernels' JSON record and
 the card's name and power limit; the last line is the result JSON. Writes
@@ -201,7 +228,8 @@ KERNELS = {
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
-# the flagship advance whose closest-hit and cull calls are captured
+# the flagship advance whose closest-hit and cull calls are captured (on the
+# eager loop)
 CAPTURE_CALL = 100
 # an H100 SXM's published peaks (NVIDIA's data sheet, 700 W): f32 outside
 # the tensor cores, and device memory
@@ -522,7 +550,9 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
 def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
     """Route the kernels named in `which` through their plain versions (the
     threefry kernel's wrapper is `threefry_bundle`, which every draw goes
-    through)."""
+    through), on the eager loop: a plain version reads the device on the
+    host, which no CUDA graph may capture."""
+    from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
@@ -530,27 +560,43 @@ def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
              "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
              "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference)}
     kernels = {k: getattr(plain[k][0], plain[k][1]) for k in which}
+    graphs.clear()
     for k in which:
         setattr(plain[k][0], plain[k][1], plain[k][2])
     try:
-        yield
+        with graphs.eager():
+            yield
     finally:
         for k, fn in kernels.items():
             setattr(plain[k][0], plain[k][1], fn)
+        graphs.clear()
 
 
 @contextlib.contextmanager
 def counted_path():
     """Count one path's bounce steps, kernel launches, threefry draws and
     plain-version calls: every count is 0 on entry; the dict is filled on
-    exit. Every bounce step must launch both tile kernels once and the
-    threefry kernel exactly once (one bundle), with at least two draws (the
-    lobe and the Fresnel draw), and no plain version may run."""
+    exit. `mm_launches`, `cull_launches`, `threefry_launches` and
+    `threefry_draws` are what ran on the card: the kernels' own tallies
+    (`kernels/_build.py`), which a CUDA graph's replay moves as an eager
+    launch does. `mm_calls`, `cull_calls`, `threefry_calls` and `steps` are
+    the wrappers' and the bounce step's Python calls: the eager launches and
+    the launches traced into a capture. Every traced bounce step must launch
+    both tile kernels once and the threefry kernel exactly once (one
+    bundle), with at least two draws, and no plain version may run; a
+    replay runs what its capture traced. A run that replayed nothing must
+    have launched on the card exactly what its wrappers counted. The graph
+    cache is cleared on entry and on exit: its key holds no function, and
+    the bounce step is swapped here."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    calls = dict(steps=0, plain_mm=0, plain_cull=0, plain_threefry=0)
+    calls = dict(plain_mm=0, plain_cull=0, plain_threefry=0)
     odd_steps = []  # (bundle launches, draws) of a step that broke the rule
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
                  tmm.cull_pass_reference, tfk.threefry_bundle_reference)
@@ -562,7 +608,7 @@ def counted_path():
         return wrapped
 
     def step(*a, **k):
-        calls["steps"] += 1
+        step.calls += 1
         bundle = tfk.threefry_bundle
         launches, draws = bundle.launches, bundle.draws
         out = originals[0](*a, **k)
@@ -571,35 +617,62 @@ def counted_path():
             odd_steps.append((launches, draws))
         return out
 
+    step.calls = 0
+    graphs.clear()
     tint._bounce_step = step
     tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
     tmm.cull_pass_reference = counter("plain_cull", originals[2])
     tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
     result = {}
     try:
-        import torch
-
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
         tmm.cull_tiles.launches = 0
         tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
+        _build.zero_tallies()
+        replays = graphs.STATS["replays"]
         yield result
     finally:
         (tint._bounce_step, tmm.mm_closest_hit_reference,
          tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
-    result.update(calls, mm_launches=tmm.mm_closest_hit.launches,
-                  cull_launches=tmm.cull_tiles.launches,
-                  threefry_launches=tfk.threefry_bundle.launches,
-                  threefry_draws=tfk.threefry_bundle.draws)
+        graphs.clear()
+    replayed = graphs.STATS["replays"] - replays
+    done = executed()
+    result.update(calls, steps=step.calls, mm_calls=tmm.mm_closest_hit.launches,
+                  cull_calls=tmm.cull_tiles.launches,
+                  threefry_calls=tfk.threefry_bundle.launches,
+                  threefry_call_draws=tfk.threefry_bundle.draws,
+                  mm_launches=done[0], cull_launches=done[1],
+                  threefry_launches=done[2], threefry_draws=done[3], replays=replayed)
     if calls["plain_mm"] or calls["plain_cull"] or calls["plain_threefry"]:
         raise RuntimeError(f"the path ran a plain version: {calls}")
-    if calls["steps"] == 0 or min(result["mm_launches"],
-                                  result["cull_launches"]) < calls["steps"]:
+    if result["steps"] == 0 or min(result["mm_calls"],
+                                   result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
     if odd_steps:
         raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
                            f"of at least two draws, e.g. (launches, draws) "
                            f"{odd_steps[0]}: {result}")
+    if min(done[:3]) == 0:
+        raise RuntimeError(f"a kernel ran no time on the card: {result}")
+    if not replayed and done != (result["mm_calls"], result["cull_calls"],
+                                 result["threefry_calls"],
+                                 result["threefry_call_draws"]):
+        raise RuntimeError(f"the card ran other launches than the wrappers made: "
+                           f"{result}")
+
+
+def executed() -> tuple:
+    """(closest-hit launches, cull launches, threefry launches, threefry
+    draws) run on this process's card since the tallies were last zeroed:
+    one read."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
+    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
+            *done.get("threefry", (0, 0)))
 
 
 class SyncCounter:
@@ -607,11 +680,14 @@ class SyncCounter:
     debug mode set to warn; the warnings are counted, not shown), in all
     and by the source line that made them (`sites`). The mode flags reads
     of device values on the host and also uploads of host scalars and
-    small tensors from pageable memory."""
+    small tensors from pageable memory. `in_windows` counts those made
+    while a wavefront window or drain block ran (`graphs.Entry.run`), and
+    `windows` the runs."""
 
     def __init__(self):
         self.count = 0
         self.sites: dict[str, int] = {}
+        self.in_windows = self.windows = self._depth = 0
 
     def __enter__(self):
         import torch
@@ -625,19 +701,36 @@ class SyncCounter:
         def count(message, category, filename, lineno, file=None, line=None):
             if "synchroniz" in str(message):
                 self.count += 1
+                self.in_windows += self._depth > 0
                 site = f"{Path(filename).name}:{lineno}"
                 self.sites[site] = self.sites.get(site, 0) + 1
             else:
                 shown(message, category, filename, lineno, file, line)
 
         warnings.showwarning = count
+        from metalpathtracer_torch.render import graphs
+
+        run = self._run = graphs.Entry.run
+
+        def watched(entry, name):
+            self.windows += 1
+            self._depth += 1
+            try:
+                run(entry, name)
+            finally:
+                self._depth -= 1
+
+        graphs.Entry.run = watched
         torch.cuda.set_sync_debug_mode("warn")
         return self
 
     def __exit__(self, *exc):
         import torch
 
+        from metalpathtracer_torch.render import graphs
+
         torch.cuda.set_sync_debug_mode(self._mode)
+        graphs.Entry.run = self._run
         self._catch.__exit__(*exc)
         return False
 
@@ -1177,6 +1270,7 @@ def capture_calls(run, picks: dict, stop: bool):
     Returns {name: (mm_args, cull_args, [bundle_args, ...])}."""
     import torch
 
+    from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
@@ -1207,15 +1301,19 @@ def capture_calls(run, picks: dict, stop: bool):
         return kernels[2](*args, **kw)
 
     # the kernels count their launches on the module's names, which are
-    # these wrappers while they are in place
+    # these wrappers while they are in place; the run is eager, so that the
+    # wrappers see every call with its values (a CUDA graph replays none)
     mm.launches = cull.launches = draw.launches = draw.draws = 0
+    graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
     try:
-        run()
+        with graphs.eager():
+            run()
     except _Captured:
         pass
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        graphs.clear()
     torch.cuda.synchronize()
     if len(captured) != len(picks):
         raise RuntimeError(f"captured {sorted(captured)} of {sorted(picks)}: the run "
@@ -1308,7 +1406,7 @@ def run_cli(argv, profile_name=None):
     stats = json.loads(out.getvalue().strip().splitlines()[-1])
     if profile_name:
         stats["profile"] = profile(lambda: cli.main(argv), profile_name,
-                                   counts["steps"])
+                                   counts["mm_launches"])
     return stats, counts
 
 
@@ -1341,7 +1439,7 @@ def phase_paths(profile_on: bool, w=1280, h=720):
             result[name]["image"] = images[name]
         log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
-            f"{counts['steps']} bounce steps, launches: mm_closest_hit "
+            f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
             f"threefry {counts['threefry_launches']}; "
             f"image mean {images[name].mean():.4f}")
@@ -1383,47 +1481,71 @@ def phase_legs(scenes, profile_on: bool):
                    image_mean=float(img.mean()), counts=counts,
                    tiles=scene.mm_tile_box.shape[0], **stats)
         if profile_on and name == "bunny300k":
-            rec["profile"] = profile(leg, f"leg_{name}", counts["steps"])
+            rec["profile"] = profile(leg, f"leg_{name}", counts["mm_launches"])
         result[name] = rec
         torch.cuda.empty_cache()
         log(f"[8] {name} ({scene.num_tris} triangles, {rec['tiles']} tiles): "
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
-            f"{counts['steps']} bounce steps, launches: mm_closest_hit "
+            f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
             f"threefry {counts['threefry_launches']}; image mean {img.mean():.4f}")
     return result
 
 
+# kernel-name families of the profile's groups, in order of matching
+KERNEL_FAMILIES = (
+    ("mm_closest_hit", ("mm_closest_hit_kernel",)),
+    ("cull_tiles", ("cull_tiles_kernel",)),
+    ("threefry", ("threefry_kernel",)),
+    ("sort", ("sort", "radix", "Sort")),
+    ("scan (cumsum)", ("scan", "Scan")),
+    ("reduce", ("reduce_kernel", "Reduce")),
+    ("gather, index", ("index", "gather", "Index")),
+    ("elementwise", ("elementwise", "Elementwise")),
+    ("copy, fill", ("Memcpy", "Memset", "copy", "fill")),
+)
+
+
 def profile(fn, name, steps: int) -> str:
-    """Run fn once more under torch.profiler; keep the kernel table. `steps`:
-    the bounce steps (advances) of one run, for the kernels a step."""
+    """Run fn once to warm it (a render shape seen before captures its
+    graphs there; `cli.main` uploads its scene anew, so each of its runs
+    warms up and captures), then once more under torch.profiler; keep the
+    kernel table and the device time by kernel family. `steps`: the
+    closest-hit launches of one run on the card, one a bounce step on the
+    profiled paths (no NEE), for the events a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with contextlib.redirect_stdout(io.StringIO()):
+        fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), tprofile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.name(), e.duration_ns() / 1e3, e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    busy_us = sum(us for _, us, _, _ in events)
+    span_us = ((max(e[3] for e in events) - min(e[2] for e in events)) / 1e3
+               if events else 0.0)
+    families = {}
+    for ename, us, _, _ in events:
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(k in ename for k in keys)),
+                   "other")
+        n, t = families.get(fam, (0, 0.0))
+        families[fam] = (n + 1, t + us)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     (OUT / f"profile_{name}.txt").write_text(table)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.device_time for e in events)
-    span_us = (max(e.time_range.end for e in events)
-               - min(e.time_range.start for e in events)) if events else 0.0
-    ours = {}
-    for e in events:
-        for k in ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel"):
-            if k in e.name:
-                n, us = ours.get(k, (0, 0.0))
-                ours[k] = (n + 1, us + e.device_time)
-    summary = (f"device kernel time {busy_us / 1e3:.1f} ms over a device span of "
-               f"{span_us / 1e3:.1f} ms ({len(events)} kernels, {len(events) / steps:.1f} "
-               f"a bounce step), profiled wall "
-               f"{wall:.3f} s; " + ", ".join(
-                   f"{k} {n} launches, {us / 1e3:.2f} ms ({us / n:.1f} us each)"
-                   for k, (n, us) in ours.items()))
+    summary = (f"device time {busy_us / 1e3:.1f} ms over a device span of "
+               f"{span_us / 1e3:.1f} ms ({len(events)} device events, "
+               f"{len(events) / steps:.1f} a bounce step), profiled wall {wall:.3f} s "
+               "(the profiler's host cost in it; phase 17 reads the busy share); by "
+               "family: " + ", ".join(
+                   f"{f} {t / 1e3:.2f} ms ({100 * t / busy_us:.1f}%, {n} events)"
+                   for f, (n, t) in sorted(families.items(), key=lambda kv: -kv[1][1])))
     log(f"    profile {name}: {summary}; table in {OUT / f'profile_{name}.txt'}")
     return summary
 
@@ -2153,7 +2275,7 @@ def phase_nee(card):
             + (f" ({shadow} shadow rays)" if shadow is not None else "")
             + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
             f"{counts['cull_launches']}, threefry {counts['threefry_launches']} "
-            f"({counts['threefry_draws']} draws) over {counts['steps']} bounce steps; "
+            f"({counts['threefry_draws']} draws), {counts['steps']} bounce steps traced; "
             f"{frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
     torch.cuda.empty_cache()
     return record
@@ -2311,6 +2433,444 @@ def phase_threefry(sets, tsass):
     return record
 
 
+# ---------------------------------------------------------------------------
+# 17: the wavefront's windows as CUDA graphs against the eager loop
+# ---------------------------------------------------------------------------
+
+GRAPH_REPEATS = 5  # timed renders of each loop, in turns
+# the `mm_closest_hit` call of a captured flagship window whose kernels are
+# held against their plain versions
+GRAPH_CALL = 5
+# PR 8's counts of the flagship (PERF.md): mm_closest_hit, cull_tiles, threefry
+FLAGSHIP_LAUNCHES = (408, 408, 817)
+
+
+@contextlib.contextmanager
+def recorded_in_capture(call: int):
+    """The three kernels wrapped: while a CUDA graph is being captured, the
+    `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
+    those of the `cull_tiles` call before it and of the first
+    `threefry_bundle` call after it (its bounce step's bundle). The clones
+    are made inside the capture, so they are outputs of the graph: after a
+    replay they hold what that replay computed. Yields {kernel: (args,
+    outputs)}, filled as the capture runs."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
+    got, seen = {}, {"mm": 0, "cull": None}
+
+    def cull(*args, **kw):
+        out = kernels[1](*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            seen["cull"] = _clone(args), _clone(out)
+        return out
+
+    def mm(*args, **kw):
+        out = kernels[0](*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            seen["mm"] += 1
+            if seen["mm"] == call:
+                got["mm"], got["cull"] = (_clone(args), _clone(out)), seen["cull"]
+        return out
+
+    def draw(*args, **kw):
+        out = kernels[2](*args, **kw)
+        if (torch.cuda.is_current_stream_capturing() and "mm" in got
+                and "threefry" not in got):
+            got["threefry"] = _clone(args), _clone(out)
+        return out
+
+    mm.launches = cull.launches = draw.launches = draw.draws = 0
+    graphs.clear()
+    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
+    try:
+        yield got
+    finally:
+        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        graphs.clear()
+
+
+# profiled renders of one path and loop, at most, until one is whole
+PROFILE_ATTEMPTS = 3
+# idle seconds inside the profile before and after the render
+PROFILE_PAD_S = 0.1
+# the three kernels' names in the profiler's device events
+KERNEL_EVENT_NAMES = ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel")
+
+
+def device_busy(fn, what: str) -> dict:
+    """One `fn()` under torch.profiler (CUDA activity), the kernels'
+    tallies zeroed before it: its wall time on the host clock (from the
+    call to the end of its device work, the profiler's cost in it), the
+    union of its device intervals (the kernels, copies and fills CUPTI
+    records, of a graph replay as of eager launches), the sum of their
+    durations, its device events, and the three kernels' events by name
+    beside their tallies. The busy share is the union over the wall time,
+    both of this one render.
+
+    The profiler loses records: a whole graph replay's kernels may be
+    missing from a profile, and a few events at a render's start or end
+    (two profiles of one render differ by tens of events). A profile whose
+    three kernels' events fall short of their tallies is taken again, up
+    to PROFILE_ATTEMPTS times, and the fullest is kept with its shortfall
+    (`short`, by kernel; `lost`, every attempt's). More events than
+    launches raises. The raw events are read (`kineto_results`): building
+    the profiler's Python event list costs ~0.1 ms an event, minutes for a
+    60-frame viewer run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    cuda = torch.autograd.DeviceType.CUDA
+    best, lost = None, []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        _build.zero_tallies()
+        with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+            warnings.simplefilter("ignore")
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_PAD_S)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                time.sleep(PROFILE_PAD_S)
+        spans = [(e.start_ns(), e.end_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+        by_kernel = tuple(sum(k in name for _, _, name in spans)
+                          for k in KERNEL_EVENT_NAMES)
+        tallies = executed()[:3]
+        short = tuple(t - k for k, t in zip(by_kernel, tallies))
+        if min(short) < 0:
+            raise RuntimeError(f"[17] {what}: the profile holds {by_kernel} kernel "
+                               f"events, the tallies {tallies} launches")
+        lost.append(short)
+        union, end = 0, None
+        for start, stop, _ in sorted(spans):
+            if end is None or start > end:
+                union += stop - start
+                end = stop
+            elif stop > end:
+                union += stop - end
+                end = stop
+        got = dict(wall_s=wall, busy_ms=union / 1e6,
+                   kernel_ms=sum(t - s for s, t, _ in spans) / 1e6,
+                   span_s=(max(t for _, t, _ in spans)
+                           - min(s for s, _, _ in spans)) / 1e9,
+                   events=len(spans), by_kernel=by_kernel, tallies=tallies,
+                   short=short, attempts=attempt, lost=lost,
+                   busy_share=union / 1e9 / wall)
+        if best is None or sum(short) < sum(best["short"]):
+            best = got
+        if not any(short):
+            break
+    return best
+
+
+def window_share(fn) -> dict:
+    """One `fn()` on the graph loop without the profiler, a CUDA event
+    recorded on the stream before and after each window or drain block:
+    the render's wall time on the host clock and its windows' time on the
+    device between their events. A replay is queued whole, so its events
+    hold its kernels and the gaps between its nodes, not the host's work;
+    their sum over the wall is an upper bound of the device's busy share in
+    an unprofiled render, beside `device_busy`'s profiled one."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+
+    run, pairs = graphs.Entry.run, []
+
+    def timed(entry, name):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run(entry, name)
+        b.record()
+        pairs.append((a, b))
+
+    torch.cuda.synchronize()
+    graphs.Entry.run = timed
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.Entry.run = run
+    inside = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+    return dict(wall_s=wall, windows_s=inside, windows=len(pairs),
+                share=inside / wall)
+
+
+def graph_workloads(scene, bunny, multimesh):
+    """Phase 17's paths: name -> fn() giving (the tensors both loops must
+    give bit for bit, rays or None, per-frame launches or None)."""
+    from metalpathtracer_torch.parallel import sharding
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+
+    cam = Camera.reset()
+
+    def flagship():
+        img, rays = tpipe.render_image_wavefront(
+            scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32),
+            pool_size=POOL)
+        return [img], rays, None
+
+    def progressive():
+        state, outs, rays = tpipe.init_accum(1280, 720, scene.device), [], 0
+        for _ in range(4):
+            state, r = tpipe.accumulate_wavefront(
+                state, scene, cam, 1280, 720, 1, 0, RenderConfig(max_depth=32),
+                pool_size=POOL)
+            outs.append(state.rgb_sum)
+            rays += r
+        return outs, rays, None
+
+    def viewer60():
+        loop, _ = viewer_loop(scene)
+        outs, frames = [], []
+        for k in range(1, VIEWER_FRAMES + 1):
+            keys = [("key", "w")] if k == VIEWER_KEY_AFTER else []
+            before = executed()[:3]
+            if not loop.step(lambda: keys):
+                raise RuntimeError("viewer loop: quit")
+            frames.append(tuple(b - a for a, b in zip(before, executed()[:3])))
+            if k in (VIEWER_KEY_AFTER, VIEWER_FRAMES):
+                outs.append(loop.state.rgb_sum)
+        if loop.state.spp != VIEWER_FRAMES - VIEWER_KEY_AFTER:
+            raise RuntimeError(f"viewer loop: {loop.state.spp} spp after the key")
+        return outs, None, frames
+
+    def config5_step():
+        mesh = sharding.make_mesh()
+        state = sharding.init_accum_sharded(*CONFIG5_SIZE, mesh, multimesh.device)
+        state, rays = sharding.accumulate_sharded(
+            state, multimesh, cam, CONFIG5_STEP, seed=5,
+            cfg=RenderConfig(max_depth=CONFIG5_DEPTH), mesh=mesh)
+        return [state.rgb_sum], rays, None
+
+    def bunny300k_leg():
+        img, rays = tpipe.render_image_wavefront(
+            bunny, cam, LEG_W, LEG_H, LEG_SPP, seed=0,
+            cfg=RenderConfig(max_depth=LEG_DEPTH), pool_size=POOL)
+        return [img], rays, None
+
+    return {"flagship": flagship, "progressive_4x1spp": progressive,
+            "viewer_60_frames": viewer60, "config5_step": config5_step,
+            "bunny300k_leg": bunny300k_leg}
+
+
+def graph_vs_eager(name, fn, card):
+    """One path on both loops: counted runs compared bit for bit and count
+    for count, GRAPH_REPEATS timed renders of each in turns, the flagged
+    synchronising calls inside windows, and the device's busy share. Every
+    render's launches are read from the kernels' tallies (what ran on the
+    card, replays included) and held equal to the eager loop's."""
+    import statistics
+
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.kernels import _build
+
+    def once(eager):
+        torch.cuda.synchronize()
+        _build.zero_tallies()
+        before = dict(graphs.STATS)  # not zeroed: `counted_path` reads it too
+        with graphs.eager() if eager else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            outs, rays, frames = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return dict(outs=outs, rays=rays, frames=frames, s=secs, launched=executed(),
+                    stats={k: v - before[k] for k, v in graphs.STATS.items()})
+
+    def same(a, b, what):
+        if len(a["outs"]) != len(b["outs"]) or not all(
+                torch.equal(x, y) for x, y in zip(a["outs"], b["outs"])):
+            bad = [int((x != y).sum()) for x, y in zip(a["outs"], b["outs"])]
+            raise RuntimeError(f"[17] {name}: {what}: the images differ at {bad} values")
+        if a["rays"] != b["rays"] or a["frames"] != b["frames"]:
+            raise RuntimeError(f"[17] {name}: {what}: rays {a['rays']} vs {b['rays']}, "
+                               f"per-frame launches differ")
+        if a["launched"] != b["launched"]:
+            raise RuntimeError(f"[17] {name}: {what}: the card ran {b['launched']} "
+                               f"(closest hit, cull, threefry, draws), the eager loop "
+                               f"{a['launched']}")
+
+    graphs.clear()
+    counted = {}
+    for path in ("eager", "graph"):
+        with counted_path() as counts, SyncCounter() as syncs:
+            run = once(path == "eager")
+        run.update(counts=counts, flagged=syncs.count, in_windows=syncs.in_windows,
+                   windows=syncs.windows)
+        counted[path] = run
+    eager, graph = counted["eager"], counted["graph"]
+    same(eager, graph, "counted graph run vs eager run")
+    if name == "flagship" and eager["launched"][:3] != FLAGSHIP_LAUNCHES:
+        raise RuntimeError(f"[17] flagship: launches {eager['launched']}, PR 8's "
+                           f"{FLAGSHIP_LAUNCHES}")
+    # counted_path cleared the cache: this render warms up and captures the
+    # graphs that the timed renders replay
+    first = once(False)
+    same(eager, first, "first graph render vs eager")
+    times = {"eager": [], "graph": []}
+    steady = None
+    for r in range(GRAPH_REPEATS):
+        for path in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            run = once(path == "eager")
+            same(eager, run, f"repeat {r + 1} on the {path} loop")
+            times[path].append(run["s"])
+            if path == "graph":
+                steady = run["stats"]
+                if steady["captures"] or steady["eager_runs"]:
+                    raise RuntimeError(f"[17] {name}: a repeat captured: {steady}")
+    with SyncCounter() as syncs:
+        once(False)
+    replay_flagged = (syncs.in_windows, syncs.windows)
+    reads = eager["stats"]["reads"]
+    if not (steady["reads"] == steady["replays"] == reads == eager["stats"]["eager_runs"]):
+        raise RuntimeError(f"[17] {name}: host reads {steady} on the graph loop, "
+                           f"{eager['stats']} on the eager loop")
+    if eager["in_windows"] or replay_flagged[0]:
+        raise RuntimeError(f"[17] {name}: flagged synchronising calls inside windows: "
+                           f"eager {eager['in_windows']}, replays {replay_flagged[0]}")
+    with graphs.eager():
+        busy_e = device_busy(fn, f"{name}, eager")
+    busy_g = device_busy(fn, f"{name}, replayed")
+    windows = window_share(fn)
+    for b in (busy_e, busy_g):
+        if b["tallies"] != eager["launched"][:3]:
+            raise RuntimeError(f"[17] {name}: a profiled render launched {b['tallies']}, "
+                               f"the eager loop {eager['launched']}")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    launched = dict(zip(("mm_launches", "cull_launches", "threefry_launches",
+                         "threefry_draws"), eager["launched"]))
+    rec = dict(
+        launched=launched, steps=eager["counts"]["steps"],
+        traced_steps_graph=graph["counts"]["steps"], counts_eager=eager["counts"],
+        counts_graph=graph["counts"], rays=eager["rays"], tensors=len(eager["outs"]),
+        eager_s=times["eager"], graph_s=times["graph"], eager_median_s=med["eager"],
+        graph_median_s=med["graph"], speedup=med["eager"] / med["graph"],
+        captures_first_render=first["stats"]["captures"],
+        capture_s=first["stats"]["capture_s"], first_render_s=first["s"],
+        reads_per_render=reads, windows_per_render=reads,
+        flagged_eager=eager["flagged"], flagged_in_windows_eager=eager["in_windows"],
+        flagged_replays=syncs.count, flagged_in_windows_replays=replay_flagged[0],
+        profile_eager=busy_e, profile_graph=busy_g, window_share=windows)
+    if eager["frames"]:
+        per = [statistics.median(f[k] for f in eager["frames"]) for k in range(3)]
+        rec.update(frames=len(eager["frames"]), mm_per_frame=per[0],
+                   cull_per_frame=per[1], threefry_per_frame=per[2],
+                   fps_eager=len(eager["frames"]) / med["eager"],
+                   fps_graph=len(eager["frames"]) / med["graph"])
+    c = launched
+    log(f"[17] {name}: graph vs eager bit-equal ({len(eager['outs'])} tensors, "
+        f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
+        f"card, equal in every render of both loops: mm_closest_hit {c['mm_launches']}, "
+        f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
+        f"({c['threefry_draws']} draws), {rec['steps']} bounce steps "
+        f"({rec['traced_steps_graph']} traced by the graph loop's first render)"
+        + (f" ({rec['mm_per_frame']:g} / {rec['cull_per_frame']:g} / "
+           f"{rec['threefry_per_frame']:g} a frame, median)" if eager["frames"] else "")
+        + f"; seconds eager {med['eager']:.4f} ({min(times['eager']):.4f}-"
+        f"{max(times['eager']):.4f}), graph {med['graph']:.4f} "
+        f"({min(times['graph']):.4f}-{max(times['graph']):.4f}), "
+        f"{rec['speedup']:.2f}x"
+        + (f", {rec['fps_eager']:.2f} -> {rec['fps_graph']:.2f} frames a second"
+           if eager["frames"] else "")
+        + f"; first render {first['s']:.3f} s with {rec['captures_first_render']} "
+        f"captures in {rec['capture_s']:.3f} s; {reads} host reads a render "
+        f"(= windows + drain blocks, {steady['replays']} replays); flagged calls "
+        f"inside windows 0 on both loops ({eager['flagged']} in the eager render, "
+        f"{syncs.count} in a replayed one, all outside windows); profiled render: "
+        + "; ".join(
+            f"{k} {b['wall_s']:.4f} s, device busy {b['busy_ms']:.1f} ms "
+            f"({b['events']} events; profile {b['attempts']} of up to "
+            f"{PROFILE_ATTEMPTS} kept, its kernel events short of the tallies by "
+            f"{b['short']}, each profile's {b['lost']}), "
+            f"busy {100 * b['busy_share']:.1f}%"
+            for k, b in (("eager", busy_e), ("replayed", busy_g)))
+        + f"; unprofiled replayed render {windows['wall_s']:.4f} s, its "
+        f"{windows['windows']} replays {windows['windows_s']:.4f} s on the device "
+        f"between events ({100 * windows['share']:.1f}%, the busy share's upper "
+        f"bound) ({card})")
+    return rec
+
+
+def phase_in_window(scene, sass, tsass):
+    """17: inside one captured flagship window, the closest hit, the cull
+    and the bounce step's threefry bundle of call GRAPH_CALL, as the last
+    feed replay computed them: each bit-equal to an eager launch of its
+    kernel at the same inputs, and held against its plain version by the
+    criteria of phases 2, 4 and 16."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    graphs.clear()
+    graphs.zero_stats()
+    with recorded_in_capture(GRAPH_CALL) as rec:
+        tpipe.render_image_wavefront(scene, Camera.reset(), 1280, 720, 4, seed=0,
+                                     cfg=RenderConfig(max_depth=32), pool_size=POOL)
+    torch.cuda.synchronize()
+    stats = dict(graphs.STATS)
+    if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != {
+            "mm", "cull", "threefry"}:
+        raise RuntimeError(f"[17] in-window: recorded {sorted(rec)}, {stats}")
+    for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
+                      ("threefry", tfk.threefry_bundle)):
+        args, out = rec[kname]
+        again = fn(*args)
+        if not all(torch.equal(a, b) for a, b in zip(again, out)):
+            raise RuntimeError(f"[17] in-window: the graph's {kname} node differs "
+                               "from an eager launch at its inputs")
+    log(f"[17] in a captured flagship window ({stats['replays']} replays), call "
+        f"{GRAPH_CALL}: each kernel's graph node bit-equal to an eager launch at "
+        "the same inputs; against the plain versions:")
+    (mm_args, _), (cull_args, _), (tf_args, _) = rec["mm"], rec["cull"], rec["threefry"]
+    mm = phase_kernel_vs_twin(scene, {"in_graph": captured_set(mm_args, cull_args[1])})
+    cull = phase_cull("in_graph", cull_args, sass)
+    name = "in_graph_" + "+".join(PURPOSE_NAMES.get(p, str(p)) for p, _ in tf_args[4])
+    draws = phase_threefry({name: tf_args}, tsass)
+    graphs.clear()
+    return dict(stats=stats, mm=mm["in_graph"], cull=cull, threefry=draws[name])
+
+
+def phase_graphs(scene, bunny, card, sass, tsass):
+    """17: graph against eager on the flagship, four progressive steps, the
+    60-frame viewer with a camera move, a config-5 step and the bunny300k
+    leg; then the kernels inside a captured flagship window."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    multimesh = upload_scene(load_scene_xml(str(ROOT / "scenes" / "multimesh.xml")),
+                             "cuda")
+    record = {name: graph_vs_eager(name, fn, card) for name, fn in
+              graph_workloads(scene, bunny, multimesh).items()}
+    record["in_window"] = phase_in_window(scene, sass, tsass)
+    del multimesh
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return record
+
+
 def _launches():
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
@@ -2455,6 +3015,8 @@ def main(argv=None) -> int:
     progressive = phase_progressive(scene, scan["image"])
     viewer = phase_viewer(scene)
     bvh = phase_bvh(ref_sets, 32768, chunk=1024)
+    log("[17] the wavefront's windows as CUDA graphs against the eager loop")
+    graph = phase_graphs(scene, big["bunny300k"], card, sass, tsass)
     del scene, big, ref_sets
     torch.cuda.empty_cache()
     sharded_cli = phase_sharded_cli(paths)
@@ -2514,7 +3076,7 @@ def main(argv=None) -> int:
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,
                    sharded_cli=sharded_cli, config5=config5, two_ranks=two_ranks,
-                   nee=nee,
+                   nee=nee, graphs=graph,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {summary['total_s']:.1f} s")

@@ -149,7 +149,8 @@ cull_tiles_kernel(const float* __restrict__ x,         // (G*128, 12)
                   uint8_t* __restrict__ sgm,           // (G, n_tiles)
                   float* __restrict__ gent,            // (G, n_tiles)
                   float* __restrict__ lane_bound,      // (G*128,)
-                  int n_tiles, float t_min) {
+                  int n_tiles, float t_min,
+                  unsigned long long* __restrict__ tally) {  // (2,) or null
   __shared__ float4 s_ray[kLanes][2];  // {o, folded bound}, {clipped inv, 0}
   __shared__ int s_lb[kLanes];         // lane bound keys, combined over the warps
 
@@ -160,6 +161,8 @@ cull_tiles_kernel(const float* __restrict__ x,         // (G*128, 12)
   const float inf = __int_as_float(0x7f800000);
   const float nan = __int_as_float(kNanKey);
   const int key_neg_inf = order_key(-inf);
+  // the launch, counted on the device: a CUDA graph's replay counts too
+  if (tally != nullptr && g == 0 && threadIdx.x == 0) atomicAdd(tally, 1ull);
 
   // the subgroup's rays, staged once per block, one thread each
   for (int i = threadIdx.x; i < kLanes; i += blockDim.x) {
@@ -286,7 +289,7 @@ extern "C" int cull_tiles_launch(const void* x, const void* active,
                                  const void* occ, const void* tile_box,
                                  void* sgm, void* gent, void* lane_bound,
                                  int n_groups, int n_tiles, float t_min,
-                                 int device, void* stream) {
+                                 int device, void* stream, void* tally) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
@@ -308,7 +311,8 @@ extern "C" int cull_tiles_launch(const void* x, const void* active,
         static_cast<const float*>(x), static_cast<const float*>(active),
         static_cast<const float*>(occ), static_cast<const float4*>(tile_box),
         static_cast<uint8_t*>(sgm), static_cast<float*>(gent),
-        static_cast<float*>(lane_bound), n_tiles, t_min);
+        static_cast<float*>(lane_bound), n_tiles, t_min,
+        static_cast<unsigned long long*>(tally));
   }
   return (int)cudaGetLastError();
 }

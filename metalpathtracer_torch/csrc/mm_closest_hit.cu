@@ -155,7 +155,8 @@ mm_closest_hit_kernel(const int32_t* __restrict__ lists,    // (G, n_tiles)
                       float* __restrict__ out_t,            // (G*128,)
                       int32_t* __restrict__ out_col,        // (G*128,)
                       int32_t* __restrict__ walked,         // (G,) or null
-                      int n_tiles, int tile_p, float t_min) {
+                      int n_tiles, int tile_p, float t_min,
+                      unsigned long long* __restrict__ tally) {  // (2,) or null
   extern __shared__ float4 ring[];                // 2 slots of one tile
   __shared__ float slice_t[kSlices][kLanes];      // slices' best t per ray
   __shared__ int32_t slice_col[kSlices][kLanes];  // ... and its column
@@ -168,6 +169,8 @@ mm_closest_hit_kernel(const int32_t* __restrict__ lists,    // (G, n_tiles)
   // this thread's rays in the subgroup: r0 + q * kRayThreads, q < kRays
   const int r0 = (warp % kRayWarps) * 32 + (threadIdx.x & 31);
   const float inf = __int_as_float(0x7f800000);
+  // the launch, counted on the device: a CUDA graph's replay counts too
+  if (tally != nullptr && g == 0 && threadIdx.x == 0) atomicAdd(tally, 1ull);
 
   float d0[kRays], d1[kRays], d2[kRays], m0[kRays], m1[kRays], m2[kRays];
   float o0[kRays], o1[kRays], o2[kRays], lb[kRays];
@@ -345,7 +348,8 @@ extern "C" int mm_closest_hit_launch(const void* lists, const void* counts,
                                      const void* lane_bound, const void* w,
                                      void* out_t, void* out_col, void* walked,
                                      int n_groups, int n_tiles, int tile_p,
-                                     float t_min, int device, void* stream) {
+                                     float t_min, int device, void* stream,
+                                     void* tally) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
@@ -366,7 +370,8 @@ extern "C" int mm_closest_hit_launch(const void* lists, const void* counts,
         static_cast<const float*>(smin), static_cast<const float*>(x),
         static_cast<const float*>(lane_bound), static_cast<const float4*>(w),
         static_cast<float*>(out_t), static_cast<int32_t*>(out_col),
-        static_cast<int32_t*>(walked), n_tiles, tile_p, t_min);
+        static_cast<int32_t*>(walked), n_tiles, tile_p, t_min,
+        static_cast<unsigned long long*>(tally));
   }
   return (int)cudaGetLastError();
 }

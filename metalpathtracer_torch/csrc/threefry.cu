@@ -148,8 +148,15 @@ __device__ __forceinline__ float to_uniform(uint32_t w) {
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 threefry_kernel(Operand pixel, Operand sample, Operand bounce, Blocks blocks,
-                float* __restrict__ out, long long n, uint32_t seed) {
+                float* __restrict__ out, long long n, uint32_t seed,
+                unsigned long long* __restrict__ tally, int draws) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  // the launch and its draws, counted on the device: a CUDA graph's replay
+  // counts too
+  if (tally != nullptr && i == 0) {
+    atomicAdd(tally, 1ull);
+    atomicAdd(tally + 1, (unsigned long long)draws);
+  }
   if (i >= n) return;
   const uint32_t k1 = word(pixel, i);
   const uint32_t c0 = word(sample, i);
@@ -182,9 +189,10 @@ threefry_kernel(Operand pixel, Operand sample, Operand bounce, Blocks blocks,
 template <int K>
 void launch_blocks(const Operand& p, const Operand& s, const Operand& b,
                    const Blocks& blocks, float* out, long long n, uint32_t seed,
-                   cudaStream_t st) {
+                   unsigned long long* tally, int draws, cudaStream_t st) {
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  threefry_kernel<K><<<grid, kThreads, 0, st>>>(p, s, b, blocks, out, n, seed);
+  threefry_kernel<K><<<grid, kThreads, 0, st>>>(p, s, b, blocks, out, n, seed,
+                                                tally, draws);
 }
 
 }  // namespace
@@ -198,7 +206,8 @@ extern "C" int threefry_launch(const void* pixel_id, const void* sample_id,
                                uint64_t d6, uint64_t d7, int pixel_layout,
                                uint32_t pixel_value, int sample_layout,
                                uint32_t sample_value, int bounce_layout,
-                               uint32_t bounce_value, int device, void* stream) {
+                               uint32_t bounce_value, int device, void* stream,
+                               void* tally) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
@@ -229,15 +238,16 @@ extern "C" int threefry_launch(const void* pixel_id, const void* sample_id,
   const Operand b{bounce, bounce_layout, bounce_value};
   float* o = static_cast<float*>(out);
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* t = static_cast<unsigned long long*>(tally);
   switch (k) {
-    case 1: launch_blocks<1>(p, s, b, blocks, o, n, seed, st); break;
-    case 2: launch_blocks<2>(p, s, b, blocks, o, n, seed, st); break;
-    case 3: launch_blocks<3>(p, s, b, blocks, o, n, seed, st); break;
-    case 4: launch_blocks<4>(p, s, b, blocks, o, n, seed, st); break;
-    case 5: launch_blocks<5>(p, s, b, blocks, o, n, seed, st); break;
-    case 6: launch_blocks<6>(p, s, b, blocks, o, n, seed, st); break;
-    case 7: launch_blocks<7>(p, s, b, blocks, o, n, seed, st); break;
-    default: launch_blocks<8>(p, s, b, blocks, o, n, seed, st); break;
+    case 1: launch_blocks<1>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 2: launch_blocks<2>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 3: launch_blocks<3>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 4: launch_blocks<4>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 5: launch_blocks<5>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 6: launch_blocks<6>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    case 7: launch_blocks<7>(p, s, b, blocks, o, n, seed, t, count, st); break;
+    default: launch_blocks<8>(p, s, b, blocks, o, n, seed, t, count, st); break;
   }
   return (int)cudaGetLastError();
 }

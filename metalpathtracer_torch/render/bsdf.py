@@ -24,13 +24,12 @@ SKY_HORIZON = np.array([1.0, 1.0, 1.0], np.float32)
 SKY_ZENITH = np.array([0.6, 0.7, 1.0], np.float32)
 
 
-def sky_color(d_unit: torch.Tensor) -> torch.Tensor:
+def sky_color(d_unit: torch.Tensor, sky: torch.Tensor) -> torch.Tensor:
     """Miss shader: vertical gradient white -> pale blue. `d_unit` is the
-    unit ray direction (..., 3)."""
+    unit ray direction (..., 3); `sky` the (2, 3) rows [SKY_HORIZON,
+    SKY_ZENITH] on its device (the scene's `sky`, uploaded with it)."""
     t = 0.5 * (d_unit[..., 1] + 1.0)
-    horizon = torch.as_tensor(SKY_HORIZON, device=d_unit.device)
-    zenith = torch.as_tensor(SKY_ZENITH, device=d_unit.device)
-    return vm.mix(horizon, zenith, t[..., None])
+    return vm.mix(sky[0], sky[1], t[..., None])
 
 
 def is_emissive(material_type, emission_power):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from metalpathtracer_torch.accel.bvh import build_bvh
+from metalpathtracer_torch.render.bsdf import SKY_HORIZON, SKY_ZENITH
 from metalpathtracer_torch.render.kernels.intersect_mm import (
     TILE_P_LARGE,
     TILE_P_SMALL,
@@ -68,6 +69,10 @@ class TorchScene:
     light_pick_p: torch.Tensor  # float32 (L,)
     light_cdf: torch.Tensor  # float32 (L,) inclusive CDF of pick_p
     prim_light_id: torch.Tensor  # int32 (P,) light row per prim, -1 if none
+    # constants of a bounce step, uploaded once with the scene so that no
+    # step uploads a host value (a CUDA graph could not capture it)
+    sky: torch.Tensor  # float32 (2, 3) [SKY_HORIZON, SKY_ZENITH]
+    frame_axes: torch.Tensor  # float32 (2, 3) [y, x]: NEE cone-frame helpers
     max_depth: int  # deepest BVH node (root = 1): bounds the traversal stack
     num_tris: int
     num_lights: int
@@ -173,6 +178,8 @@ def _build_light_table(packed: PackedScene) -> dict:
 
 def _to_device(arrays: dict, max_depth: int, num_tris: int, num_lights: int,
                device) -> TorchScene:
+    arrays = dict(arrays, sky=np.stack([SKY_HORIZON, SKY_ZENITH]),
+                  frame_axes=np.eye(3, dtype=np.float32)[[1, 0]])
     return TorchScene(
         # np.array copies: tables from a JAX scene are read-only views
         **{k: torch.as_tensor(np.array(v), device=device)
@@ -277,7 +284,8 @@ def scene_from_jax(arrays: dict, device) -> TorchScene:
     if w.shape[0] != n_tiles:
         raise ValueError("mm_tri_ids does not match mm_tile_box")
     tables = {f.name: arrays[f.name] for f in dataclasses.fields(TorchScene)
-              if f.name not in ("mm_w", "max_depth", "num_tris", "num_lights")}
+              if f.name not in ("mm_w", "sky", "frame_axes", "max_depth",
+                                "num_tris", "num_lights")}
     tables["mm_w"] = w
     return _to_device(tables, arrays["max_depth"], arrays["num_tris"],
                       arrays["num_lights"], device)

@@ -1,0 +1,157 @@
+"""The wavefront's device-resident loop: each window of advances as one CUDA
+graph, captured once per render shape and replayed.
+
+Counterpart of the reference's `_render_wavefront_jit`
+(`metalpathtracer_tpu/render/pipeline.py`) and of its sharding module's
+jit builders. XLA compiles a whole wavefront render into one device
+program; here each feed window and each drain block of `trace_wavefront`
+is captured as a `torch.cuda.CUDAGraph` and replayed, so the host issues
+one launch a window instead of some 400 an advance, and still reads the
+loop condition once a window.
+
+An `Entry` holds what one render shape keeps between calls: a `program`
+(the integrator's `_Wavefront`), whose functions read and write its static
+buffers alone and leave what the host reads in `program.report`, and on
+the card one graph per function, all in one memory pool. Entries live in
+a small LRU cache (`entry`); on the CPU they hold no graph and run their
+functions eagerly, which is what the tests run.
+
+`Entry.run(name)` on the card:
+- the first call of a function runs it eagerly on a side stream: the
+  warm-up PyTorch's CUDA-graph notes ask for before a capture (the kernels'
+  nvcc builds and first loads finish there), and real work;
+- the second call captures it and replays the capture, every later call
+  replays it;
+- a capture that fails raises, and the entry is dropped: nothing falls
+  back to the eager loop or to the CPU.
+Under `eager()` every call runs eagerly, for comparison.
+
+A replay runs no Python. The kernel wrappers' counters see the warm-up
+and the capture alone; the kernels' device tallies (`kernels/_build.py`)
+count every launch a replay makes. The cache key holds no function: a
+caller who swaps a function that a window looks up on its module (a
+comparison with a plain version, a count of bounce steps) calls `clear()`
+before and after, so that no graph traced with the swap outlives it.
+
+`STATS` counts captures (and their seconds), replays, eager runs and host
+reads since it was last zeroed; `chip_smoke.py` reads it.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+import torch
+
+# Entries kept. Every entry point reuses one shape at a time: progressive
+# steps, viewer frames until a resize, repeated renders of one scene. A new
+# shape or scene (a resized viewer, each in-process `cli.main`, which
+# uploads its scene anew) makes a new entry, and the one before it is stale.
+# An entry holds its scene's tables and its graph memory on the device (a
+# flagship entry is tens of MB), so two keep the shape in use and the one
+# before it (a viewer resized and back), and pin at most one stale scene.
+CACHE_SIZE = 2
+
+STATS = dict(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0)
+
+_cache: collections.OrderedDict = collections.OrderedDict()
+_eager = [0]  # depth of nested `eager()` blocks
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every window eagerly on the card, as the CPU does: the eager
+    loop that the graphs are compared with."""
+    _eager[0] += 1
+    try:
+        yield
+    finally:
+        _eager[0] -= 1
+
+
+def clear() -> None:
+    """Drop every entry (its buffers and graphs)."""
+    _cache.clear()
+
+
+def zero_stats() -> None:
+    STATS.update(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0)
+
+
+def entry(key, owner, build) -> "Entry":
+    """The cached entry of (`owner`, `key`), now the most recently used, or a
+    new one of `build()`'s program. `owner` (the scene) is matched by
+    identity; the entry holds it, so its id is no other object's while the
+    entry lives."""
+    full = (id(owner), key)
+    found = _cache.get(full)
+    if found is not None:
+        _cache.move_to_end(full)
+        return found
+    made = Entry(owner, build())
+    _cache[full] = made
+    while len(_cache) > CACHE_SIZE:
+        _cache.popitem(last=False)
+    return made
+
+
+class Entry:
+    """One render shape: its program (static buffers and the functions on
+    them) and, on the card, a graph of each function run so far."""
+
+    def __init__(self, owner, program):
+        self.owner = owner
+        self.program = program
+        self.device = program.report.device
+        self.graphs: dict = {}  # name -> CUDAGraph
+        self.warm: set = set()
+        self.pool = None
+
+    def run(self, name: str) -> None:
+        fn = getattr(self.program, name)
+        if self.device.type != "cuda" or _eager[0]:
+            STATS["eager_runs"] += 1
+            fn()
+            return
+        with torch.cuda.device(self.device):
+            if name not in self.graphs:
+                if name not in self.warm:
+                    self._warm_up(fn)
+                    self.warm.add(name)
+                    return
+                self._capture(name, fn)
+            self.graphs[name].replay()
+        STATS["replays"] += 1
+
+    def read(self) -> list:
+        """The program's report on the host: the one read of a window."""
+        STATS["reads"] += 1
+        return self.program.report.tolist()
+
+    def _warm_up(self, fn) -> None:
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn()
+        main.wait_stream(side)
+        STATS["eager_runs"] += 1
+
+    def _capture(self, name: str, fn) -> None:
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                fn()
+        except BaseException:
+            for key, value in list(_cache.items()):
+                if value is self:
+                    del _cache[key]
+            raise
+        self.graphs[name] = graph
+        STATS["captures"] += 1
+        STATS["capture_s"] += time.perf_counter() - t0

@@ -30,7 +30,7 @@ import math
 import torch
 
 from metalpathtracer_torch.core import rng, vecmath as vm
-from metalpathtracer_torch.render import bsdf
+from metalpathtracer_torch.render import bsdf, graphs
 from metalpathtracer_torch.render.intersect import (
     T_MIN,
     closest_hit_bruteforce,
@@ -74,6 +74,10 @@ class RenderConfig:
 
 
 DEFAULT_CONFIG = RenderConfig()
+# strict reference parity: per-sample [0,1] clamp and the fixed 1e-4
+# scatter offset
+REFERENCE_CONFIG = RenderConfig(max_depth=32, clamp_radiance=True,
+                                adaptive_offset=False)
 
 
 def _trace_rays(scene, o, d, cfg, active=None, occ_t=None):
@@ -142,9 +146,9 @@ def _sample_light(scene, point, u_pick, u1, u2):
     cos_t = 1.0 - u1 * (1.0 - cos_max)
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     phi = 2.0 * math.pi * u2
-    y_axis = torch.tensor([0.0, 1.0, 0.0], device=point.device)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device=point.device)
-    a = vm.where3(torch.abs(w[..., 0]) > 0.9, y_axis, x_axis)
+    # the helper axis of the cone's frame: y where w is near x, else x
+    a = vm.where3(torch.abs(w[..., 0]) > 0.9, scene.frame_axes[0],
+                  scene.frame_axes[1])
     t1 = vm.normalize(vm.cross(a, w))
     t2 = vm.cross(w, t1)
     sph_dir = (
@@ -232,7 +236,7 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     miss = idx < 0
 
     # sky on miss
-    sky = bsdf.sky_color(d)
+    sky = bsdf.sky_color(d, scene.sky)
     light = light + torch.where((active & miss)[:, None], throughput * sky, 0.0)
 
     hit_live = active & ~miss
@@ -322,7 +326,9 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     if cfg.rr_start > 0:
         u_rr = drawn[-1]
         p = torch.clamp(new_tp.amax(dim=-1), 0.05, 1.0)
-        do_rr = torch.as_tensor(bounce >= cfg.rr_start, device=o.device)
+        do_rr = bounce >= cfg.rr_start
+        if not isinstance(do_rr, torch.Tensor):  # a scan step: one bool
+            do_rr = torch.full_like(p, do_rr, dtype=torch.bool)  # a fill, no upload
         new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)[..., None]
         hit_live = hit_live & (~do_rr | (u_rr < p))
 
@@ -419,99 +425,172 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     per-lane pending slots and reach the framebuffer in one `index_add_`
     per window; the loop condition (queue left, or more live lanes than the
     drain width) is read once per window. Once it fails, the live lanes are
-    compacted to `DRAIN_WIDTH` and advanced until none is left.
+    compacted to `DRAIN_WIDTH` and advanced in blocks of `sort_every` until
+    none is left, read once per block. The windows and the drain blocks
+    work on the static buffers of a `_Wavefront`, cached per render shape
+    by `render/graphs.py`, which on the card runs each as one replay of a
+    captured CUDA graph (`graphs.eager()` runs them eagerly instead).
 
     Returns (rgb_sum (n_pixels, 3) f32, rays int, stats): stats has
     `tile_passes` (closest-hit tile passes, 2^20 ray-triangle tests each)
     and `shadow_rays` (NEE shadow rays, included in rays). Divide rgb_sum
     by spp.
     """
-    from metalpathtracer_torch.render.pipeline import generate_rays
-
     if cfg.sort_key != "tileset":
         raise ValueError(f"unknown sort key {cfg.sort_key!r}")
-    dev = scene.device
     n_pix = n_pixels if n_pixels is not None else width * height
     if n_pix * spp > (1 << 31):
         raise ValueError(f"{n_pix * spp} work items overflow the queue")
     pool = int(pool_size) if pool_size is not None else min(n_pix * spp, 1 << 15)
-    bpi = max(1, cfg.bounces_per_iter)
+    shape = (width, height, spp, seed, cfg, pool, pixel_offset, n_pix)
+    entry = graphs.entry(shape, scene, lambda: _Wavefront(scene, *shape))
+    wf = entry.program
+    wf.start(camera, sample_offset)
+    # (next_item, live lanes, rays, shadow rays, tile passes): what each
+    # window and drain block leaves in `wf.report`, and the host reads
+    queued = min(pool, wf.total)
+    report = [queued, queued, 0, 0, 0.0]
+    while report[0] < wf.total or report[1] > wf.drain_stop:
+        entry.run("window")
+        report = entry.read()
+    wf.compact()
+    while report[1] > 0:  # live lanes, all of them in the drain's width
+        entry.run("drain_block")
+        report = entry.read()
+    return wf.flush(), int(report[2]), dict(tile_passes=report[4],
+                                            shadow_rays=int(report[3]))
 
-    # samples per bank: a lane traces all spp samples of its pixels when the
-    # image alone fills the pool, else one sample per item
-    spb = spp if n_pix >= pool else 1
-    chunks = spp // spb
-    bank_k = 1
-    if spb == spp:
-        k_req = cfg.bank_k or BANK_K_MAX
-        for k in (16, 8, 4, 2, 1):
-            # queue-depth guard: grouping shortens the queue k-fold; keep it
-            # >= 4 pool fills unless bank_k was asked for
-            deep_enough = bool(cfg.bank_k) or (n_pix // k) * chunks >= 4 * pool
-            if (k <= k_req and n_pix % k == 0 and n_pix // k >= pool
-                    and deep_enough):
-                bank_k = k
-                break
-    groups = n_pix // bank_k
-    per_item = bank_k * spb  # path completions per work item
-    total = groups * chunks
-    ka = 3 * bank_k  # accumulator width
 
-    # a lane completes at most one path per advance, so it banks at most once
-    # per window of flush_every <= per_item advances: one pending slot each
-    sort_every = min(spb, SORT_EVERY)
-    flush_every = max(1, per_item // sort_every) * sort_every
-    sorting = cfg.sort_lanes and scene.num_tris > 0
-    lane_ids = torch.arange(pool, dtype=torch.int64, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
+_LANE_FIELDS = ("item", "schunk", "acc", "o", "d", "bounce", "light", "tp",
+                "prev_pdf", "alive")
 
-    def pix_samp_of(item, schunk):
+
+class _Wavefront:
+    """One render shape of `trace_wavefront`: its host plan, its static
+    buffers, and the functions that advance them. `window` and
+    `drain_block` read and write the buffers alone (on the card
+    `render/graphs.py` captures them), and leave (next_item, live lanes,
+    rays, shadow rays, tile passes) in `report` for the host; `start`,
+    `compact` and `flush` run once a render, eagerly.
+
+    Per render, `start` takes what changes between calls of one shape: the
+    camera, whose basis it copies into `basis`, and the first sample id,
+    which it writes into `sample_offset`; both are read on the device."""
+
+    def __init__(self, scene, width, height, spp, seed, cfg, pool,
+                 pixel_offset, n_pix):
+        self.scene, self.width, self.height = scene, width, height
+        self.seed, self.cfg, self.pool = seed, cfg, pool
+        self.pixel_offset = pixel_offset
+        self.bpi = max(1, cfg.bounces_per_iter)
+        # samples per bank: a lane traces all spp samples of its pixels when
+        # the image alone fills the pool, else one sample per item
+        spb = spp if n_pix >= pool else 1
+        chunks = spp // spb
+        bank_k = 1
+        if spb == spp:
+            k_req = cfg.bank_k or BANK_K_MAX
+            for k in (16, 8, 4, 2, 1):
+                # queue-depth guard: grouping shortens the queue k-fold; keep
+                # it >= 4 pool fills unless bank_k was asked for
+                deep_enough = bool(cfg.bank_k) or (n_pix // k) * chunks >= 4 * pool
+                if (k <= k_req and n_pix % k == 0 and n_pix // k >= pool
+                        and deep_enough):
+                    bank_k = k
+                    break
+        self.n_pix, self.spb, self.bank_k = n_pix, spb, bank_k
+        self.groups = n_pix // bank_k
+        self.per_item = bank_k * spb  # path completions per work item
+        self.total = self.groups * chunks
+        self.ka = ka = 3 * bank_k  # accumulator width
+        # a lane completes at most one path per advance, so it banks at most
+        # once per window of flush_every <= per_item advances: one pending
+        # slot each
+        self.sort_every = min(spb, SORT_EVERY)
+        self.flush_every = max(1, self.per_item // self.sort_every) * self.sort_every
+        self.sorting = cfg.sort_lanes and scene.num_tris > 0
+        self.drain_w = min(pool, DRAIN_WIDTH)
+        self.drain_stop = self.drain_w if pool > self.drain_w else 0
+
+        dev = scene.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.i64, self.f32 = i64, f32
+        self.basis = torch.zeros((4, 3), **f32)
+        self.sample_offset = torch.zeros((), **i64)
+        self.lane_ids = torch.arange(pool, **i64)
+        self.st = self._lanes(pool)
+        # the drain's lanes: the live ones, compacted, once the queue is empty
+        self.drain = self._lanes(self.drain_w) if pool > self.drain_w else None
+        # rows >= groups are private dummy rows: a lane with no pending bank
+        # adds its zero row there, so every index of a scatter is distinct
+        self.fb = torch.zeros((self.groups + pool, ka), **f32)
+        self.next_item = torch.zeros((), **i64)
+        self.counters = dict(rays=torch.zeros((), **i64),
+                             shadow=torch.zeros((), **i64),
+                             tile_passes=torch.zeros((), **f32))
+        self.report = torch.zeros(5, dtype=torch.float64, device=dev)
+
+    def _lanes(self, n):
+        i64, f32, ka = self.i64, self.f32, self.ka
+        return dict(
+            item=torch.zeros(n, **i64), schunk=torch.zeros(n, **i64),
+            acc=torch.zeros((n, ka), **f32), o=torch.zeros((n, 3), **f32),
+            d=torch.zeros((n, 3), **f32), bounce=torch.zeros(n, **i64),
+            light=torch.zeros((n, 3), **f32), tp=torch.zeros((n, 3), **f32),
+            prev_pdf=torch.zeros(n, **f32),
+            alive=torch.zeros(n, dtype=torch.bool, device=self.lane_ids.device))
+
+    @staticmethod
+    def _store(bufs, st):
+        for k in _LANE_FIELDS:
+            bufs[k].copy_(st[k])
+
+    def _report(self, alive):
+        c = self.counters
+        self.report.copy_(torch.stack([
+            self.next_item.to(torch.float64), alive.sum().to(torch.float64),
+            c["rays"].to(torch.float64), c["shadow"].to(torch.float64),
+            c["tile_passes"].to(torch.float64)]))
+
+    # ---- the lane program
+
+    def pix_samp_of(self, item, schunk):
         # item % groups names a local framebuffer row; the pixel id is global
-        pixel = (item % groups) * bank_k + schunk // spb + pixel_offset
+        pixel = ((item % self.groups) * self.bank_k + schunk // self.spb
+                 + self.pixel_offset)
         # int64; the RNG wraps it to a u32 word
-        sample = (item // groups) * spb + schunk % spb + sample_offset
+        sample = (item // self.groups) * self.spb + schunk % self.spb \
+            + self.sample_offset
         return pixel, sample
 
-    def ray_for(item, schunk):
-        pixel, sample = pix_samp_of(item, schunk)
-        return generate_rays(camera, width, height, pixel, sample, seed)
+    def ray_for(self, item, schunk):
+        from metalpathtracer_torch.render.pipeline import rays_from_basis
 
-    item0 = lane_ids.clone()
-    schunk0 = torch.zeros(pool, **i64)
-    o0, d0 = ray_for(item0, schunk0)
-    st = dict(
-        item=item0, schunk=schunk0, acc=torch.zeros((pool, ka), **f32),
-        o=o0, d=d0, bounce=torch.zeros(pool, **i64),
-        light=torch.zeros((pool, 3), **f32), tp=torch.ones((pool, 3), **f32),
-        prev_pdf=torch.zeros(pool, **f32), alive=item0 < total,
-    )
-    # rows >= groups are private dummy rows: a lane with no pending bank
-    # adds its zero row there, so every index of a scatter is distinct
-    fb = torch.zeros((groups + pool, ka), **f32)
-    counters = dict(rays=torch.zeros((), **i64),
-                    shadow=torch.zeros((), **i64),
-                    tile_passes=torch.zeros((), **f32))
+        pixel, sample = self.pix_samp_of(item, schunk)
+        return rays_from_basis(self.basis, self.width, self.height, pixel,
+                               sample, self.seed)
 
-    def advance(st):
+    def advance(self, st):
         """bpi bounce steps and the per-path bookkeeping. Returns the new
         state and the masks `more` (the lane restarts on its item's next
         sample) and `bank` (the lane finished its item)."""
+        cfg, counters, bank_k, spb = self.cfg, self.counters, self.bank_k, self.spb
         alive, bounce = st["alive"], st["bounce"]
         o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",
                                                      "prev_pdf"))
-        pixel, sample = pix_samp_of(st["item"], st["schunk"])
+        pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
         still = alive
-        for k in range(bpi):
+        for k in range(self.bpi):
             step_active = still & (bounce + k < cfg.max_depth)
             o, d, light, tp, still, prev_pdf, c, sh, tpass = _bounce_step(
-                scene, o, d, light, tp, step_active, prev_pdf, pixel, sample,
-                bounce + k, seed, cfg,
+                self.scene, o, d, light, tp, step_active, prev_pdf, pixel,
+                sample, bounce + k, self.seed, cfg,
             )
             counters["rays"] += c
             counters["shadow"] += sh
             counters["tile_passes"] += tpass
-        bounce_next = bounce + bpi
+        bounce_next = bounce + self.bpi
         survivors = still & (bounce_next < cfg.max_depth)
         path_done = alive & ~survivors
 
@@ -521,14 +600,14 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         if bank_k == 1:
             acc = st["acc"] + torch.where(path_done[:, None], ps, 0.0)
         else:
-            slot = (torch.arange(bank_k, device=dev)[None, :]
+            slot = (torch.arange(bank_k, device=o.device)[None, :]
                     == (schunk // spb)[:, None])  # (pool, K)
             mask = path_done[:, None] & slot
             acc = st["acc"] + torch.where(mask[:, :, None], ps[:, None, :],
-                                          0.0).reshape(-1, ka)
+                                          0.0).reshape(-1, self.ka)
         light = torch.where(path_done[:, None], 0.0, light)
         schunk_next = schunk + path_done.to(torch.int64)
-        more = path_done & (schunk_next < per_item)
+        more = path_done & (schunk_next < self.per_item)
         bank = path_done & ~more  # the item is finished
         st = dict(
             st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
@@ -538,9 +617,9 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         )
         return st, more, bank
 
-    def restart_lanes(st, restart):
+    def restart_lanes(self, st, restart):
         """Fresh primary rays where the (item, schunk) changed."""
-        no, nd = ray_for(st["item"], st["schunk"])
+        no, nd = self.ray_for(st["item"], st["schunk"])
         r = restart[:, None]
         return dict(
             st, o=torch.where(r, no, st["o"]), d=torch.where(r, nd, st["d"]),
@@ -550,10 +629,11 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             alive=st["alive"] | restart,
         )
 
-    def sort_pool(st, pend=None):
+    def sort_pool(self, st, pend=None):
         """Reorder the lanes by tile-set signature (stable); the pending
         banks (pend_idx, pend_rgb) ride along."""
-        key = _tileset_key(scene, st["o"], st["d"], st["alive"])
+        ka = self.ka
+        key = _tileset_key(self.scene, st["o"], st["d"], st["alive"])
         perm = torch.argsort(key, stable=True)
         fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
                   st["prev_pdf"][:, None]]
@@ -574,19 +654,69 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             return st, None
         return st, (ipack[:, 4], fpack[:, 13 + ka:])
 
-    # ---- feed: the queue refills lanes; one framebuffer scatter a window
-    drain_w = min(pool, DRAIN_WIDTH)
-    drain_stop = drain_w if pool > drain_w else 0
-    next_item = torch.full((), min(pool, total), **i64)
-    while True:
-        queued, live = (int(v) for v in torch.stack(
-            [next_item, st["alive"].sum()]).tolist())
-        if not (queued < total or live > drain_stop):
-            break
-        pend = (groups + lane_ids, torch.zeros((pool, ka), **f32))
-        for _ in range(flush_every // sort_every):
-            for _ in range(sort_every):
-                st, more, bank = advance(st)
+    # ---- once a render, eagerly
+
+    def start(self, camera, sample_offset: int):
+        """The first pool of lanes for `camera`, samples from
+        `sample_offset` on; the framebuffer and the counters at 0."""
+        from metalpathtracer_torch.render.pipeline import camera_basis
+
+        self.basis.copy_(camera_basis(camera, self.width, self.height))
+        self.sample_offset.fill_(sample_offset)
+        item0 = self.lane_ids.clone()
+        schunk0 = torch.zeros(self.pool, **self.i64)
+        o0, d0 = self.ray_for(item0, schunk0)
+        self._store(self.st, dict(
+            item=item0, schunk=schunk0,
+            acc=torch.zeros((self.pool, self.ka), **self.f32),
+            o=o0, d=d0, bounce=torch.zeros(self.pool, **self.i64),
+            light=torch.zeros((self.pool, 3), **self.f32),
+            tp=torch.ones((self.pool, 3), **self.f32),
+            prev_pdf=torch.zeros(self.pool, **self.f32), alive=item0 < self.total,
+        ))
+        self.fb.zero_()
+        for c in self.counters.values():
+            c.zero_()
+        self.next_item.fill_(min(self.pool, self.total))
+
+    def compact(self):
+        """After the feed: clear the residue of dead lanes (lanes that
+        banked in the feed hold none; cleared regardless, so the flush adds
+        nothing twice) and, where the pool is wider than the drain, move the
+        live lanes first into the drain's buffers."""
+        st = self.st
+        dead = ~st["alive"]
+        st["light"].copy_(torch.where(dead[:, None], 0.0, st["light"]))
+        st["acc"].copy_(torch.where(dead[:, None], 0.0, st["acc"]))
+        if self.drain is not None:
+            live_first = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
+            self._store(self.drain, {k: v[live_first][:self.drain_w]
+                                     for k, v in st.items()})
+
+    def flush(self):
+        """Every dead lane whose item is real banks its accumulator; returns
+        the framebuffer's (n_pix, 3) rows, a copy of the static buffer."""
+        st = self.drain if self.drain is not None else self.st
+        w = st["item"].shape[0]
+        banked = ~st["alive"] & (st["item"] < self.total)
+        idx = torch.where(banked, st["item"] % self.groups,
+                          self.groups + self.lane_ids[:w])
+        self.fb.index_add_(0, idx, st["acc"])
+        # (groups, 3K) rows are K row-major (pixel, rgb) blocks
+        return self.fb[:self.groups].reshape(self.n_pix, 3).clone()
+
+    # ---- the functions the card replays as CUDA graphs
+
+    def window(self):
+        """`flush_every` advances of the feed: the queue refills lanes, and
+        their banks reach the framebuffer in one scatter."""
+        st, total, groups = dict(self.st), self.total, self.groups
+        next_item = self.next_item
+        pend = (groups + self.lane_ids,
+                torch.zeros((self.pool, self.ka), **self.f32))
+        for _ in range(self.flush_every // self.sort_every):
+            for _ in range(self.sort_every):
+                st, more, bank = self.advance(st)
                 pend = (torch.where(bank, st["item"] % groups, pend[0]),
                         torch.where(bank[:, None], st["acc"], pend[1]))
                 st["acc"] = torch.where(bank[:, None], 0.0, st["acc"])
@@ -594,36 +724,23 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
                 new_item = next_item + torch.cumsum(bank.to(torch.int64), 0) - 1
                 regen = bank & (new_item < total)
                 st["item"] = torch.where(regen, new_item, st["item"])
-                st = restart_lanes(st, more | regen)
+                st = self.restart_lanes(st, more | regen)
                 next_item = torch.clamp(next_item + bank.sum(), max=total)
-            if sorting:
-                st, pend = sort_pool(st, pend)
-        fb.index_add_(0, pend[0], pend[1])
+            if self.sorting:
+                st, pend = self.sort_pool(st, pend)
+        self.fb.index_add_(0, pend[0], pend[1])
+        self._store(self.st, st)
+        self.next_item.copy_(next_item)
+        self._report(st["alive"])
 
-    # ---- drain: no queue left; live lanes fit drain_w
-    # (lanes that banked in the feed hold no residue; clear it regardless,
-    # so the final flush adds nothing twice)
-    dead = ~st["alive"]
-    st["light"] = torch.where(dead[:, None], 0.0, st["light"])
-    st["acc"] = torch.where(dead[:, None], 0.0, st["acc"])
-    if pool > drain_w:
-        live_first = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
-        st = {k: v[live_first][:drain_w] for k, v in st.items()}
-    while bool(st["alive"].any()):
-        for _ in range(sort_every):
-            st, more, _ = advance(st)
-            st = restart_lanes(st, more)
-        if sorting:
-            st, _ = sort_pool(st)
-
-    # ---- flush: every dead lane whose item is real banks its accumulator
-    w = st["item"].shape[0]
-    banked = ~st["alive"] & (st["item"] < total)
-    idx = torch.where(banked, st["item"] % groups, groups + lane_ids[:w])
-    fb.index_add_(0, idx, st["acc"])
-    # (groups, 3K) rows are K row-major (pixel, rgb) blocks
-    rgb_sum = fb[:groups].reshape(n_pix, 3)
-    return rgb_sum, int(counters["rays"]), dict(
-        tile_passes=float(counters["tile_passes"]),
-        shadow_rays=int(counters["shadow"]),
-    )
+    def drain_block(self):
+        """`sort_every` advances of the drain: no queue left, the live
+        lanes fit `drain_w`."""
+        st = dict(self.drain)
+        for _ in range(self.sort_every):
+            st, more, _ = self.advance(st)
+            st = self.restart_lanes(st, more)
+        if self.sorting:
+            st, _ = self.sort_pool(st)
+        self._store(self.drain, st)
+        self._report(st["alive"])

@@ -1,11 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Each kernel is one `csrc/<name>.cu` file with a plain C entry point
-`<name>_launch(pointers..., scalars..., device, stream)` that returns a CUDA
-error code, and `<name>_error_string(code)`. It is compiled with `nvcc` for
+`<name>_launch(pointers..., scalars..., device, stream, tally)` that returns
+a CUDA error code, and `<name>_error_string(code)`. It is compiled with `nvcc` for
 Hopper (`sm_90a`) into a shared library under `metalpathtracer_torch/_build/`
 at first use, keyed on a hash of the source and the flags, loaded with
-`ctypes`, and launched on the current stream by `launch`. Nothing here runs
+`ctypes`, and launched on the current stream by `launch`.
+
+Every launch also adds to its kernel's `tally` on the device: thread 0 of
+block 0 adds one launch (and the threefry kernel its draws). A CUDA graph's
+replay runs the kernels it captured, and so moves their tallies as eager
+launches do, while it runs none of the wrappers' Python. Nothing here runs
 at import time: the CPU-only test environment imports every module and has
 no `nvcc`.
 """
@@ -79,7 +84,7 @@ def load_library(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> ctype
 
 
 # each kernel's C entry point: its pointer count and scalar types (the
-# device and the stream follow them)
+# device, the stream and the tally follow them)
 ENTRY_ARGS = {
     "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float)),
@@ -112,7 +117,7 @@ def entry(kernel: str, defines: tuple = (), csrc: Path = CSRC_DIR):
     n_ptr, scalars = ENTRY_ARGS[kernel]
     fn = getattr(lib, f"{kernel}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [*scalars, ctypes.c_int,
-                                               ctypes.c_void_p]
+                                               ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{kernel}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -137,8 +142,45 @@ def launch(kernel: str, inputs, outputs, scalars, device, defines: tuple = (),
     fn, err = entry(kernel, tuple(defines), csrc)
     rc = fn(*(None if v is None else v.data_ptr() for v in (*inputs, *outputs)),
             *scalars, device.index or 0,
-            torch.cuda.current_stream(device).cuda_stream)
+            torch.cuda.current_stream(device).cuda_stream,
+            tally(kernel, device).data_ptr())
     if rc != 0:
         raise RuntimeError(
             f"{kernel} launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
+
+
+_tallies: dict = {}
+
+
+def tally(kernel: str, device) -> torch.Tensor:
+    """`kernel`'s (launches, draws) on `device` since the last
+    `zero_tallies`, a (2,) int64 tensor there that the kernel adds to
+    itself. Made at the kernel's first launch on the device, which a stream
+    capture may not be: it would capture the zeroing (a graph's warm-up
+    launches first)."""
+    key = (kernel, torch.device(device).index or 0)
+    found = _tallies.get(key)
+    if found is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: first launch on {device} inside a "
+                               "stream capture; launch it once before")
+        found = _tallies[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return found
+
+
+def tallies(device) -> dict:
+    """{kernel: (launches, draws)} of every kernel launched on `device`: one
+    read of the device, after the work queued before it."""
+    index = torch.device(device).index or 0
+    names = [k for k, i in _tallies if i == index]
+    if not names:
+        return {}
+    rows = torch.stack([_tallies[(k, index)] for k in names]).tolist()
+    return {k: tuple(r) for k, r in zip(names, rows)}
+
+
+def zero_tallies() -> None:
+    """Every tally at 0, queued on each tally's device."""
+    for t in _tallies.values():
+        t.zero_()

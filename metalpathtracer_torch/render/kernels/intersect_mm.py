@@ -422,7 +422,7 @@ def cull_pass_reference(x, active, tile_box, t_min: float, occ=None):
     bound = active.reshape(n) > 0.5
     occv = torch.full((n,), _INF, device=dev) if occ is None else occ
     bound = torch.where(bound, occv, -_INF)
-    t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    t_min_t = torch.full((), t_min, dtype=torch.float32, device=dev)
     sgm = torch.empty((g, nt), dtype=torch.bool, device=dev)
     gent = torch.empty((g, nt), dtype=torch.float32, device=dev)
     lane_bound = torch.empty((n,), dtype=torch.float32, device=dev)

@@ -53,7 +53,7 @@ def _u32(x, device=None) -> torch.Tensor:
     """Coerce to a u32 word in an int64 tensor, wrapping Python ints
     (negative seeds, >32-bit values) and int tensors mod 2^32."""
     if isinstance(x, int):
-        return torch.tensor(x & _MASK, dtype=torch.int64, device=device)
+        return torch.full((), x & _MASK, dtype=torch.int64, device=device)
     return x.to(torch.int64) & _MASK
 
 

@@ -1,6 +1,7 @@
 """Rendering pipeline: ray generation, sample batching, progressive state.
 
-Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays`,
+Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays` (and
+`rays_from_basis`, its math on a basis already on the device),
 `render_tile`, `render_image`, `render_image_wavefront`, and the
 progressive state `AccumState` with `init_accum`, `accumulate`,
 `accumulate_wavefront` and `to_image`. Samples of a pass are traced one
@@ -28,15 +29,28 @@ from metalpathtracer_torch.render.integrator import (
 )
 
 
+def camera_basis(camera: Camera, width: int, height: int) -> torch.Tensor:
+    """`viewport_basis`'s four vectors as rows of one (4, 3) float32 tensor
+    on the camera's device: [origin, first_pixel, viewport_u, viewport_v].
+    A caller moves it to the render device once per render."""
+    return torch.stack(list(viewport_basis(camera, width, height)))
+
+
 def generate_rays(camera: Camera, width: int, height: int, pixel_id, sample_id,
                   seed):
+    """Jittered primary rays from `camera`: `rays_from_basis` of its
+    `camera_basis`, moved to `pixel_id`'s device."""
+    basis = camera_basis(camera, width, height).to(pixel_id.device)
+    return rays_from_basis(basis, width, height, pixel_id, sample_id, seed)
+
+
+def rays_from_basis(basis: torch.Tensor, width: int, height: int, pixel_id,
+                    sample_id, seed):
     """Jittered primary rays: screen coords sx = (px+u)/W, sy = (py+v)/H
-    with u, v ~ U[0,1); row 0 is the TOP of the image. `pixel_id` is an
-    int64 tensor of u32 pixel ids; the rays land on its device."""
-    dev = pixel_id.device
-    origin, first_pixel, vu, vv = (
-        v.to(dev) for v in viewport_basis(camera, width, height)
-    )
+    with u, v ~ U[0,1); row 0 is the TOP of the image. `basis` is a
+    `camera_basis` on `pixel_id`'s device, `pixel_id` an int64 tensor of
+    u32 pixel ids; nothing is moved between devices."""
+    origin, first_pixel, vu, vv = basis.unbind(0)
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
     u1, u2 = rng.uniform2(seed, pixel_id, sample_id, 0, rng.PURPOSE_JITTER_X)
@@ -60,8 +74,9 @@ def render_tile(scene, camera, width, height, pixel_id, sample_ids, seed, cfg):
     acc = torch.zeros((pixel_id.shape[0], 3), dtype=torch.float32,
                       device=pixel_id.device)
     rays = torch.zeros((), dtype=torch.int64, device=pixel_id.device)
+    basis = camera_basis(camera, width, height).to(pixel_id.device)
     for sample_id in sample_ids:
-        o, d = generate_rays(camera, width, height, pixel_id, sample_id, seed)
+        o, d = rays_from_basis(basis, width, height, pixel_id, sample_id, seed)
         radiance, r = trace(scene, o, d, pixel_id, sample_id, seed, cfg)
         acc = acc + radiance
         rays = rays + r

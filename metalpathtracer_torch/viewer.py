@@ -401,6 +401,17 @@ class _ViewerLoop:
                 self._host is None or tuple(self._host.shape) != shape):
             self._host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
 
+    def _launched(self) -> tuple:
+        """(closest-hit, cull) launches so far, for the trace line: the
+        kernels' device tallies, which count a CUDA graph's replays too (one
+        read of the card). The CPU launches no kernel."""
+        if not (self.trace and self.scene.device.type == "cuda"):
+            return 0, 0
+        from metalpathtracer_torch.render.kernels import _build
+
+        done = _build.tallies(self.scene.device)
+        return tuple(done.get(k, (0, 0))[0] for k in ("mm_closest_hit", "cull_tiles"))
+
     def _advance(self, state):
         from metalpathtracer_torch.render.pipeline import (
             accumulate,
@@ -467,13 +478,8 @@ class _ViewerLoop:
         host, show it, then apply the input. Returns False when the user
         quit."""
         from metalpathtracer_torch.render.camera import apply_inputs
-        from metalpathtracer_torch.render.kernels import intersect_mm
 
-        def counts():
-            return (intersect_mm.mm_closest_hit.launches,
-                    intersect_mm.cull_tiles.launches)
-
-        counts0 = counts()
+        counts0 = self._launched()
         t0 = time.perf_counter()
         self.state, rays = self._advance(self.state)
         frame = _Frame(self.state, rays, self._host)
@@ -495,7 +501,7 @@ class _ViewerLoop:
         img = frame.image()
         dt = time.perf_counter() - t0
         if self.trace:
-            mm, cull = (b - a for a, b in zip(counts0, counts()))
+            mm, cull = (b - a for a, b in zip(counts0, self._launched()))
             print(
                 f"frame {self.frames_shown}: dispatch {t_disp - t0:.3f}s "
                 f"poll {t_poll - t_disp:.3f}s "

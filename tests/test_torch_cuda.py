@@ -31,6 +31,7 @@ where the subgroup's tile order picks the winner and the subgroups follow
 the queue: at most 1e-4 of the pixels may differ at all.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -381,7 +382,9 @@ def test_wavefront_on_card_matches_scan(scene):
 
 
 def _launches():
-    return tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    # what ran on the card, by the kernels' tallies: a graph replay runs
+    # the kernels, not their wrappers
+    return _counted()[:2]
 
 
 def test_checkpointed_cli_on_card_resumes_bit_equal(scene, tmp_path, capsys):
@@ -643,6 +646,30 @@ def test_threefry_bundle_in_a_cuda_graph(card, n, spec):
     _same_draws(got, tfk.threefry_bundle_reference(3, pix, sample, bounce, draws))
 
 
+def test_kernel_tally_counts_eager_and_replayed_launches(card):
+    # the kernel adds to its tally itself: a replay counts as a launch, while
+    # the wrapper's Python counter sees only the capture
+    from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render.kernels import threefry as tfk
+
+    pix, sample, bounce = _draw_operands(32768, "wavefront", card)
+    draws = BUNDLES["nee_rr_step"]
+    tfk.threefry_bundle(3, pix, sample, bounce, draws)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    _build.zero_tallies()
+    launches = tfk.threefry_bundle.launches
+    for _ in range(2):
+        tfk.threefry_bundle(3, pix, sample, bounce, draws)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tfk.threefry_bundle(3, pix, sample, bounce, draws)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert tfk.threefry_bundle.launches == launches + 3
+    assert _build.tallies(card)["threefry"] == (5, 5 * len(draws))
+
+
 def test_bounce_step_launches_one_bundle(scene):
     # NEE and Russian roulette on: five draws, one launch
     from metalpathtracer_torch.render import integrator as tint
@@ -660,3 +687,132 @@ def test_bounce_step_launches_one_bundle(scene):
     torch.cuda.synchronize()
     assert tfk.threefry_bundle.launches == launches + 1
     assert tfk.threefry_bundle.draws == drawn + (5 if scene.num_lights else 3)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront's windows as CUDA graphs (render/graphs.py) against the
+# eager loop: bit-equal images, equal counts
+# ---------------------------------------------------------------------------
+
+
+def _counted():
+    # the kernels' device tallies: a replay runs no wrapper, only kernels
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies("cuda")
+    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
+            *done.get("threefry", (0, 0)))
+
+
+def _render_counted(fn, eager):
+    from metalpathtracer_torch.render import graphs
+
+    before = _counted()
+    with graphs.eager() if eager else contextlib.nullcontext():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(a - b for a, b in zip(_counted(), before))
+
+
+# (width, height, spp, cfg, pool): no drain (pool within the drain width),
+# a drain, NEE with Russian roulette, two bounces an advance
+GRAPH_CASES = {
+    "feed_only": (64, 36, 4, dict(max_depth=6, bank_k=2), 128),
+    "feed_and_drain": (256, 144, 2, dict(max_depth=8), 4096),
+    "nee_rr": (128, 72, 2, dict(max_depth=8, nee=True, rr_start=2), 2048),
+    "two_bounces": (128, 72, 2, dict(max_depth=6, bounces_per_iter=2), 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_windows_equal_the_eager_loop(scene, case):
+    from metalpathtracer_torch.render import graphs
+
+    w, h, spp, cfg, pool = GRAPH_CASES[case]
+    cfg = RenderConfig(**cfg)
+    graphs.clear()
+
+    def render():
+        return render_image_wavefront(scene, Camera.reset(), w, h, spp, seed=3,
+                                      cfg=cfg, pool_size=pool, return_stats=True)
+
+    (a, ra, sa), ca = _render_counted(render, eager=True)
+    graphs.zero_stats()
+    (b, rb, sb), cb = _render_counted(render, eager=False)
+    first = dict(graphs.STATS)
+    graphs.zero_stats()
+    (c, rc, sc), cc = _render_counted(render, eager=False)
+    again = dict(graphs.STATS)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert ra == rb == rc and sa == sb == sc
+    assert ca == cb == cc and min(ca) > 0
+    # a new shape warms each function up eagerly and captures it on its
+    # second run; the next render replays every window and drain block
+    assert first["captures"] >= 1 and first["replays"] >= 1
+    assert again["captures"] == again["eager_runs"] == 0
+    assert again["replays"] == again["reads"] > 0
+
+
+def test_a_camera_move_between_replays(scene):
+    from metalpathtracer_torch.render import graphs
+
+    cfg = RenderConfig(max_depth=6)
+    moved = Camera.look_at((4.0, 22.0, 46.0), (0.0, 12.0, 0.0), vfov_deg=50.0)
+    graphs.clear()
+    render_image_wavefront(scene, Camera.reset(), 128, 72, 2, seed=1, cfg=cfg,
+                           pool_size=2048)
+    render_image_wavefront(scene, Camera.reset(), 128, 72, 2, seed=1, cfg=cfg,
+                           pool_size=2048)
+    graphs.zero_stats()
+    got, rays = render_image_wavefront(scene, moved, 128, 72, 2, seed=1, cfg=cfg,
+                                       pool_size=2048)
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["replays"] > 0
+    with graphs.eager():
+        want, want_rays = render_image_wavefront(scene, moved, 128, 72, 2, seed=1,
+                                                 cfg=cfg, pool_size=2048)
+    assert torch.equal(got, want) and rays == want_rays
+
+
+def test_a_capture_serves_three_progressive_steps(scene):
+    from metalpathtracer_torch.render import graphs
+
+    cfg = RenderConfig(max_depth=6)
+    graphs.clear()
+    graphs.zero_stats()
+    state = want = tpipe.init_accum(128, 72, "cuda")
+    captures = []
+    for _ in range(3):
+        state, rays = tpipe.accumulate_wavefront(state, scene, Camera.reset(), 128,
+                                                 72, 1, 7, cfg, pool_size=2048)
+        captures.append(graphs.STATS["captures"])
+        with graphs.eager():
+            want, want_rays = tpipe.accumulate_wavefront(
+                want, scene, Camera.reset(), 128, 72, 1, 7, cfg, pool_size=2048)
+        assert torch.equal(state.rgb_sum, want.rgb_sum) and rays == want_rays
+    assert len(graphs._cache) == 1
+    assert captures[0] >= 1 and captures[0] == captures[1] == captures[2]
+
+
+def test_a_failed_capture_raises(scene, monkeypatch):
+    from metalpathtracer_torch.render import graphs
+
+    cull = tmm.cull_tiles
+
+    def syncing(*args, **kw):
+        out = cull(*args, **kw)
+        out[0].any().item()  # a host read: no stream capture allows it
+        return out
+
+    syncing.launches = 0  # the kernel's wrapper counts on the module's name
+    monkeypatch.setattr(tmm, "cull_tiles", syncing)
+    graphs.clear()
+    with pytest.raises(RuntimeError):
+        render_image_wavefront(scene, Camera.reset(), 128, 72, 2, seed=1,
+                               cfg=RenderConfig(max_depth=6), pool_size=2048)
+    assert len(graphs._cache) == 0
+    torch.cuda.synchronize()
+    monkeypatch.setattr(tmm, "cull_tiles", cull)
+    # the card is usable after the failed capture
+    a, _ = render_image_wavefront(scene, Camera.reset(), 64, 36, 1, seed=1,
+                                  cfg=RenderConfig(max_depth=4), pool_size=128)
+    assert torch.isfinite(a).all()
