@@ -33,7 +33,8 @@ Phases, each raising on failure:
    one instruction per lane per clock on every SM);
 5. `mm_closest_hit` at tile_p 256 (bunny300k) vs its twin on 32,768
    primary and 32,768 bounce-1 rays, and vs the brute oracle on 8,192;
-6. the scan path: `cli.main` at 1280x720, spp 4, depth 32;
+6. the scan path: `cli.main` at 1280x720, spp 4, depth 32 (its bounce
+   blocks replayed as CUDA graphs, as a user's call runs them);
 7. the wavefront path: `cli.main --wavefront` at the same size (pool 2^15),
    its image against the scan path's;
 8. the large-scene legs: `render_image_wavefront` on bunny70k and
@@ -44,8 +45,9 @@ Phases, each raising on failure:
 10. the checkpointed CLI: `cli.main --checkpoint --checkpoint-every 2` at
     1280x720, depth 32, to 2 spp, then `--resume` to 4 spp, and the same to
     4 spp without interruption: the two images bit-equal, both against
-    phase 6's within the render limit, as many launches as phase 6 made,
-    and a resume with another `--fov` exits 2 and leaves the file as it was;
+    phase 6's within the render limit, as many launches on the card as
+    phase 6 made, and a resume with another `--fov` exits 2 and leaves the
+    file as it was;
 11. the progressive wavefront: four `accumulate_wavefront` steps of 1 spp
     at 1280x720, depth 32, pool 2^15 against four `accumulate` steps, step
     for step within the render limit, with the sample ids continuing;
@@ -66,8 +68,10 @@ Phases, each raising on failure:
 13. the BVH study path: `closest_hit_bvh` against the brute oracle on phase
     3's 65,536 rays (phase 3's criteria), its time beside
     `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
-    bvh` at 320x180, spp 2, depth 8 against the `mm` render; it must launch
-    neither kernel;
+    bvh` at 320x180, spp 2, depth 8, on the scan and with `--wavefront`,
+    against the `mm` render: it must launch neither tile kernel, run on
+    its integrator's eager loop by config (no warm-up, capture or replay)
+    and equal its render under `graphs.eager()` bit for bit;
 14. the sharded path (`parallel/sharding.py` over `torch.distributed`):
     a. `cli.main --tile-shard` and `--tile-shard --wavefront` on the
        flagship in a world of one: images bit-equal to phases 6 and 7's,
@@ -76,7 +80,7 @@ Phases, each raising on failure:
        1920x1080, depth 8, `init_accum_sharded` and four
        `accumulate_sharded` steps of 4 spp in a world of one, against
        `render_image_wavefront` of the same 16 spp (rtol 1e-6, atol 1e-7,
-       equal rays);
+       equal rays); one line a step with its advances and launches;
     c. two ranks on the one card: this script started twice as a rank
        (`--shard-rank`), both on `cuda:0`, joined by gloo over a file store
        (NCCL refuses two ranks on one device, so the joins stage through
@@ -115,27 +119,38 @@ Phases, each raising on failure:
     light pick and Russian roulette as pairs, as `uniform1` drew them
     before the bundle), and with `--against` against the other tree's
     kernel in turns;
-17. the wavefront's windows as CUDA graphs (`render/graphs.py`) against the
-    eager loop (`graphs.eager()`), on the flagship, four progressive
-    1-spp steps, the viewer's loop for 60 frames with a `w` key after frame
-    30, one config-5 step and the bunny300k leg: a counted render on each
-    loop, then the graph path's first render with its captures and their
-    seconds, then GRAPH_REPEATS timed renders of each loop in turns
-    (median and range); every render's images `torch.equal` and its
-    launches on the card (the kernels' tallies) equal to the eager loop's
-    (the flagship's also to PR 8's 408 / 408 / 817); host reads a render
-    (one a window or drain block), flagged synchronising calls inside
-    windows (0 on both loops); the busy share of one profiled render of
+17. both integrators' loops as CUDA graphs (`render/graphs.py`) against
+    the eager loop (`graphs.eager()`): the wavefront's windows on the
+    flagship, four progressive 1-spp steps, the viewer's loop for
+    GRAPH_VIEWER_FRAMES (30) frames with a `w` key after frame 15, one
+    config-5 step and the bunny300k leg; the scan's bounce blocks on phase
+    6's flagship, phase 10's checkpointed render (to 4 spp in steps of 2, each written to
+    disk: seconds until on disk), the viewer's loop with `--integrator
+    scan` for 60 frames with the key, and config 4 (phase 15's). Each: a
+    counted render on each loop, then the graph path's first render with
+    its captures and their seconds, then GRAPH_REPEATS timed renders of
+    each loop in turns (median and range); every render's images
+    `torch.equal` and its launches on the card (the kernels' tallies)
+    equal to the eager loop's, on the scan plus what its idle steps (run
+    by a block past its last live lane, counted in the program's report)
+    launch, each an eager bounce step's launches (the flagships' exactly
+    408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md); host reads
+    a render (one a window, drain block or scan block; on the scan's eager
+    loop one a bounce step), flagged synchronising calls inside windows
+    and blocks (0 on both loops); the busy share of one profiled render of
     each loop (the union of its device intervals over its own wall time;
     its kernel events held against its tallies) and, on the graph loop,
-    the replays' share of one unprofiled render between CUDA events; then the
-    closest hit, the cull and the threefry bundle of call GRAPH_CALL inside
-    a captured flagship window, as the last replay computed them: each
-    bit-equal to an eager launch of its kernel at the same inputs, and held
-    against its plain version by phases 2, 4 and 16's criteria.
+    the replays' share of one unprofiled render between CUDA events; then
+    the closest hit, the cull and the threefry bundle of call GRAPH_CALL
+    inside a captured flagship window, and of a captured bounce block of
+    the flagship scan, the viewer's scan frames and config 4 (its bundle
+    alone: no triangle), as the last replay computed them: each bit-equal
+    to an eager launch of its kernel at the same inputs, and held against
+    its plain version by phases 2, 4 and 16's criteria.
 No earlier path runs at a smaller depth than before. Every path through
 `trace_wavefront` (phases 7, 8, 9, 11, 12, 14, 15) runs its windows as CUDA
-graph replays, as a user's call does; the captures of kernel calls (phases
+graph replays, and every scan render (phases 6, 9, 10, 11, 12, 14, 15) its
+bounce blocks, as a user's call does; the captures of kernel calls (phases
 2, 4, 16) and the plain versions run on the eager loop, since a replay runs
 no Python and a plain version reads the device on the host. Each path of
 phases 6-8, 10-12, 14, 15 and 17 runs with every launch count set to 0 just
@@ -179,6 +194,11 @@ Usage:
                                      # from another checkout's sources
                                      # against this one's, and the flagship
                                      # CLI renders of both trees, in turns
+    python3 chip_smoke.py --scan-blocks
+                                     # phase 1, then the scan's SCAN_BLOCK
+                                     # at 1, 4, 8 and max_depth on the
+                                     # flagship scan and the viewer's scan
+                                     # frames, timed in turns
     python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
                                      # one rank on each of 4 cards, joined
                                      # by nccl (a machine with 4 cards)
@@ -266,8 +286,13 @@ SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 SWEEP_THREADS = (64, 128, 256)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's record, after the seconds since the script
+    started."""
+    print(f"{time.perf_counter() - _T0:7.1f} s  {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -573,7 +598,7 @@ def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
 
 
 @contextlib.contextmanager
-def counted_path():
+def counted_path(tiles: bool = True):
     """Count one path's bounce steps, kernel launches, threefry draws and
     plain-version calls: every count is 0 on entry; the dict is filled on
     exit. `mm_launches`, `cull_launches`, `threefry_launches` and
@@ -587,7 +612,9 @@ def counted_path():
     replay runs what its capture traced. A run that replayed nothing must
     have launched on the card exactly what its wrappers counted. The graph
     cache is cleared on entry and on exit: its key holds no function, and
-    the bounce step is swapped here."""
+    the bounce step is swapped here. Without `tiles` (a scene of spheres
+    alone, which launches no tile kernel) the threefry kernel alone must
+    run on every step."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -646,14 +673,14 @@ def counted_path():
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed)
     if calls["plain_mm"] or calls["plain_cull"] or calls["plain_threefry"]:
         raise RuntimeError(f"the path ran a plain version: {calls}")
-    if result["steps"] == 0 or min(result["mm_calls"],
-                                   result["cull_calls"]) < result["steps"]:
+    if result["steps"] == 0 or tiles and min(result["mm_calls"],
+                                             result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
     if odd_steps:
         raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
                            f"of at least two draws, e.g. (launches, draws) "
                            f"{odd_steps[0]}: {result}")
-    if min(done[:3]) == 0:
+    if min(done[:3] if tiles else done[2:3]) == 0:
         raise RuntimeError(f"a kernel ran no time on the card: {result}")
     if not replayed and done != (result["mm_calls"], result["cull_calls"],
                                  result["threefry_calls"],
@@ -1370,13 +1397,13 @@ class NullDisplay:
         pass
 
 
-def viewer_loop(scene):
+def viewer_loop(scene, integrator="wavefront"):
     from metalpathtracer_torch import viewer
     from metalpathtracer_torch.render.integrator import RenderConfig
 
     display = NullDisplay()
     return viewer._ViewerLoop(scene, *VIEWER_SIZE, 1,
-                              RenderConfig(max_depth=VIEWER_DEPTH), 0, "wavefront",
+                              RenderConfig(max_depth=VIEWER_DEPTH), 0, integrator,
                               display), display
 
 
@@ -1634,14 +1661,15 @@ def phase_checkpoint(scan):
         raise RuntimeError("the resumed render differs from the uninterrupted one: "
                            f"{int((a != b).sum())} values")
     frac, dmean = compare_images(a, scan["image"], "checkpointed vs scan image")
-    launches = {k: c1[k] + c2[k] for k in
-                ("steps", "mm_launches", "cull_launches", "threefry_launches")}
+    # launches on the card (the tallies), as the scan path made: the scan's
+    # graphs trace only a shape's first blocks, so traced steps differ
+    keys = ("mm_launches", "cull_launches", "threefry_launches")
+    launches = {k: c1[k] + c2[k] for k in keys}
     for got in (launches, c3):
-        for k in ("steps", "mm_launches", "cull_launches", "threefry_launches"):
-            want = scan["counts"]["threefry_launches" if k[0] == "t" else "steps"]
-            if got[k] != want:
+        for k in keys:
+            if got[k] != scan["counts"][k]:
                 raise RuntimeError(f"checkpointed render: {k} {got[k]}, the scan "
-                                   f"path made {want}")
+                                   f"path made {scan['counts'][k]}")
     # one write of the 1280x720 state, timed alone
     state, seed, meta = load_checkpoint(str(ck), "cuda")
     if state.spp != 4:
@@ -1892,9 +1920,11 @@ def phase_bvh(sets, n_each, chunk):
     closest_hit_mm_full on phase 3's rays, and a CLI render through it. The
     reference scene is uploaded once more, with its BVH, which no other
     phase reads."""
+    import numpy as np
     import torch
 
     from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
@@ -1933,32 +1963,59 @@ def phase_bvh(sets, n_each, chunk):
         f"differ, max |dt| {float(err.max()):.3g}; the walk {bvh_ms:.1f} ms, "
         f"closest_hit_mm_full {mm_ms:.3f} ms per call on the same rays")
 
-    images = {}
-    seconds = {}
-    for kind in ("bvh", "mm"):
-        argv = ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", "320",
-                "--height", "180", "--spp", "2", "--max-depth", "8", "--device", "cuda",
-                "--stats-json", "--intersector", kind, "--output",
-                str(OUT / f"small_{kind}.png"), "--npz", str(OUT / f"small_{kind}.npz")]
+    # the BVH walk reads the host on every level: both integrators run it on
+    # their eager loop by config (no warm-up, capture or replay), and equal
+    # their renders under `graphs.eager()`
+    images, seconds, routes = {}, {}, {}
+    for name, kind, extra in (("bvh", "bvh", []), ("bvh_wavefront", "bvh", ["--wavefront"]),
+                              ("mm", "mm", [])):
+        def argv(tag):
+            return ["--scene", str(ROOT / "scenes" / "reference.xml"), "--width", "320",
+                    "--height", "180", "--spp", "2", "--max-depth", "8", "--device",
+                    "cuda", "--stats-json", "--intersector", kind, "--output",
+                    str(OUT / f"small_{tag}.png"), "--npz",
+                    str(OUT / f"small_{tag}.npz")] + extra
+
         launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+        before = dict(graphs.STATS)
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
+            rc = cli.main(argv(name))
         if rc != 0:
-            raise RuntimeError(f"cli.main --intersector {kind} returned {rc}")
+            raise RuntimeError(f"cli.main --intersector {kind} {extra} returned {rc}")
+        moved = {k: graphs.STATS[k] - before[k] for k in before}
         ran = tmm.mm_closest_hit.launches - launches[0]
         if (ran > 0) != (kind == "mm"):
             raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
-        seconds[kind] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
-        images[kind] = check_image(OUT / f"small_{kind}.npz", (180, 320, 3))
+        seconds[name] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
+        images[name] = check_image(OUT / f"small_{name}.npz", (180, 320, 3))
+        if kind == "bvh":
+            if moved["captures"] or moved["replays"] or not moved["eager_runs"]:
+                raise RuntimeError(f"cli {extra} --intersector bvh: {moved}, not the "
+                                   "eager loop by config")
+            with graphs.eager(), contextlib.redirect_stdout(io.StringIO()):
+                if cli.main(argv(name + "_eager")) != 0:
+                    raise RuntimeError(f"cli {extra} --intersector bvh under eager()")
+            again = radiance(OUT / f"small_{name}_eager.npz")
+            if not np.array_equal(images[name], again):
+                raise RuntimeError(f"cli {extra} --intersector bvh: the render differs "
+                                   "from its eager render")
+            routes[name] = moved
     frac, dmean = compare_images(images["bvh"], images["mm"], "bvh vs mm render")
-    log(f"[13] cli --intersector bvh 320x180 spp 2 depth 8: {seconds['bvh']} s "
-        f"(mm: {seconds['mm']} s); {frac:.5f} of pixels differ by > 1e-3, means by "
-        f"{dmean:.2e}; no tile kernel launched")
+    frac_w, dmean_w = compare_images(images["bvh_wavefront"], images["mm"],
+                                     "bvh wavefront vs mm render")
+    log(f"[13] cli --intersector bvh 320x180 spp 2 depth 8: scan {seconds['bvh']} s, "
+        f"wavefront {seconds['bvh_wavefront']} s (mm: {seconds['mm']} s); both on "
+        f"their eager loop by config ({routes['bvh']['eager_runs']} and "
+        f"{routes['bvh_wavefront']['eager_runs']} eager runs, no capture or replay) "
+        f"and bit-equal to their renders under graphs.eager(); against mm "
+        f"{frac:.5f} / {frac_w:.5f} of pixels differ by > 1e-3, means by "
+        f"{dmean:.2e} / {dmean_w:.2e}; no tile kernel launched")
     return dict(rays=o.shape[0], mismatches=n_mis, max_abs_err=float(err.max()),
-                walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds,
+                walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds, routes=routes,
                 upload_s=upload_s, upload_without_bvh_s=bare_s,
-                render_divergent=frac, render_mean_diff=dmean)
+                render_divergent=frac, render_mean_diff=dmean,
+                wavefront_divergent=frac_w, wavefront_mean_diff=dmean_w)
 
 
 def same_but_ties(a, b, what: str) -> int:
@@ -2012,6 +2069,7 @@ def phase_config5():
     import torch
 
     from metalpathtracer_torch.parallel import sharding
+    from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.integrator import RenderConfig
@@ -2027,14 +2085,24 @@ def phase_config5():
         raise RuntimeError(f"phase 14b runs in a world of one, not {mesh.shape}")
     state = sharding.init_accum_sharded(w, h, mesh, scene.device)
     rays, secs, after_two = 0, [], None
+    per_step = []
     with counted_path() as counts:
         while state.spp < CONFIG5_SPP:
+            before, reads = executed(), graphs.STATS["reads"]
             t0 = time.perf_counter()
             state, r = sharding.accumulate_sharded(state, scene, cam, CONFIG5_STEP,
                                                    seed=5, cfg=cfg, mesh=mesh)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             rays += r
+            launched = tuple(b - a for a, b in zip(before, executed()))
+            per_step.append(dict(samples=(state.spp - CONFIG5_STEP, state.spp - 1),
+                                 advances=launched[0], launched=launched, rays=r,
+                                 reads=graphs.STATS["reads"] - reads))
+            log(f"[14b] step {len(per_step)}, samples {state.spp - CONFIG5_STEP}-"
+                f"{state.spp - 1}: {launched[0]} advances (one closest hit each), "
+                f"launches {launched[:3]} ({launched[3]} draws), "
+                f"{per_step[-1]['reads']} windows and drain blocks, {r} rays")
             if state.spp == 2 * CONFIG5_STEP:
                 after_two = state.rgb_sum.cpu()
     img = (sharding.gather_accum(state, mesh).rgb_sum / CONFIG5_SPP)
@@ -2068,7 +2136,7 @@ def phase_config5():
     del scene
     torch.cuda.empty_cache()
     return dict(upload_s=upload_s, step_s=secs, rays=rays, counts=counts,
-                whole_s=whole_s, whole_counts=whole_counts, max_abs_diff=worst,
+                per_step=per_step, whole_s=whole_s, whole_counts=whole_counts, max_abs_diff=worst,
                 image_mean=float(img.mean())), after_two
 
 
@@ -2207,7 +2275,7 @@ def phase_nee(card):
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.integrator import RenderConfig
-    from metalpathtracer_torch.render.kernels import threefry as tfk
+    from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render.pipeline import (
         render_image,
         render_image_wavefront,
@@ -2223,16 +2291,15 @@ def phase_nee(card):
     cam = config4_camera()
     cfg = RenderConfig(max_depth=16, nee=True, rr_start=3)
     on_card, on_cpu = both("cornell_glass.xml")
-    launches = _launches()
-    bundles, draws = tfk.threefry_bundle.launches, tfk.threefry_bundle.draws
+    torch.cuda.synchronize()
+    _build.zero_tallies()
     t0 = time.perf_counter()
     a, ra = render_image(on_card, cam, 512, 512, 2, seed=4, cfg=cfg)
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
-    if _launches() != launches:
+    mm_n, cull_n, bundles, draws = executed()  # on the card, replays too
+    if mm_n or cull_n:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
-    bundles = tfk.threefry_bundle.launches - bundles
-    draws = tfk.threefry_bundle.draws - draws
     if bundles == 0:
         raise RuntimeError("config 4 launched no RNG kernel")
     t0 = time.perf_counter()
@@ -2437,12 +2504,18 @@ def phase_threefry(sets, tsass):
 # 17: the wavefront's windows as CUDA graphs against the eager loop
 # ---------------------------------------------------------------------------
 
-GRAPH_REPEATS = 5  # timed renders of each loop, in turns
+GRAPH_REPEATS = 3  # timed renders of each loop, in turns
+# the wavefront viewer's frames (key after half of them): its eager loop
+# runs ~3 frames a second, the most expensive path of the phase
+GRAPH_VIEWER_FRAMES = 30
 # the `mm_closest_hit` call of a captured flagship window whose kernels are
 # held against their plain versions
 GRAPH_CALL = 5
-# PR 8's counts of the flagship (PERF.md): mm_closest_hit, cull_tiles, threefry
+# the flagship's counts (PERF.md): mm_closest_hit, cull_tiles, threefry;
+# on the wavefront and on the scan (4 samples of 32 bounce steps, each with a
+# live lane, and a jitter bundle a sample)
 FLAGSHIP_LAUNCHES = (408, 408, 817)
+SCAN_FLAGSHIP_LAUNCHES = (128, 128, 132)
 
 
 @contextlib.contextmanager
@@ -2450,10 +2523,12 @@ def recorded_in_capture(call: int):
     """The three kernels wrapped: while a CUDA graph is being captured, the
     `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
     those of the `cull_tiles` call before it and of the first
-    `threefry_bundle` call after it (its bounce step's bundle). The clones
-    are made inside the capture, so they are outputs of the graph: after a
-    replay they hold what that replay computed. Yields {kernel: (args,
-    outputs)}, filled as the capture runs."""
+    `threefry_bundle` call after it (its bounce step's bundle); on a scene
+    without triangles, which launches no tile kernel, the `call`-th bundle
+    of more than one draw (a bounce step's) alone. The clones are made
+    inside the capture, so they are outputs of the graph: after a replay
+    they hold what that replay computed. Yields {kernel: (args, outputs)},
+    filled as the capture runs."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -2461,7 +2536,7 @@ def recorded_in_capture(call: int):
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
-    got, seen = {}, {"mm": 0, "cull": None}
+    got, seen = {}, {"mm": 0, "cull": None, "steps": 0}
 
     def cull(*args, **kw):
         out = kernels[1](*args, **kw)
@@ -2479,9 +2554,10 @@ def recorded_in_capture(call: int):
 
     def draw(*args, **kw):
         out = kernels[2](*args, **kw)
-        if (torch.cuda.is_current_stream_capturing() and "mm" in got
-                and "threefry" not in got):
-            got["threefry"] = _clone(args), _clone(out)
+        if torch.cuda.is_current_stream_capturing() and "threefry" not in got:
+            seen["steps"] += len(args[4]) > 1
+            if "mm" in got or (seen["mm"] == 0 and seen["steps"] == call):
+                got["threefry"] = _clone(args), _clone(out)
         return out
 
     mm.launches = cull.launches = draw.launches = draw.draws = 0
@@ -2633,20 +2709,9 @@ def graph_workloads(scene, bunny, multimesh):
             rays += r
         return outs, rays, None
 
-    def viewer60():
-        loop, _ = viewer_loop(scene)
-        outs, frames = [], []
-        for k in range(1, VIEWER_FRAMES + 1):
-            keys = [("key", "w")] if k == VIEWER_KEY_AFTER else []
-            before = executed()[:3]
-            if not loop.step(lambda: keys):
-                raise RuntimeError("viewer loop: quit")
-            frames.append(tuple(b - a for a, b in zip(before, executed()[:3])))
-            if k in (VIEWER_KEY_AFTER, VIEWER_FRAMES):
-                outs.append(loop.state.rgb_sum)
-        if loop.state.spp != VIEWER_FRAMES - VIEWER_KEY_AFTER:
-            raise RuntimeError(f"viewer loop: {loop.state.spp} spp after the key")
-        return outs, None, frames
+    def viewer30():  # the eager loop takes ~0.3 s a frame: 30, not 60
+        return viewer_frames(scene, "wavefront", GRAPH_VIEWER_FRAMES,
+                             GRAPH_VIEWER_FRAMES // 2)
 
     def config5_step():
         mesh = sharding.make_mesh()
@@ -2663,22 +2728,46 @@ def graph_workloads(scene, bunny, multimesh):
         return [img], rays, None
 
     return {"flagship": flagship, "progressive_4x1spp": progressive,
-            "viewer_60_frames": viewer60, "config5_step": config5_step,
+            f"viewer_{GRAPH_VIEWER_FRAMES}_frames": viewer30,
+            "config5_step": config5_step,
             "bunny300k_leg": bunny300k_leg}
 
 
-def graph_vs_eager(name, fn, card):
+def scan_launches(eager, run, samples: int) -> tuple:
+    """The launches a scan render on the graph loop must make: the eager
+    loop's (`graphs.eager()`: a step and a read a bounce, no idle step)
+    plus, for every idle step its blocks ran, what an eager bounce step
+    launches: (closest hit, cull, threefry, draws) a step from the eager
+    render, whose reads are its steps, after its one jitter bundle (of one
+    draw) a sample."""
+    steps, want = eager["stats"]["reads"], []
+    for k, jitter in enumerate((0, 0, samples, samples)):
+        per_step, rest = divmod(eager["launched"][k] - jitter, steps)
+        if rest:
+            raise RuntimeError(f"{eager['launched']} launches in {steps} steps and "
+                               f"{samples} samples: not a whole number a step")
+        want.append(eager["launched"][k] + run["stats"]["idle_steps"] * per_step)
+    return tuple(want)
+
+
+def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
     """One path on both loops: counted runs compared bit for bit and count
     for count, GRAPH_REPEATS timed renders of each in turns, the flagged
-    synchronising calls inside windows, and the device's busy share. Every
-    render's launches are read from the kernels' tallies (what ran on the
-    card, replays included) and held equal to the eager loop's."""
+    synchronising calls inside windows or blocks, and the device's busy
+    share. Every render's launches are read from the kernels' tallies (what
+    ran on the card, replays included) and held to the eager loop's: equal
+    on the wavefront; on the scan (`samples`, the samples a render traces)
+    equal but for the idle steps its blocks ran past their last live lane
+    (`scan_launches`). `flagship`: the launches the eager loop must make;
+    `tiles`: whether the path launches the tile kernels (`counted_path`)."""
     import statistics
 
     import torch
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import _build
+
+    scan = samples is not None
 
     def once(eager):
         torch.cuda.synchronize()
@@ -2697,27 +2786,30 @@ def graph_vs_eager(name, fn, card):
                 torch.equal(x, y) for x, y in zip(a["outs"], b["outs"])):
             bad = [int((x != y).sum()) for x, y in zip(a["outs"], b["outs"])]
             raise RuntimeError(f"[17] {name}: {what}: the images differ at {bad} values")
-        if a["rays"] != b["rays"] or a["frames"] != b["frames"]:
+        if a["rays"] != b["rays"] or (not scan and a["frames"] != b["frames"]):
             raise RuntimeError(f"[17] {name}: {what}: rays {a['rays']} vs {b['rays']}, "
                                f"per-frame launches differ")
-        if a["launched"] != b["launched"]:
+        want = scan_launches(a, b, samples) if scan else a["launched"]
+        if b["launched"] != want:
             raise RuntimeError(f"[17] {name}: {what}: the card ran {b['launched']} "
                                f"(closest hit, cull, threefry, draws), the eager loop "
-                               f"{a['launched']}")
+                               f"{a['launched']}, {b['stats']['idle_steps']} idle steps: "
+                               f"{want} expected")
 
     graphs.clear()
     counted = {}
     for path in ("eager", "graph"):
-        with counted_path() as counts, SyncCounter() as syncs:
+        with counted_path(tiles) as counts, SyncCounter() as syncs:
             run = once(path == "eager")
         run.update(counts=counts, flagged=syncs.count, in_windows=syncs.in_windows,
                    windows=syncs.windows)
         counted[path] = run
     eager, graph = counted["eager"], counted["graph"]
     same(eager, graph, "counted graph run vs eager run")
-    if name == "flagship" and eager["launched"][:3] != FLAGSHIP_LAUNCHES:
-        raise RuntimeError(f"[17] flagship: launches {eager['launched']}, PR 8's "
-                           f"{FLAGSHIP_LAUNCHES}")
+    if flagship and (eager["launched"][:3] != flagship or graph["launched"] !=
+                     eager["launched"]):
+        raise RuntimeError(f"[17] {name}: launches {eager['launched']} eager, "
+                           f"{graph['launched']} replayed; {flagship} expected on both")
     # counted_path cleared the cache: this render warms up and captures the
     # graphs that the timed renders replay
     first = once(False)
@@ -2737,7 +2829,13 @@ def graph_vs_eager(name, fn, card):
         once(False)
     replay_flagged = (syncs.in_windows, syncs.windows)
     reads = eager["stats"]["reads"]
-    if not (steady["reads"] == steady["replays"] == reads == eager["stats"]["eager_runs"]):
+    # a window, drain block or scan block (or, on the scan's eager loop, a
+    # bounce step) is followed by one read; a scan sample's start and end
+    # are not
+    ends = 2 * samples if scan else 0
+    if not (steady["replays"] == steady["reads"] + ends
+            and eager["stats"]["eager_runs"] == reads + ends
+            and (scan or steady["reads"] == reads)):
         raise RuntimeError(f"[17] {name}: host reads {steady} on the graph loop, "
                            f"{eager['stats']} on the eager loop")
     if eager["in_windows"] or replay_flagged[0]:
@@ -2747,22 +2845,25 @@ def graph_vs_eager(name, fn, card):
         busy_e = device_busy(fn, f"{name}, eager")
     busy_g = device_busy(fn, f"{name}, replayed")
     windows = window_share(fn)
-    for b in (busy_e, busy_g):
-        if b["tallies"] != eager["launched"][:3]:
+    for b, want in ((busy_e, eager), (busy_g, graph)):
+        if b["tallies"] != want["launched"][:3]:
             raise RuntimeError(f"[17] {name}: a profiled render launched {b['tallies']}, "
-                               f"the eager loop {eager['launched']}")
+                               f"its loop's counted render {want['launched']}")
     med = {k: statistics.median(v) for k, v in times.items()}
     launched = dict(zip(("mm_launches", "cull_launches", "threefry_launches",
                          "threefry_draws"), eager["launched"]))
+    idle = steady["idle_steps"]
     rec = dict(
-        launched=launched, steps=eager["counts"]["steps"],
+        launched=launched, launched_graph=graph["launched"], idle_steps=idle,
+        steps=eager["counts"]["steps"],
         traced_steps_graph=graph["counts"]["steps"], counts_eager=eager["counts"],
         counts_graph=graph["counts"], rays=eager["rays"], tensors=len(eager["outs"]),
         eager_s=times["eager"], graph_s=times["graph"], eager_median_s=med["eager"],
         graph_median_s=med["graph"], speedup=med["eager"] / med["graph"],
         captures_first_render=first["stats"]["captures"],
         capture_s=first["stats"]["capture_s"], first_render_s=first["s"],
-        reads_per_render=reads, windows_per_render=reads,
+        reads_per_render=steady["reads"], reads_eager=reads,
+        windows_per_render=steady["replays"],
         flagged_eager=eager["flagged"], flagged_in_windows_eager=eager["in_windows"],
         flagged_replays=syncs.count, flagged_in_windows_replays=replay_flagged[0],
         profile_eager=busy_e, profile_graph=busy_g, window_share=windows)
@@ -2775,9 +2876,12 @@ def graph_vs_eager(name, fn, card):
     c = launched
     log(f"[17] {name}: graph vs eager bit-equal ({len(eager['outs'])} tensors, "
         f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
-        f"card, equal in every render of both loops: mm_closest_hit {c['mm_launches']}, "
+        f"card (eager loop): mm_closest_hit {c['mm_launches']}, "
         f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
-        f"({c['threefry_draws']} draws), {rec['steps']} bounce steps "
+        f"({c['threefry_draws']} draws)"
+        + (f", graph loop {graph['launched']} with {idle} idle steps past the last live "
+           f"lane" if scan else ", equal in every render of both loops")
+        + f"; {rec['steps']} bounce steps "
         f"({rec['traced_steps_graph']} traced by the graph loop's first render)"
         + (f" ({rec['mm_per_frame']:g} / {rec['cull_per_frame']:g} / "
            f"{rec['threefry_per_frame']:g} a frame, median)" if eager["frames"] else "")
@@ -2788,10 +2892,10 @@ def graph_vs_eager(name, fn, card):
         + (f", {rec['fps_eager']:.2f} -> {rec['fps_graph']:.2f} frames a second"
            if eager["frames"] else "")
         + f"; first render {first['s']:.3f} s with {rec['captures_first_render']} "
-        f"captures in {rec['capture_s']:.3f} s; {reads} host reads a render "
-        f"(= windows + drain blocks, {steady['replays']} replays); flagged calls "
-        f"inside windows 0 on both loops ({eager['flagged']} in the eager render, "
-        f"{syncs.count} in a replayed one, all outside windows); profiled render: "
+        f"captures in {rec['capture_s']:.3f} s; host reads a render {reads} eager, "
+        f"{steady['reads']} replayed ({steady['replays']} replays); flagged calls "
+        f"inside windows or blocks 0 on both loops ({eager['flagged']} in the eager "
+        f"render, {syncs.count} in a replayed one, all outside); profiled render: "
         + "; ".join(
             f"{k} {b['wall_s']:.4f} s, device busy {b['busy_ms']:.1f} ms "
             f"({b['events']} events; profile {b['attempts']} of up to "
@@ -2806,12 +2910,13 @@ def graph_vs_eager(name, fn, card):
     return rec
 
 
-def phase_in_window(scene, sass, tsass):
-    """17: inside one captured flagship window, the closest hit, the cull
-    and the bounce step's threefry bundle of call GRAPH_CALL, as the last
-    feed replay computed them: each bit-equal to an eager launch of its
-    kernel at the same inputs, and held against its plain version by the
-    criteria of phases 2, 4 and 16."""
+def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_CALL):
+    """17: inside one captured flagship window (or, with `render`, a scan
+    render's captured bounce block, `what`), the closest hit, the cull and
+    the bounce step's threefry bundle of call `call`, as the last replay
+    computed them: each bit-equal to an eager launch of its kernel at the
+    same inputs, and held against its plain version by the criteria of
+    phases 2, 4 and 16. A scene without triangles holds its bundle alone."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -2821,53 +2926,280 @@ def phase_in_window(scene, sass, tsass):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
+    if render is None:
+        def render():
+            tpipe.render_image_wavefront(scene, Camera.reset(), 1280, 720, 4, seed=0,
+                                         cfg=RenderConfig(max_depth=32),
+                                         pool_size=POOL)
     graphs.clear()
     graphs.zero_stats()
-    with recorded_in_capture(GRAPH_CALL) as rec:
-        tpipe.render_image_wavefront(scene, Camera.reset(), 1280, 720, 4, seed=0,
-                                     cfg=RenderConfig(max_depth=32), pool_size=POOL)
+    with recorded_in_capture(call) as rec:
+        render()
     torch.cuda.synchronize()
     stats = dict(graphs.STATS)
-    if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != {
-            "mm", "cull", "threefry"}:
-        raise RuntimeError(f"[17] in-window: recorded {sorted(rec)}, {stats}")
+    kernels = {"threefry"} if scene.num_tris == 0 else {"mm", "cull", "threefry"}
+    if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != kernels:
+        raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
     for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
                       ("threefry", tfk.threefry_bundle)):
+        if kname not in rec:
+            continue
         args, out = rec[kname]
         again = fn(*args)
         if not all(torch.equal(a, b) for a, b in zip(again, out)):
-            raise RuntimeError(f"[17] in-window: the graph's {kname} node differs "
+            raise RuntimeError(f"[17] in-{what}: the graph's {kname} node differs "
                                "from an eager launch at its inputs")
-    log(f"[17] in a captured flagship window ({stats['replays']} replays), call "
-        f"{GRAPH_CALL}: each kernel's graph node bit-equal to an eager launch at "
-        "the same inputs; against the plain versions:")
-    (mm_args, _), (cull_args, _), (tf_args, _) = rec["mm"], rec["cull"], rec["threefry"]
-    mm = phase_kernel_vs_twin(scene, {"in_graph": captured_set(mm_args, cull_args[1])})
-    cull = phase_cull("in_graph", cull_args, sass)
-    name = "in_graph_" + "+".join(PURPOSE_NAMES.get(p, str(p)) for p, _ in tf_args[4])
-    draws = phase_threefry({name: tf_args}, tsass)
+    log(f"[17] in a captured {what} ({stats['replays']} replays), call "
+        f"{call}: each kernel's graph node ({', '.join(sorted(rec))}) bit-equal "
+        "to an eager launch at the same inputs; against the plain versions:")
+    tf_args = rec["threefry"][0]
+    name = f"in_{what}_" + "+".join(PURPOSE_NAMES.get(p, str(p)) for p, _ in tf_args[4])
+    out = dict(stats=stats, threefry=phase_threefry({name: tf_args}, tsass)[name])
+    if "mm" in rec:
+        (mm_args, _), (cull_args, _) = rec["mm"], rec["cull"]
+        out["mm"] = phase_kernel_vs_twin(
+            scene, {f"in_{what}": captured_set(mm_args, cull_args[1])})[f"in_{what}"]
+        out["cull"] = phase_cull(f"in_{what}", cull_args, sass)
     graphs.clear()
-    return dict(stats=stats, mm=mm["in_graph"], cull=cull, threefry=draws[name])
+    return out
+
+
+def scan_workloads(scene, glass):
+    """Phase 17's scan paths: name -> (fn() giving (the tensors both loops
+    must give bit for bit, rays or None, per-frame launches or None), the
+    samples a render traces, the launches its eager loop must make or
+    None, whether it launches the tile kernels)."""
+    from metalpathtracer_torch.io.checkpoint import save_checkpoint
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+
+    cam, cfg = Camera.reset(), RenderConfig(max_depth=32)
+
+    def flagship_scan():  # phase 6's render
+        img, rays = tpipe.render_image(scene, cam, 1280, 720, 4, seed=0, cfg=cfg)
+        return [img], rays, None
+
+    def checkpointed():  # phase 10's: to 4 spp in steps of 2, each on disk
+        state = tpipe.init_accum(1280, 720, scene.device)
+        while state.spp < 4:
+            state = tpipe.accumulate(state, scene, cam, 1280, 720, 2, 0, cfg)
+            save_checkpoint(str(OUT / "ck_graphs.npz"), state, 0,
+                            meta={"cfg": repr(cfg)})
+        return [state.rgb_sum], None, None
+
+    def viewer60_scan():
+        return viewer_frames(scene, "scan")
+
+    def config4():  # phase 15's
+        img, rays = tpipe.render_image(
+            glass, config4_camera(), 512, 512, 2, seed=4,
+            cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
+        return [img], rays, None
+
+    return {"flagship_scan": (flagship_scan, 4, SCAN_FLAGSHIP_LAUNCHES, True),
+            "checkpointed_scan": (checkpointed, 4, SCAN_FLAGSHIP_LAUNCHES, True),
+            "viewer_60_frames_scan": (viewer60_scan, VIEWER_FRAMES, None, True),
+            "config4_scan": (config4, 2, None, False)}
+
+
+def viewer_frames(scene, integrator, frames=VIEWER_FRAMES, key_after=VIEWER_KEY_AFTER):
+    """The viewer's loop for `frames` frames at its defaults, with a `w` key
+    after frame `key_after`: (the accumulations at the key and at the end,
+    None, each frame's launches on the card)."""
+    loop, _ = viewer_loop(scene, integrator)
+    outs, per_frame = [], []
+    for k in range(1, frames + 1):
+        keys = [("key", "w")] if k == key_after else []
+        before = executed()[:3]
+        if not loop.step(lambda: keys):
+            raise RuntimeError("viewer loop: quit")
+        per_frame.append(tuple(b - a for a, b in zip(before, executed()[:3])))
+        if k in (key_after, frames):
+            outs.append(loop.state.rgb_sum)
+    if loop.state.spp != frames - key_after:
+        raise RuntimeError(f"viewer loop: {loop.state.spp} spp after the key")
+    return outs, None, per_frame
 
 
 def phase_graphs(scene, bunny, card, sass, tsass):
-    """17: graph against eager on the flagship, four progressive steps, the
-    60-frame viewer with a camera move, a config-5 step and the bunny300k
-    leg; then the kernels inside a captured flagship window."""
+    """17: graph against eager on the wavefront's flagship, four
+    progressive steps, GRAPH_VIEWER_FRAMES viewer frames with a camera
+    move, a config-5 step and the bunny300k leg, and on the scan's
+    flagship, checkpointed render, 60 viewer frames with a camera move and
+    config 4; then the
+    kernels inside a captured flagship window, and inside a captured
+    bounce block of the flagship scan, the viewer's scan frames and config
+    4."""
     import torch
 
     from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
     from metalpathtracer_torch.scene import load_scene_xml
 
     multimesh = upload_scene(load_scene_xml(str(ROOT / "scenes" / "multimesh.xml")),
                              "cuda")
-    record = {name: graph_vs_eager(name, fn, card) for name, fn in
-              graph_workloads(scene, bunny, multimesh).items()}
+    glass = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")),
+                         "cuda")
+    record = {name: graph_vs_eager(name, fn, card,
+                                   flagship=FLAGSHIP_LAUNCHES if name == "flagship"
+                                   else None)
+              for name, fn in graph_workloads(scene, bunny, multimesh).items()}
+    for name, (fn, samples, flagship, tiles) in scan_workloads(scene, glass).items():
+        record[name] = graph_vs_eager(name, fn, card, samples=samples,
+                                      flagship=flagship, tiles=tiles)
     record["in_window"] = phase_in_window(scene, sass, tsass)
-    del multimesh
+    # the bounce step GRAPH_CALL of a captured block (the block's last step
+    # where it is shorter)
+    call = min(GRAPH_CALL, tint.SCAN_BLOCK)
+    cam = Camera.reset()
+    for name, where, render in (
+            ("flagship_scan", scene, lambda: tpipe.render_image(
+                scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32))),
+            ("viewer_scan", scene, lambda: viewer_frames(scene, "scan")),
+            ("config4_scan", glass, lambda: tpipe.render_image(
+                glass, config4_camera(), 512, 512, 2, seed=4,
+                cfg=RenderConfig(max_depth=16, nee=True, rr_start=3)))):
+        record[f"in_block_{name}"] = phase_in_window(where, sass, tsass,
+                                                     f"{name}_block", render, call)
+    del multimesh, glass
     graphs.clear()
     torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
+# --scan-blocks: the scan's SCAN_BLOCK on the card
+# ---------------------------------------------------------------------------
+
+SCAN_BLOCK_SWEEP = (1, 4, 8)  # and each path's max_depth
+SWEEP_TURNS = 5  # timed runs of each block value (and of the eager loop), in turns
+SWEEP_FRAMES = 30  # viewer frames a timed run
+
+
+def phase_scan_blocks(scene, card):
+    """--scan-blocks: the flagship scan (1280x720, spp 4, depth 32) and the
+    viewer's scan frames (its defaults, 1 spp a frame, SWEEP_FRAMES frames
+    a run) with `integrator.SCAN_BLOCK` at 1, 4, 8 and the path's
+    max_depth, and on the eager loop (`graphs.eager()`: a step and a read a
+    bounce). Each block value gets its own cache entry, built and captured
+    first (its capture seconds and the card memory it holds), then
+    SWEEP_TURNS timed runs of every value in turns: seconds (median and
+    range), host reads, replays, launches on the card and idle steps a run,
+    and, for the flagship, one profiled run's device time and busy share
+    (`device_busy`). Images bit-equal across every value and the eager
+    loop. Then the flagship scan's device time by kernel family on the
+    graph path at the module's SCAN_BLOCK (`profile`)."""
+    import statistics
+
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.kernels import _build
+
+    def flagship():
+        img, rays = tpipe.render_image(scene, Camera.reset(), 1280, 720, 4, seed=0,
+                                       cfg=RenderConfig(max_depth=32))
+        return [img], rays
+
+    def frames():
+        loop, _ = viewer_loop(scene, "scan")
+        for _ in range(SWEEP_FRAMES):
+            loop.step(lambda: [])
+        return [loop.state.rgb_sum], None
+
+    default = tint.SCAN_BLOCK
+    record = {}
+    try:
+        for name, fn, depth in (("flagship_scan", flagship, 32),
+                                ("viewer_scan_frames", frames, VIEWER_DEPTH)):
+            values = ["eager", *sorted(set(SCAN_BLOCK_SWEEP) | {depth})]
+            entries, made, runs = {}, {}, {v: [] for v in values}
+
+            def once(v):
+                graphs._cache.clear()
+                graphs._cache.update(entries.get(v, {}))
+                torch.cuda.synchronize()
+                _build.zero_tallies()
+                before = dict(graphs.STATS)
+                with graphs.eager() if v == "eager" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    outs, rays = fn()
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                moved = {k: graphs.STATS[k] - before[k] for k in before}
+                return dict(outs=outs, rays=rays, s=secs, launched=executed(), **moved)
+
+            for v in values[1:]:
+                tint.SCAN_BLOCK = v
+                graphs.clear()
+                torch.cuda.synchronize()
+                mem = torch.cuda.memory_reserved()
+                first = once(v)
+                entries[v] = dict(graphs._cache)
+                made[v] = dict(first_s=first["s"], captures=first["captures"],
+                               capture_s=first["capture_s"],
+                               reserved_mb=(torch.cuda.memory_reserved() - mem) / 2**20)
+            for turn in range(SWEEP_TURNS):
+                for v in (values if turn % 2 == 0 else values[::-1]):
+                    runs[v].append(once(v))
+            want = runs["eager"][0]
+            for v, rs in runs.items():
+                for r in rs:
+                    if not all(torch.equal(a, b) for a, b in zip(r["outs"], want["outs"])) \
+                            or r["rays"] != want["rays"]:
+                        raise RuntimeError(f"[SB] {name}, block {v}: the image differs "
+                                           "from the eager loop's")
+                    if v != "eager" and (r["captures"] or r["eager_runs"]):
+                        raise RuntimeError(f"[SB] {name}, block {v}: a timed run captured")
+            rec = {}
+            for v, rs in runs.items():
+                secs = [r["s"] for r in rs]
+                last = rs[-1]
+                rec[str(v)] = dict(
+                    seconds=secs, median_s=statistics.median(secs), reads=last["reads"],
+                    replays=last["replays"], launched=last["launched"],
+                    idle_steps=last["idle_steps"], **made.get(v, {}))
+                if name == "flagship_scan":
+                    graphs._cache.clear()
+                    if v != "eager":
+                        graphs._cache.update(entries[v])
+                    with graphs.eager() if v == "eager" else contextlib.nullcontext():
+                        busy = device_busy(fn, f"scan blocks {v}")
+                    rec[str(v)].update(device_ms=busy["busy_ms"],
+                                       busy_share=busy["busy_share"])
+                r = rec[str(v)]
+                log(f"[SB] {name}, block {v}: median {r['median_s']:.4f} s ("
+                    f"{min(secs):.4f}-{max(secs):.4f}, {len(secs)} runs in turns); "
+                    f"{r['reads']} host reads, {r['replays']} replays, launches "
+                    f"{r['launched']}, {r['idle_steps']} idle steps a run"
+                    + (f"; first run {r['first_s']:.3f} s with {r['captures']} captures "
+                       f"in {r['capture_s']:.3f} s, {r['reserved_mb']:.0f} MiB reserved"
+                       if v != "eager" else "")
+                    + (f"; profiled: device busy {r['device_ms']:.1f} ms, "
+                       f"{100 * r['busy_share']:.1f}% of its wall" if "device_ms" in r
+                       else "") + f" ({card})")
+            record[name] = rec
+            entries.clear()
+            graphs.clear()
+            torch.cuda.empty_cache()
+        # where the flagship scan's device time goes on the graph path, at
+        # the module's SCAN_BLOCK: a warm render, then a profiled one
+        tint.SCAN_BLOCK = default
+        record["profile_flagship_scan"] = profile(
+            flagship, f"scan_graph_block{default}_1280x720", 128)
+    finally:
+        tint.SCAN_BLOCK = default
+        graphs.clear()
+    (OUT / "scan_blocks.json").write_text(json.dumps(record, indent=1))
     return record
 
 
@@ -2894,6 +3226,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cards", type=int, default=1, metavar="N",
                     help="run phases 1, 6, 7 and 14 alone, phase 14c with one "
                          "rank on each of N cards joined by nccl")
+    ap.add_argument("--scan-blocks", action="store_true",
+                    help="run phase 1 and the SCAN_BLOCK sweep of the scan's graphs "
+                         "alone")
     ap.add_argument("--shard-rank", nargs=2, metavar=("SPEC", "RANK"),
                     help="run as one rank of a world of phase 14c (the script "
                          "starts these itself)")
@@ -2921,6 +3256,10 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "reference.xml")), dev)
+    if args.scan_blocks:
+        phase_scan_blocks(scene, card)
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     big = {}
     for name, preset in (("bunny70k", presets.reference_bunny70k),
                          ("bunny300k", presets.reference_bunny300k)):

@@ -208,7 +208,11 @@ def launch(spec: dict, limit_s: float, command=None) -> float:
     """Start the spec's world (one interpreter per rank, `command` + [spec
     file, rank]; default: this module), wait at most `limit_s` seconds for
     all ranks, stop every one of them if a rank fails or the time runs
-    out, and raise then. Returns the wall seconds of the whole launch."""
+    out, and raise then. A rank has succeeded when it exited with code 0
+    and left the result of every job: an exit status can be lost (a child
+    reaped elsewhere, or SIGCHLD ignored, reads as 0), so a world whose
+    ranks stopped part way raises too, and never passes for a whole one.
+    Returns the wall seconds of the whole launch."""
     out_dir = Path(spec["out_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
     spec_file = out_dir / "spec.json"
@@ -239,6 +243,13 @@ def launch(spec: dict, limit_s: float, command=None) -> float:
                 if rc != 0:
                     failed = f"rank {r} exited with code {rc}"
             time.sleep(0.05)
+        if failed is None:
+            for r in range(len(ranks)):
+                missing = [job["name"] for job in spec["jobs"]
+                           if not (out_dir / f"{job['name']}.rank{r}.pt").exists()]
+                if missing:
+                    failed = f"rank {r} exited without the results of {missing}"
+                    break
     finally:
         for p in ranks:
             if p.poll() is None:

@@ -1,20 +1,25 @@
-"""The wavefront's device-resident loop: each window of advances as one CUDA
-graph, captured once per render shape and replayed.
+"""The integrators' device-resident loops: each window of wavefront advances
+and each block of scan bounce steps as one CUDA graph, captured once per
+render shape and replayed.
 
-Counterpart of the reference's `_render_wavefront_jit`
-(`metalpathtracer_tpu/render/pipeline.py`) and of its sharding module's
-jit builders. XLA compiles a whole wavefront render into one device
-program; here each feed window and each drain block of `trace_wavefront`
-is captured as a `torch.cuda.CUDAGraph` and replayed, so the host issues
-one launch a window instead of some 400 an advance, and still reads the
-loop condition once a window.
+Counterpart of the reference's jitted loops (`_render_wavefront_jit` and
+`_render_pass` in `metalpathtracer_tpu/render/pipeline.py`, `accumulate`,
+and its sharding module's jit builders). XLA compiles a whole render into
+one device program; here each feed window and drain block of
+`trace_wavefront`, and each sample's start, bounce blocks and end of the
+scan (`trace`, `render_tile`), is captured as a `torch.cuda.CUDAGraph` and
+replayed, so the host issues one launch a function instead of some 400 a
+bounce step, and reads the loop condition once a window or block.
 
 An `Entry` holds what one render shape keeps between calls: a `program`
-(the integrator's `_Wavefront`), whose functions read and write its static
-buffers alone and leave what the host reads in `program.report`, and on
-the card one graph per function, all in one memory pool. Entries live in
-a small LRU cache (`entry`); on the CPU they hold no graph and run their
-functions eagerly, which is what the tests run.
+(the integrator's `_Wavefront` or `_Scan`), whose functions read and write
+its static buffers alone and leave what the host reads in
+`program.report`, and on the card one graph per function, all in one
+memory pool. Entries live in a small LRU cache (`entry`); on the CPU they
+hold no graph and run their functions eagerly, which is what the tests
+run. A program whose `capturable` is false (its cfg names the BVH walk,
+which reads the host on every level) runs eagerly on the card too, by that
+flag alone: no capture is tried.
 
 `Entry.run(name)` on the card:
 - the first call of a function runs it eagerly on a side stream: the
@@ -24,7 +29,9 @@ functions eagerly, which is what the tests run.
   replays it;
 - a capture that fails raises, and the entry is dropped: nothing falls
   back to the eager loop or to the CPU.
-Under `eager()` every call runs eagerly, for comparison.
+Under `eager()` every call runs eagerly, for comparison. Every eager run
+(the CPU's, `eager()`'s, a warm-up, a program that is not capturable)
+counts in `STATS["eager_runs"]`.
 
 A replay runs no Python. The kernel wrappers' counters see the warm-up
 and the capture alone; the kernels' device tallies (`kernels/_build.py`)
@@ -33,8 +40,10 @@ caller who swaps a function that a window looks up on its module (a
 comparison with a plain version, a count of bounce steps) calls `clear()`
 before and after, so that no graph traced with the swap outlives it.
 
-`STATS` counts captures (and their seconds), replays, eager runs and host
-reads since it was last zeroed; `chip_smoke.py` reads it.
+`STATS` counts captures (and their seconds), replays, eager runs, host
+reads and the scan's idle steps (bounce steps a block ran with no live
+lane, which the eager loop does not run) since it was last zeroed;
+`chip_smoke.py` reads it.
 """
 
 from __future__ import annotations
@@ -46,15 +55,20 @@ import time
 import torch
 
 # Entries kept. Every entry point reuses one shape at a time: progressive
-# steps, viewer frames until a resize, repeated renders of one scene. A new
-# shape or scene (a resized viewer, each in-process `cli.main`, which
-# uploads its scene anew) makes a new entry, and the one before it is stale.
-# An entry holds its scene's tables and its graph memory on the device (a
-# flagship entry is tens of MB), so two keep the shape in use and the one
-# before it (a viewer resized and back), and pin at most one stale scene.
-CACHE_SIZE = 2
+# steps, viewer frames until a resize, repeated renders of one scene, a
+# rank's shard. A caller that renders one scene on both integrators (an
+# image of one checked against the other's) keeps a scan entry and a
+# wavefront entry in use side by side. A new shape or scene (a resized
+# viewer, each in-process `cli.main`, which uploads its scene anew) makes a
+# new entry, and the one before it is stale. An entry holds its scene's
+# tables and its graph memory on the device: a flagship scan entry
+# (921,600 lanes) reserved 618-642 MiB on an H100, a viewer scan frame's
+# 74-86 MiB (PERF.md). Four keep both integrators' shapes in use and the
+# ones before them (a viewer resized and back), under 3 GB.
+CACHE_SIZE = 4
 
-STATS = dict(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0)
+STATS = dict(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
+             idle_steps=0)
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _eager = [0]  # depth of nested `eager()` blocks
@@ -77,7 +91,8 @@ def clear() -> None:
 
 
 def zero_stats() -> None:
-    STATS.update(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0)
+    STATS.update(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
+                 idle_steps=0)
 
 
 def entry(key, owner, build) -> "Entry":
@@ -109,9 +124,15 @@ class Entry:
         self.warm: set = set()
         self.pool = None
 
+    def replayed(self) -> bool:
+        """Whether `run` captures and replays: on the card, outside
+        `eager()`, for a capturable program."""
+        return (self.device.type == "cuda" and not _eager[0]
+                and self.program.capturable)
+
     def run(self, name: str) -> None:
         fn = getattr(self.program, name)
-        if self.device.type != "cuda" or _eager[0]:
+        if not self.replayed():
             STATS["eager_runs"] += 1
             fn()
             return
@@ -126,7 +147,8 @@ class Entry:
         STATS["replays"] += 1
 
     def read(self) -> list:
-        """The program's report on the host: the one read of a window."""
+        """The program's report on the host: the one read of a window or
+        block."""
         STATS["reads"] += 1
         return self.program.report.tolist()
 

@@ -5,11 +5,14 @@ Port of `metalpathtracer_tpu/render/integrator.py` (`_trace_rays`,
 `_bounce_step`, `trace`, `trace_wavefront`). Two integrators share the
 bounce step:
 - `trace` (scan): one lane per (pixel, sample); every lane advances one
-  bounce per step with masked updates, in a Python loop that exits once
-  every lane has terminated or `max_depth` is reached;
+  bounce per step with masked updates, in blocks of `SCAN_BLOCK` steps
+  until every lane has terminated or `max_depth` is reached;
 - `trace_wavefront`: a fixed pool of lanes works through the (pixel group,
   sample) queue; a lane whose path ends banks its radiance and restarts on
   the next work item, so every advance traces a dense pool.
+Each runs on a program of static buffers (`_Scan`, `_Wavefront`) cached per
+render shape by `render/graphs.py`, which on the card captures the
+program's functions as CUDA graphs and replays them.
 
 Estimator:
 - miss -> sky gradient, terminate;
@@ -357,27 +360,71 @@ def trace(scene, o, d, pixel_id, sample_id, seed,
     """Trace one path per lane to completion.
 
     o, d: float32 (N, 3) primary rays (d unit); pixel_id: int64 (N,) u32
-    RNG stream ids; sample_id: which spp sample this is; seed: u32 seed.
+    RNG stream ids; sample_id: which spp sample this is (an int or a
+    one-element integer tensor); seed: u32 seed.
     Returns (radiance (N, 3), rays_traced int64 scalar tensor).
+
+    Runs on the `_Scan` program of (N, seed, cfg) (`scan_entry`,
+    `scan_samples`), whose bounce blocks the card replays as CUDA graphs.
     """
-    n = o.shape[0]
-    dev = o.device
-    light = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
-    prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    bounce = 0
-    while bounce < cfg.max_depth and bool(active.any()):
-        o, d, light, throughput, active, prev_pdf, counted, _, _ = _bounce_step(
-            scene, o, d, light, throughput, active, prev_pdf,
-            pixel_id, sample_id, bounce, seed, cfg,
-        )
-        rays_traced = rays_traced + counted
-        bounce += 1
-    if cfg.clamp_radiance:
-        light = torch.clamp(light, 0.0, 1.0)
-    return light, rays_traced
+    entry = scan_entry(scene, None, None, o.shape[0], seed, cfg)
+    entry.program.begin(pixel_id, sample_id)
+    entry.program.load_rays(o, d)
+    scan_samples(entry, 1, raygen=False)
+    return entry.program.result()
+
+
+# bounce steps of one captured scan block: the host reads the loop
+# condition once a block (chosen on the card, PERF.md)
+SCAN_BLOCK = 8
+
+
+def scan_entry(scene, width, height, n, seed, cfg) -> "graphs.Entry":
+    """The cached `_Scan` entry of one render shape: `n` lanes (a pass's
+    pixels or a shard's row block) of a width x height image (None for
+    `trace`, which takes its rays from the caller), `seed` and `cfg`, on
+    `scene`. Samples, bounces, cameras and first sample ids are not in the
+    key: `begin` writes them into the program's buffers."""
+    key = ("scan", width, height, n, seed, cfg)
+    return graphs.entry(key, scene,
+                        lambda: _Scan(scene, n, width, height, seed, cfg))
+
+
+def scan_samples(entry, samples: int, raygen: bool = True) -> None:
+    """`samples` samples on `entry`'s program, after its `begin`: each
+    `start_sample` (without `raygen`, the rays `load_rays` put there),
+    its bounces, `end_sample`.
+
+    Where the entry replays graphs (and on the CPU, which runs the same
+    functions eagerly) the bounces run as `bounce_block`s (and a shorter
+    `last_block` where max_depth % SCAN_BLOCK is not 0) until max_depth or
+    until no lane is live, the report read after each block. A block whose
+    lanes all die part way runs its other steps on no live lane: the image
+    and the rays do not change, and `STATS["idle_steps"]` counts them.
+    Where the card runs eagerly (`graphs.eager()`, the BVH walk) the loop is
+    the one before graphs: one `bounce_step` and one read a bounce, and no
+    idle step."""
+    sc = entry.program
+    stepwise = entry.device.type == "cuda" and not entry.replayed()
+    report = None
+    for _ in range(samples):
+        if raygen:
+            entry.run("start_sample")
+        bounce, live = 0, sc.n > 0
+        while bounce < sc.cfg.max_depth and live:
+            if stepwise:
+                name, k = "bounce_step", 1
+            elif sc.cfg.max_depth - bounce < sc.block:
+                name, k = "last_block", sc.last
+            else:
+                name, k = "bounce_block", sc.block
+            entry.run(name)
+            report = entry.read()
+            bounce += k
+            live = report[0] > 0
+        entry.run("end_sample")
+    if report is not None:  # the program's idle steps since `begin`
+        graphs.STATS["idle_steps"] += int(report[5])
 
 
 # wavefront cadences (the reference's defaults; its MPT_* sweep knobs are
@@ -511,6 +558,8 @@ class _Wavefront:
         self.sorting = cfg.sort_lanes and scene.num_tris > 0
         self.drain_w = min(pool, DRAIN_WIDTH)
         self.drain_stop = self.drain_w if pool > self.drain_w else 0
+        # the BVH walk reads the host on every level: no capture
+        self.capturable = cfg.intersector != "bvh"
 
         dev = scene.device
         i64 = dict(dtype=torch.int64, device=dev)
@@ -744,3 +793,134 @@ class _Wavefront:
             st, _ = self.sort_pool(st)
         self._store(self.drain, st)
         self._report(st["alive"])
+
+
+class _Scan:
+    """One render shape of the scan integrator (`trace`, `render_tile`):
+    its static buffers and the functions that advance them. `start_sample`,
+    `bounce_block`, `last_block`, `bounce_step` and `end_sample` read and
+    write the buffers alone (on the card `render/graphs.py` captures them);
+    each block or step leaves (any live lane, bounce, rays, shadow rays,
+    tile passes, idle steps) in `report` for the host. Idle steps are those
+    run with no live lane, which the eager loop does not run.
+
+    Per call, `begin` takes what changes between calls of one shape: the
+    pixel ids, the camera's basis and the first sample id, copied into
+    `pixel_id`, `basis` and `sample_id`; `end_sample` moves `sample_id` on,
+    so one entry serves every sample, pass, progressive step and camera."""
+
+    def __init__(self, scene, n, width, height, seed, cfg):
+        self.scene, self.n, self.width, self.height = scene, n, width, height
+        self.seed, self.cfg = seed, cfg
+        self.block = min(SCAN_BLOCK, max(cfg.max_depth, 1))
+        self.last = cfg.max_depth % self.block
+        # the BVH walk reads the host on every level: no capture
+        self.capturable = cfg.intersector != "bvh"
+        dev = scene.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.pixel_id = torch.zeros(n, **i64)
+        self.basis = torch.zeros((4, 3), **f32)
+        self.sample_id = torch.zeros((), **i64)
+        self.bounce = torch.zeros((), **i64)
+        self.o, self.d, self.light, self.tp, self.acc = (
+            torch.zeros((n, 3), **f32) for _ in range(5))
+        self.active = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.prev_pdf = torch.zeros(n, **f32)
+        self.counters = dict(rays=torch.zeros((), **i64),
+                             shadow=torch.zeros((), **i64),
+                             tile_passes=torch.zeros((), **f32),
+                             idle=torch.zeros((), **i64))
+        self.report = torch.zeros(6, dtype=torch.float64, device=dev)
+
+    # ---- once a call, eagerly
+
+    def begin(self, pixel_id, first_sample, basis=None):
+        """A call's pixel ids, first sample id (an int or a one-element
+        tensor) and camera basis (a `camera_basis` on the device; None for
+        `trace`); the accumulator and the counters at 0."""
+        self.pixel_id.copy_(pixel_id)
+        if isinstance(first_sample, torch.Tensor):
+            self.sample_id.copy_(first_sample.reshape(()))
+        else:
+            self.sample_id.fill_(first_sample)
+        if basis is not None:
+            self.basis.copy_(basis)
+        self.acc.zero_()
+        for c in self.counters.values():
+            c.zero_()
+
+    def load_rays(self, o, d):
+        """`trace`'s primary rays, made by its caller, in place of
+        `start_sample`'s."""
+        self.o.copy_(o)
+        self.d.copy_(d)
+        self._reset_lanes()
+
+    def result(self):
+        """(rgb_sum (n, 3), rays int64 0-d tensor): copies of the buffers."""
+        return self.acc.clone(), self.counters["rays"].clone()
+
+    # ---- the functions the card replays as CUDA graphs
+
+    def _reset_lanes(self):
+        self.light.zero_()
+        self.tp.fill_(1.0)
+        self.active.fill_(True)
+        self.prev_pdf.zero_()
+        self.bounce.zero_()
+
+    def start_sample(self):
+        """Sample `sample_id`'s jittered primary rays; every lane live."""
+        from metalpathtracer_torch.render.pipeline import rays_from_basis
+
+        o, d = rays_from_basis(self.basis, self.width, self.height,
+                               self.pixel_id, self.sample_id, self.seed)
+        self.o.copy_(o)
+        self.d.copy_(d)
+        self._reset_lanes()
+
+    def bounce_step(self):
+        """One bounce step: the eager loop's unit (`scan_samples`)."""
+        self._steps(1)
+
+    def bounce_block(self):
+        """`SCAN_BLOCK` bounce steps."""
+        self._steps(self.block)
+
+    def last_block(self):
+        """The `max_depth % SCAN_BLOCK` steps left after the full blocks."""
+        self._steps(self.last)
+
+    def end_sample(self):
+        """The sample's radiance (clamped per sample where the cfg says)
+        joins the accumulator; the next sample id."""
+        light = self.light
+        if self.cfg.clamp_radiance:
+            light = torch.clamp(light, 0.0, 1.0)
+        self.acc.add_(light)
+        self.sample_id.add_(1)
+
+    def _steps(self, k):
+        c = self.counters
+        o, d, light, tp, active, prev_pdf = (
+            self.o, self.d, self.light, self.tp, self.active, self.prev_pdf)
+        bounce = self.bounce
+        for _ in range(k):
+            c["idle"] += (~active.any()).to(torch.int64)
+            o, d, light, tp, active, prev_pdf, rays, shadow, passes = _bounce_step(
+                self.scene, o, d, light, tp, active, prev_pdf, self.pixel_id,
+                self.sample_id, bounce, self.seed, self.cfg,
+            )
+            c["rays"] += rays
+            c["shadow"] += shadow
+            c["tile_passes"] += passes
+            bounce = bounce + 1
+        for buf, value in ((self.o, o), (self.d, d), (self.light, light),
+                           (self.tp, tp), (self.active, active),
+                           (self.prev_pdf, prev_pdf), (self.bounce, bounce)):
+            buf.copy_(value)
+        self.report.copy_(torch.stack([
+            active.any().to(torch.float64), bounce.to(torch.float64),
+            c["rays"].to(torch.float64), c["shadow"].to(torch.float64),
+            c["tile_passes"].to(torch.float64), c["idle"].to(torch.float64)]))

@@ -6,7 +6,8 @@ Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays` (and
 progressive state `AccumState` with `init_accum`, `accumulate`,
 `accumulate_wavefront` and `to_image`. Samples of a pass are traced one
 after another and summed; passes split spp as the reference does, so the
-sums are taken in the same order.
+sums are taken in the same order. A pass runs on the integrator's `_Scan`
+program, the counterpart of the reference's jitted `_render_pass`.
 
 Progressive accumulation keeps `(rgb_sum, spp)`, not a running average, so
 a resumed render adds exactly what an uninterrupted one adds; the division
@@ -24,7 +25,8 @@ from metalpathtracer_torch.render.camera import Camera, viewport_basis
 from metalpathtracer_torch.render.integrator import (
     DEFAULT_CONFIG,
     RenderConfig,
-    trace,
+    scan_entry,
+    scan_samples,
     trace_wavefront,
 )
 
@@ -69,18 +71,23 @@ def rays_from_basis(basis: torch.Tensor, width: int, height: int, pixel_id,
 
 
 def render_tile(scene, camera, width, height, pixel_id, sample_ids, seed, cfg):
-    """Render the samples `sample_ids` (ints, in order) for the given
-    pixels. Returns (rgb_sum (N, 3), rays_traced int64 scalar tensor)."""
-    acc = torch.zeros((pixel_id.shape[0], 3), dtype=torch.float32,
-                      device=pixel_id.device)
-    rays = torch.zeros((), dtype=torch.int64, device=pixel_id.device)
-    basis = camera_basis(camera, width, height).to(pixel_id.device)
-    for sample_id in sample_ids:
-        o, d = rays_from_basis(basis, width, height, pixel_id, sample_id, seed)
-        radiance, r = trace(scene, o, d, pixel_id, sample_id, seed, cfg)
-        acc = acc + radiance
-        rays = rays + r
-    return acc, rays
+    """Render the samples `sample_ids` (consecutive ints, in order: a
+    range) for the given pixels. Returns (rgb_sum (N, 3), rays_traced int64
+    scalar tensor).
+
+    Runs on the `_Scan` program of this shape (`integrator.scan_entry`):
+    `begin` copies the pixel ids, the camera's basis and the first sample
+    id into its buffers, then each sample is `start_sample`, its bounce
+    blocks and `end_sample` (`integrator.scan_samples`), which on the card
+    are replays of captured CUDA graphs (`render/graphs.py`)."""
+    ids = list(sample_ids)
+    if ids != list(range(ids[0], ids[0] + len(ids)) if ids else []):
+        raise ValueError(f"sample ids must be consecutive, got {ids}")
+    entry = scan_entry(scene, width, height, pixel_id.shape[0], seed, cfg)
+    entry.program.begin(pixel_id, ids[0] if ids else 0,
+                        camera_basis(camera, width, height).to(pixel_id.device))
+    scan_samples(entry, len(ids))
+    return entry.program.result()
 
 
 def render_image(scene, camera: Camera, width: int, height: int, spp: int,

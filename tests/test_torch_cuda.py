@@ -816,3 +816,160 @@ def test_a_failed_capture_raises(scene, monkeypatch):
     a, _ = render_image_wavefront(scene, Camera.reset(), 64, 36, 1, seed=1,
                                   cfg=RenderConfig(max_depth=4), pool_size=128)
     assert torch.isfinite(a).all()
+
+
+# ---------------------------------------------------------------------------
+# the scan's blocks as CUDA graphs against the eager loop (`graphs.eager()`:
+# one bounce step and one read a bounce, as before the blocks): bit-equal
+# images and rays; the card's launches equal but for the steps a block ran
+# past its last live lane, each of which launches what a bounce step does
+# ---------------------------------------------------------------------------
+
+
+def _scan_run(fn, eager):
+    """fn() on one loop: (its result, launches on the card, graphs.STATS
+    moved by it)."""
+    from metalpathtracer_torch.render import graphs
+
+    before = dict(graphs.STATS)
+    out, launched = _render_counted(fn, eager)
+    return out, launched, {k: v - before[k] for k, v in graphs.STATS.items()}
+
+
+def _scan_launches_agree(eager, graph, samples):
+    """The graph run's launches are the eager loop's plus its idle steps',
+    each an eager bounce step's: (closest hit, cull, threefry, draws) per
+    step from the eager run, whose reads are its steps; the jitter draws
+    one bundle (of one draw) a sample."""
+    (_, e, es), (_, g, gs) = eager, graph
+    assert es["idle_steps"] == 0 and es["reads"] > 0
+    for k, jitter in enumerate((0, 0, samples, samples)):
+        per_step, rest = divmod(e[k] - jitter, es["reads"])
+        assert rest == 0
+        assert g[k] == e[k] + gs["idle_steps"] * per_step
+
+
+def _glass():
+    return upload_scene(load_scene_xml(os.path.join(REPO, "scenes", "cornell_glass.xml")),
+                        "cuda")
+
+
+def _glass_cam():
+    return Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
+
+
+# name -> (scene: "reference" or "glass", fn(scene) -> list of tensors and
+# rays, samples a render draws a jitter for)
+SCAN_GRAPH_CASES = {
+    "flagship_small": ("reference", lambda s: render_image(
+        s, Camera.reset(), 128, 72, 2, seed=3, cfg=RenderConfig(max_depth=32)), 2),
+    "nee_rr": ("glass", lambda s: render_image(
+        s, _glass_cam(), 128, 128, 2, seed=4,
+        cfg=RenderConfig(max_depth=16, nee=True, rr_start=3)), 2),
+    "checkpointed_2_2_1": ("reference", lambda s: _accumulated(s, (2, 2, 1)), 5),
+    "row_block": ("reference", lambda s: _row_block(s), 2),
+}
+
+
+def _accumulated(scene, steps):
+    state, outs = tpipe.init_accum(64, 36, "cuda"), []
+    for n in steps:
+        state = tpipe.accumulate(state, scene, Camera.reset(), 64, 36, n, 5,
+                                 RenderConfig(max_depth=8))
+        outs.append(state.rgb_sum)
+    return outs, state.spp
+
+
+def _row_block(scene):
+    from metalpathtracer_torch.parallel import sharding
+
+    return sharding.shard_render(scene, Camera.reset(), 128, 72, 2, 6,
+                                 RenderConfig(max_depth=8), 1, 4)
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_GRAPH_CASES))
+def test_scan_graph_blocks_equal_the_eager_loop(scene, case):
+    from metalpathtracer_torch.render import graphs
+
+    which, fn, samples = SCAN_GRAPH_CASES[case]
+    s = scene if which == "reference" else _glass()
+    graphs.clear()
+    eager = _scan_run(lambda: fn(s), eager=True)
+    first = _scan_run(lambda: fn(s), eager=False)
+    again = _scan_run(lambda: fn(s), eager=False)
+    for run in (first, again):
+        out, want = run[0], eager[0]
+        tensors = out[0] if isinstance(out[0], list) else [out[0]]
+        wanted = want[0] if isinstance(want[0], list) else [want[0]]
+        assert all(torch.equal(a, b) for a, b in zip(tensors, wanted))
+        assert out[1] == want[1]
+        _scan_launches_agree(eager, run, samples)
+    assert first[2]["captures"] >= 1
+    assert again[2]["captures"] == again[2]["eager_runs"] == 0
+    assert again[2]["replays"] > again[2]["reads"] > 0
+    assert again[2]["reads"] <= eager[2]["reads"]  # one read a block, not a step
+
+
+def test_scan_graph_camera_move_between_replays(scene):
+    from metalpathtracer_torch.render import graphs
+
+    cfg = RenderConfig(max_depth=8)
+    moved = Camera.look_at((4.0, 22.0, 46.0), (0.0, 12.0, 0.0), vfov_deg=50.0)
+    graphs.clear()
+    for _ in range(2):
+        render_image(scene, Camera.reset(), 128, 72, 2, seed=1, cfg=cfg)
+    graphs.zero_stats()
+    got, rays = render_image(scene, moved, 128, 72, 2, seed=1, cfg=cfg)
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["replays"] > 0
+    with graphs.eager():
+        want, want_rays = render_image(scene, moved, 128, 72, 2, seed=1, cfg=cfg)
+    assert torch.equal(got, want) and rays == want_rays
+
+
+def test_scan_graph_capture_serves_three_progressive_steps(scene):
+    # a step of one sample runs each function once: the first step warms
+    # them up, the second captures them, and its capture serves the second,
+    # third and fourth
+    from metalpathtracer_torch.render import graphs
+
+    cfg = RenderConfig(max_depth=8)
+    graphs.clear()
+    graphs.zero_stats()
+    state = want = tpipe.init_accum(128, 72, "cuda")
+    captures = []
+    for _ in range(4):
+        state = tpipe.accumulate(state, scene, Camera.reset(), 128, 72, 1, 7, cfg)
+        captures.append(graphs.STATS["captures"])
+        with graphs.eager():
+            want = tpipe.accumulate(want, scene, Camera.reset(), 128, 72, 1, 7, cfg)
+        assert torch.equal(state.rgb_sum, want.rgb_sum)
+    assert len(graphs._cache) == 1
+    assert captures[0] == 0 and captures[1] >= 1
+    assert captures[1] == captures[2] == captures[3]
+
+
+@pytest.mark.parametrize("integrator", ["scan", "wavefront"])
+def test_bvh_cli_on_card_runs_eagerly_and_equals_its_eager_render(scene, tmp_path,
+                                                                  integrator):
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render import graphs
+
+    def run(name):
+        argv = ["--scene", os.path.join(REPO, "scenes", "reference.xml"), "--width",
+                "96", "--height", "54", "--spp", "2", "--max-depth", "6",
+                "--device", "cuda", "--intersector", "bvh", "--output",
+                str(tmp_path / f"{name}.png"), "--npz", str(tmp_path / f"{name}.npz")]
+        assert cli.main(argv + (["--wavefront"] if integrator == "wavefront" else [])) == 0
+        with np.load(tmp_path / f"{name}.npz") as z:
+            return z["radiance"]
+
+    graphs.clear()
+    graphs.zero_stats()
+    got = run("graph_path")
+    # by config: every function ran eagerly, none was warmed up on a side
+    # stream, captured or replayed
+    assert graphs.STATS["captures"] == graphs.STATS["replays"] == 0
+    assert graphs.STATS["eager_runs"] > 0
+    with graphs.eager():
+        want = run("eager")
+    assert np.array_equal(got, want) and got.mean() > 0.05

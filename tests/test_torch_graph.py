@@ -26,6 +26,7 @@ from metalpathtracer_torch.render import camera as tcam
 from metalpathtracer_torch.render import device_scene as tds
 from metalpathtracer_torch.render import graphs
 from metalpathtracer_torch.render import integrator as tint
+from metalpathtracer_torch.render import pipeline as tpipe
 from metalpathtracer_torch.scene import presets
 from metalpathtracer_tpu import core as jcore
 from metalpathtracer_tpu import io as jio
@@ -231,7 +232,9 @@ def test_eager_blocks_nest(cornell):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("what", ["window", "drain_block", "scan_bounce_step"])
+@pytest.mark.parametrize("what", ["window", "drain_block", "scan_bounce_step",
+                                  "scan_start_sample", "scan_bounce_block",
+                                  "scan_end_sample"])
 def test_no_upload_inside_a_window(cornell_mesh, monkeypatch, what):
     # NEE and Russian roulette on, on a scene with triangles and lights: the
     # cull, the closest hit, the tileset sort, the light sampler, the sky and
@@ -242,6 +245,15 @@ def test_no_upload_inside_a_window(cornell_mesh, monkeypatch, what):
     if what == "drain_block":
         wf.window()
         wf.compact()
+    # the scan's program: `begin` (the pixel ids, the basis, the first
+    # sample) runs eagerly once a call, before the patch; the functions that
+    # come before the one under test run before it too
+    sc = tint._Scan(cornell_mesh, 48 * 32, 48, 32, 9, cfg)
+    sc.begin(torch.arange(48 * 32), 2, tpipe.camera_basis(_cornell_cam(tcam), 48, 32))
+    scan_before = {"scan_bounce_block": ["start_sample"],
+                   "scan_end_sample": ["start_sample", "bounce_block"]}
+    for name in scan_before.get(what, []):
+        getattr(sc, name)()
 
     def upload(*a, **k):
         raise AssertionError("a host value was uploaded inside a window")
@@ -253,6 +265,14 @@ def test_no_upload_inside_a_window(cornell_mesh, monkeypatch, what):
         out = tint._bounce_step(cornell_mesh, st["o"], st["d"], st["light"], st["tp"],
                                 st["alive"], st["prev_pdf"], st["item"], 0, 2, 9, cfg)
         assert out[6] > 0 and out[7] > 0  # rays, and shadow rays among them
+    elif what.startswith("scan_"):
+        getattr(sc, what[len("scan_"):])()
+        if what == "scan_start_sample":
+            assert bool(sc.active.all()) and int(sc.bounce) == 0
+        elif what == "scan_bounce_block":
+            assert sc.report[2] > 0 and sc.report[3] > 0  # shadow rays among them
+        else:
+            assert int(sc.sample_id) == 3 and bool(sc.acc.any())
     else:
         getattr(wf, what)()
         assert wf.report[2] > 0

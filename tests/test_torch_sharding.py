@@ -499,13 +499,28 @@ JOB_NAMES = [j["name"] for j in _jobs(2, Path("."))]
 @pytest.fixture(scope="module", params=[2, 4])
 def world(request, tmp_path_factory):
     """One launch per world size: every rank runs every job. The group's
-    start and each collective may take 60 s, the whole launch 240 s."""
+    start and each collective may take 60 s, the whole launch 240 s.
+    Everything the ranks left on disk (each job's result from every rank,
+    the CLI jobs' images, the resumed job's checkpoint) is read back here,
+    right after the launch, so that no test reads the world's directory
+    later: what the tests hold are the launch's results, whatever happens
+    to its files meanwhile."""
     n = request.param
     tmp = tmp_path_factory.mktemp(f"world{n}")
     spec = dict(world=n, store=str(tmp / "store"), backend="gloo", device="cpu",
                 timeout_s=60, threads=1, out_dir=str(tmp), jobs=_jobs(n, tmp))
     worker.launch(spec, limit_s=240)
-    return n, tmp, {j["name"]: j for j in spec["jobs"]}
+    jobs = {j["name"]: j for j in spec["jobs"]}
+    results = {name: [worker.load_result(tmp, name, r) for r in range(n)]
+               for name in jobs}
+    files = {}
+    for name, job in jobs.items():
+        if job["kind"] == "cli":
+            with np.load(tmp / f"{name}.npz") as z:
+                files[name] = z["radiance"]
+        elif job.get("checkpoint"):
+            files[name] = load_checkpoint(job["checkpoint"], "cpu")
+    return n, tmp, jobs, results, files
 
 
 def _single_of(job):
@@ -523,9 +538,9 @@ def _single_of(job):
 
 @pytest.mark.parametrize("name", JOB_NAMES)
 def test_process_group(world, name, cornell):
-    n, tmp, jobs = world
+    n, tmp, jobs, launched, files = world
     job = jobs[name]
-    results = [worker.load_result(tmp, name, r) for r in range(n)]
+    results = launched[name]
     if job["kind"] == "render":
         base, rays = _single_of(job)
         for res in results:  # every rank holds the whole image and count
@@ -538,14 +553,14 @@ def test_process_group(world, name, cornell):
     elif job["kind"] == "accumulate":
         base, rays = tpipe.render_image_wavefront(cornell, CAM, 32, 32, spp=4,
                                                   seed=3, pool_size=256)
-        straight = worker.load_result(tmp, "accumulate", 0)
+        straight = launched["accumulate"][0]
         for res in results:
             assert res["spp"] == 4 and sum(res["rays"]) == rays
             # a resumed accumulation equals the uninterrupted one bit for bit
             assert torch.equal(res["rgb_sum"], straight["rgb_sum"])
         _close(results[0]["rgb_sum"] / 4.0, base, rtol=1e-6, atol=1e-7)
         if "checkpoint" in job:
-            loaded, seed, _ = load_checkpoint(job["checkpoint"], "cpu")
+            loaded, seed, _ = files[name]
             assert loaded.spp == 2 and seed == 3
             assert loaded.rgb_sum.shape == (32, 32, 3)
     elif job["kind"] == "raises":
@@ -566,8 +581,8 @@ def test_process_group(world, name, cornell):
         from metalpathtracer_torch import cli as tcli
 
         assert tcli.main(argv) == 0
-        with np.load(tmp / f"{name}.npz") as a, np.load(out) as b:
-            np.testing.assert_array_equal(a["radiance"], b["radiance"])
+        with np.load(out) as b:
+            np.testing.assert_array_equal(files[name], b["radiance"])
 
 
 def test_a_failing_rank_fails_the_launch(tmp_path):
@@ -586,6 +601,29 @@ def test_a_failing_rank_fails_the_launch(tmp_path):
         worker.launch(spec, limit_s=60)
     assert "a_file" in str(e.value)
     assert not (tmp_path / "second.rank1.pt").exists()
+
+
+@pytest.mark.parametrize("how", ["exits_0_early", "exit_status_lost"])
+def test_a_rank_without_its_results_fails_the_launch(tmp_path, how):
+    # a rank that exits 0 before its jobs are done, and a rank whose exit
+    # status is lost (SIGCHLD ignored: the kernel reaps it, and its failure
+    # reads as code 0): neither world passes for a whole one
+    import signal
+    import sys
+
+    code = "pass" if how == "exits_0_early" else "import sys; sys.exit(3)"
+    spec = dict(world=2, store=str(tmp_path / "store"), backend="gloo",
+                device="cpu", timeout_s=20, out_dir=str(tmp_path),
+                jobs=[dict(name="only", kind="cli", argv=[])])
+    before = signal.getsignal(signal.SIGCHLD)
+    if how == "exit_status_lost":
+        signal.signal(signal.SIGCHLD, signal.SIG_IGN)
+    try:
+        with pytest.raises(RuntimeError, match=r"rank 0 exited without the results "
+                                               r"of \['only'\]"):
+            worker.launch(spec, limit_s=60, command=[sys.executable, "-c", code])
+    finally:
+        signal.signal(signal.SIGCHLD, before)
 
 
 # ---------------------------------------------------------------------------
