@@ -5,7 +5,8 @@ Builds the hand-written CUDA kernels from `metalpathtracer_torch/csrc/` (one
 `nvcc` each, started together), holds each to its plain PyTorch version at
 the shapes the render paths give it, then drives those paths through the
 port's entry points at full size and checks that every advance went through
-the three kernels (the closest hit, the tile cull, the RNG's threefry).
+the six kernels (the closest hit, the tile cull, the RNG's threefry, and
+the bounce step's sphere pass, hit epilogue and shading).
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
@@ -40,8 +41,9 @@ Phases, each raising on failure:
 8. the large-scene legs: `render_image_wavefront` on bunny70k and
    bunny300k at 512x512, spp 2, depth 8, pool 2^15;
 9. small renders (320x180, spp 2, depth 8) of both paths on the kernels vs
-   on the plain versions, and vs on the RNG's twin alone (bit-equal), and
-   the golden reference-scene case vs tests/golden/reference_scene.npz;
+   on the plain versions, and vs on the RNG's twin alone and on the bounce
+   step's three twins alone (each bit-equal), and the golden
+   reference-scene case vs tests/golden/reference_scene.npz;
 10. the checkpointed CLI: `cli.main --checkpoint --checkpoint-every 2` at
     1280x720, depth 32, to 2 spp, then `--resume` to 4 spp, and the same to
     4 spp without interruption: the two images bit-equal, both against
@@ -69,7 +71,8 @@ Phases, each raising on failure:
     3's 65,536 rays (phase 3's criteria), its time beside
     `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
     bvh` at 320x180, spp 2, depth 8, on the scan and with `--wavefront`,
-    against the `mm` render: it must launch neither tile kernel, run on
+    against the `mm` render: it must launch neither tile kernel nor the
+    sphere pass or the hit epilogue, shade on the shading kernel, run on
     its integrator's eager loop by config (no warm-up, capture or replay)
     and equal its render under `graphs.eager()` bit for bit;
 14. the sharded path (`parallel/sharding.py` over `torch.distributed`):
@@ -100,7 +103,9 @@ Phases, each raising on failure:
     (`scenes/cornell_glass.xml`, 512x512, depth 16; spp cut from 1024 to 2;
     spheres alone, so it launches no tile kernel) and `scenes/multimesh.xml` at
     320x180, spp 2, depth 8 on both integrators, whose shadow rays go
-    through both kernels;
+    through both kernels; NEE shades in plain torch, by config: the
+    sphere pass and the hit epilogue run twice a bounce step (its closest
+    hit and its shadow rays'), the shading kernel never;
 16. `threefry_bundle` vs its plain twin (run after phase 5, with the other
     kernels' comparisons), at the bundles the paths give it: the bounce
     step's (lobe and Fresnel, per-lane sample ids and bounces; 32,768
@@ -134,7 +139,8 @@ Phases, each raising on failure:
     equal to the eager loop's, on the scan plus what its idle steps (run
     by a block past its last live lane, counted in the program's report)
     launch, each an eager bounce step's launches (the flagships' exactly
-    408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md); host reads
+    408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md; the bounce
+    step's three kernels 408 and 128 each); host reads
     a render (one a window, drain block or scan block; on the scan's eager
     loop one a bounce step), flagged synchronising calls inside windows
     and blocks (0 on both loops); the busy share of one profiled render of
@@ -146,7 +152,18 @@ Phases, each raising on failure:
     the flagship scan, the viewer's scan frames and config 4 (its bundle
     alone: no triangle), as the last replay computed them: each bit-equal
     to an eager launch of its kernel at the same inputs, and held against
-    its plain version by phases 2, 4 and 16's criteria.
+    its plain version by phases 2, 4 and 16's criteria;
+18. (run after phase 16) the bounce step's kernels (`sphere_pass`,
+    `hit_epilogue`, `shade`) vs their plain twins, bit-equal (NaN where both
+    are NaN), at the calls the paths make: the flagship scan's first and
+    second bounce steps (921,600 lanes), the flagship wavefront's advance
+    CAPTURE_CALL (32,768 lanes), a viewer frame's pool call 5 (16,384) and
+    drain call 1 (1,024), the bunny300k leg's first step (32,768) and config
+    4's first step (262,144 lanes, spheres alone; its closest hit and its
+    shadow rays', the sphere pass and the epilogue alone); each with its
+    device, call and plain time and its bound, the larger of its bytes at
+    the memory rate and its operations (counted from its source) at the
+    f32 peak.
 No earlier path runs at a smaller depth than before. Every path through
 `trace_wavefront` (phases 7, 8, 9, 11, 12, 14, 15) runs its windows as CUDA
 graph replays, and every scan render (phases 6, 9, 10, 11, 12, 14, 15) its
@@ -161,8 +178,9 @@ moves as an eager launch does; the wrappers' Python counts hold the
 eager launches and those traced into a capture, and must equal the
 tallies where nothing was replayed. Every traced bounce step must launch
 both tile kernels once and the threefry kernel exactly once (its bundle),
-with at least two draws. A
-kernel's `ms` is its device time: 20 calls captured in one CUDA graph,
+with at least two draws, the sphere pass and the hit epilogue at least
+once, and either the shading kernel once or, with NEE, the plain shading.
+A kernel's `ms` is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events (`device_ms`); its `call_ms` is the mean of 20
 wrapper calls back to back between CUDA events (`call_ms`), which reads the
 host's enqueue rate where the kernel is shorter than the wrapper's host
@@ -198,7 +216,12 @@ Usage:
                                      # phase 1, then the scan's SCAN_BLOCK
                                      # at 1, 4, 8 and max_depth on the
                                      # flagship scan and the viewer's scan
-                                     # frames, timed in turns
+                                     # frames, timed in turns; then [R]:
+                                     # device time by profiler range of an
+                                     # eager render of both flagships, and
+                                     # the graph path's seconds and device
+                                     # time of both and the bunny300k leg
+                                     # (--profile runs [R] too)
     python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
                                      # one rank on each of 4 cards, joined
                                      # by nccl (a machine with 4 cards)
@@ -244,7 +267,17 @@ KERNELS = {
                        replaces=f"{TPU_FILE}:712"),
     "threefry": dict(source="metalpathtracer_torch/csrc/threefry.cu",
                      replaces="benchmarks/mosaic_probe.py:42"),
+    # the bounce step's XLA fusions (no Pallas body): the sphere pass, the
+    # closest hit's epilogue, the shading without next-event estimation
+    "sphere_pass": dict(source="metalpathtracer_torch/csrc/sphere_pass.cu",
+                        replaces=f"{TPU_FILE}:1279"),
+    "hit_epilogue": dict(source="metalpathtracer_torch/csrc/hit_epilogue.cu",
+                         replaces=f"{TPU_FILE}:1315"),
+    "shade": dict(source="metalpathtracer_torch/csrc/shade.cu",
+                  replaces="metalpathtracer_tpu/render/integrator.py:315"),
 }
+# the bounce step's kernels (render/kernels/shade.py)
+SHADING = ("sphere_pass", "hit_epilogue", "shade")
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
@@ -285,6 +318,11 @@ SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 SWEEP_THREADS = (64, 128, 256)
 
+
+# the prefix of the port's profiler ranges (metalpathtracer_torch/utils/
+# metrics.py::span): device events of that name are the ranges' own spans,
+# not work
+SPAN_PREFIX = "mpt/"
 
 _T0 = time.perf_counter()
 
@@ -572,18 +610,22 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
 
 
 @contextlib.contextmanager
-def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry")):
+def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING):
     """Route the kernels named in `which` through their plain versions (the
     threefry kernel's wrapper is `threefry_bundle`, which every draw goes
-    through), on the eager loop: a plain version reads the device on the
-    host, which no CUDA graph may capture."""
+    through; the bounce step's kernels are looked up on
+    `render/kernels/shade.py` at every call), on the eager loop: a plain
+    version reads the device on the host, which no CUDA graph may
+    capture."""
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     plain = {"mm_closest_hit": (tmm, "mm_closest_hit", tmm.mm_closest_hit_reference),
              "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
-             "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference)}
+             "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference),
+             **{k: (tsh, k, getattr(tsh, f"{k}_reference")) for k in SHADING}}
     kernels = {k: getattr(plain[k][0], plain[k][1]) for k in which}
     graphs.clear()
     for k in which:
@@ -614,19 +656,28 @@ def counted_path(tiles: bool = True):
     cache is cleared on entry and on exit: its key holds no function, and
     the bounce step is swapped here. Without `tiles` (a scene of spheres
     alone, which launches no tile kernel) the threefry kernel alone must
-    run on every step."""
+    run on every step. The bounce step's kernels likewise:
+    `sphere_launches`, `epilogue_launches` and `shade_launches` the
+    tallies, `*_calls` the wrappers'; every traced step must run the
+    sphere pass and the hit epilogue at least once each (its closest hit;
+    twice with a shadow ray) and either the shading kernel once or the
+    plain shading with next-event estimation (`nee_steps`, counted in
+    `graphs.STATS`), never both."""
     import torch
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render import integrator as tint
     from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    calls = dict(plain_mm=0, plain_cull=0, plain_threefry=0)
+    calls = dict(plain_mm=0, plain_cull=0, plain_threefry=0, plain_shading=0)
     odd_steps = []  # (bundle launches, draws) of a step that broke the rule
+    odd_shading = []  # (shading launches, NEE steps) of a step that broke it
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
                  tmm.cull_pass_reference, tfk.threefry_bundle_reference)
+    twins = {k: getattr(tsh, f"{k}_reference") for k in SHADING}
 
     def counter(key, fn):
         def wrapped(*a, **k):
@@ -638,10 +689,14 @@ def counted_path(tiles: bool = True):
         step.calls += 1
         bundle = tfk.threefry_bundle
         launches, draws = bundle.launches, bundle.draws
+        shaded, nee = tsh.shade.launches, graphs.STATS["nee_steps"]
         out = originals[0](*a, **k)
         launches, draws = bundle.launches - launches, bundle.draws - draws
         if launches != 1 or draws < 2:
             odd_steps.append((launches, draws))
+        shaded, nee = tsh.shade.launches - shaded, graphs.STATS["nee_steps"] - nee
+        if shaded + nee != 1:
+            odd_shading.append((shaded, nee))
         return out
 
     step.calls = 0
@@ -650,43 +705,83 @@ def counted_path(tiles: bool = True):
     tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
     tmm.cull_pass_reference = counter("plain_cull", originals[2])
     tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
+    for k, fn in twins.items():
+        setattr(tsh, f"{k}_reference", counter("plain_shading", fn))
     result = {}
     try:
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
         tmm.cull_tiles.launches = 0
         tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
+        for k in SHADING:
+            getattr(tsh, k).launches = 0
         _build.zero_tallies()
         replays = graphs.STATS["replays"]
+        nee_steps = graphs.STATS["nee_steps"]
         yield result
     finally:
         (tint._bounce_step, tmm.mm_closest_hit_reference,
          tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
+        for k, fn in twins.items():
+            setattr(tsh, f"{k}_reference", fn)
         graphs.clear()
     replayed = graphs.STATS["replays"] - replays
     done = executed()
+    shading = executed_shading()
     result.update(calls, steps=step.calls, mm_calls=tmm.mm_closest_hit.launches,
                   cull_calls=tmm.cull_tiles.launches,
                   threefry_calls=tfk.threefry_bundle.launches,
                   threefry_call_draws=tfk.threefry_bundle.draws,
                   mm_launches=done[0], cull_launches=done[1],
-                  threefry_launches=done[2], threefry_draws=done[3], replays=replayed)
-    if calls["plain_mm"] or calls["plain_cull"] or calls["plain_threefry"]:
+                  threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
+                  sphere_calls=tsh.sphere_pass.launches,
+                  epilogue_calls=tsh.hit_epilogue.launches,
+                  shade_calls=tsh.shade.launches, sphere_launches=shading[0],
+                  epilogue_launches=shading[1], shade_launches=shading[2],
+                  nee_steps=graphs.STATS["nee_steps"] - nee_steps)
+    if any(calls.values()):
         raise RuntimeError(f"the path ran a plain version: {calls}")
     if result["steps"] == 0 or tiles and min(result["mm_calls"],
                                              result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
+    if min(result["sphere_calls"], result["epilogue_calls"]) < result["steps"]:
+        raise RuntimeError(f"not every bounce step launched the sphere pass and the "
+                           f"hit epilogue: {result}")
     if odd_steps:
         raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
                            f"of at least two draws, e.g. (launches, draws) "
                            f"{odd_steps[0]}: {result}")
-    if min(done[:3] if tiles else done[2:3]) == 0:
+    if odd_shading:
+        raise RuntimeError(f"{len(odd_shading)} bounce steps did not shade exactly once "
+                           f"(the kernel, or the plain shading with NEE), e.g. "
+                           f"(launches, NEE steps) {odd_shading[0]}: {result}")
+    if min(done[:3] if tiles else done[2:3]) == 0 or min(shading[:2]) == 0 or (
+            shading[2] == 0 and result["nee_steps"] < result["steps"]):
         raise RuntimeError(f"a kernel ran no time on the card: {result}")
-    if not replayed and done != (result["mm_calls"], result["cull_calls"],
-                                 result["threefry_calls"],
-                                 result["threefry_call_draws"]):
+    if not replayed and (done != (result["mm_calls"], result["cull_calls"],
+                                  result["threefry_calls"],
+                                  result["threefry_call_draws"])
+                         or shading != (result["sphere_calls"], result["epilogue_calls"],
+                                        result["shade_calls"])):
         raise RuntimeError(f"the card ran other launches than the wrappers made: "
                            f"{result}")
+
+
+def shading_text(counts) -> str:
+    """The bounce step's kernels' launches of a counted path, for a log."""
+    return (f"sphere_pass {counts['sphere_launches']}, hit_epilogue "
+            f"{counts['epilogue_launches']}, shade {counts['shade_launches']}")
+
+
+def executed_shading() -> tuple:
+    """(sphere pass, hit epilogue, shading) launches run on this process's
+    card since the tallies were last zeroed: one read."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
+    return tuple(done.get(k, (0, 0))[0] for k in SHADING)
 
 
 def executed() -> tuple:
@@ -1125,7 +1220,8 @@ def phase_against_renders(other: Path):
     directory is the tree calls it twice, so each reading is a pair (a
     fresh process's seconds, with its first launches and imports; then
     the same render again). The images must equal the other tree's where
-    both trees draw the same randoms and run the same kernels. A small
+    both trees draw the same randoms and run the same kernels, and be
+    within the render limit of it everywhere (`compare_images`). A small
     render of each tree first builds its kernels."""
     import numpy as np
 
@@ -1155,11 +1251,17 @@ def phase_against_renders(other: Path):
             images.setdefault(who, radiance(npz))
             npz.unlink()
         same = bool(np.array_equal(images["other"], images["this"]))
-        record[name] = dict(seconds=seconds, images_equal=same)
+        # where the trees round an operation otherwise, two renders of one
+        # estimator: within the render limit
+        frac, dmean = compare_images(images["this"], images["other"],
+                                     f"cli {name}: this tree vs {other}")
+        record[name] = dict(seconds=seconds, images_equal=same, divergent=frac,
+                            mean_diff=dmean)
         log(f"[A] cli {name} 1280x720 spp 4 depth 32 (fresh process, again): other "
             + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["other"]) + " s; this "
             + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["this"])
-            + f" s; images equal: {same}")
+            + f" s; images equal: {same} ({frac:.5f} of pixels differ by > 1e-3, "
+            f"means by {dmean:.2e})")
     return record
 
 
@@ -1285,29 +1387,44 @@ def _clone(args):
     return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
-def capture_calls(run, picks: dict, stop: bool):
-    """`run()` with the three kernels wrapped. `picks` maps a name to
+def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
+    """`run()` with the kernels wrapped. `picks` maps a name to
     `pick(i, lanes, k)`: asked at every `mm_closest_hit` call (the i-th of
     the run, the k-th on that many lanes, both from 1), and where it says
     yes that call's arguments and those of the `cull_tiles` call of the
     same advance are cloned under the name, and so are the arguments of
     every `threefry_bundle` call after it until the next `mm_closest_hit`
     call (the advance's bundles: the bounce step's, then the restart's
-    jitter). With `stop` the run is ended at the call after the last pick.
+    jitter). With `shading` (a dict) the same bounce step's sphere pass
+    (before the closest hit), hit epilogue and shading calls are cloned
+    into `shading[name]` as {kernel: args}. With `stop` the run is ended at
+    the call after the last pick.
     Returns {name: (mm_args, cull_args, [bundle_args, ...])}."""
     import torch
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
-    seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None}
+    shading_kernels = {k: getattr(tsh, k) for k in SHADING}
+    seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None, "sphere": None}
     captured = {}
 
     def cull(*args, **kw):
         seen["cull"] = args  # (x, active, tile_box, t_min, occ)
         return kernels[1](*args, **kw)
+
+    def shaded(kernel):
+        def wrapped(*args, **kw):
+            if kernel == "sphere_pass":
+                seen["sphere"] = _clone(args)
+            elif seen["drawing"] is not None and shading is not None:
+                shading[seen["drawing"]].setdefault(kernel, _clone(args))
+            return shading_kernels[kernel](*args, **kw)
+        wrapped.launches = 0
+        return wrapped
 
     def mm(*args, **kw):
         lanes = args[3].shape[0]
@@ -1320,6 +1437,8 @@ def capture_calls(run, picks: dict, stop: bool):
             if name not in captured and pick(seen["mm"], lanes, k):
                 captured[name] = _clone(args), _clone(seen["cull"]), []
                 seen["drawing"] = name
+                if shading is not None:
+                    shading[name] = {"sphere_pass": seen["sphere"]}
         return kernels[0](*args, **kw)
 
     def draw(*args, **kw):
@@ -1333,6 +1452,8 @@ def capture_calls(run, picks: dict, stop: bool):
     mm.launches = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
+    for k in SHADING:
+        setattr(tsh, k, shaded(k))
     try:
         with graphs.eager():
             run()
@@ -1340,6 +1461,8 @@ def capture_calls(run, picks: dict, stop: bool):
         pass
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        for k, fn in shading_kernels.items():
+            setattr(tsh, k, fn)
         graphs.clear()
     torch.cuda.synchronize()
     if len(captured) != len(picks):
@@ -1368,9 +1491,64 @@ def recorded_draws():
         tfk.threefry_bundle = kernel
 
 
-def capture_pool_call():
+@contextlib.contextmanager
+def recorded_shading():
+    """Every call of the bounce step's kernels' wrappers
+    (`render/kernels/shade.py`), its arguments cloned into the yielded
+    {kernel: [args, ...]}; the calls go through."""
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    kernels, calls = {k: getattr(tsh, k) for k in SHADING}, {k: [] for k in SHADING}
+
+    def recorder(kernel):
+        def wrapped(*args, **kw):
+            calls[kernel].append(_clone(args))
+            return kernels[kernel](*args, **kw)
+        wrapped.launches = 0
+        return wrapped
+
+    for k in SHADING:
+        setattr(tsh, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in kernels.items():
+            setattr(tsh, k, fn)
+
+
+def shading_steps(scene, w, h, steps, stride=1, cam=None, cfg=None, seed=0):
+    """The bounce step's kernels' calls in the first `steps` bounce steps of
+    the primary rays of every `stride`-th pixel of a w x h view from `cam`
+    (the default camera) under `cfg` (the default config), as `trace`
+    starts them: one {kernel: [args, ...]} a step."""
+    import torch
+
+    from metalpathtracer_torch.core import rng
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.pipeline import generate_rays
+
+    dev = scene.device
+    seed = rng.seed_from_int(seed)
+    pix = torch.arange(0, w * h, stride, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
+    o, d = generate_rays(cam or Camera.reset(), w, h, pix, 0, seed)
+    state = (torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
+             torch.ones((n,), dtype=torch.bool, device=dev), torch.zeros((n,), device=dev))
+    out = []
+    for bounce in range(steps):
+        with recorded_shading() as calls:
+            o, d, *state = tint._bounce_step(scene, o, d, *state, pix, 0, bounce, seed,
+                                             cfg or tint.RenderConfig())[:6]
+        out.append(calls)
+    torch.cuda.synchronize()
+    return out
+
+
+def capture_pool_call(shading=None):
     """The CAPTURE_CALL-th `mm_closest_hit` call of the flagship wavefront
-    render, and the `cull_tiles` and `threefry` calls of the same advance."""
+    render, and the `cull_tiles` and `threefry` calls of the same advance
+    (and into `shading` its bounce step's kernels' calls)."""
     from metalpathtracer_torch import cli
 
     def run():
@@ -1380,7 +1558,7 @@ def capture_pool_call():
                                         str(OUT / "capture.png")])
 
     return capture_calls(run, {"pool": lambda i, lanes, k: i == CAPTURE_CALL},
-                         stop=True)["pool"]
+                         stop=True, shading=shading)["pool"]
 
 
 VIEWER_SIZE, VIEWER_DEPTH = (512, 288), 8  # the viewer's defaults
@@ -1407,10 +1585,11 @@ def viewer_loop(scene, integrator="wavefront"):
                               display), display
 
 
-def capture_viewer_calls(scene):
+def capture_viewer_calls(scene, shading=None):
     """Of one viewer frame at the defaults: the 5th `mm_closest_hit` call on
     the viewer's pool and the first on the drain's lanes, each with its
-    `cull_tiles` and `threefry` calls."""
+    `cull_tiles` and `threefry` calls (and into `shading` its bounce step's
+    kernels' calls)."""
     from metalpathtracer_torch import viewer
 
     loop, _ = viewer_loop(scene)
@@ -1418,7 +1597,7 @@ def capture_viewer_calls(scene):
         lambda: loop.step(lambda: []),
         {"viewer_pool": lambda i, lanes, k: lanes == viewer.POOL_SIZE and k == 5,
          "viewer_drain": lambda i, lanes, k: lanes == VIEWER_DRAIN and k == 1},
-        stop=False)
+        stop=False, shading=shading)
 
 
 def run_cli(argv, profile_name=None):
@@ -1468,7 +1647,7 @@ def phase_paths(profile_on: bool, w=1280, h=720):
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
-            f"threefry {counts['threefry_launches']}; "
+            f"threefry {counts['threefry_launches']}, {shading_text(counts)}; "
             f"image mean {images[name].mean():.4f}")
     frac, dmean = compare_images(images["wavefront"], images["scan"],
                                  "wavefront vs scan image")
@@ -1515,12 +1694,14 @@ def phase_legs(scenes, profile_on: bool):
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
-            f"threefry {counts['threefry_launches']}; image mean {img.mean():.4f}")
+            f"threefry {counts['threefry_launches']}, {shading_text(counts)}; "
+            f"image mean {img.mean():.4f}")
     return result
 
 
 # kernel-name families of the profile's groups, in order of matching
 KERNEL_FAMILIES = (
+    *((k, (f"{k}_kernel",)) for k in SHADING),
     ("mm_closest_hit", ("mm_closest_hit_kernel",)),
     ("cull_tiles", ("cull_tiles_kernel",)),
     ("threefry", ("threefry_kernel",)),
@@ -1554,7 +1735,8 @@ def profile(fn, name, steps: int) -> str:
     wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     events = [(e.name(), e.duration_ns() / 1e3, e.start_ns(), e.end_ns())
-              for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and not e.name().startswith(SPAN_PREFIX)]
     busy_us = sum(us for _, us, _, _ in events)
     span_us = ((max(e[3] for e in events) - min(e[2] for e in events)) / 1e3
                if events else 0.0)
@@ -1575,6 +1757,131 @@ def profile(fn, name, steps: int) -> str:
                    for f, (n, t) in sorted(families.items(), key=lambda kv: -kv[1][1])))
     log(f"    profile {name}: {summary}; table in {OUT / f'profile_{name}.txt'}")
     return summary
+
+
+def range_table(fn, name: str, steps: int) -> dict:
+    """One warm `fn()` and one under torch.profiler (host and device), both
+    on the eager loop (`graphs.eager()`: a replay runs no Python, so only
+    eager launches can be told apart by the code that made them). Each
+    device event is charged to the innermost range of the port's `span`s
+    (SPAN_PREFIX) open on the host when it was launched (its CUDA runtime
+    call, or else the torch op it is linked to); events launched outside
+    every range are "(no range)". Returns {range: [device ms, events]} and
+    logs the table with each range's events a bounce step (`steps`: the
+    bounce steps of one run). A kernel's device time is the same in a
+    replay; the gaps between kernels are not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from metalpathtracer_torch.render import graphs
+
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with graphs.eager(), contextlib.redirect_stdout(io.StringIO()):
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+    ranges, runtime, ops, device = [], {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        ename = e.name()
+        if e.device_type() == cuda:
+            if not ename.startswith(SPAN_PREFIX):
+                device.append((e.correlation_id(), e.linked_correlation_id(),
+                               e.duration_ns()))
+        elif ename.startswith(SPAN_PREFIX):
+            ranges.append((e.start_ns(), e.end_ns(), ename[len(SPAN_PREFIX):]))
+        elif ename.startswith("cu"):  # a CUDA API call (cudaLaunchKernel, ...)
+            runtime[e.correlation_id()] = e.start_ns()
+        else:
+            ops.setdefault(e.correlation_id(), e.start_ns())
+    launched = []
+    for corr, linked, ns in device:
+        at = runtime.get(corr, ops.get(linked))
+        launched.append((at if at is not None else -1, ns))
+    launched.sort()
+    ranges.sort()
+    table, stack, k = {}, [], 0
+    for at, ns in launched:
+        while k < len(ranges) and ranges[k][0] <= at:
+            while stack and stack[-1][1] < ranges[k][0]:
+                stack.pop()
+            stack.append(ranges[k])
+            k += 1
+        while stack and stack[-1][1] < at:
+            stack.pop()
+        key = stack[-1][2] if stack and at >= 0 else "(no range)"
+        row = table.setdefault(key, [0.0, 0])
+        row[0] += ns / 1e6
+        row[1] += 1
+    total = sum(v[0] for v in table.values())
+    lines = [f"{k}: {v[0]:.2f} ms ({100 * v[0] / total:.1f}%), {v[1]} events, "
+             f"{v[1] / steps:.1f} a bounce step"
+             for k, v in sorted(table.items(), key=lambda kv: -kv[1][0])]
+    log(f"    ranges {name} (eager, profiled): {total:.1f} ms of device time in "
+        f"{len(launched)} events, {len(launched) / steps:.1f} a bounce step over "
+        f"{steps} steps; " + "; ".join(lines))
+    return dict(total_ms=total, events=len(launched), steps=steps, ranges=table)
+
+
+def phase_ranges(scene, bunny, card) -> dict:
+    """Where a bounce step's device time goes, by the port's profiler
+    ranges, and what the graph path takes: the flagship scan (1280x720,
+    spp 4, depth 32), the flagship wavefront (the same, pool 2^15) and, with
+    `bunny`, the bunny300k leg. Each: a range table of one eager render
+    (`range_table`), then on the graph path a warm render, GRAPH_REPEATS
+    timed ones (median and range) and one profiled (`device_busy`: its
+    device time, events and busy share)."""
+    import statistics
+
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+
+    cam = Camera.reset()
+    paths = {
+        "flagship_scan": (lambda: tpipe.render_image(
+            scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32)), 128),
+        "flagship_wavefront": (lambda: tpipe.render_image_wavefront(
+            scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32),
+            pool_size=POOL), 408)}
+    if bunny is not None:
+        paths["bunny300k_leg"] = (lambda: tpipe.render_image_wavefront(
+            bunny, cam, LEG_W, LEG_H, LEG_SPP, seed=0,
+            cfg=RenderConfig(max_depth=LEG_DEPTH), pool_size=POOL), None)
+    record = {}
+    for name, (fn, steps) in paths.items():
+        graphs.clear()
+        rec = {}
+        if steps:
+            rec["ranges"] = range_table(fn, name, steps)
+        fn()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(GRAPH_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        busy = device_busy(fn, f"{name}, replayed")
+        rec.update(graph_s=secs, graph_median_s=statistics.median(secs),
+                   device_ms=busy["busy_ms"], kernel_ms=busy["kernel_ms"],
+                   events=busy["events"], busy_share=busy["busy_share"],
+                   tallies=busy["tallies"])
+        log(f"[R] {name} on the graph path: median {rec['graph_median_s']:.4f} s "
+            f"({min(secs):.4f}-{max(secs):.4f}, {len(secs)} renders); profiled: "
+            f"device busy {busy['busy_ms']:.1f} ms (kernels {busy['kernel_ms']:.1f} ms, "
+            f"{busy['events']} events, busy {100 * busy['busy_share']:.1f}%); launches "
+            f"{busy['tallies']} ({card})")
+        record[name] = rec
+        graphs.clear()
+        torch.cuda.empty_cache()
+    (OUT / "ranges.json").write_text(json.dumps(record, indent=1))
+    return record
 
 
 def phase_small_vs_plain(scene):
@@ -1603,6 +1910,14 @@ def phase_small_vs_plain(scene):
         if not torch.equal(a, c) or ra != rc:
             raise RuntimeError(f"{name}: the render with the RNG's twin differs "
                                f"at {int((a != c).sum())} values, rays {ra} vs {rc}")
+        # the bounce step's kernels against their twins: bit-equal kernels,
+        # so the same image
+        with plain_versions(SHADING):
+            e, re_ = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+        if not torch.equal(a, e) or ra != re_:
+            raise RuntimeError(f"{name}: the render with the bounce step's twins "
+                               f"differs at {int((a != e).sum())} values, rays {ra} vs "
+                               f"{re_}")
         with plain_versions():
             b, rb = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
         frac, dmean = compare_images(a.cpu().numpy(), b.cpu().numpy(),
@@ -1610,7 +1925,8 @@ def phase_small_vs_plain(scene):
         result[name] = dict(divergent=frac, mean_diff=dmean, rays=ra, plain_rays=rb)
         log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
             f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}; "
-            "with the RNG's twin alone: bit-equal")
+            "with the RNG's twin alone, and with the sphere pass's, the hit "
+            "epilogue's and the shading's twins alone: bit-equal")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
@@ -1928,6 +2244,7 @@ def phase_bvh(sets, n_each, chunk):
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.traverse import closest_hit_bvh
     from metalpathtracer_torch.scene import load_scene_xml
 
@@ -1977,6 +2294,7 @@ def phase_bvh(sets, n_each, chunk):
                     str(OUT / f"small_{tag}.npz")] + extra
 
         launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+        shaded = tuple(getattr(tsh, k).launches for k in SHADING)
         before = dict(graphs.STATS)
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -1987,6 +2305,13 @@ def phase_bvh(sets, n_each, chunk):
         ran = tmm.mm_closest_hit.launches - launches[0]
         if (ran > 0) != (kind == "mm"):
             raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
+        # the BVH walk has no sphere pass or epilogue; every route shades on
+        # the kernel (NEE off)
+        shaded = tuple(getattr(tsh, k).launches - b for k, b in zip(SHADING, shaded))
+        if (shaded[0] > 0) != (kind == "mm") or (shaded[1] > 0) != (kind == "mm") \
+                or shaded[2] == 0:
+            raise RuntimeError(f"--intersector {kind} {extra}: (sphere pass, hit "
+                               f"epilogue, shade) calls {shaded}")
         seconds[name] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
         images[name] = check_image(OUT / f"small_{name}.npz", (180, 320, 3))
         if kind == "bvh":
@@ -2010,7 +2335,8 @@ def phase_bvh(sets, n_each, chunk):
         f"{routes['bvh_wavefront']['eager_runs']} eager runs, no capture or replay) "
         f"and bit-equal to their renders under graphs.eager(); against mm "
         f"{frac:.5f} / {frac_w:.5f} of pixels differ by > 1e-3, means by "
-        f"{dmean:.2e} / {dmean_w:.2e}; no tile kernel launched")
+        f"{dmean:.2e} / {dmean_w:.2e}; no tile kernel, sphere pass or hit epilogue "
+        f"launched, the shading kernel on every step")
     return dict(rays=o.shape[0], mismatches=n_mis, max_abs_err=float(err.max()),
                 walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds, routes=routes,
                 upload_s=upload_s, upload_without_bvh_s=bare_s,
@@ -2203,7 +2529,9 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             results = [worker.load_result(out, name, r) for r in range(world)]
             launches = {k: sum(res["counts"][k] for res in results)
                         for k in ("steps", "mm_launches", "cull_launches",
-                                  "threefry_launches", "threefry_draws")}
+                                  "threefry_launches", "threefry_draws",
+                                  "sphere_launches", "epilogue_launches",
+                                  "shade_launches")}
             by_rank = [res["counts"]["mm_launches"] for res in results]
             if job["kind"] == "cli":
                 if any(res["rc"] != 0 for res in results) or any(
@@ -2298,10 +2626,16 @@ def phase_nee(card):
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     mm_n, cull_n, bundles, draws = executed()  # on the card, replays too
+    sph_n, epi_n, shade_n = executed_shading()
     if mm_n or cull_n:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
     if bundles == 0:
         raise RuntimeError("config 4 launched no RNG kernel")
+    # NEE shades in plain torch, by config: the closest hit (the sphere pass
+    # and the epilogue) twice a step, the shading kernel never
+    if shade_n or not sph_n == epi_n > 0 or sph_n % 2:
+        raise RuntimeError(f"config 4: (sphere pass, hit epilogue, shade) launches "
+                           f"{(sph_n, epi_n, shade_n)}")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
     cpu_s = time.perf_counter() - t0
@@ -2310,12 +2644,14 @@ def phase_nee(card):
         raise RuntimeError(f"config 4: mean {a.mean()}, rays {ra} vs {rb}")
     record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
                              divergent=frac, mean_diff=dmean, threefry_launches=bundles,
-                             threefry_draws=draws)
+                             threefry_draws=draws, sphere_launches=sph_n,
+                             epilogue_launches=epi_n, shade_launches=shade_n)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
         f"tile kernel launched (spheres alone), threefry {bundles} launches, "
-        f"{draws} draws")
+        f"{draws} draws, sphere_pass {sph_n}, hit_epilogue {epi_n}, shade {shade_n} "
+        f"(NEE shades in plain torch)")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -2334,6 +2670,12 @@ def phase_nee(card):
         shadow = out[2]["shadow_rays"] if name == "wavefront" else None
         if shadow is not None and not 0 < shadow < out[1]:
             raise RuntimeError(f"multimesh NEE wavefront: {shadow} shadow rays")
+        # each closest hit (the step's and its shadow ray's) runs the sphere
+        # pass and the epilogue; the shading is plain torch
+        if counts["shade_launches"] or not (
+                counts["sphere_launches"] == counts["epilogue_launches"]
+                == counts["mm_launches"] > 0) or counts["nee_steps"] != counts["steps"]:
+            raise RuntimeError(f"multimesh NEE {name}: {counts}")
         record[f"multimesh_{name}"] = dict(card_s=card_s, rays=out[1], cpu_rays=b[1],
                                            shadow_rays=shadow, counts=counts,
                                            divergent=frac, mean_diff=dmean)
@@ -2342,8 +2684,9 @@ def phase_nee(card):
             + (f" ({shadow} shadow rays)" if shadow is not None else "")
             + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
             f"{counts['cull_launches']}, threefry {counts['threefry_launches']} "
-            f"({counts['threefry_draws']} draws), {counts['steps']} bounce steps traced; "
-            f"{frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
+            f"({counts['threefry_draws']} draws), {shading_text(counts)}, "
+            f"{counts['steps']} bounce steps traced ({counts['nee_steps']} on the plain "
+            f"NEE shading); {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}")
     torch.cuda.empty_cache()
     return record
 
@@ -2518,14 +2861,123 @@ FLAGSHIP_LAUNCHES = (408, 408, 817)
 SCAN_FLAGSHIP_LAUNCHES = (128, 128, 132)
 
 
+# f32 operations a lane (and a sphere) of the bounce step's kernels, counted
+# from their sources (csrc/sphere_pass.cu, hit_epilogue.cu, shade.cu): the
+# quadratic of one sphere, d.d once; the epilogue's two normals, plane
+# refine and flip; the shading of a lane that hit (material, emission, the
+# three lobes and the Fresnel choice, offset, roulette) and of every lane
+# (the sky)
+SPHERE_FLOP, SPHERE_LANE_FLOP = 30, 5
+EPILOGUE_FLOP = 50
+SHADE_HIT_FLOP, SHADE_LANE_FLOP = 260, 15
+
+
+def shading_bound(kernel: str, args) -> dict:
+    """The least time of one call of a bounce-step kernel on the card: the
+    bytes it must move (each input once, each output once; the refine rows
+    and material rows it reads counted as the distinct rows these inputs
+    need, the shading's per-hit inputs on the lanes that hit here) at the
+    memory rate, and its operations (f32, counted from the source; the
+    shading's per-hit work on the lanes that hit here) at the f32 peak."""
+    import torch
+
+    n = args[0].shape[0]
+    if kernel == "sphere_pass":
+        s = args[2].shape[0]
+        nbytes = 24 * n + 20 * s + 12 * n
+        flop = n * (SPHERE_LANE_FLOP + SPHERE_FLOP * s)
+    elif kernel == "hit_epilogue":
+        t_tri, col, s = args[2], args[3], args[8].shape[0]
+        rows = int(col.clamp(min=0).unique().numel()) if col is not None else 0
+        nbytes = (24 * n + (8 * n if t_tri is not None else 0) + 12 * n + 32 * rows
+                  + 16 * s + 25 * n)
+        flop = n * EPILOGUE_FLOP
+    else:
+        # every lane reads its state (o, d, light, throughput: 48 B), its
+        # active flag and its hit's id, and writes 53 B; a lane that hit
+        # also reads its hit and draws (t, normal, front face, material id,
+        # unit vector, Fresnel uniform: 37 B; with roulette its uniform and
+        # a per-lane bounce), one that did not its prev_pdf
+        active, idx, mat_id, u_rr, bounce = args[4], args[7], args[10], args[13], args[14]
+        hits_mask = active & (idx >= 0)
+        hits = int(hits_mask.sum())
+        rows = int(mat_id[hits_mask].unique().numel())
+        per_hit = 37
+        if u_rr is not None:
+            per_hit += 4
+            if isinstance(bounce, torch.Tensor) and bounce.numel() == n > 1:
+                per_hit += bounce.element_size()
+        nbytes = (53 * n + per_hit * hits + 4 * (n - hits) + 64 * rows + 24
+                  + 53 * n + 8)
+        flop = hits * SHADE_HIT_FLOP + n * SHADE_LANE_FLOP
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flop / PEAK_F32_FLOPS * 1e3
+    return dict(bytes=nbytes, flop=flop, bound_ms=max(byte_ms, flop_ms),
+                bound_by="bytes" if byte_ms >= flop_ms else "operations")
+
+
+def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
+    """One call of a bounce-step kernel against its twin on the same
+    inputs: bit for bit (NaN where both are NaN: a lane that misses has a
+    NaN normal on both), then its device time, call time, the twin's call
+    time and the bound."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    fn, twin = getattr(tsh, kernel), getattr(tsh, f"{kernel}_reference")
+    got, want = fn(*args), twin(*args)
+    torch.cuda.synchronize()
+    bad, err = 0, 0.0
+    for a, b in zip(got, want):
+        if a.dtype.is_floating_point:
+            bad += int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        else:
+            bad += int((a != b).sum())
+    if bad:
+        raise RuntimeError(f"[18] {kernel} vs its twin ({what}): {bad} values differ, "
+                           f"max |difference| {err}")
+    ms = device_ms(lambda: fn(*args))
+    c_ms = call_ms(lambda: fn(*args), 20)
+    p_ms = call_ms(lambda: twin(*args), 3)
+    b = shading_bound(kernel, args)
+    rec = dict(lanes=args[0].shape[0], ms=ms, call_ms=c_ms, plain_ms=p_ms,
+               max_abs_err=err, **b, share=b["bound_ms"] / ms)
+    log(f"    {kernel} vs twin ({what}, {rec['lanes']} lanes): bit-equal; kernel "
+        f"{ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us per call, twin "
+        f"{p_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: "
+        f"{b['bytes'] / 1e6:.1f} MB, {b['flop'] / 1e6:.1f} Mflop), "
+        f"{100 * rec['share']:.1f}% of it reached")
+    return rec
+
+
+def phase_bounce_kernels(sets: dict) -> dict:
+    """18: the bounce step's kernels (`csrc/sphere_pass.cu`,
+    `hit_epilogue.cu`, `shade.cu`) against their twins at the calls the
+    paths make (`sets`: name -> {kernel: args}), each bit-equal, with its
+    device, call and plain time and its bound."""
+    record = {}
+    for name, calls in sets.items():
+        for kernel in SHADING:
+            if kernel in calls:
+                record[f"{name}_{kernel}"] = dict(
+                    set=name, kernel=kernel,
+                    **bounce_kernel_vs_twin(kernel, calls[kernel], name))
+    return record
+
+
 @contextlib.contextmanager
 def recorded_in_capture(call: int):
-    """The three kernels wrapped: while a CUDA graph is being captured, the
+    """The kernels wrapped: while a CUDA graph is being captured, the
     `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
-    those of the `cull_tiles` call before it and of the first
-    `threefry_bundle` call after it (its bounce step's bundle); on a scene
-    without triangles, which launches no tile kernel, the `call`-th bundle
-    of more than one draw (a bounce step's) alone. The clones are made
+    those of the `cull_tiles` and `sphere_pass` calls before it and of the
+    first `hit_epilogue`, `threefry_bundle` and `shade` calls after it (its
+    bounce step's); on a scene without triangles, which launches no tile
+    kernel, the `call`-th bundle of more than one draw (a bounce step's),
+    and the `call`-th sphere pass and hit epilogue. The clones are made
     inside the capture, so they are outputs of the graph: after a replay
     they hold what that replay computed. Yields {kernel: (args, outputs)},
     filled as the capture runs."""
@@ -2533,10 +2985,28 @@ def recorded_in_capture(call: int):
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
-    got, seen = {}, {"mm": 0, "cull": None, "steps": 0}
+    shading_kernels = {k: getattr(tsh, k) for k in SHADING}
+    got, seen = {}, {"mm": 0, "cull": None, "steps": 0, "sphere_pass": None,
+                     "sphere_calls": 0}
+
+    def shaded(kernel):
+        def wrapped(*args, **kw):
+            out = shading_kernels[kernel](*args, **kw)
+            if torch.cuda.is_current_stream_capturing() and kernel not in got:
+                if kernel == "sphere_pass":
+                    seen["sphere_calls"] += 1
+                    seen["sphere_pass"] = _clone(args), _clone(out)
+                    if seen["mm"] == 0 and seen["sphere_calls"] == call:
+                        got["sphere_pass"] = seen["sphere_pass"]
+                elif "mm" in got or (kernel == "hit_epilogue" and "sphere_pass" in got):
+                    got[kernel] = _clone(args), _clone(out)
+            return out
+        wrapped.launches = 0
+        return wrapped
 
     def cull(*args, **kw):
         out = kernels[1](*args, **kw)
@@ -2550,6 +3020,7 @@ def recorded_in_capture(call: int):
             seen["mm"] += 1
             if seen["mm"] == call:
                 got["mm"], got["cull"] = (_clone(args), _clone(out)), seen["cull"]
+                got["sphere_pass"] = seen["sphere_pass"]
         return out
 
     def draw(*args, **kw):
@@ -2563,10 +3034,14 @@ def recorded_in_capture(call: int):
     mm.launches = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
+    for k in SHADING:
+        setattr(tsh, k, shaded(k))
     try:
         yield got
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        for k, fn in shading_kernels.items():
+            setattr(tsh, k, fn)
         graphs.clear()
 
 
@@ -2575,7 +3050,8 @@ PROFILE_ATTEMPTS = 3
 # idle seconds inside the profile before and after the render
 PROFILE_PAD_S = 0.1
 # the three kernels' names in the profiler's device events
-KERNEL_EVENT_NAMES = ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel")
+KERNEL_EVENT_NAMES = ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel",
+                      "sphere_pass_kernel", "hit_epilogue_kernel", "shade_kernel")
 
 
 def device_busy(fn, what: str) -> dict:
@@ -2617,10 +3093,11 @@ def device_busy(fn, what: str) -> dict:
                 wall = time.perf_counter() - t0
                 time.sleep(PROFILE_PAD_S)
         spans = [(e.start_ns(), e.end_ns(), e.name())
-                 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda and not e.name().startswith(SPAN_PREFIX)]
         by_kernel = tuple(sum(k in name for _, _, name in spans)
                           for k in KERNEL_EVENT_NAMES)
-        tallies = executed()[:3]
+        tallies = executed()[:3] + executed_shading()
         short = tuple(t - k for k, t in zip(by_kernel, tallies))
         if min(short) < 0:
             raise RuntimeError(f"[17] {what}: the profile holds {by_kernel} kernel "
@@ -2733,6 +3210,20 @@ def graph_workloads(scene, bunny, multimesh):
             "bunny300k_leg": bunny300k_leg}
 
 
+def scan_shading(eager, run) -> tuple:
+    """The bounce step's kernels' launches a scan render on the graph loop
+    must make: the eager loop's (sphere pass, hit epilogue, shading) plus an
+    eager bounce step's for every idle step its blocks ran."""
+    steps, want = eager["stats"]["reads"], []
+    for launched in eager["shading"]:
+        per_step, rest = divmod(launched, steps)
+        if rest:
+            raise RuntimeError(f"{eager['shading']} shading launches in {steps} steps: "
+                               "not a whole number a step")
+        want.append(launched + run["stats"]["idle_steps"] * per_step)
+    return tuple(want)
+
+
 def scan_launches(eager, run, samples: int) -> tuple:
     """The launches a scan render on the graph loop must make: the eager
     loop's (`graphs.eager()`: a step and a read a bounce, no idle step)
@@ -2779,6 +3270,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         return dict(outs=outs, rays=rays, frames=frames, s=secs, launched=executed(),
+                    shading=executed_shading(),
                     stats={k: v - before[k] for k, v in graphs.STATS.items()})
 
     def same(a, b, what):
@@ -2795,6 +3287,12 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
                                f"(closest hit, cull, threefry, draws), the eager loop "
                                f"{a['launched']}, {b['stats']['idle_steps']} idle steps: "
                                f"{want} expected")
+        want = scan_shading(a, b) if scan else a["shading"]
+        if b["shading"] != want:
+            raise RuntimeError(f"[17] {name}: {what}: the card ran {b['shading']} "
+                               f"(sphere pass, hit epilogue, shade), the eager loop "
+                               f"{a['shading']}, {b['stats']['idle_steps']} idle steps: "
+                               f"{want} expected")
 
     graphs.clear()
     counted = {}
@@ -2810,6 +3308,12 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
                      eager["launched"]):
         raise RuntimeError(f"[17] {name}: launches {eager['launched']} eager, "
                            f"{graph['launched']} replayed; {flagship} expected on both")
+    # the flagship's bounce steps (one closest hit each) each run the sphere
+    # pass, the hit epilogue and the shading once
+    if flagship and not (eager["shading"] == graph["shading"] == (flagship[0],) * 3):
+        raise RuntimeError(f"[17] {name}: the bounce step's kernels ran "
+                           f"{eager['shading']} eager, {graph['shading']} replayed; "
+                           f"{(flagship[0],) * 3} expected on both")
     # counted_path cleared the cache: this render warms up and captures the
     # graphs that the timed renders replay
     first = once(False)
@@ -2846,15 +3350,18 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
     busy_g = device_busy(fn, f"{name}, replayed")
     windows = window_share(fn)
     for b, want in ((busy_e, eager), (busy_g, graph)):
-        if b["tallies"] != want["launched"][:3]:
+        if b["tallies"] != want["launched"][:3] + want["shading"]:
             raise RuntimeError(f"[17] {name}: a profiled render launched {b['tallies']}, "
                                f"its loop's counted render {want['launched']}")
     med = {k: statistics.median(v) for k, v in times.items()}
     launched = dict(zip(("mm_launches", "cull_launches", "threefry_launches",
-                         "threefry_draws"), eager["launched"]))
+                         "threefry_draws"), eager["launched"]),
+                    **dict(zip(("sphere_launches", "epilogue_launches",
+                                "shade_launches"), eager["shading"])))
     idle = steady["idle_steps"]
     rec = dict(
-        launched=launched, launched_graph=graph["launched"], idle_steps=idle,
+        launched=launched, launched_graph=graph["launched"],
+        shading_graph=graph["shading"], idle_steps=idle,
         steps=eager["counts"]["steps"],
         traced_steps_graph=graph["counts"]["steps"], counts_eager=eager["counts"],
         counts_graph=graph["counts"], rays=eager["rays"], tensors=len(eager["outs"]),
@@ -2878,9 +3385,11 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
         f"card (eager loop): mm_closest_hit {c['mm_launches']}, "
         f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
-        f"({c['threefry_draws']} draws)"
-        + (f", graph loop {graph['launched']} with {idle} idle steps past the last live "
-           f"lane" if scan else ", equal in every render of both loops")
+        f"({c['threefry_draws']} draws), sphere_pass {c['sphere_launches']}, "
+        f"hit_epilogue {c['epilogue_launches']}, shade {c['shade_launches']}"
+        + (f", graph loop {graph['launched']} and {graph['shading']} with {idle} idle "
+           f"steps past the last live lane" if scan
+           else ", equal in every render of both loops")
         + f"; {rec['steps']} bounce steps "
         f"({rec['traced_steps_graph']} traced by the graph loop's first render)"
         + (f" ({rec['mm_per_frame']:g} / {rec['cull_per_frame']:g} / "
@@ -2924,6 +3433,7 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.integrator import RenderConfig
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     if render is None:
@@ -2937,16 +3447,22 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
         render()
     torch.cuda.synchronize()
     stats = dict(graphs.STATS)
-    kernels = {"threefry"} if scene.num_tris == 0 else {"mm", "cull", "threefry"}
+    # a scene without triangles has no closest-hit call to anchor the step,
+    # and shades in plain torch with NEE (config 4)
+    kernels = ({"threefry", "sphere_pass", "hit_epilogue"} if scene.num_tris == 0
+               else {"mm", "cull", "threefry", *SHADING})
     if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != kernels:
         raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
     for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
-                      ("threefry", tfk.threefry_bundle)):
+                      ("threefry", tfk.threefry_bundle),
+                      *((k, getattr(tsh, k)) for k in SHADING)):
         if kname not in rec:
             continue
         args, out = rec[kname]
         again = fn(*args)
-        if not all(torch.equal(a, b) for a, b in zip(again, out)):
+        if not all(torch.equal(a, b) or (a.dtype.is_floating_point and bool(
+                ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+                for a, b in zip(again, out)):
             raise RuntimeError(f"[17] in-{what}: the graph's {kname} node differs "
                                "from an eager launch at its inputs")
     log(f"[17] in a captured {what} ({stats['replays']} replays), call "
@@ -2960,6 +3476,9 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
         out["mm"] = phase_kernel_vs_twin(
             scene, {f"in_{what}": captured_set(mm_args, cull_args[1])})[f"in_{what}"]
         out["cull"] = phase_cull(f"in_{what}", cull_args, sass)
+    for kname in SHADING:
+        if kname in rec:
+            out[kname] = bounce_kernel_vs_twin(kname, rec[kname][0], f"in_{what}")
     graphs.clear()
     return out
 
@@ -3252,12 +3771,16 @@ def main(argv=None) -> int:
         return 0
 
     from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
     from metalpathtracer_torch.scene import load_scene_xml, presets
 
     dev = torch.device("cuda")
     scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "reference.xml")), dev)
     if args.scan_blocks:
         phase_scan_blocks(scene, card)
+        log("[R] device time by range, and the graph path, of both flagships and "
+            "the bunny300k leg")
+        phase_ranges(scene, upload_scene(presets.reference_bunny300k(), dev), card)
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
     big = {}
@@ -3273,8 +3796,12 @@ def main(argv=None) -> int:
 
     scan_draws = []
     ref_sets = primary_and_bounce(scene, 1280, 720, draws=scan_draws)
-    mm_pool, cull_pool, pool_draws = capture_pool_call()
-    of_viewer = capture_viewer_calls(scene)
+    # the bounce step's kernels' calls: the flagship scan's first two steps
+    # (921,600 lanes), the pool advance's and a viewer frame's
+    shading_sets = {f"scan_step{k}": {kernel: v[0] for kernel, v in calls.items()}
+                    for k, calls in enumerate(shading_steps(scene, 1280, 720, 2), 1)}
+    mm_pool, cull_pool, pool_draws = capture_pool_call(shading_sets)
+    of_viewer = capture_viewer_calls(scene, shading_sets)
     sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
     sets["pool"] = captured_set(mm_pool, cull_pool[1])
     # the drain's lanes are the longest paths: they may all be among spheres
@@ -3320,6 +3847,28 @@ def main(argv=None) -> int:
     log(f"[16] {len(draws)} bundles compared and timed in "
         f"{time.perf_counter() - t0:.1f} s")
     del scan_draws, pool_draws
+    # the bunny300k leg's first step (32,768 lanes) and config 4's (262,144
+    # lanes, spheres alone, NEE: its closest hits, the step's and the shadow
+    # rays', without the shading kernel)
+    (calls,) = shading_steps(big["bunny300k"], LEG_W, LEG_H, 1, stride=8)
+    shading_sets["bunny300k_step1"] = {kernel: v[0] for kernel, v in calls.items()}
+    glass = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")), dev)
+    (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
+                             cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
+    if calls["shade"] or len(calls["sphere_pass"]) != 2:
+        raise RuntimeError(f"config 4's step: {[(k, len(v)) for k, v in calls.items()]}")
+    for k, label in enumerate(("config4_step1", "config4_shadow1")):
+        shading_sets[label] = {kernel: calls[kernel][k] for kernel in SHADING[:2]}
+    del calls, glass
+    log("[18] the bounce step's kernels vs their twins: "
+        + ", ".join(f"{k} ({v['sphere_pass'][0].shape[0]} lanes)"
+                    for k, v in shading_sets.items()))
+    t0 = time.perf_counter()
+    bounce_kernels = phase_bounce_kernels(shading_sets)
+    log(f"[18] {len(bounce_kernels)} calls compared and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del shading_sets
+    torch.cuda.empty_cache()
     sweep = against = None
     if args.sweep:
         log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
@@ -3347,6 +3896,11 @@ def main(argv=None) -> int:
     del draw_args
 
     paths = phase_paths(args.profile)
+    ranges = None
+    if args.profile:
+        log("[R] device time by range, and the graph path, of both flagships and "
+            "the bunny300k leg")
+        ranges = phase_ranges(scene, big["bunny300k"], card)
     legs = phase_legs(big, args.profile)
     small = phase_small_vs_plain(scene)
     scan = dict(image=paths["scan"].pop("image"), counts=paths["scan"]["counts"])
@@ -3405,17 +3959,32 @@ def main(argv=None) -> int:
              launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()},
              draws_by_path={k: v["threefry_draws"] for k, v in per_path.items()}),
     ]}
+    # the bounce step's kernels at the main path's shape (the pool advance);
+    # no single PyTorch call computes any of them
+    for kernel, key in zip(SHADING, ("sphere_launches", "epilogue_launches",
+                                     "shade_launches")):
+        at = bounce_kernels[f"pool_{kernel}"]
+        kernels["kernels"].append(dict(
+            name=kernel, route="cuda", **KERNELS[kernel],
+            launches=main_path[key],
+            max_abs_err=max(v["max_abs_err"] for v in bounce_kernels.values()
+                            if v["kernel"] == kernel),
+            ms=at["ms"], call_ms=at["call_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"], share=at["share"],
+            library_ms=None,
+            launches_by_path={k: v[key] for k, v in per_path.items()}))
     summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
                    mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
                    oracle_tile_p256=oracle256,
                    threefry_lane={k: lane_issue(v)
                                   for k, v in tsass["per_blocks"].items()},
-                   threefry_vs_twin=draws, sweep=sweep, paths=paths, legs=legs,
+                   threefry_vs_twin=draws, bounce_kernels_vs_twins=bounce_kernels,
+                   sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,
                    sharded_cli=sharded_cli, config5=config5, two_ranks=two_ranks,
-                   nee=nee, graphs=graph,
+                   nee=nee, graphs=graph, ranges=ranges,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {summary['total_s']:.1f} s")

@@ -11,9 +11,11 @@ What is ported so far are the CLI's two render paths:
 wavefront, `trace_wavefront`) -> `_bounce_step` -> `_trace_rays` ->
 `render.kernels.intersect_mm.closest_hit_mm_full`, whose triangle pass runs
 the hand-written CUDA kernels `csrc/cull_tiles.cu` and
-`csrc/mm_closest_hit.cu`; every random draw (`core.rng`) runs the third,
-`csrc/threefry.cu`, through `render.kernels.threefry` (a bounce step's
-draws in one launch).
+`csrc/mm_closest_hit.cu`, between the sphere pass and the epilogue
+(`csrc/sphere_pass.cu`, `csrc/hit_epilogue.cu`); every random draw
+(`core.rng`) runs `csrc/threefry.cu` through `render.kernels.threefry` (a
+bounce step's draws in one launch), and the step's shading without
+next-event estimation runs `csrc/shade.cu` (`render.kernels.shade`).
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

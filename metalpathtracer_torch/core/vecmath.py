@@ -3,20 +3,34 @@
 Port of `metalpathtracer_tpu/core/vecmath.py`: the same shape-polymorphic
 helpers, each op in the same order so results agree with the reference to
 the last ulp where the underlying torch op rounds like XLA's.
+
+A dot product is three products and then two adds in one fixed order,
+(a0 b0 + a1 b1) + a2 b2: the order of torch's CPU sum over three elements,
+so that nothing changes on the CPU, while on the card a reduction kernel
+would pick an order of its own. The hand-written kernels of the bounce
+step (`csrc/sphere_pass.cu`, `hit_epilogue.cu`, `shade.cu`) take the same
+order, which keeps them bit-equal to their plain versions built on these
+helpers.
 """
 
 from __future__ import annotations
 
 import torch
 
+# the reference's ray epsilon (`metalpathtracer_tpu/core/vecmath.py:16`),
+# which its intersection tests and scatter offsets use
+RAY_EPS = 1e-4
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched dot product over the trailing axis; keeps no trailing dim."""
-    return (a * b).sum(dim=-1)
+    """Batched dot product over the trailing (3,) axis; keeps no trailing
+    dim."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 def dot_keepdims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum(dim=-1, keepdim=True)
+    return dot(a, b)[..., None]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,7 +43,11 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def length_squared(a: torch.Tensor) -> torch.Tensor:
-    return (a * a).sum(dim=-1)
+    return dot(a, a)
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(length_squared(a))
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

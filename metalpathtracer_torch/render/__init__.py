@@ -6,6 +6,7 @@ scene class `TorchScene` stands in for its `DeviceScene`.
 
 from metalpathtracer_torch.render.camera import Camera, InputState, viewport_basis
 from metalpathtracer_torch.render.device_scene import TorchScene, upload_scene
+from metalpathtracer_torch.render.kernels import closest_hit_mm
 from metalpathtracer_torch.render.integrator import (
     DEFAULT_CONFIG,
     REFERENCE_CONFIG,
@@ -46,4 +47,5 @@ __all__ = [
     "render_image_wavefront",
     "to_image",
     "generate_rays",
+    "closest_hit_mm",
 ]

@@ -41,9 +41,11 @@ comparison with a plain version, a count of bounce steps) calls `clear()`
 before and after, so that no graph traced with the swap outlives it.
 
 `STATS` counts captures (and their seconds), replays, eager runs, host
-reads and the scan's idle steps (bounce steps a block ran with no live
-lane, which the eager loop does not run) since it was last zeroed;
-`chip_smoke.py` reads it.
+reads, the scan's idle steps (bounce steps a block ran with no live
+lane, which the eager loop does not run) and the bounce steps traced
+through the plain shading with next-event estimation (`nee_steps`: run
+eagerly or traced into a capture; the shading kernel runs every other
+step) since it was last zeroed; `chip_smoke.py` reads it.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ import torch
 CACHE_SIZE = 4
 
 STATS = dict(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
-             idle_steps=0)
+             idle_steps=0, nee_steps=0)
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _eager = [0]  # depth of nested `eager()` blocks
@@ -92,7 +94,7 @@ def clear() -> None:
 
 def zero_stats() -> None:
     STATS.update(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
-                 idle_steps=0)
+                 idle_steps=0, nee_steps=0)
 
 
 def entry(key, owner, build) -> "Entry":

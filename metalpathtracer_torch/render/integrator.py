@@ -39,11 +39,13 @@ from metalpathtracer_torch.render.intersect import (
     closest_hit_bruteforce,
     surface_interaction_packed,
 )
+from metalpathtracer_torch.render.kernels import shade
 from metalpathtracer_torch.render.kernels.intersect_mm import (
     _cull_hit_mask,
     closest_hit_mm_full,
 )
 from metalpathtracer_torch.render.traverse import closest_hit_bvh
+from metalpathtracer_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,39 +228,75 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     the previous bounce's scattered direction on lanes whose previous
     bounce sampled a light (0 otherwise): the MIS counterweight.
 
+    The closest hit, then every draw of the step in one bundle, then the
+    shading: without next-event estimation `render/kernels/shade.py::shade`
+    (one kernel on the card), with it `_shade_nee`, plain torch (chosen by
+    the config, and counted in `graphs.STATS["nee_steps"]`).
+
     Returns (o, d, light, throughput, still_active, prev_pdf, rays_counted,
     shadow_counted, tile_passes); rays_counted includes the NEE shadow rays
     and shadow_counted reports them on their own.
     """
-    rays_counted = active.sum(dtype=torch.int64)
-    shadow_counted = torch.zeros((), dtype=torch.int64, device=o.device)
-
+    use_nee = cfg.nee and scene.num_lights > 0
+    # after the wavefront's pool sort o and d are column views of one
+    # packed tensor: one copy here, not one in each kernel's wrapper
+    o, d = o.contiguous(), d.contiguous()
     t, idx, normal, front_face, mat_id, tile_passes = _trace_rays(
         scene, o, d, cfg, active=active
     )
-    miss = idx < 0
+    if mat_id is None:  # the BVH walk and the brute oracle give prim ids alone
+        mat_id = scene.prim_mat_id[idx.clamp(min=0).to(torch.int64)]
 
-    # sky on miss
-    sky = bsdf.sky_color(d, scene.sky)
-    light = light + torch.where((active & miss)[:, None], throughput * sky, 0.0)
-
-    hit_live = active & ~miss
-    point = o + t[:, None] * d
-    mat_row = _fetch_material(scene, idx, mat_id)
-    albedo = mat_row[:, 0:3]
-    mat_type = mat_row[:, 3]
-    emission = mat_row[:, 4:7]
-    power = mat_row[:, 7]
-    fuzz = mat_row[:, 8]
-
-    use_nee = cfg.nee and scene.num_lights > 0
-
-    # emission; with NEE weighted by the power heuristic against the light
-    # sampler's density for the same direction
-    emissive = bsdf.is_emissive(mat_type, power)
-    count_emission = hit_live & emissive
-    emit = throughput * emission * power[:, None]
+    # every draw of the step in one call (one launch on the card)
+    with span("step.draws"):
+        drawn = rng.draws(seed, pixel_id, sample_id, bounce,
+                          _step_draws(use_nee, cfg.rr_start > 0))
     if use_nee:
+        graphs.STATS["nee_steps"] += 1
+        return _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
+                          cfg, (t, idx, normal, front_face, mat_id), drawn,
+                          tile_passes)
+    with span("step.shade"):
+        o, d, light, throughput, active, prev_pdf, rays = shade.shade(
+            o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
+            mat_id, drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None,
+            bounce, scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
+    shadow = torch.zeros((), dtype=torch.int64, device=o.device)
+    return o, d, light, throughput, active, prev_pdf, rays, shadow, tile_passes
+
+
+def _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce, cfg, hit,
+               drawn, tile_passes):
+    """`_bounce_step`'s shading with next-event estimation, plain torch:
+    the sky, the emission weighted by the power heuristic against the light
+    sampler's density, the light sample and its shadow ray (through the
+    closest hit), the BSDF's sample and its pdf for the next bounce's MIS,
+    the offset, Russian roulette and the masked state update. `hit` is the
+    step's (t, idx, normal, front_face, mat_id), `drawn` its draws
+    (`_step_draws(True, ...)`). Returns what `_bounce_step` returns."""
+    t, idx, normal, front_face, mat_id = hit
+    with span("step.update"):
+        rays_counted = active.sum(dtype=torch.int64)
+    with span("step.sky_emission"):
+        miss = idx < 0
+        # sky on miss
+        sky = bsdf.sky_color(d, scene.sky)
+        light = light + torch.where((active & miss)[:, None], throughput * sky, 0.0)
+
+        hit_live = active & ~miss
+        point = o + t[:, None] * d
+        mat_row = _fetch_material(scene, idx, mat_id)
+        albedo = mat_row[:, 0:3]
+        mat_type = mat_row[:, 3]
+        emission = mat_row[:, 4:7]
+        power = mat_row[:, 7]
+        fuzz = mat_row[:, 8]
+
+        # emission, weighted by the power heuristic against the light
+        # sampler's density for the same direction
+        emissive = bsdf.is_emissive(mat_type, power)
+        count_emission = hit_live & emissive
+        emit = throughput * emission * power[:, None]
         pdf_l_hit = _light_pdf_toward(scene, o, d, t, idx)
         w_bsdf = torch.where(
             prev_pdf > 0.0,
@@ -267,17 +305,13 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
             1.0,
         )
         emit = emit * w_bsdf[:, None]
-    light = light + torch.where(count_emission[:, None], emit, 0.0)
-
-    # every draw of the step in one call (one launch on the card)
-    drawn = rng.draws(seed, pixel_id, sample_id, bounce,
-                      _step_draws(use_nee, cfg.rr_start > 0))
+        light = light + torch.where(count_emission[:, None], emit, 0.0)
     unit_vec, u_fres = drawn[0], drawn[1]
 
     # next-event estimation + MIS on the Lambertian and glossy lobes; both
     # satisfy f * cos = albedo * pdf_b, so the light route contributes
     #   tp * albedo * L * pdf_b(ldir) / pdf_l * w_light
-    if use_nee:
+    with span("step.nee"):
         is_diffuse = (mat_type == 0.0) | (mat_type == 2.0)
         is_glossy = (mat_type < 0.0) & (fuzz > 0.0) & (fuzz < 1.0)
         refl = vm.reflect(d, normal)
@@ -296,11 +330,12 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
             & (is_diffuse | (is_glossy & (pdf_b_l > 0.0)))
         )
         s_o = point + 1e-3 * normal
-        # shadow query: hits beyond the light are irrelevant, so tiles past
-        # it are pruned (the 1.001 slack keeps the light's own tile)
-        st, sidx, _, _, _, s_passes = _trace_rays(
-            scene, s_o, ldir, cfg, active=cand, occ_t=ldist * 1.001
-        )
+    # shadow query: hits beyond the light are irrelevant, so tiles past
+    # it are pruned (the 1.001 slack keeps the light's own tile)
+    st, sidx, _, _, _, s_passes = _trace_rays(
+        scene, s_o, ldir, cfg, active=cand, occ_t=ldist * 1.001
+    )
+    with span("step.nee"):
         tile_passes = tile_passes + s_passes
         shadow_counted = cand.sum(dtype=torch.int64)
         rays_counted = rays_counted + shadow_counted
@@ -314,43 +349,42 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         nee_ran = hit_live & (is_diffuse | is_glossy) & ~emissive
 
     # scatter
-    d_out, offset_sign = bsdf.sample_bsdf(
-        d, normal, front_face, mat_type, fuzz, unit_vec, u_fres
-    )
-    if cfg.adaptive_offset:
-        scale = torch.clamp(torch.abs(point).amax(dim=-1), min=1.0)
-        new_o = point + (1e-4 * offset_sign * scale)[..., None] * normal
-    else:
-        new_o = point + (1e-4 * offset_sign)[..., None] * normal
-    new_tp = throughput * albedo
+    with span("step.sample_bsdf"):
+        d_out, offset_sign = bsdf.sample_bsdf(
+            d, normal, front_face, mat_type, fuzz, unit_vec, u_fres
+        )
+    with span("step.update"):
+        if cfg.adaptive_offset:
+            scale = torch.clamp(torch.abs(point).amax(dim=-1), min=1.0)
+            new_o = point + (1e-4 * offset_sign * scale)[..., None] * normal
+        else:
+            new_o = point + (1e-4 * offset_sign)[..., None] * normal
+        new_tp = throughput * albedo
 
-    # Russian roulette (unbiased early termination), from bounce rr_start
-    # on; `bounce` is an int (scan) or a per-lane tensor (wavefront)
-    if cfg.rr_start > 0:
-        u_rr = drawn[-1]
-        p = torch.clamp(new_tp.amax(dim=-1), 0.05, 1.0)
-        do_rr = bounce >= cfg.rr_start
-        if not isinstance(do_rr, torch.Tensor):  # a scan step: one bool
-            do_rr = torch.full_like(p, do_rr, dtype=torch.bool)  # a fill, no upload
-        new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)[..., None]
-        hit_live = hit_live & (~do_rr | (u_rr < p))
+        # Russian roulette (unbiased early termination), from bounce rr_start
+        # on; `bounce` is an int (scan) or a per-lane tensor (wavefront)
+        if cfg.rr_start > 0:
+            u_rr = drawn[-1]
+            p = torch.clamp(new_tp.amax(dim=-1), 0.05, 1.0)
+            do_rr = bounce >= cfg.rr_start
+            if not isinstance(do_rr, torch.Tensor):  # a scan step: one bool
+                do_rr = torch.full_like(p, do_rr, dtype=torch.bool)  # a fill, no upload
+            new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)[..., None]
+            hit_live = hit_live & (~do_rr | (u_rr < p))
 
-    # MIS counterweight for the next bounce: the sampled lobe's pdf of the
-    # direction just scattered, on lanes where light sampling ran
-    if use_nee:
+        # MIS counterweight for the next bounce: the sampled lobe's pdf of the
+        # direction just scattered, on lanes where light sampling ran
         pdf_next = torch.where(
             is_glossy,
             bsdf.glossy_pdf(refl, fuzz, d_out),
             torch.clamp(vm.dot(normal, d_out), min=0.0) / math.pi,
         )
         new_pdf = torch.where(nee_ran, pdf_next, 0.0)
-    else:
-        new_pdf = torch.zeros_like(prev_pdf)
 
-    o = vm.where3(hit_live, new_o, o)
-    d = vm.where3(hit_live, d_out, d)
-    throughput = torch.where(hit_live[:, None], new_tp, throughput)
-    prev_pdf = torch.where(hit_live, new_pdf, prev_pdf)
+        o = vm.where3(hit_live, new_o, o)
+        d = vm.where3(hit_live, d_out, d)
+        throughput = torch.where(hit_live[:, None], new_tp, throughput)
+        prev_pdf = torch.where(hit_live, new_pdf, prev_pdf)
     return (o, d, light, throughput, hit_live, prev_pdf, rays_counted,
             shadow_counted, tile_passes)
 
@@ -628,80 +662,86 @@ class _Wavefront:
         alive, bounce = st["alive"], st["bounce"]
         o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",
                                                      "prev_pdf"))
-        pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
+        with span("wavefront.bank"):
+            pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
         still = alive
         for k in range(self.bpi):
-            step_active = still & (bounce + k < cfg.max_depth)
+            with span("wavefront.counters"):
+                step_active = still & (bounce + k < cfg.max_depth)
             o, d, light, tp, still, prev_pdf, c, sh, tpass = _bounce_step(
                 self.scene, o, d, light, tp, step_active, prev_pdf, pixel,
                 sample, bounce + k, self.seed, cfg,
             )
-            counters["rays"] += c
-            counters["shadow"] += sh
-            counters["tile_passes"] += tpass
-        bounce_next = bounce + self.bpi
-        survivors = still & (bounce_next < cfg.max_depth)
-        path_done = alive & ~survivors
+            with span("wavefront.counters"):
+                counters["rays"] += c
+                counters["shadow"] += sh
+                counters["tile_passes"] += tpass
+        with span("wavefront.bank"):
+            bounce_next = bounce + self.bpi
+            survivors = still & (bounce_next < cfg.max_depth)
+            path_done = alive & ~survivors
 
-        # the finished path joins accumulator slot schunk // spb
-        ps = torch.clamp(light, 0.0, 1.0) if cfg.clamp_radiance else light
-        schunk = st["schunk"]
-        if bank_k == 1:
-            acc = st["acc"] + torch.where(path_done[:, None], ps, 0.0)
-        else:
-            slot = (torch.arange(bank_k, device=o.device)[None, :]
-                    == (schunk // spb)[:, None])  # (pool, K)
-            mask = path_done[:, None] & slot
-            acc = st["acc"] + torch.where(mask[:, :, None], ps[:, None, :],
-                                          0.0).reshape(-1, self.ka)
-        light = torch.where(path_done[:, None], 0.0, light)
-        schunk_next = schunk + path_done.to(torch.int64)
-        more = path_done & (schunk_next < self.per_item)
-        bank = path_done & ~more  # the item is finished
-        st = dict(
-            st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
-            bounce=bounce_next, alive=survivors,
-            schunk=torch.where(path_done,
-                               torch.where(bank, 0, schunk_next), schunk),
-        )
+            # the finished path joins accumulator slot schunk // spb
+            ps = torch.clamp(light, 0.0, 1.0) if cfg.clamp_radiance else light
+            schunk = st["schunk"]
+            if bank_k == 1:
+                acc = st["acc"] + torch.where(path_done[:, None], ps, 0.0)
+            else:
+                slot = (torch.arange(bank_k, device=o.device)[None, :]
+                        == (schunk // spb)[:, None])  # (pool, K)
+                mask = path_done[:, None] & slot
+                acc = st["acc"] + torch.where(mask[:, :, None], ps[:, None, :],
+                                              0.0).reshape(-1, self.ka)
+            light = torch.where(path_done[:, None], 0.0, light)
+            schunk_next = schunk + path_done.to(torch.int64)
+            more = path_done & (schunk_next < self.per_item)
+            bank = path_done & ~more  # the item is finished
+            st = dict(
+                st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
+                bounce=bounce_next, alive=survivors,
+                schunk=torch.where(path_done,
+                                   torch.where(bank, 0, schunk_next), schunk),
+            )
         return st, more, bank
 
     def restart_lanes(self, st, restart):
         """Fresh primary rays where the (item, schunk) changed."""
-        no, nd = self.ray_for(st["item"], st["schunk"])
-        r = restart[:, None]
-        return dict(
-            st, o=torch.where(r, no, st["o"]), d=torch.where(r, nd, st["d"]),
-            tp=torch.where(r, 1.0, st["tp"]),
-            bounce=torch.where(restart, 0, st["bounce"]),
-            prev_pdf=torch.where(restart, 0.0, st["prev_pdf"]),
-            alive=st["alive"] | restart,
-        )
+        with span("wavefront.restart_lanes"):
+            no, nd = self.ray_for(st["item"], st["schunk"])
+            r = restart[:, None]
+            return dict(
+                st, o=torch.where(r, no, st["o"]), d=torch.where(r, nd, st["d"]),
+                tp=torch.where(r, 1.0, st["tp"]),
+                bounce=torch.where(restart, 0, st["bounce"]),
+                prev_pdf=torch.where(restart, 0.0, st["prev_pdf"]),
+                alive=st["alive"] | restart,
+            )
 
     def sort_pool(self, st, pend=None):
         """Reorder the lanes by tile-set signature (stable); the pending
         banks (pend_idx, pend_rgb) ride along."""
-        ka = self.ka
-        key = _tileset_key(self.scene, st["o"], st["d"], st["alive"])
-        perm = torch.argsort(key, stable=True)
-        fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
-                  st["prev_pdf"][:, None]]
-        iparts = [st["item"], st["schunk"], st["bounce"],
-                  st["alive"].to(torch.int64)]
-        if pend is not None:
-            fparts.append(pend[1])
-            iparts.append(pend[0])
-        fpack = torch.cat(fparts, dim=1)[perm]
-        ipack = torch.stack(iparts, dim=1)[perm]
-        st = dict(
-            st, o=fpack[:, 0:3], d=fpack[:, 3:6], acc=fpack[:, 6:6 + ka],
-            light=fpack[:, 6 + ka:9 + ka], tp=fpack[:, 9 + ka:12 + ka],
-            prev_pdf=fpack[:, 12 + ka], item=ipack[:, 0], schunk=ipack[:, 1],
-            bounce=ipack[:, 2], alive=ipack[:, 3] > 0,
-        )
-        if pend is None:
-            return st, None
-        return st, (ipack[:, 4], fpack[:, 13 + ka:])
+        with span("wavefront.sort_pool"):
+            ka = self.ka
+            key = _tileset_key(self.scene, st["o"], st["d"], st["alive"])
+            perm = torch.argsort(key, stable=True)
+            fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
+                      st["prev_pdf"][:, None]]
+            iparts = [st["item"], st["schunk"], st["bounce"],
+                      st["alive"].to(torch.int64)]
+            if pend is not None:
+                fparts.append(pend[1])
+                iparts.append(pend[0])
+            fpack = torch.cat(fparts, dim=1)[perm]
+            ipack = torch.stack(iparts, dim=1)[perm]
+            st = dict(
+                st, o=fpack[:, 0:3], d=fpack[:, 3:6], acc=fpack[:, 6:6 + ka],
+                light=fpack[:, 6 + ka:9 + ka], tp=fpack[:, 9 + ka:12 + ka],
+                prev_pdf=fpack[:, 12 + ka], item=ipack[:, 0], schunk=ipack[:, 1],
+                bounce=ipack[:, 2], alive=ipack[:, 3] > 0,
+            )
+            if pend is None:
+                return st, None
+            return st, (ipack[:, 4], fpack[:, 13 + ka:])
 
     # ---- once a render, eagerly
 
@@ -766,21 +806,24 @@ class _Wavefront:
         for _ in range(self.flush_every // self.sort_every):
             for _ in range(self.sort_every):
                 st, more, bank = self.advance(st)
-                pend = (torch.where(bank, st["item"] % groups, pend[0]),
-                        torch.where(bank[:, None], st["acc"], pend[1]))
-                st["acc"] = torch.where(bank[:, None], 0.0, st["acc"])
-                # queue pop: a banked lane's rank among banked lanes
-                new_item = next_item + torch.cumsum(bank.to(torch.int64), 0) - 1
-                regen = bank & (new_item < total)
-                st["item"] = torch.where(regen, new_item, st["item"])
+                with span("wavefront.queue"):
+                    pend = (torch.where(bank, st["item"] % groups, pend[0]),
+                            torch.where(bank[:, None], st["acc"], pend[1]))
+                    st["acc"] = torch.where(bank[:, None], 0.0, st["acc"])
+                    # queue pop: a banked lane's rank among banked lanes
+                    new_item = next_item + torch.cumsum(bank.to(torch.int64), 0) - 1
+                    regen = bank & (new_item < total)
+                    st["item"] = torch.where(regen, new_item, st["item"])
                 st = self.restart_lanes(st, more | regen)
-                next_item = torch.clamp(next_item + bank.sum(), max=total)
+                with span("wavefront.queue"):
+                    next_item = torch.clamp(next_item + bank.sum(), max=total)
             if self.sorting:
                 st, pend = self.sort_pool(st, pend)
-        self.fb.index_add_(0, pend[0], pend[1])
-        self._store(self.st, st)
-        self.next_item.copy_(next_item)
-        self._report(st["alive"])
+        with span("wavefront.queue"):
+            self.fb.index_add_(0, pend[0], pend[1])
+            self._store(self.st, st)
+            self.next_item.copy_(next_item)
+            self._report(st["alive"])
 
     def drain_block(self):
         """`sort_every` advances of the drain: no queue left, the live
@@ -791,8 +834,9 @@ class _Wavefront:
             st = self.restart_lanes(st, more)
         if self.sorting:
             st, _ = self.sort_pool(st)
-        self._store(self.drain, st)
-        self._report(st["alive"])
+        with span("wavefront.queue"):
+            self._store(self.drain, st)
+            self._report(st["alive"])
 
 
 class _Scan:
@@ -907,20 +951,23 @@ class _Scan:
             self.o, self.d, self.light, self.tp, self.active, self.prev_pdf)
         bounce = self.bounce
         for _ in range(k):
-            c["idle"] += (~active.any()).to(torch.int64)
+            with span("scan.counters"):
+                c["idle"] += (~active.any()).to(torch.int64)
             o, d, light, tp, active, prev_pdf, rays, shadow, passes = _bounce_step(
                 self.scene, o, d, light, tp, active, prev_pdf, self.pixel_id,
                 self.sample_id, bounce, self.seed, self.cfg,
             )
-            c["rays"] += rays
-            c["shadow"] += shadow
-            c["tile_passes"] += passes
-            bounce = bounce + 1
-        for buf, value in ((self.o, o), (self.d, d), (self.light, light),
-                           (self.tp, tp), (self.active, active),
-                           (self.prev_pdf, prev_pdf), (self.bounce, bounce)):
-            buf.copy_(value)
-        self.report.copy_(torch.stack([
-            active.any().to(torch.float64), bounce.to(torch.float64),
-            c["rays"].to(torch.float64), c["shadow"].to(torch.float64),
-            c["tile_passes"].to(torch.float64), c["idle"].to(torch.float64)]))
+            with span("scan.counters"):
+                c["rays"] += rays
+                c["shadow"] += shadow
+                c["tile_passes"] += passes
+                bounce = bounce + 1
+        with span("scan.counters"):
+            for buf, value in ((self.o, o), (self.d, d), (self.light, light),
+                               (self.tp, tp), (self.active, active),
+                               (self.prev_pdf, prev_pdf), (self.bounce, bounce)):
+                buf.copy_(value)
+            self.report.copy_(torch.stack([
+                active.any().to(torch.float64), bounce.to(torch.float64),
+                c["rays"].to(torch.float64), c["shadow"].to(torch.float64),
+                c["tile_passes"].to(torch.float64), c["idle"].to(torch.float64)]))

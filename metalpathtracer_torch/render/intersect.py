@@ -2,7 +2,8 @@
 
 Port of `metalpathtracer_tpu/render/intersect.py`: the exact sphere
 quadratic and Moller-Trumbore tests, the slab test of the BVH walk, the
-chunked brute-force closest hit, and the surface frame of a hit. Together
+chunked brute-force closest hit, and the surface frame of a hit (from a
+gathered row, or from a primitive id: `surface_interaction`). Together
 they are the brute oracle the closest-hit kernel is tested against.
 Epsilons: ray t_min 1e-4, triangle parallel test 1e-5.
 """
@@ -144,3 +145,13 @@ def surface_interaction_packed(geom_row, o, d, t):
     front_face = vm.dot(normal, d) < 0.0
     normal = vm.where3(front_face, normal, -normal)
     return point, normal, front_face
+
+
+def surface_interaction(scene, o, d, t, prim_idx):
+    """Hit point, geometric normal (flipped to oppose the ray) and front-
+    face flag of each ray's hit on primitive `prim_idx` at distance `t`:
+    `surface_interaction_packed` on the primitives' rows of
+    `scene.geom_table`. `prim_idx` may be -1 (a miss): the outputs there
+    are garbage and the caller masks them."""
+    row = scene.geom_table[prim_idx.clamp(min=0).to(torch.int64)]
+    return surface_interaction_packed(row, o, d, t)

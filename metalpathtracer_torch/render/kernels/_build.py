@@ -36,6 +36,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the log
 )
+# flags of one kernel's build: the bounce step's kernels round every
+# product on its own, as their plain versions' separate torch kernels do
+# (nvcc would contract a * b + c into one FMA)
+KERNEL_FLAGS = {name: ("-fmad=false",)
+                for name in ("sphere_pass", "hit_epilogue", "shade")}
 
 
 def _nvcc() -> str:
@@ -59,7 +64,7 @@ def build(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> Path:
     checkout's sources (a comparison with an earlier kernel). The
     compiler's output goes to `<library>.log`."""
     src = (Path(csrc) / f"{name}.cu").read_bytes()
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()), *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
     if so.exists():
@@ -93,6 +98,14 @@ ENTRY_ARGS = {
     # pixel, sample, bounce
     "threefry": (4, (ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int)
                  + (ctypes.c_uint64,) * 8 + (ctypes.c_int, ctypes.c_uint32) * 3),
+    # n, the sphere count, t_min
+    "sphere_pass": (8, (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)),
+    # n, whether there are triangles, the sphere count, t_min
+    "hit_epilogue": (15, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float)),
+    # n, rr_start, adaptive offset, the bounce's (layout, value)
+    "shade": (24, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong)),
 }
 
 

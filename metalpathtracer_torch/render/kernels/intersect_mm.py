@@ -21,8 +21,9 @@ twin expands the tiles it gathers to the dense (4, 12) form
 matmul. Before the kernel, the CUDA kernel `csrc/cull_tiles.cu` slab-tests
 every ray against every tile box and reduces the result per 128-lane
 subgroup, from which each subgroup's entry-ordered list of passing tiles is
-sorted. Around them: the exact sphere pass and the plane-t refine of the
-winner.
+sorted. Around them: the exact sphere pass and the epilogue (the plane-t
+refine of the winner, the merge, the normal), two more kernels of
+`render/kernels/shade.py`.
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
@@ -48,9 +49,9 @@ import numpy as np
 import torch
 
 from metalpathtracer_torch.core import vecmath as vm
-from metalpathtracer_torch.render.intersect import ray_sphere
-from metalpathtracer_torch.render.kernels import _build
+from metalpathtracer_torch.render.kernels import _build, shade
 from metalpathtracer_torch.scene import PRIM_SPHERE, PRIM_TRIANGLE
+from metalpathtracer_torch.utils.metrics import span
 
 T_MIN = 1e-4
 TRI_PARALLEL_EPS = 1e-5
@@ -488,18 +489,19 @@ def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
 
 
 def _sphere_hit_exact(scene, o, d, t_min):
-    """Exact dense sphere pass over the (N, S) pairs. Returns (t, prim idx
-    (-1 on miss), center, material-bank id) of each lane's nearest sphere;
-    equal t picks the lowest slot."""
-    t = ray_sphere(o[:, None, :], d[:, None, :], scene.sph_center[None, :, :],
-                   scene.sph_radius[None, :], t_min)
-    t_best, slot = torch.min(t, dim=1)
-    idx = torch.where(torch.isinf(t_best), -1, scene.sph_ids[slot])
-    return t_best, idx, scene.sph_center[slot], scene.sph_mat_id[slot]
+    """The exact sphere pass over the (N, S) pairs (`shade.sphere_pass`:
+    the kernel `csrc/sphere_pass.cu` on the card). Returns (t, prim idx
+    (-1 on miss), slot) of each lane's nearest sphere; equal t picks the
+    lowest slot."""
+    return shade.sphere_pass(o, d, scene.sph_center, scene.sph_radius,
+                             scene.sph_ids, t_min)
 
 
 def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
-    """Closest hit: the triangle kernel and the exact sphere pass, merged.
+    """Closest hit: the exact sphere pass, the triangle kernel and the
+    epilogue that refines and merges their winners (on the card three
+    kernels around the cull and the list sort: `csrc/sphere_pass.cu`,
+    `csrc/mm_closest_hit.cu`, `csrc/hit_epilogue.cu`).
 
     Returns (t, idx, normal, front_face, mat_id, tile_passes). idx is -1 on
     miss (normal and mat_id are garbage there; callers mask). `active` (N,)
@@ -511,54 +513,37 @@ def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     units of 2^20 ray-triangle tests.
     """
     n = o.shape[0]
-    t_s, i_s, c, m_s = _sphere_hit_exact(scene, o, d, t_min)
-    sph_n = vm.normalize(o + t_s[:, None] * d - c)
+    with span("hit.sphere_pass"):
+        t_s, i_s, slot = _sphere_hit_exact(scene, o, d, t_min)
 
+    t_t = col = None
     if scene.num_tris > 0:
-        # the sphere pass already bounds the winner
-        occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
-        lists, counts, smin, x, lane_bound = kernel_inputs(
-            scene, o, d, occ, active, t_min
-        )
-        t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound,
-                                  scene.mm_w, t_min)
-        tile_p = scene.mm_w.shape[1]
-        tile_passes = counts.sum().to(torch.float32) * (
-            LANES * tile_p / float(1 << 20)
-        )
+        with span("hit.kernel_inputs"):
+            # the sphere pass already bounds the winner
+            occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
+            lists, counts, smin, x, lane_bound = kernel_inputs(
+                scene, o, d, occ, active, t_min
+            )
+        with span("hit.mm_closest_hit"):
+            t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound,
+                                      scene.mm_w, t_min)
+            tile_p = scene.mm_w.shape[1]
+            tile_passes = counts.sum().to(torch.float32) * (
+                LANES * tile_p / float(1 << 20)
+            )
         t_t, col = t_t[:n], col[:n]
-
-        # one (N, 8) row gather: [n, n.v0, prim id, material id]; the
-        # winner's t is re-derived exactly from its plane
-        row = scene.mm_refine[col.clamp(min=0).to(torch.int64)]
-        nvec = row[:, 0:3]
-        ndotv0 = row[:, 3]
-        i_t = row[:, 4].to(torch.int32)
-        m_t = row[:, 5].to(torch.int32)
-        denom = vm.dot(nvec, d)
-        parallel = torch.abs(denom) <= TRI_PARALLEL_EPS
-        t_plane = (ndotv0 - vm.dot(nvec, o)) / torch.where(parallel, 1.0, denom)
-        t_exact = torch.where((~parallel) & (t_plane > t_min), t_plane, _INF)
-        # an exact re-test that rejects the kernel's winner keeps the
-        # kernel's t rather than reporting a miss (no edge sparkle)
-        tri_hit = (col >= 0) & torch.isfinite(t_t)
-        t_t = torch.where(
-            tri_hit, torch.where(torch.isfinite(t_exact), t_exact, t_t), _INF
-        )
-        i_t = torch.where(tri_hit, i_t, -1)
-        tri_n = vm.normalize(nvec)
     else:
-        t_t = torch.full((n,), _INF, dtype=torch.float32, device=o.device)
-        i_t = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-        m_t = torch.zeros((n,), dtype=torch.int32, device=o.device)
-        tri_n = torch.zeros_like(o)
         tile_passes = torch.zeros((), dtype=torch.float32, device=o.device)
 
-    tri_wins = t_t < t_s
-    t = torch.where(tri_wins, t_t, t_s)
-    idx = torch.where(tri_wins, i_t, i_s)
-    mat_id = torch.where(tri_wins, m_t, m_s)
-    normal = vm.where3(tri_wins, tri_n, sph_n)
-    front_face = vm.dot(normal, d) < 0.0
-    normal = vm.where3(front_face, normal, -normal)
+    with span("hit.epilogue"):
+        t, idx, normal, front_face, mat_id = shade.hit_epilogue(
+            o, d, t_t, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,
+            scene.sph_mat_id, t_min)
     return t, idx, normal, front_face, mat_id, tile_passes
+
+
+def closest_hit_mm(scene, o, d, t_min=T_MIN, active=None):
+    """The (t, idx) contract of `closest_hit_mm_full` (t, prim idx, -1 on a
+    miss), as `render/traverse.py::closest_hit_bvh` returns it."""
+    t, idx = closest_hit_mm_full(scene, o, d, t_min, active)[:2]
+    return t, idx

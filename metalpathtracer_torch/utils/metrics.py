@@ -2,8 +2,8 @@
 
 Port of `metalpathtracer_tpu/utils/metrics.py`: renders report structured
 stats (rays, Mrays/s, spp/s), image error is quantified (RMSE, relative
-MSE), and a `torch.profiler` trace can wrap any render for per-kernel
-device times.
+MSE), a `torch.profiler` trace can wrap any render for per-kernel
+device times, and `span` names the parts of a bounce step in such a trace.
 """
 
 from __future__ import annotations
@@ -96,6 +96,23 @@ def profile_trace(log_dir: str):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# the prefix of every range `span` opens: a profile's readers tell these
+# ranges from torch's own events by it
+SPAN_PREFIX = "mpt/"
+
+
+def span(name: str):
+    """A `torch.profiler.record_function` range named SPAN_PREFIX + `name`
+    while a profiler runs, else nothing: the kernels a range's code
+    launches are attributed to it in a profile (`chip_smoke.py`'s tables
+    by range), and an unprofiled step pays one check."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 def _wait(img) -> None:

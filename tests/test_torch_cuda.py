@@ -690,6 +690,169 @@ def test_bounce_step_launches_one_bundle(scene):
 
 
 # ---------------------------------------------------------------------------
+# the bounce step's kernels (render/kernels/shade.py: the sphere pass, the
+# hit epilogue, the shading) against their plain twins on the card: bit for
+# bit, as each rounds every operation of its twin alone and in its order
+# (a lane that misses everything has a NaN normal on both sides)
+# ---------------------------------------------------------------------------
+
+
+def _bit_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype.is_floating_point:
+            assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        else:
+            assert torch.equal(a, b)
+
+
+def _bounce_scene(which, scene, bunny70k=None):
+    if which == "reference":
+        return scene
+    if which == "glass":  # spheres alone
+        return _glass()
+    return bunny70k  # tile_p 256
+
+
+def _hit_parts(s, o, d):
+    """The sphere pass's and the triangle kernel's results for rays (o, d)."""
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    t_s, i_s, slot = tsh.sphere_pass(o, d, s.sph_center, s.sph_radius, s.sph_ids, T_MIN)
+    if not s.num_tris:
+        return t_s, i_s, slot, None, None
+    args = tmm.kernel_inputs(s, o, d, t_s, None, T_MIN) + (s.mm_w, T_MIN)
+    t_t, col = tmm.mm_closest_hit(*args)
+    return t_s, i_s, slot, t_t[:o.shape[0]], col[:o.shape[0]]
+
+
+@pytest.mark.parametrize("which", ["reference", "glass"])
+@pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
+def test_sphere_pass_kernel_matches_twin(scene, n, which):
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    s = _bounce_scene(which, scene)
+    o, d = _rays(n, n + 1)
+    args = (o, d, s.sph_center, s.sph_radius, s.sph_ids, T_MIN)
+    before = tsh.sphere_pass.launches
+    got = tsh.sphere_pass(*args)
+    assert tsh.sphere_pass.launches == before + 1
+    _bit_equal(got, tsh.sphere_pass_reference(*args))
+    assert n < 1000 or bool((got[1] >= 0).any())
+    # no spheres at all: every lane misses
+    empty = tsh.sphere_pass(o, d, s.sph_center[:0], s.sph_radius[:0], s.sph_ids[:0],
+                            T_MIN)
+    _bit_equal(empty, tsh.sphere_pass_reference(o, d, s.sph_center[:0],
+                                                s.sph_radius[:0], s.sph_ids[:0], T_MIN))
+
+
+@pytest.mark.parametrize("which", ["reference", "glass", "bunny70k", "no_spheres"])
+@pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
+def test_hit_epilogue_kernel_matches_twin(scene, bunny70k, n, which):
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    s = _bounce_scene("reference" if which == "no_spheres" else which, scene, bunny70k)
+    o, d = _rays(n, n + 2)
+    t_s, i_s, slot, t_t, col = _hit_parts(s, o, d)
+    center, mat = s.sph_center, s.sph_mat_id
+    if which == "no_spheres":
+        center, mat = center[:0], mat[:0]
+        t_s = torch.full_like(t_s, float("inf"))
+        i_s, slot = torch.full_like(i_s, -1), torch.zeros_like(slot)
+    args = (o, d, t_t, col, t_s, i_s, slot, s.mm_refine, center, mat, T_MIN)
+    before = tsh.hit_epilogue.launches
+    got = tsh.hit_epilogue(*args)
+    assert tsh.hit_epilogue.launches == before + 1
+    _bit_equal(got, tsh.hit_epilogue_reference(*args))
+    assert n < 1000 or bool((got[1] >= 0).any())
+
+
+@pytest.mark.parametrize("bounce_kind", ["int", "0-d", "per-lane"])
+@pytest.mark.parametrize("rr_start,adaptive", [(0, True), (0, False), (2, True)])
+@pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
+def test_shade_kernel_matches_twin(scene, n, rr_start, adaptive, bounce_kind):
+    from metalpathtracer_torch.core import rng
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    o, d = _rays(n, n + 3)
+    r = np.random.default_rng(n)
+    light = torch.as_tensor(r.uniform(0, 0.5, (n, 3)).astype(np.float32), device="cuda")
+    tp = torch.as_tensor(r.uniform(0.02, 1.0, (n, 3)).astype(np.float32), device="cuda")
+    active = torch.as_tensor(r.uniform(size=n) > 0.2, device="cuda")
+    prev_pdf = torch.as_tensor(r.uniform(0, 2, n).astype(np.float32), device="cuda")
+    pix = torch.arange(n, device="cuda")
+    bounce = {"int": 3, "0-d": torch.tensor(3, device="cuda"),
+              "per-lane": torch.as_tensor(r.integers(0, 6, n), device="cuda")}[bounce_kind]
+    t, idx, normal, front, mat_id, _ = tmm.closest_hit_mm_full(scene, o, d, T_MIN,
+                                                               active=active)
+    drawn = rng.draws(7, pix, 1, bounce, tint._step_draws(False, rr_start > 0))
+    args = (o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
+            drawn[0], drawn[1], drawn[-1] if rr_start else None, bounce,
+            scene.mat_bank, scene.sky, rr_start, adaptive)
+    before = tsh.shade.launches
+    got = tsh.shade(*args)
+    assert tsh.shade.launches == before + 1
+    want = tsh.shade_reference(*args)
+    _bit_equal(got, want)
+    assert int(got[6]) == int(active.sum())
+
+
+def test_bounce_kernels_count_replays(scene):
+    # each kernel adds to its tally itself: a replay counts as a launch
+    from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render import integrator as tint
+
+    n = 4096
+    o, d = _rays(n, 11)
+    state = (torch.zeros((n, 3), device="cuda"), torch.ones((n, 3), device="cuda"),
+             torch.ones((n,), dtype=torch.bool, device="cuda"),
+             torch.zeros((n,), device="cuda"))
+    pix = torch.arange(n, device="cuda")
+    cfg = RenderConfig(max_depth=8, rr_start=1)
+
+    def step():
+        return tint._bounce_step(scene, o, d, *state, pix, 0, 2, 7, cfg)
+
+    want = step()
+    torch.cuda.synchronize()
+    _build.zero_tallies()
+    step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    done = _build.tallies("cuda")
+    for k in ("sphere_pass", "hit_epilogue", "shade", "mm_closest_hit", "threefry"):
+        assert done[k][0] == 4, (k, done[k])
+    _bit_equal(got[:7], want[:7])
+
+
+def test_bounce_step_routes_nee_to_the_plain_shading(scene):
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    n = 4096
+    o, d = _rays(n, 12)
+    args = (torch.zeros((n, 3), device="cuda"), torch.ones((n, 3), device="cuda"),
+            torch.ones((n,), dtype=torch.bool, device="cuda"),
+            torch.zeros((n,), device="cuda"), torch.arange(n, device="cuda"), 0, 2, 7)
+    for nee, shaded, passes in ((False, 1, 1), (True, 0, 2)):
+        counts = (tsh.shade.launches, tsh.sphere_pass.launches,
+                  tsh.hit_epilogue.launches, graphs.STATS["nee_steps"])
+        tint._bounce_step(scene, o, d, *args, RenderConfig(max_depth=8, nee=nee))
+        torch.cuda.synchronize()
+        moved = (tsh.shade.launches - counts[0], tsh.sphere_pass.launches - counts[1],
+                 tsh.hit_epilogue.launches - counts[2],
+                 graphs.STATS["nee_steps"] - counts[3])
+        assert scene.num_lights > 0
+        assert moved == (shaded, passes, passes, int(nee))
+
+
+# ---------------------------------------------------------------------------
 # the wavefront's windows as CUDA graphs (render/graphs.py) against the
 # eager loop: bit-equal images, equal counts
 # ---------------------------------------------------------------------------
@@ -701,7 +864,8 @@ def _counted():
 
     done = _build.tallies("cuda")
     return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
-            *done.get("threefry", (0, 0)))
+            *done.get("threefry", (0, 0)),
+            *(done.get(k, (0, 0))[0] for k in ("sphere_pass", "hit_epilogue", "shade")))
 
 
 def _render_counted(fn, eager):
@@ -745,7 +909,9 @@ def test_graph_windows_equal_the_eager_loop(scene, case):
     again = dict(graphs.STATS)
     assert torch.equal(a, b) and torch.equal(a, c)
     assert ra == rb == rc and sa == sb == sc
-    assert ca == cb == cc and min(ca) > 0
+    # every kernel ran, but the shading kernel, which NEE's plain shading
+    # replaces (by config)
+    assert ca == cb == cc and min(ca[:6]) > 0 and (ca[6] > 0) != cfg.nee
     # a new shape warms each function up eagerly and captures it on its
     # second run; the next render replays every window and drain block
     assert first["captures"] >= 1 and first["replays"] >= 1
@@ -838,12 +1004,13 @@ def _scan_run(fn, eager):
 
 def _scan_launches_agree(eager, graph, samples):
     """The graph run's launches are the eager loop's plus its idle steps',
-    each an eager bounce step's: (closest hit, cull, threefry, draws) per
-    step from the eager run, whose reads are its steps; the jitter draws
-    one bundle (of one draw) a sample."""
+    each an eager bounce step's: (closest hit, cull, threefry, draws,
+    sphere pass, hit epilogue, shade) per step from the eager run, whose
+    reads are its steps; the jitter draws one bundle (of one draw) a
+    sample."""
     (_, e, es), (_, g, gs) = eager, graph
     assert es["idle_steps"] == 0 and es["reads"] > 0
-    for k, jitter in enumerate((0, 0, samples, samples)):
+    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0)):
         per_step, rest = divmod(e[k] - jitter, es["reads"])
         assert rest == 0
         assert g[k] == e[k] + gs["idle_steps"] * per_step

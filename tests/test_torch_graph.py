@@ -22,6 +22,7 @@ import torch
 import metalpathtracer_torch.core as tcore
 import metalpathtracer_torch.io as tio
 import metalpathtracer_torch.render as trender
+import metalpathtracer_torch.render.kernels as tkernels
 from metalpathtracer_torch.render import camera as tcam
 from metalpathtracer_torch.render import device_scene as tds
 from metalpathtracer_torch.render import graphs
@@ -31,6 +32,7 @@ from metalpathtracer_torch.scene import presets
 from metalpathtracer_tpu import core as jcore
 from metalpathtracer_tpu import io as jio
 from metalpathtracer_tpu import render as jrender
+from metalpathtracer_tpu.render import pallas as jpallas
 from metalpathtracer_tpu.core import rng as jrng
 from metalpathtracer_tpu.render import camera as jcam
 from metalpathtracer_tpu.render import integrator as jint
@@ -283,7 +285,8 @@ def test_no_upload_inside_a_window(cornell_mesh, monkeypatch, what):
 # ---------------------------------------------------------------------------
 
 SURFACE = [(mine, theirs, name)
-           for mine, theirs in ((trender, jrender), (tcore, jcore), (tio, jio))
+           for mine, theirs in ((trender, jrender), (tcore, jcore), (tio, jio),
+                                (tkernels, jpallas))
            for name in theirs.__all__]
 
 
