@@ -2,11 +2,13 @@
 """Smoke test of the PyTorch/CUDA port (`metalpathtracer_torch`) on one card.
 
 Builds the hand-written CUDA kernels from `metalpathtracer_torch/csrc/` (one
-`nvcc` each, started together), holds each to its plain PyTorch version at
-the shapes the render paths give it, then drives those paths through the
+`nvcc` a source, started together), holds each to its plain PyTorch version
+at the shapes the render paths give it, then drives those paths through the
 port's entry points at full size and checks that every advance went through
-the six kernels (the closest hit, the tile cull, the RNG's threefry, and
-the bounce step's sphere pass, hit epilogue and shading).
+the seven kernels (the closest hit, the tile cull, the RNG's threefry, and
+the bounce step's front end, hit epilogue, and shading: `shade`, or on the
+wavefront at one bounce an advance `shade_bank`, the shading that also
+banks the finished paths).
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
@@ -72,7 +74,7 @@ Phases, each raising on failure:
     `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
     bvh` at 320x180, spp 2, depth 8, on the scan and with `--wavefront`,
     against the `mm` render: it must launch neither tile kernel nor the
-    sphere pass or the hit epilogue, shade on the shading kernel, run on
+    front end or the hit epilogue, shade on a shading kernel, run on
     its integrator's eager loop by config (no warm-up, capture or replay)
     and equal its render under `graphs.eager()` bit for bit;
 14. the sharded path (`parallel/sharding.py` over `torch.distributed`):
@@ -104,8 +106,9 @@ Phases, each raising on failure:
     spheres alone, so it launches no tile kernel) and `scenes/multimesh.xml` at
     320x180, spp 2, depth 8 on both integrators, whose shadow rays go
     through both kernels; NEE shades in plain torch, by config: the
-    sphere pass and the hit epilogue run twice a bounce step (its closest
-    hit and its shadow rays'), the shading kernel never;
+    front end (as the sphere pass on config 4) and the hit epilogue run
+    twice a bounce step (its closest hit and its shadow rays'), the shading
+    kernels never;
 16. `threefry_bundle` vs its plain twin (run after phase 5, with the other
     kernels' comparisons), at the bundles the paths give it: the bounce
     step's (lobe and Fresnel, per-lane sample ids and bounces; 32,768
@@ -140,27 +143,34 @@ Phases, each raising on failure:
     by a block past its last live lane, counted in the program's report)
     launch, each an eager bounce step's launches (the flagships' exactly
     408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md; the bounce
-    step's three kernels 408 and 128 each); host reads
+    step's front end, hit epilogue and shading kernel 408 and 128 each: on
+    the wavefront `shade_bank`, on the scan `shade`); host reads
     a render (one a window, drain block or scan block; on the scan's eager
     loop one a bounce step), flagged synchronising calls inside windows
     and blocks (0 on both loops); the busy share of one profiled render of
     each loop (the union of its device intervals over its own wall time;
     its kernel events held against its tallies) and, on the graph loop,
     the replays' share of one unprofiled render between CUDA events; then
-    the closest hit, the cull and the threefry bundle of call GRAPH_CALL
-    inside a captured flagship window, and of a captured bounce block of
-    the flagship scan, the viewer's scan frames and config 4 (its bundle
-    alone: no triangle), as the last replay computed them: each bit-equal
-    to an eager launch of its kernel at the same inputs, and held against
-    its plain version by phases 2, 4 and 16's criteria;
-18. (run after phase 16) the bounce step's kernels (`sphere_pass`,
-    `hit_epilogue`, `shade`) vs their plain twins, bit-equal (NaN where both
+    the closest hit, the cull, the threefry bundle and the bounce step's
+    kernels of call GRAPH_CALL inside a captured flagship window, and of a
+    captured bounce block of the flagship scan, the viewer's scan frames
+    and config 4 (its bundle, sphere pass and epilogue: no triangle), as
+    the last replay computed them: each bit-equal to an eager launch of its
+    kernel at the same inputs, and held against its plain version by
+    phases 2, 4, 16 and 18's criteria;
+18. (run after phase 16) the bounce step's kernels (`hit_front`, and as
+    `sphere_pass` without the closest hit's operands; `hit_epilogue`;
+    `shade`; `shade_bank`) vs their plain twins, bit-equal (NaN where both
     are NaN), at the calls the paths make: the flagship scan's first and
     second bounce steps (921,600 lanes), the flagship wavefront's advance
     CAPTURE_CALL (32,768 lanes), a viewer frame's pool call 5 (16,384) and
     drain call 1 (1,024), the bunny300k leg's first step (32,768) and config
     4's first step (262,144 lanes, spheres alone; its closest hit and its
-    shadow rays', the sphere pass and the epilogue alone); each with its
+    shadow rays', the sphere pass and the epilogue alone; without NEE, its
+    shading); `shade_bank` also where the paths call `shade` (the scan,
+    the leg's step, config 4), on bank operands made from the call's, and
+    the front end also on 921,523 of the scan's lanes (not whole 128-lane
+    subgroups) with an active mask and an occlusion bound; each with its
     device, call and plain time and its bound, the larger of its bytes at
     the memory rate and its operations (counted from its source) at the
     f32 peak.
@@ -178,8 +188,9 @@ moves as an eager launch does; the wrappers' Python counts hold the
 eager launches and those traced into a capture, and must equal the
 tallies where nothing was replayed. Every traced bounce step must launch
 both tile kernels once and the threefry kernel exactly once (its bundle),
-with at least two draws, the sphere pass and the hit epilogue at least
-once, and either the shading kernel once or, with NEE, the plain shading.
+with at least two draws, the front end and the hit epilogue at least
+once, and exactly one of the shading kernels or, with NEE, the plain
+shading.
 A kernel's `ms` is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events (`device_ms`); its `call_ms` is the mean of 20
 wrapper calls back to back between CUDA events (`call_ms`), which reads the
@@ -221,7 +232,9 @@ Usage:
                                      # eager render of both flagships, and
                                      # the graph path's seconds and device
                                      # time of both and the bunny300k leg
-                                     # (--profile runs [R] too)
+                                     # (--profile runs [R] too); inside the
+                                     # closest hit's inputs and the bank,
+                                     # device time by kernel name
     python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
                                      # one rank on each of 4 cards, joined
                                      # by nccl (a machine with 4 cards)
@@ -267,17 +280,33 @@ KERNELS = {
                        replaces=f"{TPU_FILE}:712"),
     "threefry": dict(source="metalpathtracer_torch/csrc/threefry.cu",
                      replaces="benchmarks/mosaic_probe.py:42"),
-    # the bounce step's XLA fusions (no Pallas body): the sphere pass, the
-    # closest hit's epilogue, the shading without next-event estimation
-    "sphere_pass": dict(source="metalpathtracer_torch/csrc/sphere_pass.cu",
-                        replaces=f"{TPU_FILE}:1279"),
+    # the bounce step's XLA fusions (no Pallas body): the sphere pass with
+    # the closest hit's operands (the front end), the closest hit's
+    # epilogue, the shading without next-event estimation, and the shading
+    # with the wavefront advance's bank
+    "hit_front": dict(source="metalpathtracer_torch/csrc/sphere_pass.cu",
+                      replaces=f"{TPU_FILE}:1279",
+                      also_replaces=f"{TPU_FILE}:395, {TPU_FILE}:1340"),
     "hit_epilogue": dict(source="metalpathtracer_torch/csrc/hit_epilogue.cu",
                          replaces=f"{TPU_FILE}:1315"),
     "shade": dict(source="metalpathtracer_torch/csrc/shade.cu",
                   replaces="metalpathtracer_tpu/render/integrator.py:315"),
+    "shade_bank": dict(source="metalpathtracer_torch/csrc/shade.cu",
+                       replaces="metalpathtracer_tpu/render/integrator.py:315",
+                       also_replaces="metalpathtracer_tpu/render/integrator.py:702"),
 }
-# the bounce step's kernels (render/kernels/shade.py)
-SHADING = ("sphere_pass", "hit_epilogue", "shade")
+# the bounce step's kernels, by the names of their device tallies
+# (render/kernels/_build.py), and the keys of their launches in a counted
+# path's record
+SHADING = ("hit_front", "hit_epilogue", "shade", "shade_bank")
+SHADING_KEYS = ("front_launches", "epilogue_launches", "shade_launches",
+                "shade_bank_launches")
+# their wrappers and the kernel each launches: `intersect_mm.hit_front` the
+# front end, `shade.sphere_pass` the same kernel without the closest hit's
+# operands (a scene of spheres alone), the rest `render/kernels/shade.py`'s
+WRAPPER_KERNEL = {"hit_front": "hit_front", "sphere_pass": "hit_front",
+                  "hit_epilogue": "hit_epilogue", "shade": "shade",
+                  "shade_bank": "shade_bank"}
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
@@ -609,23 +638,34 @@ def judge_mismatches(scene, o, d, prim_a, t_a, prim_b, t_b, what: str):
     return len(k), int(tie.sum()), int((edge & ~tie).sum())
 
 
+def wrapper_module(name: str):
+    """The module whose attribute `name` the port calls for a bounce-step
+    wrapper (looked up at every call, so swapping it reroutes the calls)."""
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    return tmm if name == "hit_front" else tsh
+
+
 @contextlib.contextmanager
 def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING):
     """Route the kernels named in `which` through their plain versions (the
     threefry kernel's wrapper is `threefry_bundle`, which every draw goes
-    through; the bounce step's kernels are looked up on
-    `render/kernels/shade.py` at every call), on the eager loop: a plain
-    version reads the device on the host, which no CUDA graph may
-    capture."""
+    through; the bounce step's wrappers are looked up on their modules at
+    every call, and `hit_front` names the sphere pass's wrapper too, which
+    launches its kernel), on the eager loop: a plain version reads the
+    device on the host, which no CUDA graph may capture."""
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
-    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     plain = {"mm_closest_hit": (tmm, "mm_closest_hit", tmm.mm_closest_hit_reference),
              "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
              "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference),
-             **{k: (tsh, k, getattr(tsh, f"{k}_reference")) for k in SHADING}}
+             **{w: (wrapper_module(w), w, getattr(wrapper_module(w), f"{w}_reference"))
+                for w in WRAPPER_KERNEL}}
+    which = [w for k in which for w in (
+        [w for w, kk in WRAPPER_KERNEL.items() if kk == k] if k in SHADING else [k])]
     kernels = {k: getattr(plain[k][0], plain[k][1]) for k in which}
     graphs.clear()
     for k in which:
@@ -656,13 +696,15 @@ def counted_path(tiles: bool = True):
     cache is cleared on entry and on exit: its key holds no function, and
     the bounce step is swapped here. Without `tiles` (a scene of spheres
     alone, which launches no tile kernel) the threefry kernel alone must
-    run on every step. The bounce step's kernels likewise:
-    `sphere_launches`, `epilogue_launches` and `shade_launches` the
-    tallies, `*_calls` the wrappers'; every traced step must run the
-    sphere pass and the hit epilogue at least once each (its closest hit;
-    twice with a shadow ray) and either the shading kernel once or the
-    plain shading with next-event estimation (`nee_steps`, counted in
-    `graphs.STATS`), never both."""
+    run on every step. The bounce step's kernels likewise (SHADING_KEYS:
+    `front_launches`, `epilogue_launches`, `shade_launches`,
+    `shade_bank_launches` the tallies, `*_calls` the wrappers'; the front
+    end's kernel also runs as the sphere pass on a scene of spheres alone,
+    whose wrapper's calls `front_calls` counts too): every traced step must
+    run the front end and the hit epilogue at least once each (its closest
+    hit; twice with a shadow ray) and exactly one of the shading kernel, the
+    shading with the wavefront's bank, or the plain shading with next-event
+    estimation (`nee_steps`, counted in `graphs.STATS`)."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -677,7 +719,7 @@ def counted_path(tiles: bool = True):
     odd_shading = []  # (shading launches, NEE steps) of a step that broke it
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
                  tmm.cull_pass_reference, tfk.threefry_bundle_reference)
-    twins = {k: getattr(tsh, f"{k}_reference") for k in SHADING}
+    twins = {k: getattr(wrapper_module(k), f"{k}_reference") for k in WRAPPER_KERNEL}
 
     def counter(key, fn):
         def wrapped(*a, **k):
@@ -689,12 +731,14 @@ def counted_path(tiles: bool = True):
         step.calls += 1
         bundle = tfk.threefry_bundle
         launches, draws = bundle.launches, bundle.draws
-        shaded, nee = tsh.shade.launches, graphs.STATS["nee_steps"]
+        shaded = tsh.shade.launches + tsh.shade_bank.launches
+        nee = graphs.STATS["nee_steps"]
         out = originals[0](*a, **k)
         launches, draws = bundle.launches - launches, bundle.draws - draws
         if launches != 1 or draws < 2:
             odd_steps.append((launches, draws))
-        shaded, nee = tsh.shade.launches - shaded, graphs.STATS["nee_steps"] - nee
+        shaded = tsh.shade.launches + tsh.shade_bank.launches - shaded
+        nee = graphs.STATS["nee_steps"] - nee
         if shaded + nee != 1:
             odd_shading.append((shaded, nee))
         return out
@@ -706,15 +750,15 @@ def counted_path(tiles: bool = True):
     tmm.cull_pass_reference = counter("plain_cull", originals[2])
     tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
     for k, fn in twins.items():
-        setattr(tsh, f"{k}_reference", counter("plain_shading", fn))
+        setattr(wrapper_module(k), f"{k}_reference", counter("plain_shading", fn))
     result = {}
     try:
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
         tmm.cull_tiles.launches = 0
         tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
-        for k in SHADING:
-            getattr(tsh, k).launches = 0
+        for k in WRAPPER_KERNEL:
+            getattr(wrapper_module(k), k).launches = 0
         _build.zero_tallies()
         replays = graphs.STATS["replays"]
         nee_steps = graphs.STATS["nee_steps"]
@@ -723,7 +767,7 @@ def counted_path(tiles: bool = True):
         (tint._bounce_step, tmm.mm_closest_hit_reference,
          tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
         for k, fn in twins.items():
-            setattr(tsh, f"{k}_reference", fn)
+            setattr(wrapper_module(k), f"{k}_reference", fn)
         graphs.clear()
     replayed = graphs.STATS["replays"] - replays
     done = executed()
@@ -734,18 +778,19 @@ def counted_path(tiles: bool = True):
                   threefry_call_draws=tfk.threefry_bundle.draws,
                   mm_launches=done[0], cull_launches=done[1],
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
-                  sphere_calls=tsh.sphere_pass.launches,
+                  front_calls=tmm.hit_front.launches + tsh.sphere_pass.launches,
                   epilogue_calls=tsh.hit_epilogue.launches,
-                  shade_calls=tsh.shade.launches, sphere_launches=shading[0],
-                  epilogue_launches=shading[1], shade_launches=shading[2],
+                  shade_calls=tsh.shade.launches,
+                  shade_bank_calls=tsh.shade_bank.launches,
+                  **dict(zip(SHADING_KEYS, shading)),
                   nee_steps=graphs.STATS["nee_steps"] - nee_steps)
     if any(calls.values()):
         raise RuntimeError(f"the path ran a plain version: {calls}")
     if result["steps"] == 0 or tiles and min(result["mm_calls"],
                                              result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
-    if min(result["sphere_calls"], result["epilogue_calls"]) < result["steps"]:
-        raise RuntimeError(f"not every bounce step launched the sphere pass and the "
+    if min(result["front_calls"], result["epilogue_calls"]) < result["steps"]:
+        raise RuntimeError(f"not every bounce step launched the front end and the "
                            f"hit epilogue: {result}")
     if odd_steps:
         raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
@@ -753,29 +798,30 @@ def counted_path(tiles: bool = True):
                            f"{odd_steps[0]}: {result}")
     if odd_shading:
         raise RuntimeError(f"{len(odd_shading)} bounce steps did not shade exactly once "
-                           f"(the kernel, or the plain shading with NEE), e.g. "
+                           f"(a shading kernel, or the plain shading with NEE), e.g. "
                            f"(launches, NEE steps) {odd_shading[0]}: {result}")
     if min(done[:3] if tiles else done[2:3]) == 0 or min(shading[:2]) == 0 or (
-            shading[2] == 0 and result["nee_steps"] < result["steps"]):
+            shading[2] + shading[3] == 0 and result["nee_steps"] < result["steps"]):
         raise RuntimeError(f"a kernel ran no time on the card: {result}")
     if not replayed and (done != (result["mm_calls"], result["cull_calls"],
                                   result["threefry_calls"],
                                   result["threefry_call_draws"])
-                         or shading != (result["sphere_calls"], result["epilogue_calls"],
-                                        result["shade_calls"])):
+                         or shading != (result["front_calls"], result["epilogue_calls"],
+                                        result["shade_calls"],
+                                        result["shade_bank_calls"])):
         raise RuntimeError(f"the card ran other launches than the wrappers made: "
                            f"{result}")
 
 
 def shading_text(counts) -> str:
     """The bounce step's kernels' launches of a counted path, for a log."""
-    return (f"sphere_pass {counts['sphere_launches']}, hit_epilogue "
-            f"{counts['epilogue_launches']}, shade {counts['shade_launches']}")
+    return ", ".join(f"{k} {counts[key]}" for k, key in zip(SHADING, SHADING_KEYS))
 
 
 def executed_shading() -> tuple:
-    """(sphere pass, hit epilogue, shading) launches run on this process's
-    card since the tallies were last zeroed: one read."""
+    """(front end, hit epilogue, shading, shading with the bank) launches
+    run on this process's card since the tallies were last zeroed: one
+    read."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
@@ -888,11 +934,13 @@ def phase_setup():
     from metalpathtracer_torch.render.kernels import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        libs = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
+    sources = sorted({_build.source_of(k) for k in KERNELS})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        libs = dict(zip(sources, ex.map(_build.build, sources)))
     build_s = time.perf_counter() - t0
     OUT.mkdir(parents=True, exist_ok=True)
-    log(f"[1] built {len(libs)} kernels in {build_s:.2f} s; ptxas:")
+    log(f"[1] built {len(KERNELS)} kernels from {len(libs)} sources in {build_s:.2f} s; "
+        "ptxas:")
     for name, so in libs.items():
         compiler_log = so.with_name(so.name + ".log").read_text()
         (OUT / f"nvcc_{name}.log").write_text(compiler_log)
@@ -943,12 +991,21 @@ def primary_and_bounce(scene, w, h, stride=1, draws=None, cam=None, cfg=None):
     return {"primary": (o, d, None), "bounce1": (step[0], step[1], step[4])}
 
 
+def sphere_t(scene, o, d):
+    """Each ray's nearest sphere's t (the sphere pass), the occlusion bound
+    `closest_hit_mm_full` gives the cull."""
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    return tsh.sphere_pass(o, d, scene.sph_center, scene.sph_radius, scene.sph_ids,
+                           T_MIN)[0]
+
+
 def closest_hit_set(scene, o, d, act):
     """`mm_closest_hit`'s arguments for rays (o, d) as `closest_hit_mm_full`
     makes them (the sphere pass's t as occlusion bound), with the rays."""
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
+    t_s = sphere_t(scene, o, d)
     args = tmm.kernel_inputs(scene, o, d, t_s, act, T_MIN) + (scene.mm_w, T_MIN)
     return dict(args=args, o=o, d=d,
                 active=int(act.sum()) if act is not None else o.shape[0])
@@ -1315,7 +1372,7 @@ def cull_args_of(scene, o, d, act):
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    t_s = tmm._sphere_hit_exact(scene, o, d, T_MIN)[0]
+    t_s = sphere_t(scene, o, d)
     a = (torch.ones((o.shape[0],), device=o.device) if act is None
          else act.to(torch.float32))
     return tmm.ray_features(o, d), a, scene.mm_tile_box, T_MIN, t_s
@@ -1395,21 +1452,20 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     same advance are cloned under the name, and so are the arguments of
     every `threefry_bundle` call after it until the next `mm_closest_hit`
     call (the advance's bundles: the bounce step's, then the restart's
-    jitter). With `shading` (a dict) the same bounce step's sphere pass
-    (before the closest hit), hit epilogue and shading calls are cloned
-    into `shading[name]` as {kernel: args}. With `stop` the run is ended at
-    the call after the last pick.
+    jitter). With `shading` (a dict) the same bounce step's front end
+    (before the closest hit), hit epilogue and shading calls (`shade` or
+    `shade_bank`) are cloned into `shading[name]` as {wrapper: args}. With
+    `stop` the run is ended at the call after the last pick.
     Returns {name: (mm_args, cull_args, [bundle_args, ...])}."""
     import torch
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
-    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
-    shading_kernels = {k: getattr(tsh, k) for k in SHADING}
-    seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None, "sphere": None}
+    shading_kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
+    seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None, "front": None}
     captured = {}
 
     def cull(*args, **kw):
@@ -1418,8 +1474,8 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
 
     def shaded(kernel):
         def wrapped(*args, **kw):
-            if kernel == "sphere_pass":
-                seen["sphere"] = _clone(args)
+            if kernel == "hit_front":
+                seen["front"] = _clone(args)
             elif seen["drawing"] is not None and shading is not None:
                 shading[seen["drawing"]].setdefault(kernel, _clone(args))
             return shading_kernels[kernel](*args, **kw)
@@ -1438,7 +1494,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
                 captured[name] = _clone(args), _clone(seen["cull"]), []
                 seen["drawing"] = name
                 if shading is not None:
-                    shading[name] = {"sphere_pass": seen["sphere"]}
+                    shading[name] = {"hit_front": seen["front"]}
         return kernels[0](*args, **kw)
 
     def draw(*args, **kw):
@@ -1452,8 +1508,8 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     mm.launches = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
-    for k in SHADING:
-        setattr(tsh, k, shaded(k))
+    for k in WRAPPER_KERNEL:
+        setattr(wrapper_module(k), k, shaded(k))
     try:
         with graphs.eager():
             run()
@@ -1462,7 +1518,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
         for k, fn in shading_kernels.items():
-            setattr(tsh, k, fn)
+            setattr(wrapper_module(k), k, fn)
         graphs.clear()
     torch.cuda.synchronize()
     if len(captured) != len(picks):
@@ -1493,12 +1549,11 @@ def recorded_draws():
 
 @contextlib.contextmanager
 def recorded_shading():
-    """Every call of the bounce step's kernels' wrappers
-    (`render/kernels/shade.py`), its arguments cloned into the yielded
-    {kernel: [args, ...]}; the calls go through."""
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    kernels, calls = {k: getattr(tsh, k) for k in SHADING}, {k: [] for k in SHADING}
+    """Every call of the bounce step's kernels' wrappers (WRAPPER_KERNEL),
+    its arguments cloned into the yielded {wrapper: [args, ...]}; the calls
+    go through."""
+    kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
+    calls = {k: [] for k in WRAPPER_KERNEL}
 
     def recorder(kernel):
         def wrapped(*args, **kw):
@@ -1507,13 +1562,13 @@ def recorded_shading():
         wrapped.launches = 0
         return wrapped
 
-    for k in SHADING:
-        setattr(tsh, k, recorder(k))
+    for k in WRAPPER_KERNEL:
+        setattr(wrapper_module(k), k, recorder(k))
     try:
         yield calls
     finally:
         for k, fn in kernels.items():
-            setattr(tsh, k, fn)
+            setattr(wrapper_module(k), k, fn)
 
 
 def shading_steps(scene, w, h, steps, stride=1, cam=None, cfg=None, seed=0):
@@ -1759,6 +1814,26 @@ def profile(fn, name, steps: int) -> str:
     return summary
 
 
+# the ranges whose device events `range_table` also splits by kernel name
+SPLIT_RANGES = ("hit.front", "hit.kernel_inputs", "wavefront.bank", "step.shade_bank")
+
+
+def kernel_label(name: str) -> str:
+    """A device event's kernel name, short: no return type, namespaces or
+    parameter list; the template arguments that name the operation kept."""
+    name = re.sub(r"^void ", "", name)
+    name = re.sub(r"\(anonymous namespace\)::|at::native::|at_cuda_detail::|c10::|"
+                  r"std::", "", name)
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            cut = i
+            break
+    return name[:cut][:140]
+
+
 def range_table(fn, name: str, steps: int) -> dict:
     """One warm `fn()` and one under torch.profiler (host and device), both
     on the eager loop (`graphs.eager()`: a replay runs no Python, so only
@@ -1768,8 +1843,9 @@ def range_table(fn, name: str, steps: int) -> dict:
     call, or else the torch op it is linked to); events launched outside
     every range are "(no range)". Returns {range: [device ms, events]} and
     logs the table with each range's events a bounce step (`steps`: the
-    bounce steps of one run). A kernel's device time is the same in a
-    replay; the gaps between kernels are not."""
+    bounce steps of one run), and the events of SPLIT_RANGES by kernel name
+    (`split`). A kernel's device time is the same in a replay; the gaps
+    between kernels are not."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1789,7 +1865,7 @@ def range_table(fn, name: str, steps: int) -> dict:
         if e.device_type() == cuda:
             if not ename.startswith(SPAN_PREFIX):
                 device.append((e.correlation_id(), e.linked_correlation_id(),
-                               e.duration_ns()))
+                               e.duration_ns(), ename))
         elif ename.startswith(SPAN_PREFIX):
             ranges.append((e.start_ns(), e.end_ns(), ename[len(SPAN_PREFIX):]))
         elif ename.startswith("cu"):  # a CUDA API call (cudaLaunchKernel, ...)
@@ -1797,13 +1873,13 @@ def range_table(fn, name: str, steps: int) -> dict:
         else:
             ops.setdefault(e.correlation_id(), e.start_ns())
     launched = []
-    for corr, linked, ns in device:
+    for corr, linked, ns, ename in device:
         at = runtime.get(corr, ops.get(linked))
-        launched.append((at if at is not None else -1, ns))
+        launched.append((at if at is not None else -1, ns, ename))
     launched.sort()
     ranges.sort()
-    table, stack, k = {}, [], 0
-    for at, ns in launched:
+    table, split, stack, k = {}, {}, [], 0
+    for at, ns, ename in launched:
         while k < len(ranges) and ranges[k][0] <= at:
             while stack and stack[-1][1] < ranges[k][0]:
                 stack.pop()
@@ -1815,6 +1891,10 @@ def range_table(fn, name: str, steps: int) -> dict:
         row = table.setdefault(key, [0.0, 0])
         row[0] += ns / 1e6
         row[1] += 1
+        if key in SPLIT_RANGES:
+            row = split.setdefault(key, {}).setdefault(kernel_label(ename), [0.0, 0])
+            row[0] += ns / 1e6
+            row[1] += 1
     total = sum(v[0] for v in table.values())
     lines = [f"{k}: {v[0]:.2f} ms ({100 * v[0] / total:.1f}%), {v[1]} events, "
              f"{v[1] / steps:.1f} a bounce step"
@@ -1822,7 +1902,12 @@ def range_table(fn, name: str, steps: int) -> dict:
     log(f"    ranges {name} (eager, profiled): {total:.1f} ms of device time in "
         f"{len(launched)} events, {len(launched) / steps:.1f} a bounce step over "
         f"{steps} steps; " + "; ".join(lines))
-    return dict(total_ms=total, events=len(launched), steps=steps, ranges=table)
+    for key, kernels in split.items():
+        log(f"    inside {key} ({name}), by kernel: " + "; ".join(
+            f"{k}: {v[0]:.2f} ms, {v[1]} events, {v[1] / steps:.1f} a bounce step"
+            for k, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
+    return dict(total_ms=total, events=len(launched), steps=steps, ranges=table,
+                split=split)
 
 
 def phase_ranges(scene, bunny, card) -> dict:
@@ -1925,8 +2010,9 @@ def phase_small_vs_plain(scene):
         result[name] = dict(divergent=frac, mean_diff=dmean, rays=ra, plain_rays=rb)
         log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
             f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}; "
-            "with the RNG's twin alone, and with the sphere pass's, the hit "
-            "epilogue's and the shading's twins alone: bit-equal")
+            "with the RNG's twin alone, and with the bounce step's twins alone "
+            "(the front end's, the hit epilogue's, the shading's and the shading "
+            "with the bank's): bit-equal")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
@@ -2293,8 +2379,13 @@ def phase_bvh(sets, n_each, chunk):
                     str(OUT / f"small_{tag}.png"), "--npz",
                     str(OUT / f"small_{tag}.npz")] + extra
 
+        def shading_calls():  # (front end, hit epilogue, either shading)
+            return (tmm.hit_front.launches + tsh.sphere_pass.launches,
+                    tsh.hit_epilogue.launches,
+                    tsh.shade.launches + tsh.shade_bank.launches)
+
         launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
-        shaded = tuple(getattr(tsh, k).launches for k in SHADING)
+        shaded = shading_calls()
         before = dict(graphs.STATS)
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -2305,13 +2396,13 @@ def phase_bvh(sets, n_each, chunk):
         ran = tmm.mm_closest_hit.launches - launches[0]
         if (ran > 0) != (kind == "mm"):
             raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
-        # the BVH walk has no sphere pass or epilogue; every route shades on
-        # the kernel (NEE off)
-        shaded = tuple(getattr(tsh, k).launches - b for k, b in zip(SHADING, shaded))
+        # the BVH walk has no front end or epilogue; every route shades on a
+        # shading kernel (NEE off)
+        shaded = tuple(a - b for a, b in zip(shading_calls(), shaded))
         if (shaded[0] > 0) != (kind == "mm") or (shaded[1] > 0) != (kind == "mm") \
                 or shaded[2] == 0:
-            raise RuntimeError(f"--intersector {kind} {extra}: (sphere pass, hit "
-                               f"epilogue, shade) calls {shaded}")
+            raise RuntimeError(f"--intersector {kind} {extra}: (front end, hit "
+                               f"epilogue, shading) calls {shaded}")
         seconds[name] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
         images[name] = check_image(OUT / f"small_{name}.npz", (180, 320, 3))
         if kind == "bvh":
@@ -2530,8 +2621,7 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             launches = {k: sum(res["counts"][k] for res in results)
                         for k in ("steps", "mm_launches", "cull_launches",
                                   "threefry_launches", "threefry_draws",
-                                  "sphere_launches", "epilogue_launches",
-                                  "shade_launches")}
+                                  *SHADING_KEYS)}
             by_rank = [res["counts"]["mm_launches"] for res in results]
             if job["kind"] == "cli":
                 if any(res["rc"] != 0 for res in results) or any(
@@ -2626,16 +2716,17 @@ def phase_nee(card):
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     mm_n, cull_n, bundles, draws = executed()  # on the card, replays too
-    sph_n, epi_n, shade_n = executed_shading()
+    sph_n, epi_n, shade_n, bank_n = executed_shading()
     if mm_n or cull_n:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
     if bundles == 0:
         raise RuntimeError("config 4 launched no RNG kernel")
-    # NEE shades in plain torch, by config: the closest hit (the sphere pass
-    # and the epilogue) twice a step, the shading kernel never
-    if shade_n or not sph_n == epi_n > 0 or sph_n % 2:
-        raise RuntimeError(f"config 4: (sphere pass, hit epilogue, shade) launches "
-                           f"{(sph_n, epi_n, shade_n)}")
+    # NEE shades in plain torch, by config: the closest hit (the sphere pass,
+    # the front end's kernel without operands, and the epilogue) twice a
+    # step, the shading kernels never
+    if shade_n or bank_n or not sph_n == epi_n > 0 or sph_n % 2:
+        raise RuntimeError(f"config 4: {SHADING} launches "
+                           f"{(sph_n, epi_n, shade_n, bank_n)}")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
     cpu_s = time.perf_counter() - t0
@@ -2644,14 +2735,15 @@ def phase_nee(card):
         raise RuntimeError(f"config 4: mean {a.mean()}, rays {ra} vs {rb}")
     record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
                              divergent=frac, mean_diff=dmean, threefry_launches=bundles,
-                             threefry_draws=draws, sphere_launches=sph_n,
-                             epilogue_launches=epi_n, shade_launches=shade_n)
+                             threefry_draws=draws, front_launches=sph_n,
+                             epilogue_launches=epi_n, shade_launches=shade_n,
+                             shade_bank_launches=bank_n)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
         f"tile kernel launched (spheres alone), threefry {bundles} launches, "
-        f"{draws} draws, sphere_pass {sph_n}, hit_epilogue {epi_n}, shade {shade_n} "
-        f"(NEE shades in plain torch)")
+        f"{draws} draws, hit_front {sph_n} (as the sphere pass), hit_epilogue {epi_n}, "
+        f"shade {shade_n}, shade_bank {bank_n} (NEE shades in plain torch)")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -2670,10 +2762,10 @@ def phase_nee(card):
         shadow = out[2]["shadow_rays"] if name == "wavefront" else None
         if shadow is not None and not 0 < shadow < out[1]:
             raise RuntimeError(f"multimesh NEE wavefront: {shadow} shadow rays")
-        # each closest hit (the step's and its shadow ray's) runs the sphere
-        # pass and the epilogue; the shading is plain torch
-        if counts["shade_launches"] or not (
-                counts["sphere_launches"] == counts["epilogue_launches"]
+        # each closest hit (the step's and its shadow ray's) runs the front
+        # end and the epilogue; the shading is plain torch
+        if counts["shade_launches"] or counts["shade_bank_launches"] or not (
+                counts["front_launches"] == counts["epilogue_launches"]
                 == counts["mm_launches"] > 0) or counts["nee_steps"] != counts["steps"]:
             raise RuntimeError(f"multimesh NEE {name}: {counts}")
         record[f"multimesh_{name}"] = dict(card_s=card_s, rays=out[1], cpu_rays=b[1],
@@ -2863,22 +2955,26 @@ SCAN_FLAGSHIP_LAUNCHES = (128, 128, 132)
 
 # f32 operations a lane (and a sphere) of the bounce step's kernels, counted
 # from their sources (csrc/sphere_pass.cu, hit_epilogue.cu, shade.cu): the
-# quadratic of one sphere, d.d once; the epilogue's two normals, plane
-# refine and flip; the shading of a lane that hit (material, emission, the
-# three lobes and the Fresnel choice, offset, roulette) and of every lane
-# (the sky)
+# quadratic of one sphere, d.d once; the front end's features (o x d, o.d,
+# |o|^2) and occlusion bound; the epilogue's two normals, plane refine and
+# flip; the shading of a lane that hit (material, emission, the three lobes
+# and the Fresnel choice, offset, roulette) and of every lane (the sky); the
+# bank's clamp and its accumulator adds (3 a pixel of the item)
 SPHERE_FLOP, SPHERE_LANE_FLOP = 30, 5
+FRONT_LANE_FLOP = 20
 EPILOGUE_FLOP = 50
 SHADE_HIT_FLOP, SHADE_LANE_FLOP = 260, 15
+BANK_LANE_FLOP = 3
 
 
 def shading_bound(kernel: str, args) -> dict:
-    """The least time of one call of a bounce-step kernel on the card: the
-    bytes it must move (each input once, each output once; the refine rows
-    and material rows it reads counted as the distinct rows these inputs
-    need, the shading's per-hit inputs on the lanes that hit here) at the
-    memory rate, and its operations (f32, counted from the source; the
-    shading's per-hit work on the lanes that hit here) at the f32 peak."""
+    """The least time of one call of a bounce-step wrapper's kernel on the
+    card: the bytes it must move (each input once, each output once; the
+    refine rows and material rows it reads counted as the distinct rows
+    these inputs need, the shading's per-hit inputs on the lanes that hit
+    here) at the memory rate, and its operations (f32, counted from the
+    source; the shading's per-hit work on the lanes that hit here) at the
+    f32 peak."""
     import torch
 
     n = args[0].shape[0]
@@ -2886,6 +2982,15 @@ def shading_bound(kernel: str, args) -> dict:
         s = args[2].shape[0]
         nbytes = 24 * n + 20 * s + 12 * n
         flop = n * (SPHERE_LANE_FLOP + SPHERE_FLOP * s)
+    elif kernel == "hit_front":
+        # o, d; active and occ_t where given; the spheres; t, idx and slot;
+        # x, act and occ on every padded lane
+        active, occ_t, s = args[2], args[3], args[4].shape[0]
+        n_pad = n + (-n) % 128
+        nbytes = (24 * n + (n if active is not None else 0)
+                  + (4 * n if occ_t is not None else 0) + 20 * s + 12 * n
+                  + 56 * n_pad)
+        flop = n * (SPHERE_LANE_FLOP + SPHERE_FLOP * s + FRONT_LANE_FLOP)
     elif kernel == "hit_epilogue":
         t_tri, col, s = args[2], args[3], args[8].shape[0]
         rows = int(col.clamp(min=0).unique().numel()) if col is not None else 0
@@ -2897,19 +3002,26 @@ def shading_bound(kernel: str, args) -> dict:
         # active flag and its hit's id, and writes 53 B; a lane that hit
         # also reads its hit and draws (t, normal, front face, material id,
         # unit vector, Fresnel uniform: 37 B; with roulette its uniform and
-        # a per-lane bounce), one that did not its prev_pdf
+        # a per-lane bounce), one that did not its prev_pdf. With the bank
+        # every lane also reads its bounce, alive flag, schunk and
+        # accumulator and writes them back with its more and bank flags
         active, idx, mat_id, u_rr, bounce = args[4], args[7], args[10], args[13], args[14]
+        bank = kernel == "shade_bank"
         hits_mask = active & (idx >= 0)
         hits = int(hits_mask.sum())
         rows = int(mat_id[hits_mask].unique().numel())
         per_hit = 37
         if u_rr is not None:
             per_hit += 4
-            if isinstance(bounce, torch.Tensor) and bounce.numel() == n > 1:
+            if not bank and isinstance(bounce, torch.Tensor) and bounce.numel() == n > 1:
                 per_hit += bounce.element_size()
         nbytes = (53 * n + per_hit * hits + 4 * (n - hits) + 64 * rows + 24
                   + 53 * n + 8)
         flop = hits * SHADE_HIT_FLOP + n * SHADE_LANE_FLOP
+        if bank:
+            ka = args[21].shape[1]
+            nbytes += n * (8 + 1 + 8 + 4 * ka) + n * (4 * ka + 8 + 8 + 1 + 1)
+            flop += n * (BANK_LANE_FLOP + ka)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flop_ms = flop / PEAK_F32_FLOPS * 1e3
     return dict(bytes=nbytes, flop=flop, bound_ms=max(byte_ms, flop_ms),
@@ -2917,15 +3029,15 @@ def shading_bound(kernel: str, args) -> dict:
 
 
 def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
-    """One call of a bounce-step kernel against its twin on the same
-    inputs: bit for bit (NaN where both are NaN: a lane that misses has a
-    NaN normal on both), then its device time, call time, the twin's call
-    time and the bound."""
+    """One call of a bounce-step wrapper's kernel (`kernel` names the
+    wrapper, WRAPPER_KERNEL) against its twin on the same inputs: bit for
+    bit (NaN where both are NaN: a lane that misses has a NaN normal on
+    both), then its device time, call time, the twin's call time and the
+    bound."""
     import torch
 
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    fn, twin = getattr(tsh, kernel), getattr(tsh, f"{kernel}_reference")
+    module = wrapper_module(kernel)
+    fn, twin = getattr(module, kernel), getattr(module, f"{kernel}_reference")
     got, want = fn(*args), twin(*args)
     torch.cuda.synchronize()
     bad, err = 0, 0.0
@@ -2954,18 +3066,58 @@ def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
     return rec
 
 
+def bank_operands_of(shade_args, seed: int = 18):
+    """`shade_bank`'s operands from a `shade` call's: its bounce one a lane
+    (int64), lanes alive where they are active and on a quarter of the
+    others, random item chunks and accumulators, and the flagship's bank
+    (depth 32, 4 pixels an item, 4 samples a pixel)."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    o, active, bounce = shade_args[0], shade_args[4], shade_args[14]
+    n, dev = o.shape[0], o.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if not isinstance(bounce, torch.Tensor) or bounce.numel() != n:
+        bounce = torch.full((n,), int(bounce), dtype=torch.int64, device=dev)
+    plan = tsh.BankPlan(32, False, 4, 4, 16)
+    alive = active | (torch.rand(n, generator=gen, device=dev) < 0.25)
+    schunk = torch.randint(0, plan.per_item, (n,), generator=gen, device=dev)
+    acc = torch.rand((n, 3 * plan.bank_k), generator=gen, device=dev) * 3.0
+    return (*shade_args[:14], bounce.to(torch.int64), *shade_args[15:], alive, schunk,
+            acc, plan)
+
+
+def padded_front_of(front_args, drop: int = 77, seed: int = 18):
+    """`hit_front`'s operands for all but the last `drop` lanes of a call's
+    rays (not whole 128-lane subgroups), with a random active mask and
+    occlusion bound."""
+    import torch
+
+    o, d = front_args[0], front_args[1]
+    n, dev = o.shape[0] - drop, o.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    active = torch.rand(n, generator=gen, device=dev) < 0.75
+    occ_t = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                        torch.rand(n, generator=gen, device=dev) * 200.0, float("inf"))
+    return (o[:n].contiguous(), d[:n].contiguous(), active, occ_t, *front_args[4:])
+
+
 def phase_bounce_kernels(sets: dict) -> dict:
-    """18: the bounce step's kernels (`csrc/sphere_pass.cu`,
-    `hit_epilogue.cu`, `shade.cu`) against their twins at the calls the
-    paths make (`sets`: name -> {kernel: args}), each bit-equal, with its
-    device, call and plain time and its bound."""
+    """18: the bounce step's kernels (`csrc/sphere_pass.cu`'s front end and
+    sphere pass, `hit_epilogue.cu`, `shade.cu`'s shading and shading with
+    the bank) against their twins at the calls the paths make (`sets`: name
+    -> {wrapper: args}), each bit-equal, with its device, call and plain
+    time and its bound."""
     record = {}
     for name, calls in sets.items():
-        for kernel in SHADING:
-            if kernel in calls:
-                record[f"{name}_{kernel}"] = dict(
-                    set=name, kernel=kernel,
-                    **bounce_kernel_vs_twin(kernel, calls[kernel], name))
+        for wrapper in WRAPPER_KERNEL:
+            if calls.get(wrapper) is not None:
+                record[f"{name}_{wrapper}"] = dict(
+                    set=name, kernel=WRAPPER_KERNEL[wrapper], wrapper=wrapper,
+                    **bounce_kernel_vs_twin(wrapper, calls[wrapper], name))
     return record
 
 
@@ -2973,35 +3125,35 @@ def phase_bounce_kernels(sets: dict) -> dict:
 def recorded_in_capture(call: int):
     """The kernels wrapped: while a CUDA graph is being captured, the
     `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
-    those of the `cull_tiles` and `sphere_pass` calls before it and of the
-    first `hit_epilogue`, `threefry_bundle` and `shade` calls after it (its
-    bounce step's); on a scene without triangles, which launches no tile
-    kernel, the `call`-th bundle of more than one draw (a bounce step's),
-    and the `call`-th sphere pass and hit epilogue. The clones are made
-    inside the capture, so they are outputs of the graph: after a replay
-    they hold what that replay computed. Yields {kernel: (args, outputs)},
-    filled as the capture runs."""
+    those of the `cull_tiles` and `hit_front` calls before it and of the
+    first `hit_epilogue`, `threefry_bundle` and `shade` or `shade_bank`
+    calls after it (its bounce step's); on a scene without triangles, which
+    launches no tile kernel, the `call`-th bundle of more than one draw (a
+    bounce step's), and the `call`-th sphere pass and hit epilogue. The
+    clones are made inside the capture, so they are outputs of the graph:
+    after a replay they hold what that replay computed. Yields {kernel or
+    wrapper: (args, outputs)}, filled as the capture runs."""
     import torch
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
-    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
-    shading_kernels = {k: getattr(tsh, k) for k in SHADING}
-    got, seen = {}, {"mm": 0, "cull": None, "steps": 0, "sphere_pass": None,
+    shading_kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
+    got, seen = {}, {"mm": 0, "cull": None, "steps": 0, "hit_front": None,
                      "sphere_calls": 0}
 
     def shaded(kernel):
         def wrapped(*args, **kw):
             out = shading_kernels[kernel](*args, **kw)
             if torch.cuda.is_current_stream_capturing() and kernel not in got:
-                if kernel == "sphere_pass":
+                if kernel == "hit_front":
+                    seen["hit_front"] = _clone(args), _clone(out)
+                elif kernel == "sphere_pass":
                     seen["sphere_calls"] += 1
-                    seen["sphere_pass"] = _clone(args), _clone(out)
                     if seen["mm"] == 0 and seen["sphere_calls"] == call:
-                        got["sphere_pass"] = seen["sphere_pass"]
+                        got["sphere_pass"] = _clone(args), _clone(out)
                 elif "mm" in got or (kernel == "hit_epilogue" and "sphere_pass" in got):
                     got[kernel] = _clone(args), _clone(out)
             return out
@@ -3020,7 +3172,7 @@ def recorded_in_capture(call: int):
             seen["mm"] += 1
             if seen["mm"] == call:
                 got["mm"], got["cull"] = (_clone(args), _clone(out)), seen["cull"]
-                got["sphere_pass"] = seen["sphere_pass"]
+                got["hit_front"] = seen["hit_front"]
         return out
 
     def draw(*args, **kw):
@@ -3034,14 +3186,14 @@ def recorded_in_capture(call: int):
     mm.launches = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
-    for k in SHADING:
-        setattr(tsh, k, shaded(k))
+    for k in WRAPPER_KERNEL:
+        setattr(wrapper_module(k), k, shaded(k))
     try:
         yield got
     finally:
         tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
         for k, fn in shading_kernels.items():
-            setattr(tsh, k, fn)
+            setattr(wrapper_module(k), k, fn)
         graphs.clear()
 
 
@@ -3049,9 +3201,9 @@ def recorded_in_capture(call: int):
 PROFILE_ATTEMPTS = 3
 # idle seconds inside the profile before and after the render
 PROFILE_PAD_S = 0.1
-# the three kernels' names in the profiler's device events
+# the kernels' names in the profiler's device events
 KERNEL_EVENT_NAMES = ("mm_closest_hit_kernel", "cull_tiles_kernel", "threefry_kernel",
-                      "sphere_pass_kernel", "hit_epilogue_kernel", "shade_kernel")
+                      *(f"{k}_kernel" for k in SHADING))
 
 
 def device_busy(fn, what: str) -> dict:
@@ -3060,14 +3212,14 @@ def device_busy(fn, what: str) -> dict:
     call to the end of its device work, the profiler's cost in it), the
     union of its device intervals (the kernels, copies and fills CUPTI
     records, of a graph replay as of eager launches), the sum of their
-    durations, its device events, and the three kernels' events by name
-    beside their tallies. The busy share is the union over the wall time,
+    durations, its device events, and the kernels' events by name
+    (KERNEL_EVENT_NAMES) beside their tallies. The busy share is the union over the wall time,
     both of this one render.
 
     The profiler loses records: a whole graph replay's kernels may be
     missing from a profile, and a few events at a render's start or end
     (two profiles of one render differ by tens of events). A profile whose
-    three kernels' events fall short of their tallies is taken again, up
+    kernels' events fall short of their tallies is taken again, up
     to PROFILE_ATTEMPTS times, and the fullest is kept with its shortfall
     (`short`, by kernel; `lost`, every attempt's). More events than
     launches raises. The raw events are read (`kineto_results`): building
@@ -3212,7 +3364,8 @@ def graph_workloads(scene, bunny, multimesh):
 
 def scan_shading(eager, run) -> tuple:
     """The bounce step's kernels' launches a scan render on the graph loop
-    must make: the eager loop's (sphere pass, hit epilogue, shading) plus an
+    must make: the eager loop's (SHADING: front end, hit epilogue, shading,
+    shading with the bank) plus an
     eager bounce step's for every idle step its blocks ran."""
     steps, want = eager["stats"]["reads"], []
     for launched in eager["shading"]:
@@ -3290,7 +3443,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         want = scan_shading(a, b) if scan else a["shading"]
         if b["shading"] != want:
             raise RuntimeError(f"[17] {name}: {what}: the card ran {b['shading']} "
-                               f"(sphere pass, hit epilogue, shade), the eager loop "
+                               f"{SHADING}, the eager loop "
                                f"{a['shading']}, {b['stats']['idle_steps']} idle steps: "
                                f"{want} expected")
 
@@ -3308,12 +3461,15 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
                      eager["launched"]):
         raise RuntimeError(f"[17] {name}: launches {eager['launched']} eager, "
                            f"{graph['launched']} replayed; {flagship} expected on both")
-    # the flagship's bounce steps (one closest hit each) each run the sphere
-    # pass, the hit epilogue and the shading once
-    if flagship and not (eager["shading"] == graph["shading"] == (flagship[0],) * 3):
-        raise RuntimeError(f"[17] {name}: the bounce step's kernels ran "
+    # the flagship's bounce steps (one closest hit each) each run the front
+    # end, the hit epilogue and one shading kernel: `shade` on the scan, the
+    # shading with the bank on the wavefront (one bounce an advance)
+    steps = flagship[0] if flagship else 0
+    want = (steps, steps, steps, 0) if scan else (steps, steps, 0, steps)
+    if flagship and not (eager["shading"] == graph["shading"] == want):
+        raise RuntimeError(f"[17] {name}: the bounce step's kernels {SHADING} ran "
                            f"{eager['shading']} eager, {graph['shading']} replayed; "
-                           f"{(flagship[0],) * 3} expected on both")
+                           f"{want} expected on both")
     # counted_path cleared the cache: this render warms up and captures the
     # graphs that the timed renders replay
     first = once(False)
@@ -3356,8 +3512,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
     med = {k: statistics.median(v) for k, v in times.items()}
     launched = dict(zip(("mm_launches", "cull_launches", "threefry_launches",
                          "threefry_draws"), eager["launched"]),
-                    **dict(zip(("sphere_launches", "epilogue_launches",
-                                "shade_launches"), eager["shading"])))
+                    **dict(zip(SHADING_KEYS, eager["shading"])))
     idle = steady["idle_steps"]
     rec = dict(
         launched=launched, launched_graph=graph["launched"],
@@ -3385,8 +3540,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
         f"card (eager loop): mm_closest_hit {c['mm_launches']}, "
         f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
-        f"({c['threefry_draws']} draws), sphere_pass {c['sphere_launches']}, "
-        f"hit_epilogue {c['epilogue_launches']}, shade {c['shade_launches']}"
+        f"({c['threefry_draws']} draws), {shading_text(c)}"
         + (f", graph loop {graph['launched']} and {graph['shading']} with {idle} idle "
            f"steps past the last live lane" if scan
            else ", equal in every render of both loops")
@@ -3425,7 +3579,10 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     the bounce step's threefry bundle of call `call`, as the last replay
     computed them: each bit-equal to an eager launch of its kernel at the
     same inputs, and held against its plain version by the criteria of
-    phases 2, 4 and 16. A scene without triangles holds its bundle alone."""
+    phases 2, 4, 16 and 18; the bounce step's front end, epilogue and
+    shading (`shade_bank` in a wavefront window, `shade` in a scan block)
+    likewise. A scene without triangles holds its bundle, its sphere pass
+    and its epilogue (config 4 shades in plain torch, with NEE)."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -3433,7 +3590,6 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     from metalpathtracer_torch.render.camera import Camera
     from metalpathtracer_torch.render.integrator import RenderConfig
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
-    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
     if render is None:
@@ -3450,12 +3606,13 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     # a scene without triangles has no closest-hit call to anchor the step,
     # and shades in plain torch with NEE (config 4)
     kernels = ({"threefry", "sphere_pass", "hit_epilogue"} if scene.num_tris == 0
-               else {"mm", "cull", "threefry", *SHADING})
+               else {"mm", "cull", "threefry", "hit_front", "hit_epilogue",
+                     "shade" if what.endswith("_block") else "shade_bank"})
     if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != kernels:
         raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
     for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
                       ("threefry", tfk.threefry_bundle),
-                      *((k, getattr(tsh, k)) for k in SHADING)):
+                      *((k, getattr(wrapper_module(k), k)) for k in WRAPPER_KERNEL)):
         if kname not in rec:
             continue
         args, out = rec[kname]
@@ -3476,7 +3633,7 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
         out["mm"] = phase_kernel_vs_twin(
             scene, {f"in_{what}": captured_set(mm_args, cull_args[1])})[f"in_{what}"]
         out["cull"] = phase_cull(f"in_{what}", cull_args, sass)
-    for kname in SHADING:
+    for kname in WRAPPER_KERNEL:
         if kname in rec:
             out[kname] = bounce_kernel_vs_twin(kname, rec[kname][0], f"in_{what}")
     graphs.clear()
@@ -3798,7 +3955,7 @@ def main(argv=None) -> int:
     ref_sets = primary_and_bounce(scene, 1280, 720, draws=scan_draws)
     # the bounce step's kernels' calls: the flagship scan's first two steps
     # (921,600 lanes), the pool advance's and a viewer frame's
-    shading_sets = {f"scan_step{k}": {kernel: v[0] for kernel, v in calls.items()}
+    shading_sets = {f"scan_step{k}": {kernel: v[0] for kernel, v in calls.items() if v}
                     for k, calls in enumerate(shading_steps(scene, 1280, 720, 2), 1)}
     mm_pool, cull_pool, pool_draws = capture_pool_call(shading_sets)
     of_viewer = capture_viewer_calls(scene, shading_sets)
@@ -3851,18 +4008,34 @@ def main(argv=None) -> int:
     # lanes, spheres alone, NEE: its closest hits, the step's and the shadow
     # rays', without the shading kernel)
     (calls,) = shading_steps(big["bunny300k"], LEG_W, LEG_H, 1, stride=8)
-    shading_sets["bunny300k_step1"] = {kernel: v[0] for kernel, v in calls.items()}
+    shading_sets["bunny300k_step1"] = {kernel: v[0] for kernel, v in calls.items() if v}
     glass = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")), dev)
     (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
                              cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
-    if calls["shade"] or len(calls["sphere_pass"]) != 2:
+    if calls["shade"] or calls["shade_bank"] or calls["hit_front"] or len(
+            calls["sphere_pass"]) != 2:
         raise RuntimeError(f"config 4's step: {[(k, len(v)) for k, v in calls.items()]}")
     for k, label in enumerate(("config4_step1", "config4_shadow1")):
-        shading_sets[label] = {kernel: calls[kernel][k] for kernel in SHADING[:2]}
+        shading_sets[label] = {kernel: calls[kernel][k]
+                               for kernel in ("sphere_pass", "hit_epilogue")}
+    # config 4's step without NEE shades on the kernel: its shading at
+    # 262,144 lanes
+    (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
+                             cfg=RenderConfig(max_depth=16, rr_start=3))
+    shading_sets["config4_step1_no_nee"] = {"shade": calls["shade"][0]}
     del calls, glass
+    # the shading with the bank at the shapes where the paths shade alone
+    # (the scan, config 4, the bunny leg's step), on operands made from the
+    # step's; and the front end at a lane count that is not whole subgroups
+    for name in list(shading_sets):
+        calls = shading_sets[name]
+        if "shade" in calls and "shade_bank" not in calls:
+            calls["shade_bank"] = bank_operands_of(calls["shade"])
+    shading_sets["scan_step1_padded"] = {
+        "hit_front": padded_front_of(shading_sets["scan_step1"]["hit_front"])}
     log("[18] the bounce step's kernels vs their twins: "
-        + ", ".join(f"{k} ({v['sphere_pass'][0].shape[0]} lanes)"
-                    for k, v in shading_sets.items()))
+        + ", ".join(f"{k} ({next(iter(v.values()))[0].shape[0]} lanes: "
+                    f"{', '.join(v)})" for k, v in shading_sets.items()))
     t0 = time.perf_counter()
     bounce_kernels = phase_bounce_kernels(shading_sets)
     log(f"[18] {len(bounce_kernels)} calls compared and timed in "
@@ -3959,14 +4132,17 @@ def main(argv=None) -> int:
              launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()},
              draws_by_path={k: v["threefry_draws"] for k, v in per_path.items()}),
     ]}
-    # the bounce step's kernels at the main path's shape (the pool advance);
-    # no single PyTorch call computes any of them
-    for kernel, key in zip(SHADING, ("sphere_launches", "epilogue_launches",
-                                     "shade_launches")):
-        at = bounce_kernels[f"pool_{kernel}"]
+    # the bounce step's kernels at the main path's shape (the pool advance),
+    # but `shade`, which the wavefront at one bounce an advance no longer
+    # runs (its shading banks: `shade_bank`): its launches and times are
+    # the scan flagship's (its first bounce step, 921,600 lanes); no single
+    # PyTorch call computes any of them
+    for kernel, key in zip(SHADING, SHADING_KEYS):
+        path, at = (("scan", bounce_kernels["scan_step1_shade"]) if kernel == "shade"
+                    else ("wavefront", bounce_kernels[f"pool_{kernel}"]))
         kernels["kernels"].append(dict(
             name=kernel, route="cuda", **KERNELS[kernel],
-            launches=main_path[key],
+            launches=per_path[path][key], launches_path=path, lanes=at["lanes"],
             max_abs_err=max(v["max_abs_err"] for v in bounce_kernels.values()
                             if v["kernel"] == kernel),
             ms=at["ms"], call_ms=at["call_ms"], plain_ms=at["plain_ms"],

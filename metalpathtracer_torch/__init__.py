@@ -11,11 +11,14 @@ What is ported so far are the CLI's two render paths:
 wavefront, `trace_wavefront`) -> `_bounce_step` -> `_trace_rays` ->
 `render.kernels.intersect_mm.closest_hit_mm_full`, whose triangle pass runs
 the hand-written CUDA kernels `csrc/cull_tiles.cu` and
-`csrc/mm_closest_hit.cu`, between the sphere pass and the epilogue
-(`csrc/sphere_pass.cu`, `csrc/hit_epilogue.cu`); every random draw
-(`core.rng`) runs `csrc/threefry.cu` through `render.kernels.threefry` (a
-bounce step's draws in one launch), and the step's shading without
-next-event estimation runs `csrc/shade.cu` (`render.kernels.shade`).
+`csrc/mm_closest_hit.cu`, between the front end (`csrc/sphere_pass.cu`: the
+sphere pass and every per-lane operand of the cull and the closest hit)
+and the epilogue (`csrc/hit_epilogue.cu`); every random draw (`core.rng`)
+runs `csrc/threefry.cu` through `render.kernels.threefry` (a bounce step's
+draws in one launch), and the step's shading without next-event
+estimation runs `csrc/shade.cu` (`render.kernels.shade`), on the wavefront
+at one bounce an advance with the advance's bank of finished paths in the
+same launch (`shade_bank`).
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

@@ -10,7 +10,7 @@ so that nothing changes on the CPU, while on the card a reduction kernel
 would pick an order of its own. The hand-written kernels of the bounce
 step (`csrc/sphere_pass.cu`, `hit_epilogue.cu`, `shade.cu`) take the same
 order, which keeps them bit-equal to their plain versions built on these
-helpers.
+helpers (the front end's ray features, `o.d` and `|o|^2`, included).
 """
 
 from __future__ import annotations

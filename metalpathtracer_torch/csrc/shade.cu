@@ -32,6 +32,21 @@
 // or -8: int32 or int64) or one a lane (4 or 8), as the scan's 0-d bounce
 // and the wavefront's per-lane bounces are.
 //
+// A second entry, `shade_bank`, is the wavefront advance's bounce step at
+// one bounce an advance (render/integrator.py::_Wavefront.advance, whose
+// counterpart in the JAX package's jitted step is integrator.py:702-760):
+// the same shading, then in the same thread the advance's bank of the
+// lane's finished path. With its int64 bounce (one a lane), its state alive
+// (bool), schunk (int64) and acc (3 bank_k floats a lane) it computes
+//   bounce' = bounce + 1; survivors = hit_live && bounce' < max_depth;
+//   done = alive && !survivors; ps = clamp(light, 0, 1) (or light);
+//   acc'[slot schunk / spb] = acc + (done ? ps : 0) (every slot adds, 0.0
+//   where it is not the path's, as torch's `acc + where(...)` does);
+//   light' = done ? 0 : light; schunk + done < per_item ? more : bank;
+//   schunk' = done ? (bank ? 0 : schunk + 1) : schunk
+// and writes survivors as the lane's active flag, acc', bounce', schunk',
+// more and bank (render/kernels/shade.py::bank_paths).
+//
 // Arithmetic: f32, each operation rounded on its own in the plain
 // version's order (render/kernels/shade.py::shade_reference, on
 // render/bsdf.py and core/vecmath.py: a dot product's adds run
@@ -47,8 +62,11 @@
 // normal, front_face, mat_id: 25 B), its draws (16-20 B) and a 64 B
 // material row from L1 (the bank has a few rows), and writes 53 B: ~150 B,
 // 138 MB at 921,600 lanes, ~41 us at 3.35 TB/s; ~300 flop a lane (~4 us at
-// 67 TFLOP/s). One thread a lane, 256 a block; the lanes that miss or are
-// dead skip the material and the sampling.
+// 67 TFLOP/s). `shade_bank` adds 18 B of state and 2 x 12 bank_k B of
+// accumulator read, and 18 B of state and the accumulator written, which
+// the bank's ~33 torch kernels each read and wrote again. One thread a
+// lane, 256 a block; the lanes that miss or are dead skip the material and
+// the sampling.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -182,8 +200,21 @@ struct Args {
   int rr_start, adaptive, bounce_layout;
 };
 
-__global__ void __launch_bounds__(kThreads)
-shade_kernel(Args a, unsigned long long* __restrict__ tally) {
+// the wavefront advance's bank (`shade_bank`)
+struct Bank {
+  const bool* alive;
+  const long long* schunk;
+  const float* acc;
+  float* acc_out;
+  long long *bounce_out, *schunk_out;
+  bool *more_out, *bank_out;
+  long long max_depth, spb, per_item;
+  int clamp, bank_k;
+};
+
+template <bool kBank>
+__device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
+                                           unsigned long long* __restrict__ tally) {
   __shared__ unsigned warp_live[kThreads / 32];
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   // the launch, counted on the device: a CUDA graph's replay counts too
@@ -255,28 +286,53 @@ shade_kernel(Args a, unsigned long long* __restrict__ tally) {
   } else {
     light = add(light, Vec{0.0f, 0.0f, 0.0f});
   }
+  bool still = hit_live;
+  if constexpr (kBank) {  // the advance's bank (render/kernels/shade.py::bank_paths)
+    const long long bounce_next = static_cast<const long long*>(a.bounce)[i] + 1;
+    still = hit_live && bounce_next < bk.max_depth;
+    const bool done = bk.alive[i] && !still;
+    const Vec ps = bk.clamp ? Vec{clamp(light.x, 0.0f, 1.0f), clamp(light.y, 0.0f, 1.0f),
+                                  clamp(light.z, 0.0f, 1.0f)}
+                            : light;
+    const long long schunk = bk.schunk[i];
+    const long long ka = 3ll * bk.bank_k;
+    const float* acc = bk.acc + ka * i;
+    float* acc_out = bk.acc_out + ka * i;
+    const long long slot = bk.bank_k == 1 ? 0 : schunk / bk.spb;
+    for (int k = 0; k < bk.bank_k; ++k) {
+      const bool here = done && k == slot;
+      acc_out[3 * k] = acc[3 * k] + (here ? ps.x : 0.0f);
+      acc_out[3 * k + 1] = acc[3 * k + 1] + (here ? ps.y : 0.0f);
+      acc_out[3 * k + 2] = acc[3 * k + 2] + (here ? ps.z : 0.0f);
+    }
+    if (done) light = Vec{0.0f, 0.0f, 0.0f};
+    const long long schunk_next = schunk + (done ? 1 : 0);
+    const bool more = done && schunk_next < bk.per_item;
+    const bool bank = done && !more;
+    bk.schunk_out[i] = done ? (bank ? 0 : schunk_next) : schunk;
+    bk.bounce_out[i] = bounce_next;
+    bk.more_out[i] = more;
+    bk.bank_out[i] = bank;
+  }
   store3(a.o_out, i, o_new);
   store3(a.d_out, i, d_new);
   store3(a.light_out, i, light);
   store3(a.tp_out, i, tp_new);
-  a.active_out[i] = hit_live;
+  a.active_out[i] = still;
   a.pdf_out[i] = hit_live ? 0.0f : a.prev_pdf[i];
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kThreads)
+shade_kernel(Args a, unsigned long long* __restrict__ tally) {
+  shade_lane<false>(a, Bank{}, tally);
+}
 
-extern "C" int shade_launch(const void* o, const void* d, const void* light,
-                            const void* tp, const void* active, const void* prev_pdf,
-                            const void* t, const void* idx, const void* normal,
-                            const void* front_face, const void* mat_id,
-                            const void* unit_vec, const void* u_fres,
-                            const void* u_rr, const void* bounce,
-                            const void* mat_bank, const void* sky, void* o_out,
-                            void* d_out, void* light_out, void* tp_out,
-                            void* active_out, void* pdf_out, void* rays,
-                            long long n, int rr_start, int adaptive,
-                            int bounce_layout, long long bounce_value, int device,
-                            void* stream, void* tally) {
+__global__ void __launch_bounds__(kThreads)
+shade_bank_kernel(Args a, Bank bk, unsigned long long* __restrict__ tally) {
+  shade_lane<true>(a, bk, tally);
+}
+
+int set_device(int device) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess) return (int)e;
@@ -284,9 +340,18 @@ extern "C" int shade_launch(const void* o, const void* d, const void* light,
     e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
   }
-  if (rr_start > 0 && (u_rr == nullptr || (bounce_layout != 0 && bounce == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
+  return (int)cudaSuccess;
+}
+
+Args shade_args(const void* o, const void* d, const void* light, const void* tp,
+                const void* active, const void* prev_pdf, const void* t,
+                const void* idx, const void* normal, const void* front_face,
+                const void* mat_id, const void* unit_vec, const void* u_fres,
+                const void* u_rr, const void* bounce, const void* mat_bank,
+                const void* sky, void* o_out, void* d_out, void* light_out,
+                void* tp_out, void* active_out, void* pdf_out, void* rays,
+                long long n, int rr_start, int adaptive, int bounce_layout,
+                long long bounce_value) {
   Args a;
   a.o = static_cast<const float*>(o);
   a.d = static_cast<const float*>(d);
@@ -317,12 +382,89 @@ extern "C" int shade_launch(const void* o, const void* d, const void* light,
   a.rr_start = rr_start;
   a.adaptive = adaptive;
   a.bounce_layout = bounce_layout;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int shade_launch(const void* o, const void* d, const void* light,
+                            const void* tp, const void* active, const void* prev_pdf,
+                            const void* t, const void* idx, const void* normal,
+                            const void* front_face, const void* mat_id,
+                            const void* unit_vec, const void* u_fres,
+                            const void* u_rr, const void* bounce,
+                            const void* mat_bank, const void* sky, void* o_out,
+                            void* d_out, void* light_out, void* tp_out,
+                            void* active_out, void* pdf_out, void* rays,
+                            long long n, int rr_start, int adaptive,
+                            int bounce_layout, long long bounce_value, int device,
+                            void* stream, void* tally) {
+  int e = set_device(device);
+  if (e != (int)cudaSuccess) return e;
+  if (rr_start > 0 && (u_rr == nullptr || (bounce_layout != 0 && bounce == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  const Args a = shade_args(o, d, light, tp, active, prev_pdf, t, idx, normal, front_face,
+                            mat_id, unit_vec, u_fres, u_rr, bounce, mat_bank, sky, o_out,
+                            d_out, light_out, tp_out, active_out, pdf_out, rays, n,
+                            rr_start, adaptive, bounce_layout, bounce_value);
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   shade_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       a, static_cast<unsigned long long*>(tally));
   return (int)cudaGetLastError();
 }
 
+// the shading and the advance's bank: `bounce` is int64, one a lane
+extern "C" int shade_bank_launch(const void* o, const void* d, const void* light,
+                                 const void* tp, const void* active,
+                                 const void* prev_pdf, const void* t, const void* idx,
+                                 const void* normal, const void* front_face,
+                                 const void* mat_id, const void* unit_vec,
+                                 const void* u_fres, const void* u_rr,
+                                 const void* bounce, const void* mat_bank,
+                                 const void* sky, const void* alive,
+                                 const void* schunk, const void* acc, void* o_out,
+                                 void* d_out, void* light_out, void* tp_out,
+                                 void* active_out, void* pdf_out, void* rays,
+                                 void* acc_out, void* bounce_out, void* schunk_out,
+                                 void* more_out, void* bank_out, long long n,
+                                 int rr_start, int adaptive, long long max_depth,
+                                 int clamp, int bank_k, long long spb,
+                                 long long per_item, int device, void* stream,
+                                 void* tally) {
+  int e = set_device(device);
+  if (e != (int)cudaSuccess) return e;
+  if (bounce == nullptr || (rr_start > 0 && u_rr == nullptr) || bank_k < 1 || spb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  const Args a = shade_args(o, d, light, tp, active, prev_pdf, t, idx, normal, front_face,
+                            mat_id, unit_vec, u_fres, u_rr, bounce, mat_bank, sky, o_out,
+                            d_out, light_out, tp_out, active_out, pdf_out, rays, n,
+                            rr_start, adaptive, 8, 0);
+  Bank bk;
+  bk.alive = static_cast<const bool*>(alive);
+  bk.schunk = static_cast<const long long*>(schunk);
+  bk.acc = static_cast<const float*>(acc);
+  bk.acc_out = static_cast<float*>(acc_out);
+  bk.bounce_out = static_cast<long long*>(bounce_out);
+  bk.schunk_out = static_cast<long long*>(schunk_out);
+  bk.more_out = static_cast<bool*>(more_out);
+  bk.bank_out = static_cast<bool*>(bank_out);
+  bk.max_depth = max_depth;
+  bk.spb = spb;
+  bk.per_item = per_item;
+  bk.clamp = clamp;
+  bk.bank_k = bank_k;
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  shade_bank_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      a, bk, static_cast<unsigned long long*>(tally));
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* shade_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* shade_bank_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

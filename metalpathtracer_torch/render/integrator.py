@@ -221,7 +221,7 @@ def _step_draws(use_nee: bool, rr: bool) -> tuple:
 
 
 def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
-                 pixel_id, sample_id, bounce, seed, cfg):
+                 pixel_id, sample_id, bounce, seed, cfg, bank=None):
     """Advance every lane one bounce. `bounce`, the index the RNG draws key
     on, is an int or a per-lane tensor, as are `sample_id` and `pixel_id`.
     `prev_pdf` carries the BSDF pdf of
@@ -236,6 +236,14 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     Returns (o, d, light, throughput, still_active, prev_pdf, rays_counted,
     shadow_counted, tile_passes); rays_counted includes the NEE shadow rays
     and shadow_counted reports them on their own.
+
+    `bank` (the wavefront's lanes at one bounce an advance: (alive, schunk,
+    acc, `shade.BankPlan`), with `bounce` an int64 tensor) adds a tenth
+    item: without NEE the shading is `shade.shade_bank`, which also banks
+    the paths that ended, and the item is its (acc, bounce, schunk, more,
+    bank), with light 0 where a path banked and still_active the lanes
+    whose path goes on; with NEE it is None and the caller banks
+    (`shade.bank_paths`).
     """
     use_nee = cfg.nee and scene.num_lights > 0
     # after the wavefront's pool sort o and d are column views of one
@@ -253,16 +261,22 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
                           _step_draws(use_nee, cfg.rr_start > 0))
     if use_nee:
         graphs.STATS["nee_steps"] += 1
-        return _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
-                          cfg, (t, idx, normal, front_face, mat_id), drawn,
-                          tile_passes)
-    with span("step.shade"):
-        o, d, light, throughput, active, prev_pdf, rays = shade.shade(
-            o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
+        out = _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
+                         cfg, (t, idx, normal, front_face, mat_id), drawn,
+                         tile_passes)
+        return out if bank is None else (*out, None)
+    args = (o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
             mat_id, drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None,
             bounce, scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
     shadow = torch.zeros((), dtype=torch.int64, device=o.device)
-    return o, d, light, throughput, active, prev_pdf, rays, shadow, tile_passes
+    if bank is None:
+        with span("step.shade"):
+            out = shade.shade(*args)
+        return (*out, shadow, tile_passes)
+    with span("step.shade_bank"):
+        o, d, light, throughput, active, prev_pdf, rays, *banked = shade.shade_bank(
+            *args, *bank)
+    return o, d, light, throughput, active, prev_pdf, rays, shadow, tile_passes, banked
 
 
 def _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce, cfg, hit,
@@ -582,6 +596,8 @@ class _Wavefront:
         self.n_pix, self.spb, self.bank_k = n_pix, spb, bank_k
         self.groups = n_pix // bank_k
         self.per_item = bank_k * spb  # path completions per work item
+        self.plan = shade.BankPlan(cfg.max_depth, cfg.clamp_radiance, bank_k, spb,
+                                   self.per_item)
         self.total = self.groups * chunks
         self.ka = ka = 3 * bank_k  # accumulator width
         # a lane completes at most one path per advance, so it banks at most
@@ -657,51 +673,40 @@ class _Wavefront:
     def advance(self, st):
         """bpi bounce steps and the per-path bookkeeping. Returns the new
         state and the masks `more` (the lane restarts on its item's next
-        sample) and `bank` (the lane finished its item)."""
-        cfg, counters, bank_k, spb = self.cfg, self.counters, self.bank_k, self.spb
+        sample) and `bank` (the lane finished its item). At one bounce an
+        advance the step's shading banks the paths that ended
+        (`shade.shade_bank`: one kernel on the card); with more, or with
+        NEE, `shade.bank_paths` does after the steps."""
+        cfg, counters = self.cfg, self.counters
         alive, bounce = st["alive"], st["bounce"]
         o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",
                                                      "prev_pdf"))
         with span("wavefront.bank"):
             pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
-        still = alive
+        fused = ((alive, st["schunk"], st["acc"], self.plan) if self.bpi == 1
+                 else None)
+        still, banked = alive, None
         for k in range(self.bpi):
             with span("wavefront.counters"):
                 step_active = still & (bounce + k < cfg.max_depth)
-            o, d, light, tp, still, prev_pdf, c, sh, tpass = _bounce_step(
+            o, d, light, tp, still, prev_pdf, c, sh, tpass, *rest = _bounce_step(
                 self.scene, o, d, light, tp, step_active, prev_pdf, pixel,
-                sample, bounce + k, self.seed, cfg,
+                sample, bounce + k if k else bounce, self.seed, cfg, bank=fused,
             )
+            banked = rest[0] if rest else None
             with span("wavefront.counters"):
                 counters["rays"] += c
                 counters["shadow"] += sh
                 counters["tile_passes"] += tpass
-        with span("wavefront.bank"):
-            bounce_next = bounce + self.bpi
-            survivors = still & (bounce_next < cfg.max_depth)
-            path_done = alive & ~survivors
-
-            # the finished path joins accumulator slot schunk // spb
-            ps = torch.clamp(light, 0.0, 1.0) if cfg.clamp_radiance else light
-            schunk = st["schunk"]
-            if bank_k == 1:
-                acc = st["acc"] + torch.where(path_done[:, None], ps, 0.0)
-            else:
-                slot = (torch.arange(bank_k, device=o.device)[None, :]
-                        == (schunk // spb)[:, None])  # (pool, K)
-                mask = path_done[:, None] & slot
-                acc = st["acc"] + torch.where(mask[:, :, None], ps[:, None, :],
-                                              0.0).reshape(-1, self.ka)
-            light = torch.where(path_done[:, None], 0.0, light)
-            schunk_next = schunk + path_done.to(torch.int64)
-            more = path_done & (schunk_next < self.per_item)
-            bank = path_done & ~more  # the item is finished
-            st = dict(
-                st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
-                bounce=bounce_next, alive=survivors,
-                schunk=torch.where(path_done,
-                                   torch.where(bank, 0, schunk_next), schunk),
-            )
+        if banked is None:
+            with span("wavefront.bank"):
+                light, acc, bounce_next, still, schunk, more, bank = shade.bank_paths(
+                    light, still, alive, bounce, st["schunk"], st["acc"], self.plan,
+                    self.bpi)
+        else:
+            acc, bounce_next, schunk, more, bank = banked
+        st = dict(st, o=o, d=d, light=light, tp=tp, prev_pdf=prev_pdf, acc=acc,
+                  bounce=bounce_next, alive=still, schunk=schunk)
         return st, more, bank
 
     def restart_lanes(self, st, restart):

@@ -1,11 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C entry point
-`<name>_launch(pointers..., scalars..., device, stream, tally)` that returns
-a CUDA error code, and `<name>_error_string(code)`. It is compiled with `nvcc` for
-Hopper (`sm_90a`) into a shared library under `metalpathtracer_torch/_build/`
-at first use, keyed on a hash of the source and the flags, loaded with
-`ctypes`, and launched on the current stream by `launch`.
+Each kernel is a plain C entry point `<name>_launch(pointers..., scalars...,
+device, stream, tally)` that returns a CUDA error code, beside
+`<name>_error_string(code)`, in `csrc/<source>.cu`: its own file, or another
+kernel's where `SOURCES` says so (two entry points of one source). A source
+is compiled with `nvcc` for Hopper (`sm_90a`) into a shared library under
+`metalpathtracer_torch/_build/` at first use, keyed on a hash of the source
+and the flags, loaded with `ctypes`, and launched on the current stream by
+`launch`.
 
 Every launch also adds to its kernel's `tally` on the device: thread 0 of
 block 0 adds one launch (and the threefry kernel its draws). A CUDA graph's
@@ -36,11 +38,21 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the log
 )
-# flags of one kernel's build: the bounce step's kernels round every
+# the kernels whose entry point lives in another kernel's source: the
+# closest hit's front end in the sphere pass's (the same kernel, which
+# without feature pointers writes the sphere winner alone), the wavefront's
+# shading and bank in the shading's (a second entry of one kernel body)
+SOURCES = {"hit_front": "sphere_pass", "shade_bank": "shade"}
+# flags of one source's build: the bounce step's kernels round every
 # product on its own, as their plain versions' separate torch kernels do
 # (nvcc would contract a * b + c into one FMA)
 KERNEL_FLAGS = {name: ("-fmad=false",)
                 for name in ("sphere_pass", "hit_epilogue", "shade")}
+
+
+def source_of(kernel: str) -> str:
+    """The `csrc/<source>.cu` stem that holds `kernel`'s entry point."""
+    return SOURCES.get(kernel, kernel)
 
 
 def _nvcc() -> str:
@@ -58,11 +70,13 @@ def _nvcc() -> str:
 
 
 def build(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> Path:
-    """Compile `<csrc>/<name>.cu` unless a library of the same source and
-    flags exists; `defines` ("NAME=value", ...) become -D flags (a sweep's
-    variants of a compile-time constant), and `csrc` may name another
-    checkout's sources (a comparison with an earlier kernel). The
-    compiler's output goes to `<library>.log`."""
+    """Compile the source of kernel `name` (`<csrc>/<source_of(name)>.cu`)
+    unless a library of the same source and flags exists; `defines`
+    ("NAME=value", ...) become -D flags (a sweep's variants of a
+    compile-time constant), and `csrc` may name another checkout's sources
+    (a comparison with an earlier kernel). The compiler's output goes to
+    `<library>.log`."""
+    name = source_of(name)
     src = (Path(csrc) / f"{name}.cu").read_bytes()
     flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()), *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
@@ -85,6 +99,9 @@ def build(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> Path:
 
 @functools.cache
 def load_library(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """The loaded library of kernel `name`'s source (one load a source)."""
+    if name in SOURCES:
+        return load_library(SOURCES[name], defines, csrc)
     return ctypes.CDLL(str(build(name, defines, csrc)))
 
 
@@ -99,13 +116,17 @@ ENTRY_ARGS = {
     "threefry": (4, (ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int)
                  + (ctypes.c_uint64,) * 8 + (ctypes.c_int, ctypes.c_uint32) * 3),
     # n, the sphere count, t_min
-    "sphere_pass": (8, (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)),
+    "hit_front": (13, (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)),
     # n, whether there are triangles, the sphere count, t_min
     "hit_epilogue": (15, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float)),
     # n, rr_start, adaptive offset, the bounce's (layout, value)
     "shade": (24, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong)),
+    # n, rr_start, adaptive offset, max_depth, clamp, bank_k, spb, per_item
+    "shade_bank": (32, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_longlong, ctypes.c_longlong)),
 }
 
 

@@ -21,9 +21,12 @@ twin expands the tiles it gathers to the dense (4, 12) form
 matmul. Before the kernel, the CUDA kernel `csrc/cull_tiles.cu` slab-tests
 every ray against every tile box and reduces the result per 128-lane
 subgroup, from which each subgroup's entry-ordered list of passing tiles is
-sorted. Around them: the exact sphere pass and the epilogue (the plane-t
-refine of the winner, the merge, the normal), two more kernels of
-`render/kernels/shade.py`.
+sorted. Before the cull, the front end `csrc/sphere_pass.cu` (`hit_front`)
+runs the exact sphere pass and writes every per-lane operand of the cull
+and the closest hit (the ray features, the active flags, the occlusion
+bound, padded to whole subgroups) in one pass; after the closest hit, the
+epilogue (the plane-t refine of the winner, the merge, the normal) is a
+kernel of `render/kernels/shade.py`.
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
@@ -323,10 +326,11 @@ def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,
 
 
 def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """X = [d, o x d, o, o.d, |o|^2, 1] — (N, 12) float32."""
+    """X = [d, o x d, o, o.d, |o|^2, 1] — (N, 12) float32. The dot products
+    add in `vm.dot`'s fixed order, as the front end's kernel does."""
     m = vm.cross(o, d)
-    od = (o * d).sum(dim=-1, keepdim=True)
-    oo = (o * o).sum(dim=-1, keepdim=True)
+    od = vm.dot_keepdims(o, d)
+    oo = vm.dot_keepdims(o, o)
     return torch.cat([d, m, o, od, oo, torch.ones_like(od)], dim=-1)
 
 
@@ -466,11 +470,12 @@ def _cull_tile_lists(x, active, tile_box, t_min, occ=None):
     return lists.to(torch.int32), counts, smin, lane_bound
 
 
-def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
-    """The kernel's inputs for rays (o, d), padded with inactive lanes to
-    a multiple of 128: (lists, counts, smin, x, lane_bound). `occ` (N,) is
-    each lane's occlusion bound (+inf for none); `active` (N,) bool or
-    None for all lanes."""
+def _padded_operands(o, d, active, occ):
+    """The cull's and the closest hit's per-lane operands of rays (o, d),
+    padded with inactive lanes to a multiple of 128: (x (N_pad, 12) ray
+    features, zero on padding; act (N_pad,) f32, 1 where live (every lane
+    without `active`), 0 on padding; occ (N_pad,) the occlusion bound, +inf
+    on padding)."""
     n = o.shape[0]
     pad = (-n) % LANES
     x = ray_features(o, d)
@@ -482,26 +487,89 @@ def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
         x = torch.cat([x, x.new_zeros((pad, NUM_FEATURES))])
         act = torch.cat([act, act.new_zeros((pad,))])
         occ = torch.cat([occ, occ.new_full((pad,), _INF)])
+    return x, act, occ
+
+
+def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
+    """The kernel's inputs for rays (o, d), padded with inactive lanes to
+    a multiple of 128: (lists, counts, smin, x, lane_bound). `occ` (N,) is
+    each lane's occlusion bound (+inf for none); `active` (N,) bool or
+    None for all lanes. Plain torch around the cull (what `hit_front`
+    writes in one kernel on the card)."""
+    x, act, occ = _padded_operands(o, d, active, occ)
     lists, counts, smin, lane_bound = _cull_tile_lists(
         x, act, scene.mm_tile_box, t_min, occ
     )
     return lists, counts, smin, x, torch.minimum(lane_bound, occ)
 
 
-def _sphere_hit_exact(scene, o, d, t_min):
-    """The exact sphere pass over the (N, S) pairs (`shade.sphere_pass`:
-    the kernel `csrc/sphere_pass.cu` on the card). Returns (t, prim idx
-    (-1 on miss), slot) of each lane's nearest sphere; equal t picks the
-    lowest slot."""
-    return shade.sphere_pass(o, d, scene.sph_center, scene.sph_radius,
-                             scene.sph_ids, t_min)
+def hit_front(o, d, active, occ_t, sph_center, sph_radius, sph_ids, t_min: float):
+    """The closest hit's front end: each lane's nearest sphere and every
+    per-lane operand of the cull and the closest hit. o, d (N, 3) f32 rays;
+    active (N,) bool or None (every lane live); occ_t (N,) f32 or None, a
+    bound past which hits do not matter; the sphere SoA (sph_center (S, 3),
+    sph_radius (S,) f32, sph_ids (S,) int32). Returns (t_s (N,) f32, i_s
+    (N,) int32, slot (N,) int32: `shade.sphere_pass`'s; x (N_pad, 12) f32,
+    act (N_pad,) f32, occ (N_pad,) f32: the operands of `_cull_tile_lists`
+    and `mm_closest_hit`, N_pad = N rounded up to 128, occ = min(t_s, occ_t)
+    (the sphere winner bounds the triangles' search)).
+
+    CUDA tensors launch `csrc/sphere_pass.cu` (and count the launch in
+    `hit_front.launches`); CPU tensors take the plain twin
+    `hit_front_reference`. Any other device raises."""
+    n, s = o.shape[0], sph_center.shape[0]
+    f32 = torch.float32
+    _build.check_tensors("hit_front", [
+        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
+        ("sph_center", sph_center, f32, (s, 3)),
+        ("sph_radius", sph_radius, f32, (s,)),
+        ("sph_ids", sph_ids, torch.int32, (s,)),
+    ] + ([] if active is None else [("active", active, torch.bool, (n,))])
+      + ([] if occ_t is None else [("occ_t", occ_t, f32, (n,))]), o.device)
+    if o.device.type == "cpu":
+        return hit_front_reference(o, d, active, occ_t, sph_center, sph_radius,
+                                   sph_ids, t_min)
+    if o.device.type != "cuda":
+        raise ValueError(f"hit_front: no kernel for device {o.device}")
+    n_pad = n + (-n) % LANES
+    dev = o.device
+    outs = (torch.empty(n, dtype=f32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty((n_pad, NUM_FEATURES), dtype=f32, device=dev),
+            torch.empty(n_pad, dtype=f32, device=dev),
+            torch.empty(n_pad, dtype=f32, device=dev))
+    if n:
+        _build.launch("hit_front", (o.contiguous(), d.contiguous(),
+                                    None if active is None else active.contiguous(),
+                                    None if occ_t is None else occ_t.contiguous(),
+                                    sph_center, sph_radius, sph_ids),
+                      outs, (n, s, float(t_min)), dev, align=4)
+        hit_front.launches += 1
+    return outs
+
+
+hit_front.launches = 0
+
+
+def hit_front_reference(o, d, active, occ_t, sph_center, sph_radius, sph_ids,
+                        t_min: float):
+    """Plain torch twin of `hit_front`: the sphere pass
+    (`shade.sphere_pass_reference`), the occlusion bound, then the features,
+    the cast and the padding (`_padded_operands`)."""
+    t_s, i_s, slot = shade.sphere_pass_reference(o, d, sph_center, sph_radius,
+                                                 sph_ids, t_min)
+    occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
+    return (t_s, i_s, slot, *_padded_operands(o, d, active, occ))
 
 
 def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
-    """Closest hit: the exact sphere pass, the triangle kernel and the
-    epilogue that refines and merges their winners (on the card three
-    kernels around the cull and the list sort: `csrc/sphere_pass.cu`,
-    `csrc/mm_closest_hit.cu`, `csrc/hit_epilogue.cu`).
+    """Closest hit: the front end (the exact sphere pass and the tile
+    operands), the triangle kernel and the epilogue that refines and
+    merges their winners (on the card three kernels around the cull and
+    the list sort: `csrc/sphere_pass.cu`, `csrc/mm_closest_hit.cu`,
+    `csrc/hit_epilogue.cu`; on a scene of spheres alone the sphere pass and
+    the epilogue).
 
     Returns (t, idx, normal, front_face, mat_id, tile_passes). idx is -1 on
     miss (normal and mat_id are garbage there; callers mask). `active` (N,)
@@ -513,17 +581,16 @@ def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     units of 2^20 ray-triangle tests.
     """
     n = o.shape[0]
-    with span("hit.sphere_pass"):
-        t_s, i_s, slot = _sphere_hit_exact(scene, o, d, t_min)
-
     t_t = col = None
     if scene.num_tris > 0:
+        with span("hit.front"):
+            t_s, i_s, slot, x, act, occ = hit_front(
+                o, d, active, occ_t, scene.sph_center, scene.sph_radius,
+                scene.sph_ids, t_min)
         with span("hit.kernel_inputs"):
-            # the sphere pass already bounds the winner
-            occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
-            lists, counts, smin, x, lane_bound = kernel_inputs(
-                scene, o, d, occ, active, t_min
-            )
+            lists, counts, smin, lane_bound = _cull_tile_lists(
+                x, act, scene.mm_tile_box, t_min, occ)
+            lane_bound = torch.minimum(lane_bound, occ)
         with span("hit.mm_closest_hit"):
             t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound,
                                       scene.mm_w, t_min)
@@ -533,6 +600,9 @@ def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
             )
         t_t, col = t_t[:n], col[:n]
     else:
+        with span("hit.sphere_pass"):
+            t_s, i_s, slot = shade.sphere_pass(o, d, scene.sph_center,
+                                               scene.sph_radius, scene.sph_ids, t_min)
         tile_passes = torch.zeros((), dtype=torch.float32, device=o.device)
 
     with span("hit.epilogue"):

@@ -8,7 +8,10 @@ and the shading into a few fusions; run as separate torch kernels they are
 some 270 launches a bounce step. Here each is one hand-written CUDA kernel:
 
     sphere_pass   csrc/sphere_pass.cu   the exact ray-sphere test of each
-                  lane against the S spheres: (t, prim id, slot)
+                  lane against the S spheres: (t, prim id, slot); the
+                  kernel `hit_front` without its feature pointers (on a
+                  scene with triangles `intersect_mm.hit_front` launches it
+                  with them: the closest hit's front end)
     hit_epilogue  csrc/hit_epilogue.cu  the triangle winner's plane refine,
                   the merge with the sphere pass, the normal flipped to
                   oppose the ray: (t, idx, normal, front_face, mat_id)
@@ -16,6 +19,10 @@ some 270 launches a bounce step. Here each is one hand-written CUDA kernel:
                   without next-event estimation: sky, emission, the BSDF's
                   sample, the origin offset, throughput, Russian roulette
                   and the masked state update, and the live lanes' count
+    shade_bank    csrc/shade.cu         `shade`, then the wavefront
+                  advance's bank of the paths that finished (`bank_paths`)
+                  in the same thread: one launch a step of the wavefront at
+                  one bounce an advance
 
 CUDA tensors launch the kernel (and count the launch in the wrapper's
 `launches`; the kernel adds to its device tally, `_build.tally`); CPU
@@ -28,6 +35,7 @@ so that on the card the two agree bit for bit.
 from __future__ import annotations
 
 import numbers
+from typing import NamedTuple
 
 import torch
 
@@ -70,10 +78,11 @@ def sphere_pass(o, d, sph_center, sph_radius, sph_ids, t_min: float):
     t = torch.empty(n, dtype=f32, device=o.device)
     idx = torch.empty(n, dtype=torch.int32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n:
-        _build.launch("sphere_pass", (o.contiguous(), d.contiguous(), sph_center,
-                                      sph_radius, sph_ids), (t, idx, slot),
-                      (n, s, float(t_min)), o.device)
+    if n:  # the front end's kernel without its operands: the winner alone
+        _build.launch("hit_front", (o.contiguous(), d.contiguous(), None, None,
+                                    sph_center, sph_radius, sph_ids),
+                      (t, idx, slot, None, None, None), (n, s, float(t_min)),
+                      o.device, align=4)
         sphere_pass.launches += 1
     return t, idx, slot
 
@@ -317,3 +326,139 @@ def shade_reference(o, d, light, throughput, active, prev_pdf, t, idx, normal,
     throughput = torch.where(hit_live[:, None], new_tp, throughput)
     prev_pdf = torch.where(hit_live, torch.zeros_like(prev_pdf), prev_pdf)
     return o, d, light, throughput, hit_live, prev_pdf, rays
+
+
+# --------------------------------------------------------------------------
+# the shading and the wavefront's bank in one launch
+# --------------------------------------------------------------------------
+
+
+class BankPlan(NamedTuple):
+    """What a wavefront render's bank of finished paths is fixed by: the
+    path depth, the per-sample clamp of radiance, the pixels of a work item
+    (`bank_k`, 3 accumulator floats each), the samples a pixel of an item
+    banks (`spb`) and the paths an item finishes (`per_item` = bank_k *
+    spb)."""
+
+    max_depth: int
+    clamp_radiance: bool
+    bank_k: int
+    spb: int
+    per_item: int
+
+
+def bank_paths(light, still, alive, bounce, schunk, acc, plan: BankPlan,
+               bounces: int = 1):
+    """The wavefront advance's bank, plain torch: after `bounces` bounce
+    steps from `bounce` (N,) int64, a lane `alive` (N,) bool on entry whose
+    path ended (not `still` live, or at max_depth) adds its `light` (N, 3)
+    (clamped to [0, 1] with `clamp_radiance`) to accumulator slot `schunk //
+    spb` of `acc` (N, 3 bank_k), its light goes to 0, and it moves on to its
+    item's next path (`more`) or finishes the item (`bank`, schunk back to 0).
+    Returns (light, acc, bounce, alive, schunk, more, bank): new tensors."""
+    bank_k, spb = plan.bank_k, plan.spb
+    bounce_next = bounce + bounces
+    survivors = still & (bounce_next < plan.max_depth)
+    path_done = alive & ~survivors
+
+    # the finished path joins accumulator slot schunk // spb
+    ps = torch.clamp(light, 0.0, 1.0) if plan.clamp_radiance else light
+    if bank_k == 1:
+        acc = acc + torch.where(path_done[:, None], ps, 0.0)
+    else:
+        slot = (torch.arange(bank_k, device=light.device)[None, :]
+                == (schunk // spb)[:, None])  # (N, K)
+        mask = path_done[:, None] & slot
+        acc = acc + torch.where(mask[:, :, None], ps[:, None, :],
+                                0.0).reshape(-1, 3 * bank_k)
+    light = torch.where(path_done[:, None], 0.0, light)
+    schunk_next = schunk + path_done.to(torch.int64)
+    more = path_done & (schunk_next < plan.per_item)
+    bank = path_done & ~more  # the item is finished
+    schunk = torch.where(path_done, torch.where(bank, 0, schunk_next), schunk)
+    return light, acc, bounce_next, survivors, schunk, more, bank
+
+
+def shade_bank(o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
+               mat_id, unit_vec, u_fresnel, u_rr, bounce, mat_bank, sky,
+               rr_start: int, adaptive_offset: bool, alive, schunk, acc,
+               plan: BankPlan):
+    """`shade` on the wavefront's lanes, then the advance's bank of the
+    paths that ended (`bank_paths`, one bounce step an advance), in one
+    launch on the card. The arguments of `shade`, with `bounce` (N,) int64
+    one a lane, then the lane state alive (N,) bool, schunk (N,) int64 and
+    acc (N, 3 plan.bank_k) f32, and the render's `plan`.
+    Returns (o, d, light, throughput, alive, prev_pdf, rays, acc, bounce,
+    schunk, more, bank): new tensors; light is 0 on the lanes that banked,
+    alive the lanes whose path goes on, bounce one step on."""
+    n = o.shape[0]
+    f32, i64, dev = torch.float32, torch.int64, o.device
+    rr = rr_start > 0
+    ka = 3 * plan.bank_k
+    if not isinstance(bounce, torch.Tensor):
+        raise ValueError(f"shade_bank: bounce must be an int64 tensor, one a lane, "
+                         f"got {type(bounce).__name__}")
+    _build.check_tensors("shade_bank", [
+        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)), ("light", light, f32, (n, 3)),
+        ("throughput", throughput, f32, (n, 3)), ("active", active, torch.bool, (n,)),
+        ("prev_pdf", prev_pdf, f32, (n,)), ("t", t, f32, (n,)),
+        ("idx", idx, torch.int32, (n,)), ("normal", normal, f32, (n, 3)),
+        ("front_face", front_face, torch.bool, (n,)),
+        ("mat_id", mat_id, torch.int32, (n,)), ("unit_vec", unit_vec, f32, (n, 3)),
+        ("u_fresnel", u_fresnel, f32, (n,)), ("bounce", bounce, i64, (n,)),
+        ("mat_bank", mat_bank, f32, (mat_bank.shape[0], 16)), ("sky", sky, f32, (2, 3)),
+        ("alive", alive, torch.bool, (n,)), ("schunk", schunk, i64, (n,)),
+        ("acc", acc, f32, (n, ka)),
+    ] + ([("u_rr", u_rr, f32, (n,))] if rr else []), dev)
+    if plan.bank_k < 1 or plan.spb < 1:
+        raise ValueError(f"shade_bank: bank_k {plan.bank_k} and spb {plan.spb} "
+                         "must be positive")
+    if _device_of("shade_bank", o) == "cpu":
+        return shade_bank_reference(o, d, light, throughput, active, prev_pdf, t, idx,
+                                    normal, front_face, mat_id, unit_vec, u_fresnel,
+                                    u_rr, bounce, mat_bank, sky, rr_start,
+                                    adaptive_offset, alive, schunk, acc, plan)
+    outs = (torch.empty((n, 3), dtype=f32, device=dev),
+            torch.empty((n, 3), dtype=f32, device=dev),
+            torch.empty((n, 3), dtype=f32, device=dev),
+            torch.empty((n, 3), dtype=f32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=f32, device=dev),
+            torch.zeros((), dtype=i64, device=dev),
+            torch.empty((n, ka), dtype=f32, device=dev),
+            torch.empty(n, dtype=i64, device=dev),
+            torch.empty(n, dtype=i64, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev))
+    if n:
+        ins = tuple(x.contiguous() for x in (o, d, light, throughput, active, prev_pdf,
+                                             t, idx, normal, front_face, mat_id,
+                                             unit_vec, u_fresnel))
+        state = tuple(x.contiguous() for x in (alive, schunk, acc))
+        _build.launch("shade_bank", (*ins, u_rr.contiguous() if rr else None,
+                                     bounce.contiguous(), mat_bank, sky, *state), outs,
+                      (n, int(rr_start), int(bool(adaptive_offset)), int(plan.max_depth),
+                       int(bool(plan.clamp_radiance)), int(plan.bank_k), int(plan.spb),
+                       int(plan.per_item)),
+                      dev, align=4)
+        shade_bank.launches += 1
+    return outs
+
+
+shade_bank.launches = 0
+
+
+def shade_bank_reference(o, d, light, throughput, active, prev_pdf, t, idx, normal,
+                         front_face, mat_id, unit_vec, u_fresnel, u_rr, bounce,
+                         mat_bank, sky, rr_start: int, adaptive_offset: bool, alive,
+                         schunk, acc, plan: BankPlan):
+    """Plain torch twin of `shade_bank`: `shade_reference`, then
+    `bank_paths` of one bounce step."""
+    o, d, light, throughput, still, prev_pdf, rays = shade_reference(
+        o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
+        mat_id, unit_vec, u_fresnel, u_rr, bounce, mat_bank, sky, rr_start,
+        adaptive_offset)
+    light, acc, bounce, alive, schunk, more, bank = bank_paths(
+        light, still, alive, bounce, schunk, acc, plan)
+    return (o, d, light, throughput, alive, prev_pdf, rays, acc, bounce, schunk, more,
+            bank)

@@ -691,9 +691,11 @@ def test_bounce_step_launches_one_bundle(scene):
 
 # ---------------------------------------------------------------------------
 # the bounce step's kernels (render/kernels/shade.py: the sphere pass, the
-# hit epilogue, the shading) against their plain twins on the card: bit for
-# bit, as each rounds every operation of its twin alone and in its order
-# (a lane that misses everything has a NaN normal on both sides)
+# hit epilogue, the shading and the shading with the wavefront's bank;
+# render/kernels/intersect_mm.py: the front end) against their plain twins
+# on the card: bit for bit, as each rounds every operation of its twin alone
+# and in its order (a lane that misses everything has a NaN normal on both
+# sides)
 # ---------------------------------------------------------------------------
 
 
@@ -798,6 +800,79 @@ def test_shade_kernel_matches_twin(scene, n, rr_start, adaptive, bounce_kind):
     assert int(got[6]) == int(active.sum())
 
 
+@pytest.mark.parametrize("which", ["reference", "bunny70k", "no_spheres"])
+@pytest.mark.parametrize("masks", ["none", "active", "occ", "both"])
+@pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
+def test_hit_front_kernel_matches_twin(scene, bunny70k, n, masks, which):
+    s = bunny70k if which == "bunny70k" else scene
+    sph = (s.sph_center, s.sph_radius, s.sph_ids)
+    if which == "no_spheres":
+        sph = tuple(v[:0] for v in sph)
+    o, d = _rays(n, n + 4)
+    r = np.random.default_rng(n)
+    active = torch.as_tensor(r.uniform(size=n) > 0.25, device="cuda")
+    occ_t = torch.as_tensor(np.where(r.uniform(size=n) > 0.5, r.uniform(1.0, 200.0, n),
+                                     np.inf).astype(np.float32), device="cuda")
+    args = (o, d, active if masks in ("active", "both") else None,
+            occ_t if masks in ("occ", "both") else None, *sph, T_MIN)
+    before = tmm.hit_front.launches
+    got = tmm.hit_front(*args)
+    assert tmm.hit_front.launches == before + 1
+    _bit_equal(got, tmm.hit_front_reference(*args))
+    assert got[3].shape == (n + (-n) % 128, 12)
+
+
+def _bank_operands(scene, n, seed, bank_k, clamp, rr_start):
+    """A wavefront step's shading and bank operands on the card: random
+    lanes (some at their last bounce, some dead, light above 1), their
+    closest hit and their draws."""
+    from metalpathtracer_torch.core import rng
+    from metalpathtracer_torch.render import integrator as tint
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    r = np.random.default_rng(seed)
+    max_depth, spb = 6, 2
+    plan = tsh.BankPlan(max_depth, clamp, bank_k, spb, bank_k * spb)
+    o, d = _rays(n, seed)
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    alive = dev(r.uniform(size=n) > 0.15)
+    bounce = dev(r.integers(0, max_depth + 1, n))
+    active = alive & (bounce < max_depth)
+    light = dev(r.uniform(0.0, 1.5, (n, 3)).astype(np.float32))
+    tp = dev(r.uniform(0.02, 1.0, (n, 3)).astype(np.float32))
+    prev_pdf = dev(r.uniform(0.0, 2.0, n).astype(np.float32))
+    schunk = dev(r.integers(0, plan.per_item, n))
+    acc = dev(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32))
+    t, idx, normal, front, mat_id, _ = tmm.closest_hit_mm_full(scene, o, d, T_MIN,
+                                                               active=active)
+    drawn = rng.draws(7, torch.arange(n, device="cuda"), 1, bounce,
+                      tint._step_draws(False, rr_start > 0))
+    return ((o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
+             drawn[0], drawn[1], drawn[-1] if rr_start else None, bounce,
+             scene.mat_bank, scene.sky, rr_start, True), (alive, schunk, acc, plan))
+
+
+@pytest.mark.parametrize("rr_start", [0, 2])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("bank_k", [1, 4, 8])
+@pytest.mark.parametrize("n", [1, 1000, 32768])
+def test_shade_bank_kernel_matches_twin(scene, n, bank_k, clamp, rr_start):
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    shade_args, bank = _bank_operands(scene, n, n + bank_k, bank_k, clamp, rr_start)
+    before = tsh.shade_bank.launches
+    got = tsh.shade_bank(*shade_args, *bank)
+    assert tsh.shade_bank.launches == before + 1
+    want = tsh.shade_bank_reference(*shade_args, *bank)
+    _bit_equal(got, want)
+    assert int(got[6]) == int(shade_args[4].sum())
+    if n >= 1000:  # lanes go on, finish a path, and bank
+        assert bool(got[4].any()) and bool(got[10].any()) and bool(got[11].any())
+
+
 def test_bounce_kernels_count_replays(scene):
     # each kernel adds to its tally itself: a replay counts as a launch
     from metalpathtracer_torch.render.kernels import _build
@@ -825,9 +900,42 @@ def test_bounce_kernels_count_replays(scene):
         graph.replay()
     torch.cuda.synchronize()
     done = _build.tallies("cuda")
-    for k in ("sphere_pass", "hit_epilogue", "shade", "mm_closest_hit", "threefry"):
+    for k in ("hit_front", "hit_epilogue", "shade", "mm_closest_hit", "threefry"):
         assert done[k][0] == 4, (k, done[k])
     _bit_equal(got[:7], want[:7])
+
+
+def test_shade_bank_counts_replays(scene):
+    # the wavefront's step at one bounce an advance: the front end, the
+    # closest hit, the epilogue, one bundle and the shading with its bank
+    from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render import integrator as tint
+
+    shade_args, bank = _bank_operands(scene, 4096, 13, 4, True, 1)
+    o, d, light, tp, active, prev_pdf = shade_args[:6]
+    bounce = shade_args[14]
+    pix = torch.arange(4096, device="cuda")
+    cfg = RenderConfig(max_depth=6, rr_start=1, clamp_radiance=True)
+
+    def step():
+        return tint._bounce_step(scene, o, d, light, tp, active, prev_pdf, pix, 0,
+                                 bounce, 7, cfg, bank=bank)
+
+    want = step()
+    torch.cuda.synchronize()
+    _build.zero_tallies()
+    step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    done = _build.tallies("cuda")
+    for k in ("hit_front", "hit_epilogue", "shade_bank", "mm_closest_hit", "threefry"):
+        assert done[k][0] == 4, (k, done[k])
+    assert done.get("shade", (0, 0))[0] == 0
+    _bit_equal(got[:7] + tuple(got[9]), want[:7] + tuple(want[9]))
 
 
 def test_bounce_step_routes_nee_to_the_plain_shading(scene):
@@ -841,11 +949,12 @@ def test_bounce_step_routes_nee_to_the_plain_shading(scene):
             torch.ones((n,), dtype=torch.bool, device="cuda"),
             torch.zeros((n,), device="cuda"), torch.arange(n, device="cuda"), 0, 2, 7)
     for nee, shaded, passes in ((False, 1, 1), (True, 0, 2)):
-        counts = (tsh.shade.launches, tsh.sphere_pass.launches,
+        counts = (tsh.shade.launches, tmm.hit_front.launches + tsh.sphere_pass.launches,
                   tsh.hit_epilogue.launches, graphs.STATS["nee_steps"])
         tint._bounce_step(scene, o, d, *args, RenderConfig(max_depth=8, nee=nee))
         torch.cuda.synchronize()
-        moved = (tsh.shade.launches - counts[0], tsh.sphere_pass.launches - counts[1],
+        moved = (tsh.shade.launches - counts[0],
+                 tmm.hit_front.launches + tsh.sphere_pass.launches - counts[1],
                  tsh.hit_epilogue.launches - counts[2],
                  graphs.STATS["nee_steps"] - counts[3])
         assert scene.num_lights > 0
@@ -865,7 +974,8 @@ def _counted():
     done = _build.tallies("cuda")
     return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
             *done.get("threefry", (0, 0)),
-            *(done.get(k, (0, 0))[0] for k in ("sphere_pass", "hit_epilogue", "shade")))
+            *(done.get(k, (0, 0))[0]
+              for k in ("hit_front", "hit_epilogue", "shade", "shade_bank")))
 
 
 def _render_counted(fn, eager):
@@ -909,9 +1019,12 @@ def test_graph_windows_equal_the_eager_loop(scene, case):
     again = dict(graphs.STATS)
     assert torch.equal(a, b) and torch.equal(a, c)
     assert ra == rb == rc and sa == sb == sc
-    # every kernel ran, but the shading kernel, which NEE's plain shading
-    # replaces (by config)
-    assert ca == cb == cc and min(ca[:6]) > 0 and (ca[6] > 0) != cfg.nee
+    # every kernel ran, but the shading kernels, which NEE's plain shading
+    # replaces (by config); at one bounce an advance the shading banks
+    # (shade_bank), at two it is `shade` and the plain bank
+    assert ca == cb == cc and min(ca[:6]) > 0 and (ca[6] + ca[7] > 0) != cfg.nee
+    assert (ca[7] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
+    assert (ca[6] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
     # a new shape warms each function up eagerly and captures it on its
     # second run; the next render replays every window and drain block
     assert first["captures"] >= 1 and first["replays"] >= 1
@@ -1005,12 +1118,12 @@ def _scan_run(fn, eager):
 def _scan_launches_agree(eager, graph, samples):
     """The graph run's launches are the eager loop's plus its idle steps',
     each an eager bounce step's: (closest hit, cull, threefry, draws,
-    sphere pass, hit epilogue, shade) per step from the eager run, whose
-    reads are its steps; the jitter draws one bundle (of one draw) a
-    sample."""
+    front end, hit epilogue, shade, shade_bank) per step from the eager
+    run, whose reads are its steps; the jitter draws one bundle (of one
+    draw) a sample."""
     (_, e, es), (_, g, gs) = eager, graph
     assert es["idle_steps"] == 0 and es["reads"] > 0
-    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0)):
+    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0, 0)):
         per_step, rest = divmod(e[k] - jitter, es["reads"])
         assert rest == 0
         assert g[k] == e[k] + gs["idle_steps"] * per_step
