@@ -5,10 +5,14 @@ Builds the hand-written CUDA kernels from `metalpathtracer_torch/csrc/` (one
 `nvcc` a source, started together), holds each to its plain PyTorch version
 at the shapes the render paths give it, then drives those paths through the
 port's entry points at full size and checks that every advance went through
-the seven kernels (the closest hit, the tile cull, the RNG's threefry, and
-the bounce step's front end, hit epilogue, and shading: `shade`, or on the
-wavefront at one bounce an advance `shade_bank`, the shading that also
-banks the finished paths).
+the kernels of its path: the closest hit, the tile cull, the RNG's
+threefry, the bounce step's front end, and its shading, which without NEE
+starts from the closest hit's winners and runs the epilogue in its own
+registers (`shade_hit`, or on the wavefront at one bounce an advance
+`shade_bank_hit`, the shading that also banks the finished paths); the
+epilogue's own kernel runs with NEE (its closest hits and shadow rays'),
+`shade` and `shade_bank` on the BVH path. Nine kernel entries in six
+sources.
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
@@ -44,7 +48,7 @@ Phases, each raising on failure:
    bunny300k at 512x512, spp 2, depth 8, pool 2^15;
 9. small renders (320x180, spp 2, depth 8) of both paths on the kernels vs
    on the plain versions, and vs on the RNG's twin alone and on the bounce
-   step's three twins alone (each bit-equal), and the golden
+   step's twins alone (each bit-equal), and the golden
    reference-scene case vs tests/golden/reference_scene.npz;
 10. the checkpointed CLI: `cli.main --checkpoint --checkpoint-every 2` at
     1280x720, depth 32, to 2 spp, then `--resume` to 4 spp, and the same to
@@ -107,8 +111,8 @@ Phases, each raising on failure:
     320x180, spp 2, depth 8 on both integrators, whose shadow rays go
     through both kernels; NEE shades in plain torch, by config: the
     front end (as the sphere pass on config 4) and the hit epilogue run
-    twice a bounce step (its closest hit and its shadow rays'), the shading
-    kernels never;
+    twice a bounce step (its closest hit and its shadow rays'), the four
+    shading kernels never;
 16. `threefry_bundle` vs its plain twin (run after phase 5, with the other
     kernels' comparisons), at the bundles the paths give it: the bounce
     step's (lobe and Fresnel, per-lane sample ids and bounces; 32,768
@@ -143,8 +147,9 @@ Phases, each raising on failure:
     by a block past its last live lane, counted in the program's report)
     launch, each an eager bounce step's launches (the flagships' exactly
     408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md; the bounce
-    step's front end, hit epilogue and shading kernel 408 and 128 each: on
-    the wavefront `shade_bank`, on the scan `shade`); host reads
+    step's front end and shading kernel 408 and 128 each: on the wavefront
+    `shade_bank_hit`, on the scan `shade_hit`; the hit epilogue's own
+    kernel 0); host reads
     a render (one a window, drain block or scan block; on the scan's eager
     loop one a bounce step), flagged synchronising calls inside windows
     and blocks (0 on both loops); the busy share of one profiled render of
@@ -154,26 +159,30 @@ Phases, each raising on failure:
     the closest hit, the cull, the threefry bundle and the bounce step's
     kernels of call GRAPH_CALL inside a captured flagship window, and of a
     captured bounce block of the flagship scan, the viewer's scan frames
-    and config 4 (its bundle, sphere pass and epilogue: no triangle), as
+    and config 4 (its bundle, sphere pass and epilogue: no triangle, NEE), as
     the last replay computed them: each bit-equal to an eager launch of its
     kernel at the same inputs, and held against its plain version by
     phases 2, 4, 16 and 18's criteria;
 18. (run after phase 16) the bounce step's kernels (`hit_front`, and as
     `sphere_pass` without the closest hit's operands; `hit_epilogue`;
-    `shade`; `shade_bank`) vs their plain twins, bit-equal (NaN where both
-    are NaN), at the calls the paths make: the flagship scan's first and
-    second bounce steps (921,600 lanes), the flagship wavefront's advance
-    CAPTURE_CALL (32,768 lanes), a viewer frame's pool call 5 (16,384) and
-    drain call 1 (1,024), the bunny300k leg's first step (32,768) and config
-    4's first step (262,144 lanes, spheres alone; its closest hit and its
-    shadow rays', the sphere pass and the epilogue alone; without NEE, its
-    shading); `shade_bank` also where the paths call `shade` (the scan,
-    the leg's step, config 4), on bank operands made from the call's, and
-    the front end also on 921,523 of the scan's lanes (not whole 128-lane
-    subgroups) with an active mask and an occlusion bound; each with its
-    device, call and plain time and its bound, the larger of its bytes at
-    the memory rate and its operations (counted from its source) at the
-    f32 peak.
+    `shade`; `shade_bank`; `shade_hit`; `shade_bank_hit`) vs their plain
+    twins, bit-equal (NaN where both are NaN), at the calls the paths make:
+    the flagship scan's first and second bounce steps (921,600 lanes), the
+    flagship wavefront's advance CAPTURE_CALL (32,768 lanes), a viewer
+    frame's pool call 5 (16,384) and drain call 1 (1,024), the bunny300k
+    leg's first step (32,768) and config 4's first step (262,144 lanes,
+    spheres alone; its closest hit and its shadow rays', the sphere pass and
+    the epilogue alone; without NEE, its shading); every shading entry at
+    each of these shapes (`complete_shading_set`: where a step shaded from
+    the winners, the epilogue's call at those winners and the shading of
+    its output, and the bank's entry on bank operands made from the call's,
+    or the bank dropped), and the front end also on 921,523 of the scan's
+    lanes (not whole 128-lane subgroups) with an active mask and an
+    occlusion bound; each with its device, call and plain time and its
+    bound, the larger of its bytes at the memory rate and its operations
+    (counted from its source) at the f32 peak; then the global loads each
+    function of `csrc/shade.cu` issues before its first global store (its
+    SASS), of this tree's build and, with `--against`, the other's.
 No earlier path runs at a smaller depth than before. Every path through
 `trace_wavefront` (phases 7, 8, 9, 11, 12, 14, 15) runs its windows as CUDA
 graph replays, and every scan render (phases 6, 9, 10, 11, 12, 14, 15) its
@@ -188,9 +197,9 @@ moves as an eager launch does; the wrappers' Python counts hold the
 eager launches and those traced into a capture, and must equal the
 tallies where nothing was replayed. Every traced bounce step must launch
 both tile kernels once and the threefry kernel exactly once (its bundle),
-with at least two draws, the front end and the hit epilogue at least
-once, and exactly one of the shading kernels or, with NEE, the plain
-shading.
+with at least two draws, the front end at least once, and exactly one of
+the shading kernels or, with NEE, the plain shading; a step that does not
+shade from the closest hit's winners launches the hit epilogue.
 A kernel's `ms` is its device time: 20 calls captured in one CUDA graph,
 replayed between CUDA events (`device_ms`); its `call_ms` is the mean of 20
 wrapper calls back to back between CUDA events (`call_ms`), which reads the
@@ -294,19 +303,34 @@ KERNELS = {
     "shade_bank": dict(source="metalpathtracer_torch/csrc/shade.cu",
                        replaces="metalpathtracer_tpu/render/integrator.py:315",
                        also_replaces="metalpathtracer_tpu/render/integrator.py:702"),
+    # the two shadings again, from the closest hit's raw winners: the
+    # epilogue in the shading's registers (the bounce step without NEE)
+    "shade_hit": dict(source="metalpathtracer_torch/csrc/shade.cu",
+                      replaces="metalpathtracer_tpu/render/integrator.py:315",
+                      also_replaces=f"{TPU_FILE}:1315"),
+    "shade_bank_hit": dict(source="metalpathtracer_torch/csrc/shade.cu",
+                           replaces="metalpathtracer_tpu/render/integrator.py:315",
+                           also_replaces="metalpathtracer_tpu/render/integrator.py:702, "
+                                         f"{TPU_FILE}:1315"),
 }
 # the bounce step's kernels, by the names of their device tallies
 # (render/kernels/_build.py), and the keys of their launches in a counted
 # path's record
-SHADING = ("hit_front", "hit_epilogue", "shade", "shade_bank")
+SHADING = ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
+           "shade_bank_hit")
 SHADING_KEYS = ("front_launches", "epilogue_launches", "shade_launches",
-                "shade_bank_launches")
+                "shade_bank_launches", "shade_hit_launches", "shade_bank_hit_launches")
+# the shading kernels: one of them (or NEE's plain shading) a bounce step;
+# the last two start from the closest hit's winners and run its epilogue
+SHADES = SHADING[2:]
+FUSED = ("shade_hit", "shade_bank_hit")
 # their wrappers and the kernel each launches: `intersect_mm.hit_front` the
 # front end, `shade.sphere_pass` the same kernel without the closest hit's
 # operands (a scene of spheres alone), the rest `render/kernels/shade.py`'s
 WRAPPER_KERNEL = {"hit_front": "hit_front", "sphere_pass": "hit_front",
                   "hit_epilogue": "hit_epilogue", "shade": "shade",
-                  "shade_bank": "shade_bank"}
+                  "shade_bank": "shade_bank", "shade_hit": "shade_hit",
+                  "shade_bank_hit": "shade_bank_hit"}
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
@@ -469,15 +493,37 @@ def cull_sass(so: Path) -> dict:
                 clock_hz=top_sm_clock_hz())
 
 
-def sass(so: Path, name: str) -> str:
-    """`cuobjdump -sass` of a kernel's library, kept in OUT."""
+def sass(so: Path, name: str, keep: bool = True) -> str:
+    """`cuobjdump -sass` of a kernel's library, kept in OUT (`keep`)."""
     from metalpathtracer_torch.render.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    (OUT / f"sass_{name}.txt").write_text(text)
+    if keep:
+        (OUT / f"sass_{name}.txt").write_text(text)
     return text
+
+
+def shade_loads(so: Path) -> dict:
+    """Per function of a build of `csrc/shade.cu` (its SASS, not kept:
+    twelve functions): its global loads (LDG) before its first global store (STG)
+    in the SASS's order, how many of those are 16-byte loads, and all its
+    global loads. A lane's loads that come after a store of its own wait
+    on that store where the pointers may alias."""
+    out = {}
+    for chunk in sass(so, "shade", keep=False).split("Function : ")[1:]:
+        m = re.search(r"(shade\w*?_kernel)(?:ILi(n?\d+)E)?", chunk.splitlines()[0])
+        if not m:
+            continue
+        name = m.group(1) + (f"<{m.group(2).replace('n', '-')}>" if m.group(2) else "")
+        ops = [i.group(3) for i in map(SASS_INST.search, chunk.splitlines()) if i]
+        first = next((k for k, op in enumerate(ops) if op.startswith("STG")), len(ops))
+        before = [op for op in ops[:first] if op.startswith("LDG")]
+        out[name] = dict(loads_before_store=len(before),
+                         wide_before_store=sum(".128" in op for op in before),
+                         loads=sum(op.startswith("LDG") for op in ops))
+    return out
 
 
 def top_sm_clock_hz() -> float:
@@ -698,13 +744,17 @@ def counted_path(tiles: bool = True):
     alone, which launches no tile kernel) the threefry kernel alone must
     run on every step. The bounce step's kernels likewise (SHADING_KEYS:
     `front_launches`, `epilogue_launches`, `shade_launches`,
-    `shade_bank_launches` the tallies, `*_calls` the wrappers'; the front
-    end's kernel also runs as the sphere pass on a scene of spheres alone,
-    whose wrapper's calls `front_calls` counts too): every traced step must
-    run the front end and the hit epilogue at least once each (its closest
-    hit; twice with a shadow ray) and exactly one of the shading kernel, the
-    shading with the wavefront's bank, or the plain shading with next-event
-    estimation (`nee_steps`, counted in `graphs.STATS`)."""
+    `shade_bank_launches`, `shade_hit_launches`, `shade_bank_hit_launches`
+    the tallies, `*_calls` the wrappers'; the front end's kernel also runs
+    as the sphere pass on a scene of spheres alone, whose wrapper's calls
+    `front_calls` counts too): every traced step must run the front end at
+    least once (its closest hit; twice with a shadow ray), and exactly one
+    of the shading kernels (SHADES: from the epilogue's output, with or
+    without the wavefront's bank, or from the closest hit's winners, which
+    run the epilogue themselves) or the plain shading with next-event
+    estimation (`nee_steps`, counted in `graphs.STATS`); a step that
+    shades from anything but the winners runs the hit epilogue at least
+    once."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -727,18 +777,19 @@ def counted_path(tiles: bool = True):
             return fn(*a, **k)
         return wrapped
 
+    def shadings():
+        return sum(getattr(tsh, k).launches for k in SHADES)
+
     def step(*a, **k):
         step.calls += 1
         bundle = tfk.threefry_bundle
         launches, draws = bundle.launches, bundle.draws
-        shaded = tsh.shade.launches + tsh.shade_bank.launches
-        nee = graphs.STATS["nee_steps"]
+        shaded, nee = shadings(), graphs.STATS["nee_steps"]
         out = originals[0](*a, **k)
         launches, draws = bundle.launches - launches, bundle.draws - draws
         if launches != 1 or draws < 2:
             odd_steps.append((launches, draws))
-        shaded = tsh.shade.launches + tsh.shade_bank.launches - shaded
-        nee = graphs.STATS["nee_steps"] - nee
+        shaded, nee = shadings() - shaded, graphs.STATS["nee_steps"] - nee
         if shaded + nee != 1:
             odd_shading.append((shaded, nee))
         return out
@@ -780,8 +831,7 @@ def counted_path(tiles: bool = True):
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
                   front_calls=tmm.hit_front.launches + tsh.sphere_pass.launches,
                   epilogue_calls=tsh.hit_epilogue.launches,
-                  shade_calls=tsh.shade.launches,
-                  shade_bank_calls=tsh.shade_bank.launches,
+                  **{f"{k}_calls": getattr(tsh, k).launches for k in SHADES},
                   **dict(zip(SHADING_KEYS, shading)),
                   nee_steps=graphs.STATS["nee_steps"] - nee_steps)
     if any(calls.values()):
@@ -789,9 +839,11 @@ def counted_path(tiles: bool = True):
     if result["steps"] == 0 or tiles and min(result["mm_calls"],
                                              result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
-    if min(result["front_calls"], result["epilogue_calls"]) < result["steps"]:
+    fused_calls = sum(result[f"{k}_calls"] for k in FUSED)
+    if min(result["front_calls"], result["epilogue_calls"] + fused_calls) < \
+            result["steps"]:
         raise RuntimeError(f"not every bounce step launched the front end and the "
-                           f"hit epilogue: {result}")
+                           f"hit epilogue (alone or in its shading): {result}")
     if odd_steps:
         raise RuntimeError(f"{len(odd_steps)} bounce steps did not launch one bundle "
                            f"of at least two draws, e.g. (launches, draws) "
@@ -800,15 +852,15 @@ def counted_path(tiles: bool = True):
         raise RuntimeError(f"{len(odd_shading)} bounce steps did not shade exactly once "
                            f"(a shading kernel, or the plain shading with NEE), e.g. "
                            f"(launches, NEE steps) {odd_shading[0]}: {result}")
-    if min(done[:3] if tiles else done[2:3]) == 0 or min(shading[:2]) == 0 or (
-            shading[2] + shading[3] == 0 and result["nee_steps"] < result["steps"]):
+    if min(done[:3] if tiles else done[2:3]) == 0 or shading[0] == 0 or (
+            shading[1] + shading[4] + shading[5] == 0) or (
+            sum(shading[2:]) == 0 and result["nee_steps"] < result["steps"]):
         raise RuntimeError(f"a kernel ran no time on the card: {result}")
     if not replayed and (done != (result["mm_calls"], result["cull_calls"],
                                   result["threefry_calls"],
                                   result["threefry_call_draws"])
                          or shading != (result["front_calls"], result["epilogue_calls"],
-                                        result["shade_calls"],
-                                        result["shade_bank_calls"])):
+                                        *(result[f"{k}_calls"] for k in SHADES))):
         raise RuntimeError(f"the card ran other launches than the wrappers made: "
                            f"{result}")
 
@@ -819,9 +871,9 @@ def shading_text(counts) -> str:
 
 
 def executed_shading() -> tuple:
-    """(front end, hit epilogue, shading, shading with the bank) launches
-    run on this process's card since the tallies were last zeroed: one
-    read."""
+    """The bounce step's kernels' launches (SHADING: front end, hit
+    epilogue, and the four shadings) run on this process's card since the
+    tallies were last zeroed: one read."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
@@ -1276,14 +1328,20 @@ def phase_against_renders(other: Path):
     turns other, this, this, other: each turn a child whose working
     directory is the tree calls it twice, so each reading is a pair (a
     fresh process's seconds, with its first launches and imports; then
-    the same render again). The images must equal the other tree's where
-    both trees draw the same randoms and run the same kernels, and be
-    within the render limit of it everywhere (`compare_images`). A small
-    render of each tree first builds its kernels."""
+    the same render again, whose kernel launches each tree's device tallies
+    count). The images must equal the other tree's bit for bit (both trees
+    draw the same randoms and run kernels bit-equal to the same plain
+    versions; a difference raises), and so lie within the render limit of
+    it (`compare_images`, recorded). A small render of each tree first
+    builds its kernels."""
     import numpy as np
 
-    code = ("import json, sys\nfrom metalpathtracer_torch import cli\n"
-            "for _ in range(int(sys.argv[1])):\n    assert cli.main(sys.argv[2:]) == 0\n")
+    code = ("import json, sys, torch\nfrom metalpathtracer_torch import cli\n"
+            "from metalpathtracer_torch.render.kernels import _build\n"
+            "for _ in range(int(sys.argv[1])):\n    _build.zero_tallies()\n"
+            "    assert cli.main(sys.argv[2:]) == 0\n"
+            "print(json.dumps({k: v[0] for k, v in "
+            "_build.tallies(torch.device('cuda', 0)).items()}))\n")
 
     def cli(tree, argv, times):
         proc = subprocess.run(
@@ -1293,32 +1351,38 @@ def phase_against_renders(other: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"{tree} {argv}: exit {proc.returncode}: "
                                f"{proc.stderr[-2000:]}")
-        return [json.loads(line)["seconds"] for line in
-                proc.stdout.strip().splitlines()[-times:]]
+        lines = proc.stdout.strip().splitlines()
+        return ([json.loads(line)["seconds"] for line in lines[-times - 1:-1]],
+                json.loads(lines[-1]))
 
     for tree in (other, ROOT):
         cli(tree, flagship_argv(64, 36), 1)
     record = {}
     for name, extra in (("scan", []), ("wavefront", ["--wavefront"])):
-        seconds, images = {"other": [], "this": []}, {}
+        seconds, images, tallies = {"other": [], "this": []}, {}, {}
         for k, who in enumerate(("other", "this", "this", "other")):
             npz = OUT / f"against_{name}_{k}.npz"
-            seconds[who].append(cli(other if who == "other" else ROOT,
-                                    flagship_argv() + extra + ["--npz", str(npz)], 2))
+            secs, tallies[who] = cli(other if who == "other" else ROOT,
+                                     flagship_argv() + extra + ["--npz", str(npz)], 2)
+            seconds[who].append(secs)
             images.setdefault(who, radiance(npz))
             npz.unlink()
         same = bool(np.array_equal(images["other"], images["this"]))
+        if not same:
+            raise RuntimeError(f"[A] cli {name}: the image differs from {other}'s at "
+                               f"{int((images['other'] != images['this']).sum())} values")
         # where the trees round an operation otherwise, two renders of one
         # estimator: within the render limit
         frac, dmean = compare_images(images["this"], images["other"],
                                      f"cli {name}: this tree vs {other}")
         record[name] = dict(seconds=seconds, images_equal=same, divergent=frac,
-                            mean_diff=dmean)
+                            mean_diff=dmean, tallies=tallies)
         log(f"[A] cli {name} 1280x720 spp 4 depth 32 (fresh process, again): other "
             + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["other"]) + " s; this "
             + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in seconds["this"])
             + f" s; images equal: {same} ({frac:.5f} of pixels differ by > 1e-3, "
-            f"means by {dmean:.2e})")
+            f"means by {dmean:.2e}); launches of a render on the card: other "
+            f"{tallies['other']}, this {tallies['this']}")
     return record
 
 
@@ -1815,7 +1879,8 @@ def profile(fn, name, steps: int) -> str:
 
 
 # the ranges whose device events `range_table` also splits by kernel name
-SPLIT_RANGES = ("hit.front", "hit.kernel_inputs", "wavefront.bank", "step.shade_bank")
+SPLIT_RANGES = ("hit.front", "hit.kernel_inputs", "wavefront.bank", "step.shade",
+                "step.shade_bank")
 
 
 def kernel_label(name: str) -> str:
@@ -2011,8 +2076,8 @@ def phase_small_vs_plain(scene):
         log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
             f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}; "
             "with the RNG's twin alone, and with the bounce step's twins alone "
-            "(the front end's, the hit epilogue's, the shading's and the shading "
-            "with the bank's): bit-equal")
+            "(the front end's, the hit epilogue's and the four shadings'): "
+            "bit-equal")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
@@ -2329,6 +2394,7 @@ def phase_bvh(sets, n_each, chunk):
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.device_scene import upload_scene
     from metalpathtracer_torch.render.intersect import closest_hit_bruteforce
+    from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.traverse import closest_hit_bvh
@@ -2370,6 +2436,7 @@ def phase_bvh(sets, n_each, chunk):
     # their eager loop by config (no warm-up, capture or replay), and equal
     # their renders under `graphs.eager()`
     images, seconds, routes = {}, {}, {}
+    counts = {}
     for name, kind, extra in (("bvh", "bvh", []), ("bvh_wavefront", "bvh", ["--wavefront"]),
                               ("mm", "mm", [])):
         def argv(tag):
@@ -2379,30 +2446,39 @@ def phase_bvh(sets, n_each, chunk):
                     str(OUT / f"small_{tag}.png"), "--npz",
                     str(OUT / f"small_{tag}.npz")] + extra
 
-        def shading_calls():  # (front end, hit epilogue, either shading)
+        def shading_calls():  # (front end, hit epilogue, a shading of the
+            # epilogue's output, a shading from the closest hit's winners)
             return (tmm.hit_front.launches + tsh.sphere_pass.launches,
                     tsh.hit_epilogue.launches,
-                    tsh.shade.launches + tsh.shade_bank.launches)
+                    tsh.shade.launches + tsh.shade_bank.launches,
+                    tsh.shade_hit.launches + tsh.shade_bank_hit.launches)
 
         launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
         shaded = shading_calls()
         before = dict(graphs.STATS)
         out = io.StringIO()
+        torch.cuda.synchronize()
+        _build.zero_tallies()
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv(name))
         if rc != 0:
             raise RuntimeError(f"cli.main --intersector {kind} {extra} returned {rc}")
+        # the bounce step's kernels' launches on the card, this render alone
+        counts[name] = dict(zip(SHADING_KEYS, executed_shading()))
         moved = {k: graphs.STATS[k] - before[k] for k in before}
         ran = tmm.mm_closest_hit.launches - launches[0]
         if (ran > 0) != (kind == "mm"):
             raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
-        # the BVH walk has no front end or epilogue; every route shades on a
-        # shading kernel (NEE off)
+        # the BVH walk has no front end or epilogue, and shades the hit it
+        # resolves; the tile route shades from its winners (NEE off): every
+        # route shades on a shading kernel
         shaded = tuple(a - b for a, b in zip(shading_calls(), shaded))
-        if (shaded[0] > 0) != (kind == "mm") or (shaded[1] > 0) != (kind == "mm") \
-                or shaded[2] == 0:
+        mm = kind == "mm"
+        if (shaded[0] > 0) != mm or shaded[1] or (shaded[2] > 0) == mm \
+                or (shaded[3] > 0) != mm:
             raise RuntimeError(f"--intersector {kind} {extra}: (front end, hit "
-                               f"epilogue, shading) calls {shaded}")
+                               f"epilogue, shading, shading from the winners) calls "
+                               f"{shaded}")
         seconds[name] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
         images[name] = check_image(OUT / f"small_{name}.npz", (180, 320, 3))
         if kind == "bvh":
@@ -2430,6 +2506,7 @@ def phase_bvh(sets, n_each, chunk):
         f"launched, the shading kernel on every step")
     return dict(rays=o.shape[0], mismatches=n_mis, max_abs_err=float(err.max()),
                 walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds, routes=routes,
+                counts=counts,
                 upload_s=upload_s, upload_without_bvh_s=bare_s,
                 render_divergent=frac, render_mean_diff=dmean,
                 wavefront_divergent=frac_w, wavefront_mean_diff=dmean_w)
@@ -2716,7 +2793,7 @@ def phase_nee(card):
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     mm_n, cull_n, bundles, draws = executed()  # on the card, replays too
-    sph_n, epi_n, shade_n, bank_n = executed_shading()
+    sph_n, epi_n, shade_n, bank_n, hit_n, bank_hit_n = executed_shading()
     if mm_n or cull_n:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
     if bundles == 0:
@@ -2724,9 +2801,9 @@ def phase_nee(card):
     # NEE shades in plain torch, by config: the closest hit (the sphere pass,
     # the front end's kernel without operands, and the epilogue) twice a
     # step, the shading kernels never
-    if shade_n or bank_n or not sph_n == epi_n > 0 or sph_n % 2:
+    if shade_n or bank_n or hit_n or bank_hit_n or not sph_n == epi_n > 0 or sph_n % 2:
         raise RuntimeError(f"config 4: {SHADING} launches "
-                           f"{(sph_n, epi_n, shade_n, bank_n)}")
+                           f"{(sph_n, epi_n, shade_n, bank_n, hit_n, bank_hit_n)}")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
     cpu_s = time.perf_counter() - t0
@@ -2737,13 +2814,15 @@ def phase_nee(card):
                              divergent=frac, mean_diff=dmean, threefry_launches=bundles,
                              threefry_draws=draws, front_launches=sph_n,
                              epilogue_launches=epi_n, shade_launches=shade_n,
-                             shade_bank_launches=bank_n)
+                             shade_bank_launches=bank_n, shade_hit_launches=hit_n,
+                             shade_bank_hit_launches=bank_hit_n)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
         f"tile kernel launched (spheres alone), threefry {bundles} launches, "
         f"{draws} draws, hit_front {sph_n} (as the sphere pass), hit_epilogue {epi_n}, "
-        f"shade {shade_n}, shade_bank {bank_n} (NEE shades in plain torch)")
+        f"shade {shade_n}, shade_bank {bank_n}, shade_hit {hit_n}, shade_bank_hit "
+        f"{bank_hit_n} (NEE shades in plain torch)")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -2764,7 +2843,7 @@ def phase_nee(card):
             raise RuntimeError(f"multimesh NEE wavefront: {shadow} shadow rays")
         # each closest hit (the step's and its shadow ray's) runs the front
         # end and the epilogue; the shading is plain torch
-        if counts["shade_launches"] or counts["shade_bank_launches"] or not (
+        if any(counts[f"{k}_launches"] for k in SHADES) or not (
                 counts["front_launches"] == counts["epilogue_launches"]
                 == counts["mm_launches"] > 0) or counts["nee_steps"] != counts["steps"]:
             raise RuntimeError(f"multimesh NEE {name}: {counts}")
@@ -2997,6 +3076,40 @@ def shading_bound(kernel: str, args) -> dict:
         nbytes = (24 * n + (8 * n if t_tri is not None else 0) + 12 * n + 32 * rows
                   + 16 * s + 25 * n)
         flop = n * EPILOGUE_FLOP
+    elif kernel in FUSED:
+        # every lane reads its state (o, d, light, throughput: 48 B; active,
+        # prev_pdf: 5 B) and writes 53 B; a live lane reads the winners (the
+        # sphere pass's t, id and slot: 12 B; the triangle kernel's t and
+        # column: 8 B) and, where a triangle won the pass, its refine row
+        # (32 B, counted as the distinct rows); a lane that hit reads its
+        # draws (unit vector, Fresnel uniform: 16 B; with roulette its
+        # uniform, and a bounce a lane) and its material row (the distinct
+        # rows); the epilogue's work on the lanes that hit
+        from metalpathtracer_torch.render.kernels import shade as tsh
+
+        active, t_tri, col, s = args[4], args[6], args[7], args[12].shape[0]
+        u_rr, bounce = args[17], args[18]
+        bank = kernel == "shade_bank_hit"
+        idx, mat_id = tsh.hit_epilogue(args[0], args[1], *args[6:15])[1::3]
+        hits_mask = active & (idx >= 0)
+        hits = int(hits_mask.sum())
+        live = int(active.sum())
+        rows = int(mat_id[hits_mask].unique().numel())
+        tri_rows = (int(col[active & (col >= 0)].unique().numel())
+                    if col is not None else 0)
+        per_hit = 16
+        if u_rr is not None:
+            per_hit += 4
+            if not bank and isinstance(bounce, torch.Tensor) and bounce.numel() == n > 1:
+                per_hit += bounce.element_size()
+        nbytes = (53 * n + live * (12 + (8 if t_tri is not None else 0))
+                  + 32 * tri_rows + 16 * s + per_hit * hits + 64 * rows + 24
+                  + 53 * n + 8)
+        flop = hits * (SHADE_HIT_FLOP + EPILOGUE_FLOP) + n * SHADE_LANE_FLOP
+        if bank:
+            ka = args[25].shape[1]
+            nbytes += n * (8 + 1 + 8 + 4 * ka) + n * (4 * ka + 8 + 8 + 1 + 1)
+            flop += n * (BANK_LANE_FLOP + ka)
     else:
         # every lane reads its state (o, d, light, throughput: 48 B), its
         # active flag and its hit's id, and writes 53 B; a lane that hit
@@ -3066,16 +3179,23 @@ def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
     return rec
 
 
-def bank_operands_of(shade_args, seed: int = 18):
-    """`shade_bank`'s operands from a `shade` call's: its bounce one a lane
-    (int64), lanes alive where they are active and on a quarter of the
-    others, random item chunks and accumulators, and the flagship's bank
-    (depth 32, 4 pixels an item, 4 samples a pixel)."""
+# where a shading's arguments hold the bounce: `shade`'s (after the hit),
+# `shade_hit`'s (after the winners)
+BOUNCE_AT = {"shade": 14, "shade_hit": 18}
+
+
+def bank_operands_of(shade_args, seed: int = 18, kernel: str = "shade"):
+    """`shade_bank`'s operands from a `shade` call's (`shade_bank_hit`'s
+    from a `shade_hit` call's, `kernel`): its bounce one a lane (int64),
+    lanes alive where they are active and on a quarter of the others,
+    random item chunks and accumulators, and the flagship's bank (depth 32,
+    4 pixels an item, 4 samples a pixel)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import shade as tsh
 
-    o, active, bounce = shade_args[0], shade_args[4], shade_args[14]
+    at = BOUNCE_AT[kernel]
+    o, active, bounce = shade_args[0], shade_args[4], shade_args[at]
     n, dev = o.shape[0], o.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -3085,8 +3205,43 @@ def bank_operands_of(shade_args, seed: int = 18):
     alive = active | (torch.rand(n, generator=gen, device=dev) < 0.25)
     schunk = torch.randint(0, plan.per_item, (n,), generator=gen, device=dev)
     acc = torch.rand((n, 3 * plan.bank_k), generator=gen, device=dev) * 3.0
-    return (*shade_args[:14], bounce.to(torch.int64), *shade_args[15:], alive, schunk,
-            acc, plan)
+    return (*shade_args[:at], bounce.to(torch.int64), *shade_args[at + 1:], alive,
+            schunk, acc, plan)
+
+
+def with_the_epilogue(hit_args):
+    """A shading from the winners' arguments (`shade_hit`'s or
+    `shade_bank_hit`'s) as the shading of the epilogue's output takes them
+    (`shade`'s or `shade_bank`'s): the winners and the epilogue's tables
+    replaced by the hit the epilogue's kernel computes from them."""
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    hit = tsh.hit_epilogue(hit_args[0], hit_args[1], *hit_args[6:15])
+    return (*hit_args[:6], *hit, *hit_args[15:])
+
+
+def complete_shading_set(calls: dict) -> dict:
+    """A bounce step's recorded shading calls completed to every bounce
+    kernel at its shape: where the step shaded from the winners
+    (`shade_hit` or `shade_bank_hit`), the epilogue's call at those
+    winners, the shading of its output (`shade`, `shade_bank`), and the
+    other of the two winner entries (the bank dropped, or made by
+    `bank_operands_of`); where it shaded the epilogue's output (`shade`),
+    the bank made likewise."""
+    calls = dict(calls)
+    if "shade_bank_hit" in calls and "shade_hit" not in calls:
+        calls["shade_hit"] = calls["shade_bank_hit"][:23]
+    if "shade_hit" in calls and "shade_bank_hit" not in calls:
+        calls["shade_bank_hit"] = bank_operands_of(calls["shade_hit"],
+                                                   kernel="shade_hit")
+    if "shade_hit" in calls:
+        hit_args = calls["shade_hit"]
+        calls.setdefault("hit_epilogue", (hit_args[0], hit_args[1], *hit_args[6:15]))
+        calls.setdefault("shade", with_the_epilogue(hit_args))
+        calls.setdefault("shade_bank", with_the_epilogue(calls["shade_bank_hit"]))
+    if "shade" in calls and "shade_bank" not in calls:
+        calls["shade_bank"] = bank_operands_of(calls["shade"])
+    return calls
 
 
 def padded_front_of(front_args, drop: int = 77, seed: int = 18):
@@ -3462,10 +3617,12 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         raise RuntimeError(f"[17] {name}: launches {eager['launched']} eager, "
                            f"{graph['launched']} replayed; {flagship} expected on both")
     # the flagship's bounce steps (one closest hit each) each run the front
-    # end, the hit epilogue and one shading kernel: `shade` on the scan, the
-    # shading with the bank on the wavefront (one bounce an advance)
+    # end and one shading kernel from the closest hit's winners, which runs
+    # the epilogue itself: `shade_hit` on the scan, the shading with the bank
+    # on the wavefront (one bounce an advance); the epilogue's own kernel
+    # runs no time
     steps = flagship[0] if flagship else 0
-    want = (steps, steps, steps, 0) if scan else (steps, steps, 0, steps)
+    want = (steps, 0, 0, 0, steps, 0) if scan else (steps, 0, 0, 0, 0, steps)
     if flagship and not (eager["shading"] == graph["shading"] == want):
         raise RuntimeError(f"[17] {name}: the bounce step's kernels {SHADING} ran "
                            f"{eager['shading']} eager, {graph['shading']} replayed; "
@@ -3579,10 +3736,11 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     the bounce step's threefry bundle of call `call`, as the last replay
     computed them: each bit-equal to an eager launch of its kernel at the
     same inputs, and held against its plain version by the criteria of
-    phases 2, 4, 16 and 18; the bounce step's front end, epilogue and
-    shading (`shade_bank` in a wavefront window, `shade` in a scan block)
-    likewise. A scene without triangles holds its bundle, its sphere pass
-    and its epilogue (config 4 shades in plain torch, with NEE)."""
+    phases 2, 4, 16 and 18; the bounce step's front end and shading from
+    the closest hit's winners (`shade_bank_hit` in a wavefront window,
+    `shade_hit` in a scan block) likewise. A scene without triangles holds
+    its bundle, its sphere pass and its epilogue (config 4 shades in plain
+    torch, with NEE)."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -3606,8 +3764,8 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
     # a scene without triangles has no closest-hit call to anchor the step,
     # and shades in plain torch with NEE (config 4)
     kernels = ({"threefry", "sphere_pass", "hit_epilogue"} if scene.num_tris == 0
-               else {"mm", "cull", "threefry", "hit_front", "hit_epilogue",
-                     "shade" if what.endswith("_block") else "shade_bank"})
+               else {"mm", "cull", "threefry", "hit_front",
+                     "shade_hit" if what.endswith("_block") else "shade_bank_hit"})
     if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != kernels:
         raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
     for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
@@ -4012,25 +4170,24 @@ def main(argv=None) -> int:
     glass = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")), dev)
     (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
                              cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
-    if calls["shade"] or calls["shade_bank"] or calls["hit_front"] or len(
-            calls["sphere_pass"]) != 2:
+    if any(calls[k] for k in SHADES) or calls["hit_front"] or len(
+            calls["sphere_pass"]) != 2 or len(calls["hit_epilogue"]) != 2:
         raise RuntimeError(f"config 4's step: {[(k, len(v)) for k, v in calls.items()]}")
     for k, label in enumerate(("config4_step1", "config4_shadow1")):
         shading_sets[label] = {kernel: calls[kernel][k]
                                for kernel in ("sphere_pass", "hit_epilogue")}
-    # config 4's step without NEE shades on the kernel: its shading at
-    # 262,144 lanes
+    # config 4's step without NEE shades on the kernel, from the sphere
+    # pass's winners: its shading at 262,144 lanes
     (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
                              cfg=RenderConfig(max_depth=16, rr_start=3))
-    shading_sets["config4_step1_no_nee"] = {"shade": calls["shade"][0]}
+    shading_sets["config4_step1_no_nee"] = {"shade_hit": calls["shade_hit"][0]}
     del calls, glass
-    # the shading with the bank at the shapes where the paths shade alone
-    # (the scan, config 4, the bunny leg's step), on operands made from the
-    # step's; and the front end at a lane count that is not whole subgroups
+    # every shading entry at the shapes where the paths shade (the scan,
+    # the pool advance, the viewer's pool and drain, config 4, the bunny
+    # leg's step), on operands made from the step's (`complete_shading_set`);
+    # and the front end at a lane count that is not whole subgroups
     for name in list(shading_sets):
-        calls = shading_sets[name]
-        if "shade" in calls and "shade_bank" not in calls:
-            calls["shade_bank"] = bank_operands_of(calls["shade"])
+        shading_sets[name] = complete_shading_set(shading_sets[name])
     shading_sets["scan_step1_padded"] = {
         "hit_front": padded_front_of(shading_sets["scan_step1"]["hit_front"])}
     log("[18] the bounce step's kernels vs their twins: "
@@ -4040,6 +4197,20 @@ def main(argv=None) -> int:
     bounce_kernels = phase_bounce_kernels(shading_sets)
     log(f"[18] {len(bounce_kernels)} calls compared and timed in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the shading's loads before its first store, by function, in this
+    # tree's build and (with --against) the other tree's
+    from metalpathtracer_torch.render.kernels import _build
+
+    builds = {"this": _build.build("shade")}
+    if args.against:
+        builds["other"] = _build.build(
+            "shade", csrc=Path(args.against).resolve() / "metalpathtracer_torch" / "csrc")
+    loads = {who: shade_loads(so) for who, so in builds.items()}
+    for who, fns in loads.items():
+        log(f"[18] shade.cu SASS ({who} tree), global loads before the first global "
+            "store (16-byte ones) of all: " + ", ".join(
+                f"{k} {v['loads_before_store']} ({v['wide_before_store']}) of "
+                f"{v['loads']}" for k, v in fns.items()))
     del shading_sets
     torch.cuda.empty_cache()
     sweep = against = None
@@ -4132,14 +4303,27 @@ def main(argv=None) -> int:
              launches_by_path={k: v["threefry_launches"] for k, v in per_path.items()},
              draws_by_path={k: v["threefry_draws"] for k, v in per_path.items()}),
     ]}
-    # the bounce step's kernels at the main path's shape (the pool advance),
-    # but `shade`, which the wavefront at one bounce an advance no longer
-    # runs (its shading banks: `shade_bank`): its launches and times are
-    # the scan flagship's (its first bounce step, 921,600 lanes); no single
-    # PyTorch call computes any of them
+    # the bounce step's kernels: each one's launches are those of the path
+    # that runs it (every path is counted from 0), and its times at that
+    # path's shape: the front end and the shading with the bank from the
+    # winners on the main path (the wavefront: the pool advance), the
+    # shading from the winners on the scan flagship (its first bounce step,
+    # 921,600 lanes); the epilogue's own kernel on the NEE path (the
+    # multimesh wavefront; timed at the pool advance's winners), the
+    # shadings of the epilogue's output on the BVH path (timed at the scan's
+    # and the pool advance's shapes); no single PyTorch call computes any
+    # of them
+    where = {"hit_front": ("wavefront", "pool"),
+             "hit_epilogue": ("nee_multimesh_wavefront", "pool"),
+             "shade": ("bvh_scan", "scan_step1"),
+             "shade_bank": ("bvh_wavefront", "pool"),
+             "shade_hit": ("scan", "scan_step1"),
+             "shade_bank_hit": ("wavefront", "pool")}
+    per_path.update(bvh_scan=bvh["counts"]["bvh"],
+                    bvh_wavefront=bvh["counts"]["bvh_wavefront"])
     for kernel, key in zip(SHADING, SHADING_KEYS):
-        path, at = (("scan", bounce_kernels["scan_step1_shade"]) if kernel == "shade"
-                    else ("wavefront", bounce_kernels[f"pool_{kernel}"]))
+        path, shape = where[kernel]
+        at = bounce_kernels[f"{shape}_{kernel}"]
         kernels["kernels"].append(dict(
             name=kernel, route="cuda", **KERNELS[kernel],
             launches=per_path[path][key], launches_path=path, lanes=at["lanes"],
@@ -4156,6 +4340,7 @@ def main(argv=None) -> int:
                    threefry_lane={k: lane_issue(v)
                                   for k, v in tsass["per_blocks"].items()},
                    threefry_vs_twin=draws, bounce_kernels_vs_twins=bounce_kernels,
+                   shade_sass_loads=loads,
                    sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,

@@ -8,17 +8,21 @@ find. This package never imports jax, nor anything of the JAX package.
 What is ported so far are the CLI's two render paths:
 `cli.main` -> `render.pipeline.render_image` (the scan,
 `render.integrator.trace`) or `render_image_wavefront` (the persistent
-wavefront, `trace_wavefront`) -> `_bounce_step` -> `_trace_rays` ->
-`render.kernels.intersect_mm.closest_hit_mm_full`, whose triangle pass runs
-the hand-written CUDA kernels `csrc/cull_tiles.cu` and
-`csrc/mm_closest_hit.cu`, between the front end (`csrc/sphere_pass.cu`: the
-sphere pass and every per-lane operand of the cull and the closest hit)
-and the epilogue (`csrc/hit_epilogue.cu`); every random draw (`core.rng`)
-runs `csrc/threefry.cu` through `render.kernels.threefry` (a bounce step's
-draws in one launch), and the step's shading without next-event
-estimation runs `csrc/shade.cu` (`render.kernels.shade`), on the wavefront
-at one bounce an advance with the advance's bank of finished paths in the
-same launch (`shade_bank`).
+wavefront, `trace_wavefront`) -> `_bounce_step` ->
+`render.kernels.intersect_mm.closest_hit_mm_winners`, whose triangle pass
+runs the hand-written CUDA kernels `csrc/cull_tiles.cu` and
+`csrc/mm_closest_hit.cu` after the front end (`csrc/sphere_pass.cu`: the
+sphere pass and every per-lane operand of the cull and the closest hit);
+every random draw (`core.rng`) runs `csrc/threefry.cu` through
+`render.kernels.threefry` (a bounce step's draws in one launch), and the
+step's shading without next-event estimation runs `csrc/shade.cu`
+(`render.kernels.shade`) from the closest hit's winners, the epilogue
+computed in its registers (`shade_hit`), on the wavefront at one bounce an
+advance with the advance's bank of finished paths in the same launch
+(`shade_bank_hit`). With next-event estimation, or on the BVH and brute
+intersectors, the closest hit ends in its own epilogue
+(`closest_hit_mm_full`, `csrc/hit_epilogue.cu`) and the shading takes its
+output (`shade`, `shade_bank`, or the plain NEE shading).
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

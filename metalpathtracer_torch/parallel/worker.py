@@ -47,6 +47,8 @@ import datetime
 import io
 import json
 import os
+import resource
+import signal
 import subprocess
 import sys
 import time
@@ -172,6 +174,7 @@ def run_rank(spec: dict, rank: int, around=contextlib.nullcontext) -> None:
     try:
         for job in spec["jobs"]:
             barrier()  # the ranks start a job together
+            t0 = time.perf_counter()
             with around() as counts:
                 if job["kind"] == "render":
                     result = _render(job, device, scenes)
@@ -193,6 +196,12 @@ def run_rank(spec: dict, rank: int, around=contextlib.nullcontext) -> None:
             tmp = out_dir / f".{job['name']}.rank{rank}.tmp"
             torch.save(result, tmp)
             os.replace(tmp, out_dir / f"{job['name']}.rank{rank}.pt")
+            # one line a job into the rank's log: where a world stopped, and
+            # how long and how large each job ran
+            print(f"rank {rank}: {job['name']} done in "
+                  f"{time.perf_counter() - t0:.2f} s, max RSS "
+                  f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024} MiB",
+                  file=sys.stderr, flush=True)
     finally:
         if world > 1:
             dist.destroy_process_group()
@@ -265,6 +274,21 @@ def launch(spec: dict, limit_s: float, command=None) -> float:
     return time.perf_counter() - t0
 
 
+def _die_with_launcher() -> None:
+    """Have the kernel stop this rank when the process that started it
+    dies (Linux's parent-death signal): a rank must not run on, and keep a
+    world's files and cores, after its launcher was killed."""
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        return
+    if os.getppid() == 1:  # the launcher died before the call
+        os._exit(1)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 2:
@@ -272,6 +296,7 @@ def main(argv=None) -> int:
         print("usage: python -m metalpathtracer_torch.parallel.worker "
               "SPEC.json RANK", file=sys.stderr)
         return 2
+    _die_with_launcher()
     run_rank(json.loads(Path(argv[0]).read_text()), int(argv[1]))
     return 0
 

@@ -43,6 +43,7 @@ from metalpathtracer_torch.render.kernels import shade
 from metalpathtracer_torch.render.kernels.intersect_mm import (
     _cull_hit_mask,
     closest_hit_mm_full,
+    closest_hit_mm_winners,
 )
 from metalpathtracer_torch.render.traverse import closest_hit_bvh
 from metalpathtracer_torch.utils.metrics import span
@@ -231,7 +232,11 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     The closest hit, then every draw of the step in one bundle, then the
     shading: without next-event estimation `render/kernels/shade.py::shade`
     (one kernel on the card), with it `_shade_nee`, plain torch (chosen by
-    the config, and counted in `graphs.STATS["nee_steps"]`).
+    the config, and counted in `graphs.STATS["nee_steps"]`). Without
+    next-event estimation on the tile intersector ("auto", "mm") the closest
+    hit stops at its winners (`closest_hit_mm_winners`) and the shading
+    starts from them (`shade.shade_hit`): its kernel computes the epilogue
+    in registers, one launch where the epilogue and `shade` were two.
 
     Returns (o, d, light, throughput, still_active, prev_pdf, rays_counted,
     shadow_counted, tile_passes); rays_counted includes the NEE shadow rays
@@ -239,21 +244,29 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
 
     `bank` (the wavefront's lanes at one bounce an advance: (alive, schunk,
     acc, `shade.BankPlan`), with `bounce` an int64 tensor) adds a tenth
-    item: without NEE the shading is `shade.shade_bank`, which also banks
-    the paths that ended, and the item is its (acc, bounce, schunk, more,
-    bank), with light 0 where a path banked and still_active the lanes
-    whose path goes on; with NEE it is None and the caller banks
-    (`shade.bank_paths`).
+    item: without NEE the shading is `shade.shade_bank` (from the winners
+    `shade.shade_bank_hit`), which also banks the paths that ended, and the
+    item is its (acc, bounce, schunk, more, bank), with light 0 where a
+    path banked and still_active the lanes whose path goes on; with NEE it
+    is None and the caller banks (`shade.bank_paths`).
     """
     use_nee = cfg.nee and scene.num_lights > 0
+    from_winners = not use_nee and cfg.intersector in ("auto", "mm")
     # after the wavefront's pool sort o and d are column views of one
     # packed tensor: one copy here, not one in each kernel's wrapper
     o, d = o.contiguous(), d.contiguous()
-    t, idx, normal, front_face, mat_id, tile_passes = _trace_rays(
-        scene, o, d, cfg, active=active
-    )
-    if mat_id is None:  # the BVH walk and the brute oracle give prim ids alone
-        mat_id = scene.prim_mat_id[idx.clamp(min=0).to(torch.int64)]
+    if from_winners:
+        t_tri, col, t_s, i_s, slot, tile_passes = closest_hit_mm_winners(
+            scene, o, d, T_MIN, active=active)
+        hit = (t_tri, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,
+               scene.sph_mat_id, T_MIN)
+    else:
+        t, idx, normal, front_face, mat_id, tile_passes = _trace_rays(
+            scene, o, d, cfg, active=active
+        )
+        if mat_id is None:  # the BVH walk and the brute oracle give prim ids alone
+            mat_id = scene.prim_mat_id[idx.clamp(min=0).to(torch.int64)]
+        hit = (t, idx, normal, front_face, mat_id)
 
     # every draw of the step in one call (one launch on the card)
     with span("step.draws"):
@@ -262,20 +275,19 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     if use_nee:
         graphs.STATS["nee_steps"] += 1
         out = _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
-                         cfg, (t, idx, normal, front_face, mat_id), drawn,
-                         tile_passes)
+                         cfg, hit, drawn, tile_passes)
         return out if bank is None else (*out, None)
-    args = (o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
-            mat_id, drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None,
-            bounce, scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
+    args = (o, d, light, throughput, active, prev_pdf, *hit, drawn[0], drawn[1],
+            drawn[-1] if cfg.rr_start > 0 else None, bounce, scene.mat_bank,
+            scene.sky, cfg.rr_start, cfg.adaptive_offset)
     shadow = torch.zeros((), dtype=torch.int64, device=o.device)
     if bank is None:
         with span("step.shade"):
-            out = shade.shade(*args)
+            out = (shade.shade_hit if from_winners else shade.shade)(*args)
         return (*out, shadow, tile_passes)
     with span("step.shade_bank"):
-        o, d, light, throughput, active, prev_pdf, rays, *banked = shade.shade_bank(
-            *args, *bank)
+        o, d, light, throughput, active, prev_pdf, rays, *banked = (
+            shade.shade_bank_hit if from_winners else shade.shade_bank)(*args, *bank)
     return o, d, light, throughput, active, prev_pdf, rays, shadow, tile_passes, banked
 
 
@@ -675,8 +687,9 @@ class _Wavefront:
         state and the masks `more` (the lane restarts on its item's next
         sample) and `bank` (the lane finished its item). At one bounce an
         advance the step's shading banks the paths that ended
-        (`shade.shade_bank`: one kernel on the card); with more, or with
-        NEE, `shade.bank_paths` does after the steps."""
+        (`shade.shade_bank_hit` or `shade.shade_bank`: one kernel on the
+        card); with more, or with NEE, `shade.bank_paths` does after the
+        steps."""
         cfg, counters = self.cfg, self.counters
         alive, bounce = st["alive"], st["bounce"]
         o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",

@@ -40,9 +40,11 @@ NVCC_FLAGS = (
 )
 # the kernels whose entry point lives in another kernel's source: the
 # closest hit's front end in the sphere pass's (the same kernel, which
-# without feature pointers writes the sphere winner alone), the wavefront's
-# shading and bank in the shading's (a second entry of one kernel body)
-SOURCES = {"hit_front": "sphere_pass", "shade_bank": "shade"}
+# without feature pointers writes the sphere winner alone); the wavefront's
+# shading and bank, and both shadings from the closest hit's raw winners
+# (the epilogue in registers), in the shading's (entries of one lane body)
+SOURCES = {"hit_front": "sphere_pass", "shade_bank": "shade", "shade_hit": "shade",
+           "shade_bank_hit": "shade"}
 # flags of one source's build: the bounce step's kernels round every
 # product on its own, as their plain versions' separate torch kernels do
 # (nvcc would contract a * b + c into one FMA)
@@ -127,6 +129,14 @@ ENTRY_ARGS = {
     "shade_bank": (32, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_longlong, ctypes.c_longlong)),
+    # n, whether there are triangles, the sphere count, t_min, then the
+    # shading's scalars
+    "shade_hit": (27, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong)),
+    "shade_bank_hit": (35, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_longlong)),
 }
 
 

@@ -26,7 +26,9 @@ runs the exact sphere pass and writes every per-lane operand of the cull
 and the closest hit (the ray features, the active flags, the occlusion
 bound, padded to whole subgroups) in one pass; after the closest hit, the
 epilogue (the plane-t refine of the winner, the merge, the normal) is a
-kernel of `render/kernels/shade.py`.
+kernel of `render/kernels/shade.py`, or, where the bounce step shades
+without next-event estimation, the first part of its shading kernel
+(`closest_hit_mm_winners` returns the winners it starts from).
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
@@ -563,13 +565,50 @@ def hit_front_reference(o, d, active, occ_t, sph_center, sph_radius, sph_ids,
     return (t_s, i_s, slot, *_padded_operands(o, d, active, occ))
 
 
+def closest_hit_mm_winners(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
+    """The closest hit up to its epilogue: the front end (the exact sphere
+    pass and the tile operands) and the triangle kernel around the cull and
+    the list sort (on the card `csrc/sphere_pass.cu`, `csrc/cull_tiles.cu`
+    and `csrc/mm_closest_hit.cu`; on a scene of spheres alone the sphere
+    pass).
+
+    Returns (t_tri, col, t_s, i_s, slot, tile_passes): the triangle
+    kernel's winner (N,) f32 t and (N,) int32 kernel column (-1 on a miss),
+    both None on a scene without triangles; the sphere pass's t_s (N,) f32,
+    i_s (N,) int32 prim id and slot (N,) int32; tile_passes the (128-lane
+    subgroup, tile) pairs of the lists in units of 2^20 ray-triangle tests.
+    `shade.hit_epilogue` refines and merges them (`closest_hit_mm_full`),
+    or the shading does in its own launch (`shade.shade_hit`). `active` and
+    `occ_t` as `closest_hit_mm_full` takes them."""
+    n = o.shape[0]
+    if scene.num_tris == 0:
+        with span("hit.sphere_pass"):
+            t_s, i_s, slot = shade.sphere_pass(o, d, scene.sph_center,
+                                               scene.sph_radius, scene.sph_ids, t_min)
+        return (None, None, t_s, i_s, slot,
+                torch.zeros((), dtype=torch.float32, device=o.device))
+    with span("hit.front"):
+        t_s, i_s, slot, x, act, occ = hit_front(
+            o, d, active, occ_t, scene.sph_center, scene.sph_radius,
+            scene.sph_ids, t_min)
+    with span("hit.kernel_inputs"):
+        lists, counts, smin, lane_bound = _cull_tile_lists(
+            x, act, scene.mm_tile_box, t_min, occ)
+        lane_bound = torch.minimum(lane_bound, occ)
+    with span("hit.mm_closest_hit"):
+        t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound, scene.mm_w,
+                                  t_min)
+        tile_p = scene.mm_w.shape[1]
+        tile_passes = counts.sum().to(torch.float32) * (
+            LANES * tile_p / float(1 << 20)
+        )
+    return t_t[:n], col[:n], t_s, i_s, slot, tile_passes
+
+
 def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
-    """Closest hit: the front end (the exact sphere pass and the tile
-    operands), the triangle kernel and the epilogue that refines and
-    merges their winners (on the card three kernels around the cull and
-    the list sort: `csrc/sphere_pass.cu`, `csrc/mm_closest_hit.cu`,
-    `csrc/hit_epilogue.cu`; on a scene of spheres alone the sphere pass and
-    the epilogue).
+    """Closest hit: the winners of the sphere pass and the triangle kernel
+    (`closest_hit_mm_winners`), then the epilogue that refines and merges
+    them (on the card `csrc/hit_epilogue.cu`).
 
     Returns (t, idx, normal, front_face, mat_id, tile_passes). idx is -1 on
     miss (normal and mat_id are garbage there; callers mask). `active` (N,)
@@ -580,31 +619,8 @@ def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     tile_passes counts the (128-lane subgroup, tile) pairs of the lists in
     units of 2^20 ray-triangle tests.
     """
-    n = o.shape[0]
-    t_t = col = None
-    if scene.num_tris > 0:
-        with span("hit.front"):
-            t_s, i_s, slot, x, act, occ = hit_front(
-                o, d, active, occ_t, scene.sph_center, scene.sph_radius,
-                scene.sph_ids, t_min)
-        with span("hit.kernel_inputs"):
-            lists, counts, smin, lane_bound = _cull_tile_lists(
-                x, act, scene.mm_tile_box, t_min, occ)
-            lane_bound = torch.minimum(lane_bound, occ)
-        with span("hit.mm_closest_hit"):
-            t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound,
-                                      scene.mm_w, t_min)
-            tile_p = scene.mm_w.shape[1]
-            tile_passes = counts.sum().to(torch.float32) * (
-                LANES * tile_p / float(1 << 20)
-            )
-        t_t, col = t_t[:n], col[:n]
-    else:
-        with span("hit.sphere_pass"):
-            t_s, i_s, slot = shade.sphere_pass(o, d, scene.sph_center,
-                                               scene.sph_radius, scene.sph_ids, t_min)
-        tile_passes = torch.zeros((), dtype=torch.float32, device=o.device)
-
+    t_t, col, t_s, i_s, slot, tile_passes = closest_hit_mm_winners(
+        scene, o, d, t_min, active, occ_t)
     with span("hit.epilogue"):
         t, idx, normal, front_face, mat_id = shade.hit_epilogue(
             o, d, t_t, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,

@@ -23,6 +23,12 @@ some 270 launches a bounce step. Here each is one hand-written CUDA kernel:
                   advance's bank of the paths that finished (`bank_paths`)
                   in the same thread: one launch a step of the wavefront at
                   one bounce an advance
+    shade_hit,    csrc/shade.cu         `shade` and `shade_bank` from the
+    shade_bank_hit                      closest hit's raw winners (the
+                  triangle kernel's and the sphere pass's): the epilogue in
+                  registers, then the shading; the bounce step's route
+                  without next-event estimation on the tile intersector,
+                  where the epilogue and the shading were two launches
 
 CUDA tensors launch the kernel (and count the launch in the wrapper's
 `launches`; the kernel adds to its device tally, `_build.tally`); CPU
@@ -225,6 +231,92 @@ def _bounce_operand(bounce, n: int, device):
     return bounce.contiguous(), size, 0
 
 
+def _lane_checks(n, o, d, light, throughput, active, prev_pdf, unit_vec, u_fresnel,
+                 u_rr, mat_bank, sky, rr: bool):
+    """The shading's (name, tensor, dtype, shape) checks of the lane state,
+    the draws (u_rr with roulette alone) and the tables
+    (`_build.check_tensors`)."""
+    f32 = torch.float32
+    if rr and u_rr is None:
+        raise ValueError("the shading: u_rr is needed with rr_start > 0")
+    u_rr = u_rr if rr else None
+    return [
+        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)), ("light", light, f32, (n, 3)),
+        ("throughput", throughput, f32, (n, 3)), ("active", active, torch.bool, (n,)),
+        ("prev_pdf", prev_pdf, f32, (n,)), ("unit_vec", unit_vec, f32, (n, 3)),
+        ("u_fresnel", u_fresnel, f32, (n,)),
+        ("mat_bank", mat_bank, f32, (mat_bank.shape[0], 16)), ("sky", sky, f32, (2, 3)),
+    ] + ([("u_rr", u_rr, f32, (n,))] if u_rr is not None else [])
+
+
+def _winner_checks(n, t_tri, col, t_s, i_s, slot, refine, sph_center, sph_mat_id):
+    """The (name, tensor, dtype, shape) checks of the closest hit's winners
+    and the epilogue's tables."""
+    f32, i32, s = torch.float32, torch.int32, sph_center.shape[0]
+    if (t_tri is None) != (col is None):
+        raise ValueError("the closest hit's winners: t_tri and col are both tensors "
+                         "or both None")
+    return [
+        ("t_s", t_s, f32, (n,)), ("i_s", i_s, i32, (n,)), ("slot", slot, i32, (n,)),
+        ("refine", refine, f32, (refine.shape[0], 8)),
+        ("sph_center", sph_center, f32, (s, 3)), ("sph_mat_id", sph_mat_id, i32, (s,)),
+    ] + ([("t_tri", t_tri, f32, (n,)), ("col", col, i32, (n,))]
+         if t_tri is not None else [])
+
+
+# the bank's widths: the pixels of a work item a wavefront render picks
+# (`integrator._Wavefront`), one kernel instance each
+BANK_WIDTHS = (1, 2, 4, 8, 16)
+
+
+def _bank_checks(name, n, bounce, alive, schunk, acc, plan):
+    """The bank's checks: `bounce` an int64 tensor, one a lane; the lane
+    state; a plan of one of BANK_WIDTHS whose item the kernel's 32-bit slot
+    division covers."""
+    if not isinstance(bounce, torch.Tensor):
+        raise ValueError(f"{name}: bounce must be an int64 tensor, one a lane, "
+                         f"got {type(bounce).__name__}")
+    if plan.bank_k not in BANK_WIDTHS or plan.spb < 1:
+        raise ValueError(f"{name}: bank_k {plan.bank_k} must be one of "
+                         f"{BANK_WIDTHS} and spb {plan.spb} positive")
+    if plan.per_item != plan.bank_k * plan.spb or plan.per_item >= 1 << 31:
+        raise ValueError(f"{name}: per_item {plan.per_item} must be bank_k * spb "
+                         "and below 2^31")
+    i64 = torch.int64
+    return [("bounce", bounce, i64, (n,)), ("alive", alive, torch.bool, (n,)),
+            ("schunk", schunk, i64, (n,)), ("acc", acc, torch.float32,
+                                            (n, 3 * plan.bank_k))]
+
+
+def _outputs(n, dev, bank_k=0):
+    """New tensors for a shading's outputs (o, d, light, throughput, active,
+    prev_pdf, rays: zeroed) and, with the bank, (acc, bounce, schunk, more,
+    bank)."""
+    f32, i64 = torch.float32, torch.int64
+    outs = tuple(torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)) + (
+        torch.empty(n, dtype=torch.bool, device=dev),
+        torch.empty(n, dtype=f32, device=dev),
+        torch.zeros((), dtype=i64, device=dev))
+    if bank_k:
+        outs += (torch.empty((n, 3 * bank_k), dtype=f32, device=dev),
+                 torch.empty(n, dtype=i64, device=dev),
+                 torch.empty(n, dtype=i64, device=dev),
+                 torch.empty(n, dtype=torch.bool, device=dev),
+                 torch.empty(n, dtype=torch.bool, device=dev))
+    return outs
+
+
+def _check_refine(name, refine):
+    """The kernel reads a refine row as two 16-byte loads."""
+    if not refine.is_contiguous() or refine.data_ptr() % 16:
+        raise ValueError(f"{name}: refine must be contiguous and 16-byte aligned")
+
+
+def _plan_scalars(plan):
+    return (int(plan.max_depth), int(bool(plan.clamp_radiance)), int(plan.bank_k),
+            int(plan.spb), int(plan.per_item))
+
+
 def shade(o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
           mat_id, unit_vec, u_fresnel, u_rr, bounce, mat_bank, sky,
           rr_start: int, adaptive_offset: bool):
@@ -241,28 +333,18 @@ def shade(o, d, light, throughput, active, prev_pdf, t, idx, normal, front_face,
     n = o.shape[0]
     f32, dev = torch.float32, o.device
     rr = rr_start > 0
-    _build.check_tensors("shade", [
-        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)), ("light", light, f32, (n, 3)),
-        ("throughput", throughput, f32, (n, 3)), ("active", active, torch.bool, (n,)),
-        ("prev_pdf", prev_pdf, f32, (n,)), ("t", t, f32, (n,)),
-        ("idx", idx, torch.int32, (n,)), ("normal", normal, f32, (n, 3)),
-        ("front_face", front_face, torch.bool, (n,)),
-        ("mat_id", mat_id, torch.int32, (n,)), ("unit_vec", unit_vec, f32, (n, 3)),
-        ("u_fresnel", u_fresnel, f32, (n,)),
-        ("mat_bank", mat_bank, f32, (mat_bank.shape[0], 16)), ("sky", sky, f32, (2, 3)),
-    ] + ([("u_rr", u_rr, f32, (n,))] if rr else []), dev)
+    _build.check_tensors("shade", _lane_checks(
+        n, o, d, light, throughput, active, prev_pdf, unit_vec, u_fresnel,
+        u_rr, mat_bank, sky, rr) + [
+        ("t", t, f32, (n,)), ("idx", idx, torch.int32, (n,)),
+        ("normal", normal, f32, (n, 3)), ("front_face", front_face, torch.bool, (n,)),
+        ("mat_id", mat_id, torch.int32, (n,))], dev)
     if _device_of("shade", o) == "cpu":
         return shade_reference(o, d, light, throughput, active, prev_pdf, t, idx,
                                normal, front_face, mat_id, unit_vec, u_fresnel, u_rr,
                                bounce, mat_bank, sky, rr_start, adaptive_offset)
     b, layout, value = _bounce_operand(bounce, n, dev) if rr else (None, 0, 0)
-    outs = (torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=f32, device=dev),
-            torch.zeros((), dtype=torch.int64, device=dev))
+    outs = _outputs(n, dev)
     if n:
         ins = tuple(x.contiguous() for x in (o, d, light, throughput, active, prev_pdf,
                                              t, idx, normal, front_face, mat_id,
@@ -392,44 +474,21 @@ def shade_bank(o, d, light, throughput, active, prev_pdf, t, idx, normal, front_
     schunk, more, bank): new tensors; light is 0 on the lanes that banked,
     alive the lanes whose path goes on, bounce one step on."""
     n = o.shape[0]
-    f32, i64, dev = torch.float32, torch.int64, o.device
+    f32, dev = torch.float32, o.device
     rr = rr_start > 0
-    ka = 3 * plan.bank_k
-    if not isinstance(bounce, torch.Tensor):
-        raise ValueError(f"shade_bank: bounce must be an int64 tensor, one a lane, "
-                         f"got {type(bounce).__name__}")
-    _build.check_tensors("shade_bank", [
-        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)), ("light", light, f32, (n, 3)),
-        ("throughput", throughput, f32, (n, 3)), ("active", active, torch.bool, (n,)),
-        ("prev_pdf", prev_pdf, f32, (n,)), ("t", t, f32, (n,)),
-        ("idx", idx, torch.int32, (n,)), ("normal", normal, f32, (n, 3)),
-        ("front_face", front_face, torch.bool, (n,)),
-        ("mat_id", mat_id, torch.int32, (n,)), ("unit_vec", unit_vec, f32, (n, 3)),
-        ("u_fresnel", u_fresnel, f32, (n,)), ("bounce", bounce, i64, (n,)),
-        ("mat_bank", mat_bank, f32, (mat_bank.shape[0], 16)), ("sky", sky, f32, (2, 3)),
-        ("alive", alive, torch.bool, (n,)), ("schunk", schunk, i64, (n,)),
-        ("acc", acc, f32, (n, ka)),
-    ] + ([("u_rr", u_rr, f32, (n,))] if rr else []), dev)
-    if plan.bank_k < 1 or plan.spb < 1:
-        raise ValueError(f"shade_bank: bank_k {plan.bank_k} and spb {plan.spb} "
-                         "must be positive")
+    bank_checks = _bank_checks("shade_bank", n, bounce, alive, schunk, acc, plan)
+    _build.check_tensors("shade_bank", _lane_checks(
+        n, o, d, light, throughput, active, prev_pdf, unit_vec, u_fresnel,
+        u_rr, mat_bank, sky, rr) + [
+        ("t", t, f32, (n,)), ("idx", idx, torch.int32, (n,)),
+        ("normal", normal, f32, (n, 3)), ("front_face", front_face, torch.bool, (n,)),
+        ("mat_id", mat_id, torch.int32, (n,))] + bank_checks, dev)
     if _device_of("shade_bank", o) == "cpu":
         return shade_bank_reference(o, d, light, throughput, active, prev_pdf, t, idx,
                                     normal, front_face, mat_id, unit_vec, u_fresnel,
                                     u_rr, bounce, mat_bank, sky, rr_start,
                                     adaptive_offset, alive, schunk, acc, plan)
-    outs = (torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=f32, device=dev),
-            torch.zeros((), dtype=i64, device=dev),
-            torch.empty((n, ka), dtype=f32, device=dev),
-            torch.empty(n, dtype=i64, device=dev),
-            torch.empty(n, dtype=i64, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev))
+    outs = _outputs(n, dev, plan.bank_k)
     if n:
         ins = tuple(x.contiguous() for x in (o, d, light, throughput, active, prev_pdf,
                                              t, idx, normal, front_face, mat_id,
@@ -437,9 +496,8 @@ def shade_bank(o, d, light, throughput, active, prev_pdf, t, idx, normal, front_
         state = tuple(x.contiguous() for x in (alive, schunk, acc))
         _build.launch("shade_bank", (*ins, u_rr.contiguous() if rr else None,
                                      bounce.contiguous(), mat_bank, sky, *state), outs,
-                      (n, int(rr_start), int(bool(adaptive_offset)), int(plan.max_depth),
-                       int(bool(plan.clamp_radiance)), int(plan.bank_k), int(plan.spb),
-                       int(plan.per_item)),
+                      (n, int(rr_start), int(bool(adaptive_offset)),
+                       *_plan_scalars(plan)),
                       dev, align=4)
         shade_bank.launches += 1
     return outs
@@ -462,3 +520,122 @@ def shade_bank_reference(o, d, light, throughput, active, prev_pdf, t, idx, norm
         light, still, alive, bounce, schunk, acc, plan)
     return (o, d, light, throughput, alive, prev_pdf, rays, acc, bounce, schunk, more,
             bank)
+
+
+# --------------------------------------------------------------------------
+# the shading from the closest hit's raw winners: the epilogue in registers
+# --------------------------------------------------------------------------
+
+
+def shade_hit(o, d, light, throughput, active, prev_pdf, t_tri, col, t_s, i_s, slot,
+              refine, sph_center, sph_mat_id, t_min: float, unit_vec, u_fresnel, u_rr,
+              bounce, mat_bank, sky, rr_start: int, adaptive_offset: bool):
+    """`hit_epilogue` then `shade`, in one launch on the card: the lane
+    state (as `shade`'s), the closest hit's winners and the epilogue's
+    tables (as `hit_epilogue`'s: t_tri and col None on a scene without
+    triangles), then the draws, the bounce and the tables (as `shade`'s).
+    Returns what `shade` returns."""
+    n = o.shape[0]
+    dev = o.device
+    rr = rr_start > 0
+    _build.check_tensors("shade_hit", _lane_checks(
+        n, o, d, light, throughput, active, prev_pdf, unit_vec, u_fresnel,
+        u_rr, mat_bank, sky, rr) + _winner_checks(
+        n, t_tri, col, t_s, i_s, slot, refine, sph_center, sph_mat_id), dev)
+    if _device_of("shade_hit", o) == "cpu":
+        return shade_hit_reference(o, d, light, throughput, active, prev_pdf, t_tri,
+                                   col, t_s, i_s, slot, refine, sph_center, sph_mat_id,
+                                   t_min, unit_vec, u_fresnel, u_rr, bounce, mat_bank,
+                                   sky, rr_start, adaptive_offset)
+    b, layout, value = _bounce_operand(bounce, n, dev) if rr else (None, 0, 0)
+    _check_refine("shade_hit", refine)
+    outs = _outputs(n, dev)
+    if n:
+        tris = t_tri is not None
+        ins = tuple(x.contiguous() for x in (o, d, light, throughput, active, prev_pdf))
+        hit = tuple(None if x is None else x.contiguous()
+                    for x in (t_tri, col, t_s, i_s, slot))
+        _build.launch("shade_hit", (*ins, *hit, refine, sph_center, sph_mat_id,
+                                    unit_vec.contiguous(), u_fresnel.contiguous(),
+                                    u_rr.contiguous() if rr else None, b, mat_bank, sky),
+                      outs, (n, int(tris), sph_center.shape[0], float(t_min),
+                             int(rr_start), int(bool(adaptive_offset)), layout, value),
+                      dev, align=4)
+        shade_hit.launches += 1
+    return outs
+
+
+shade_hit.launches = 0
+
+
+def shade_hit_reference(o, d, light, throughput, active, prev_pdf, t_tri, col, t_s,
+                        i_s, slot, refine, sph_center, sph_mat_id, t_min: float,
+                        unit_vec, u_fresnel, u_rr, bounce, mat_bank, sky,
+                        rr_start: int, adaptive_offset: bool):
+    """Plain torch twin of `shade_hit`: `hit_epilogue_reference`, then
+    `shade_reference`."""
+    hit = hit_epilogue_reference(o, d, t_tri, col, t_s, i_s, slot, refine, sph_center,
+                                 sph_mat_id, t_min)
+    return shade_reference(o, d, light, throughput, active, prev_pdf, *hit, unit_vec,
+                           u_fresnel, u_rr, bounce, mat_bank, sky, rr_start,
+                           adaptive_offset)
+
+
+def shade_bank_hit(o, d, light, throughput, active, prev_pdf, t_tri, col, t_s, i_s,
+                   slot, refine, sph_center, sph_mat_id, t_min: float, unit_vec,
+                   u_fresnel, u_rr, bounce, mat_bank, sky, rr_start: int,
+                   adaptive_offset: bool, alive, schunk, acc, plan: BankPlan):
+    """`hit_epilogue` then `shade_bank`, in one launch on the card: the
+    arguments of `shade_hit` (with `bounce` an int64 tensor, one a lane),
+    then `shade_bank`'s lane state and plan. Returns what `shade_bank`
+    returns."""
+    n = o.shape[0]
+    dev = o.device
+    rr = rr_start > 0
+    bank_checks = _bank_checks("shade_bank_hit", n, bounce, alive, schunk, acc, plan)
+    _build.check_tensors("shade_bank_hit", _lane_checks(
+        n, o, d, light, throughput, active, prev_pdf, unit_vec, u_fresnel,
+        u_rr, mat_bank, sky, rr) + _winner_checks(
+        n, t_tri, col, t_s, i_s, slot, refine, sph_center, sph_mat_id) + bank_checks,
+        dev)
+    if _device_of("shade_bank_hit", o) == "cpu":
+        return shade_bank_hit_reference(o, d, light, throughput, active, prev_pdf, t_tri,
+                                        col, t_s, i_s, slot, refine, sph_center,
+                                        sph_mat_id, t_min, unit_vec, u_fresnel, u_rr,
+                                        bounce, mat_bank, sky, rr_start,
+                                        adaptive_offset, alive, schunk, acc, plan)
+    _check_refine("shade_bank_hit", refine)
+    outs = _outputs(n, dev, plan.bank_k)
+    if n:
+        tris = t_tri is not None
+        ins = tuple(x.contiguous() for x in (o, d, light, throughput, active, prev_pdf))
+        hit = tuple(None if x is None else x.contiguous()
+                    for x in (t_tri, col, t_s, i_s, slot))
+        state = tuple(x.contiguous() for x in (alive, schunk, acc))
+        _build.launch("shade_bank_hit", (*ins, *hit, refine, sph_center, sph_mat_id,
+                                         unit_vec.contiguous(), u_fresnel.contiguous(),
+                                         u_rr.contiguous() if rr else None,
+                                         bounce.contiguous(), mat_bank, sky, *state),
+                      outs, (n, int(tris), sph_center.shape[0], float(t_min),
+                             int(rr_start), int(bool(adaptive_offset)),
+                             *_plan_scalars(plan)),
+                      dev, align=4)
+        shade_bank_hit.launches += 1
+    return outs
+
+
+shade_bank_hit.launches = 0
+
+
+def shade_bank_hit_reference(o, d, light, throughput, active, prev_pdf, t_tri, col,
+                             t_s, i_s, slot, refine, sph_center, sph_mat_id,
+                             t_min: float, unit_vec, u_fresnel, u_rr, bounce, mat_bank,
+                             sky, rr_start: int, adaptive_offset: bool, alive, schunk,
+                             acc, plan: BankPlan):
+    """Plain torch twin of `shade_bank_hit`: `hit_epilogue_reference`, then
+    `shade_bank_reference`."""
+    hit = hit_epilogue_reference(o, d, t_tri, col, t_s, i_s, slot, refine, sph_center,
+                                 sph_mat_id, t_min)
+    return shade_bank_reference(o, d, light, throughput, active, prev_pdf, *hit,
+                                unit_vec, u_fresnel, u_rr, bounce, mat_bank, sky,
+                                rr_start, adaptive_offset, alive, schunk, acc, plan)

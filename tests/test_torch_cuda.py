@@ -857,7 +857,7 @@ def _bank_operands(scene, n, seed, bank_k, clamp, rr_start):
 
 @pytest.mark.parametrize("rr_start", [0, 2])
 @pytest.mark.parametrize("clamp", [False, True])
-@pytest.mark.parametrize("bank_k", [1, 4, 8])
+@pytest.mark.parametrize("bank_k", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("n", [1, 1000, 32768])
 def test_shade_bank_kernel_matches_twin(scene, n, bank_k, clamp, rr_start):
     from metalpathtracer_torch.render.kernels import shade as tsh
@@ -871,6 +871,122 @@ def test_shade_bank_kernel_matches_twin(scene, n, bank_k, clamp, rr_start):
     assert int(got[6]) == int(shade_args[4].sum())
     if n >= 1000:  # lanes go on, finish a path, and bank
         assert bool(got[4].any()) and bool(got[10].any()) and bool(got[11].any())
+
+
+def _winner_operands(s, n, seed, rr_start, bounce_kind="0-d"):
+    """A scan step's shading operands from the closest hit's winners on
+    the card: random lanes (some dead, light NaN on a few), the winners of
+    the sphere pass and the triangle kernel, and the draws."""
+    from metalpathtracer_torch.core import rng
+    from metalpathtracer_torch.render import integrator as tint
+
+    r = np.random.default_rng(seed)
+    o, d = _rays(n, seed)
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    light = r.uniform(0, 0.5, (n, 3)).astype(np.float32)
+    light[r.uniform(size=n) < 0.01] = np.nan
+    active = dev(r.uniform(size=n) > 0.2)
+    bounce = {"0-d": torch.tensor(3, device="cuda"),
+              "per-lane": dev(r.integers(0, 6, n))}[bounce_kind]
+    t_tri, col, t_s, i_s, slot, _ = tmm.closest_hit_mm_winners(s, o, d, T_MIN,
+                                                               active=active)
+    drawn = rng.draws(7, torch.arange(n, device="cuda"), 1, bounce,
+                      tint._step_draws(False, rr_start > 0))
+    return (o, d, dev(light), dev(r.uniform(0.02, 1.0, (n, 3)).astype(np.float32)),
+            active, dev(r.uniform(0, 2, n).astype(np.float32)), t_tri, col, t_s, i_s,
+            slot, s.mm_refine, s.sph_center, s.sph_mat_id, T_MIN, drawn[0], drawn[1],
+            drawn[-1] if rr_start else None, bounce, s.mat_bank, s.sky, rr_start,
+            rr_start == 0)
+
+
+@pytest.mark.parametrize("which", ["reference", "glass", "bunny70k"])
+@pytest.mark.parametrize("rr_start", [0, 2])
+@pytest.mark.parametrize("n", [1, 1024, 16384, 32768, 921600])
+def test_shade_hit_kernel_matches_twin(scene, bunny70k, n, rr_start, which):
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    s = _bounce_scene(which, scene, bunny70k)
+    args = _winner_operands(s, n, n + 5, rr_start)
+    before = tsh.shade_hit.launches
+    got = tsh.shade_hit(*args)
+    assert tsh.shade_hit.launches == before + 1
+    _bit_equal(got, tsh.shade_hit_reference(*args))
+    assert int(got[6]) == int(args[4].sum())
+    # the same as the epilogue's kernel, then the shading's
+    hit = tsh.hit_epilogue(*args[:2], *args[6:15])
+    _bit_equal(got, tsh.shade(*args[:6], *hit, *args[15:]))
+
+
+@pytest.mark.parametrize("which", ["reference", "glass"])
+@pytest.mark.parametrize("rr_start,clamp", [(0, False), (2, True)])
+@pytest.mark.parametrize("bank_k", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 1024, 16384, 32768, 921600])
+def test_shade_bank_hit_kernel_matches_twin(scene, n, bank_k, rr_start, clamp, which):
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    s = _bounce_scene(which, scene)
+    r = np.random.default_rng(n + bank_k)
+    args = _winner_operands(s, n, n + 6, rr_start, "per-lane")
+    plan = tsh.BankPlan(6, clamp, bank_k, 4, 4 * bank_k)
+    bank = (args[4] | torch.as_tensor(r.uniform(size=n) < 0.2, device="cuda"),
+            torch.as_tensor(r.integers(0, plan.per_item, n), device="cuda"),
+            torch.as_tensor(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32),
+                            device="cuda"), plan)
+    before = tsh.shade_bank_hit.launches
+    got = tsh.shade_bank_hit(*args, *bank)
+    assert tsh.shade_bank_hit.launches == before + 1
+    _bit_equal(got, tsh.shade_bank_hit_reference(*args, *bank))
+    hit = tsh.hit_epilogue(*args[:2], *args[6:15])
+    _bit_equal(got, tsh.shade_bank(*args[:6], *hit, *args[15:], *bank))
+    if n >= 1024:  # lanes go on, finish a path, and bank
+        assert bool(got[4].any()) and bool(got[10].any()) and bool(got[11].any())
+
+
+@pytest.mark.parametrize("entry", ["shade", "shade_bank", "shade_hit", "shade_bank_hit"])
+def test_shading_entries_in_a_cuda_graph_equal_their_twins(scene, entry):
+    # captured once and replayed on new operands copied into the captured
+    # inputs: what a wavefront window or a scan block does
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    n = 32768
+    fn, twin = getattr(tsh, entry), getattr(tsh, f"{entry}_reference")
+    banked = "bank" in entry
+
+    def operands(seed):
+        args = _winner_operands(scene, n, seed, 2, "per-lane" if banked else "0-d")
+        if not entry.endswith("_hit"):
+            args = (*args[:6], *tsh.hit_epilogue(*args[:2], *args[6:15]), *args[15:])
+        if banked:
+            r = np.random.default_rng(seed)
+            plan = tsh.BankPlan(6, True, 4, 4, 16)
+            args = (*args, args[4] | torch.as_tensor(r.uniform(size=n) < 0.2,
+                                                     device="cuda"),
+                    torch.as_tensor(r.integers(0, 16, n), device="cuda"),
+                    torch.as_tensor(r.uniform(0.0, 3.0, (n, 12)).astype(np.float32),
+                                    device="cuda"), plan)
+        return args
+
+    static = operands(41)
+    fn(*static)  # the warm-up launch makes the kernel's tally
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+    for seed in (42, 43):
+        fresh = operands(seed)
+        for a, b in zip(static, fresh):
+            if isinstance(a, torch.Tensor) and a.data_ptr() not in (
+                    scene.mm_refine.data_ptr(), scene.sph_center.data_ptr(),
+                    scene.sph_mat_id.data_ptr(), scene.mat_bank.data_ptr(),
+                    scene.sky.data_ptr()):
+                a.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        _bit_equal(out, twin(*static))
+        assert bool(out[4].any())
 
 
 def test_bounce_kernels_count_replays(scene):
@@ -900,14 +1016,18 @@ def test_bounce_kernels_count_replays(scene):
         graph.replay()
     torch.cuda.synchronize()
     done = _build.tallies("cuda")
-    for k in ("hit_front", "hit_epilogue", "shade", "mm_closest_hit", "threefry"):
+    for k in ("hit_front", "shade_hit", "mm_closest_hit", "threefry"):
         assert done[k][0] == 4, (k, done[k])
+    # the epilogue runs in the shading's registers
+    for k in ("hit_epilogue", "shade"):
+        assert done.get(k, (0, 0))[0] == 0, (k, done[k])
     _bit_equal(got[:7], want[:7])
 
 
 def test_shade_bank_counts_replays(scene):
     # the wavefront's step at one bounce an advance: the front end, the
-    # closest hit, the epilogue, one bundle and the shading with its bank
+    # closest hit, one bundle and the shading with its bank, which computes
+    # the epilogue
     from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render import integrator as tint
 
@@ -932,9 +1052,10 @@ def test_shade_bank_counts_replays(scene):
         graph.replay()
     torch.cuda.synchronize()
     done = _build.tallies("cuda")
-    for k in ("hit_front", "hit_epilogue", "shade_bank", "mm_closest_hit", "threefry"):
+    for k in ("hit_front", "shade_bank_hit", "mm_closest_hit", "threefry"):
         assert done[k][0] == 4, (k, done[k])
-    assert done.get("shade", (0, 0))[0] == 0
+    for k in ("hit_epilogue", "shade", "shade_bank", "shade_hit"):
+        assert done.get(k, (0, 0))[0] == 0, k
     _bit_equal(got[:7] + tuple(got[9]), want[:7] + tuple(want[9]))
 
 
@@ -948,17 +1069,21 @@ def test_bounce_step_routes_nee_to_the_plain_shading(scene):
     args = (torch.zeros((n, 3), device="cuda"), torch.ones((n, 3), device="cuda"),
             torch.ones((n,), dtype=torch.bool, device="cuda"),
             torch.zeros((n,), device="cuda"), torch.arange(n, device="cuda"), 0, 2, 7)
-    for nee, shaded, passes in ((False, 1, 1), (True, 0, 2)):
-        counts = (tsh.shade.launches, tmm.hit_front.launches + tsh.sphere_pass.launches,
+    # without NEE the shading from the winners (its epilogue in registers);
+    # with it the closest hit's and the shadow rays' epilogues and the plain
+    # shading
+    for nee, shaded, passes, epilogues in ((False, 1, 1, 0), (True, 0, 2, 2)):
+        counts = (tsh.shade.launches + tsh.shade_hit.launches,
+                  tmm.hit_front.launches + tsh.sphere_pass.launches,
                   tsh.hit_epilogue.launches, graphs.STATS["nee_steps"])
         tint._bounce_step(scene, o, d, *args, RenderConfig(max_depth=8, nee=nee))
         torch.cuda.synchronize()
-        moved = (tsh.shade.launches - counts[0],
+        moved = (tsh.shade.launches + tsh.shade_hit.launches - counts[0],
                  tmm.hit_front.launches + tsh.sphere_pass.launches - counts[1],
                  tsh.hit_epilogue.launches - counts[2],
                  graphs.STATS["nee_steps"] - counts[3])
         assert scene.num_lights > 0
-        assert moved == (shaded, passes, passes, int(nee))
+        assert moved == (shaded, passes, epilogues, int(nee))
 
 
 # ---------------------------------------------------------------------------
@@ -975,7 +1100,8 @@ def _counted():
     return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
             *done.get("threefry", (0, 0)),
             *(done.get(k, (0, 0))[0]
-              for k in ("hit_front", "hit_epilogue", "shade", "shade_bank")))
+              for k in ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
+                        "shade_bank_hit")))
 
 
 def _render_counted(fn, eager):
@@ -1020,11 +1146,14 @@ def test_graph_windows_equal_the_eager_loop(scene, case):
     assert torch.equal(a, b) and torch.equal(a, c)
     assert ra == rb == rc and sa == sb == sc
     # every kernel ran, but the shading kernels, which NEE's plain shading
-    # replaces (by config); at one bounce an advance the shading banks
-    # (shade_bank), at two it is `shade` and the plain bank
-    assert ca == cb == cc and min(ca[:6]) > 0 and (ca[6] + ca[7] > 0) != cfg.nee
-    assert (ca[7] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
-    assert (ca[6] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
+    # replaces (by config), and the epilogue, which without NEE runs in the
+    # shading's registers; at one bounce an advance the shading banks
+    # (shade_bank_hit), at two it is `shade_hit` and the plain bank; the
+    # shading of the epilogue's output (shade, shade_bank) does not run here
+    assert ca == cb == cc and min(ca[:5]) > 0 and (ca[5] > 0) == cfg.nee
+    assert ca[6] == ca[7] == 0 and (ca[8] + ca[9] > 0) != cfg.nee
+    assert (ca[9] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
+    assert (ca[8] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
     # a new shape warms each function up eagerly and captures it on its
     # second run; the next render replays every window and drain block
     assert first["captures"] >= 1 and first["replays"] >= 1
@@ -1118,12 +1247,12 @@ def _scan_run(fn, eager):
 def _scan_launches_agree(eager, graph, samples):
     """The graph run's launches are the eager loop's plus its idle steps',
     each an eager bounce step's: (closest hit, cull, threefry, draws,
-    front end, hit epilogue, shade, shade_bank) per step from the eager
-    run, whose reads are its steps; the jitter draws one bundle (of one
-    draw) a sample."""
+    front end, hit epilogue, shade, shade_bank, shade_hit, shade_bank_hit)
+    per step from the eager run, whose reads are its steps; the jitter
+    draws one bundle (of one draw) a sample."""
     (_, e, es), (_, g, gs) = eager, graph
     assert es["idle_steps"] == 0 and es["reads"] > 0
-    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0, 0)):
+    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0, 0, 0, 0)):
         per_step, rest = divmod(e[k] - jitter, es["reads"])
         assert rest == 0
         assert g[k] == e[k] + gs["idle_steps"] * per_step
@@ -1253,3 +1382,28 @@ def test_bvh_cli_on_card_runs_eagerly_and_equals_its_eager_render(scene, tmp_pat
     with graphs.eager():
         want = run("eager")
     assert np.array_equal(got, want) and got.mean() > 0.05
+
+
+@pytest.mark.parametrize("integrator", ["scan", "wavefront"])
+def test_flagship_shades_from_the_winners(scene, tmp_path, integrator):
+    # the main path (1280x720, spp 4, depth 32): every bounce step shades
+    # from the closest hit's winners, so the epilogue's kernel runs no time;
+    # the other kernels' launches are the flagship's (PERF.md)
+    from metalpathtracer_torch import cli
+    from metalpathtracer_torch.render import graphs
+
+    argv = ["--scene", os.path.join(REPO, "scenes", "reference.xml"), "--width",
+            "1280", "--height", "720", "--spp", "4", "--max-depth", "32", "--device",
+            "cuda", "--output", str(tmp_path / "f.png")]
+    argv += ["--wavefront"] if integrator == "wavefront" else []
+    graphs.clear()
+    for eager in (True, False):
+        launched = _render_counted(lambda: cli.main(argv), eager)[1]
+        mm, cull, bundles, _, front, epilogue, shade, bank, hit, bank_hit = launched
+        if integrator == "wavefront":
+            assert (mm, cull, bundles, front, bank_hit) == (408, 408, 817, 408, 408)
+            assert epilogue == shade == bank == hit == 0
+        else:  # the graph loop's idle steps launch a step's kernels too
+            assert (mm, cull, bundles - 4, front, hit) == (mm, mm, mm, mm, mm)
+            assert mm >= 128 and (mm == 128 or not eager)
+            assert epilogue == shade == bank == bank_hit == 0

@@ -340,9 +340,28 @@ def _before_closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=Non
     return t, idx, normal, front_face, mat_id, tile_passes
 
 
+def _before_bounce_step(scene, o, d, light, tp, active, prev_pdf, pixel, sample, bounce,
+                        seed, cfg):
+    """`_bounce_step` as it was without next-event estimation on the tile
+    intersector: the closest hit through its epilogue (`_trace_rays`), the
+    draws, then `shade`; every other route as it is."""
+    if cfg.nee or cfg.intersector not in ("auto", "mm"):
+        return tint._bounce_step(scene, o, d, light, tp, active, prev_pdf, pixel,
+                                 sample, bounce, seed, cfg)
+    o, d = o.contiguous(), d.contiguous()
+    t, idx, normal, front, mat_id, tile_passes = tint._trace_rays(scene, o, d, cfg,
+                                                                  active=active)
+    drawn = rng.draws(seed, pixel, sample, bounce, tint._step_draws(False,
+                                                                    cfg.rr_start > 0))
+    out = tsh.shade(o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
+                    drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None, bounce,
+                    scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
+    return (*out, torch.zeros((), dtype=torch.int64), tile_passes)
+
+
 def _before_advance(self, st):
-    """`_Wavefront.advance` as it was: every step shaded by `shade`, then
-    the plain bank."""
+    """`_Wavefront.advance` as it was: every step shaded by `shade` after
+    the closest hit's epilogue, then the plain bank."""
     cfg, counters = self.cfg, self.counters
     alive, bounce = st["alive"], st["bounce"]
     o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp", "prev_pdf"))
@@ -351,7 +370,7 @@ def _before_advance(self, st):
     still = alive
     for k in range(self.bpi):
         step_active = still & (bounce + k < cfg.max_depth)
-        o, d, light, tp, still, prev_pdf, c, sh, tpass = tint._bounce_step(
+        o, d, light, tp, still, prev_pdf, c, sh, tpass = _before_bounce_step(
             self.scene, o, d, light, tp, step_active, prev_pdf, pixel, sample,
             bounce + k, self.seed, cfg)
         counters["rays"] += c
@@ -398,12 +417,15 @@ def test_wavefront_equals_the_advance_before_it(wavefront_scenes, monkeypatch, c
                                       pool_size=pool, return_stats=True)
 
     calls = []
-    fused = tsh.shade_bank
-    monkeypatch.setattr(tsh, "shade_bank", lambda *a: calls.append(1) or fused(*a))
+    for name in ("shade_bank", "shade_bank_hit"):
+        fused = getattr(tsh, name)
+        monkeypatch.setattr(tsh, name,
+                            lambda *a, fused=fused: calls.append(1) or fused(*a))
     got, rays, stats = render()
-    monkeypatch.setattr(tsh, "shade_bank", fused)
-    # the step banks in its shading exactly where it shades with `shade`
-    # at one bounce an advance
+    monkeypatch.undo()
+    # the step banks in its shading (from the closest hit's winners, on
+    # the tile intersector) exactly where it shades with `shade` at one
+    # bounce an advance
     assert bool(calls) == (cfg.bounces_per_iter == 1 and not cfg.nee)
     with monkeypatch.context() as m:
         m.setattr(tint._Wavefront, "advance", _before_advance)

@@ -33,7 +33,9 @@ Tolerances:
 """
 
 import os
+import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -56,8 +58,9 @@ CAM = tcam.Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
 CAM_SPEC = {"look_at": [[0, 2.5, 9.0], [0, 2.5, 0], 40.0]}
 
 
-def _close(a, b, rtol=1e-5, atol=1e-6):
-    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol, atol=atol)
+def _close(a, b, rtol=1e-5, atol=1e-6, err_msg=""):
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol, atol=atol,
+                               err_msg=err_msg)
 
 
 def _within_render_limit(mine, theirs):
@@ -496,6 +499,24 @@ def _jobs(world, tmp):
 JOB_NAMES = [j["name"] for j in _jobs(2, Path("."))]
 
 
+class World(NamedTuple):
+    """One launch of a world and what it left: `failure` the launch's or the
+    read-back's exception (None if both went through), `why` the launch's
+    seconds and the tail of every rank's log (a line a finished job), which
+    every assertion about this world carries."""
+
+    n: int
+    tmp: Path
+    jobs: dict
+    results: dict
+    files: dict
+    failure: str | None
+    why: str
+
+
+LAUNCH_LIMIT_S = 240
+
+
 @pytest.fixture(scope="module", params=[2, 4])
 def world(request, tmp_path_factory):
     """One launch per world size: every rank runs every job. The group's
@@ -504,23 +525,38 @@ def world(request, tmp_path_factory):
     the CLI jobs' images, the resumed job's checkpoint) is read back here,
     right after the launch, so that no test reads the world's directory
     later: what the tests hold are the launch's results, whatever happens
-    to its files meanwhile."""
+    to its files meanwhile. A launch or read-back that fails does not fail
+    here, once for the module: every test of the world fails on it, with
+    the launch's seconds and the ranks' logs in its message."""
     n = request.param
     tmp = tmp_path_factory.mktemp(f"world{n}")
     spec = dict(world=n, store=str(tmp / "store"), backend="gloo", device="cpu",
                 timeout_s=60, threads=1, out_dir=str(tmp), jobs=_jobs(n, tmp))
-    worker.launch(spec, limit_s=240)
     jobs = {j["name"]: j for j in spec["jobs"]}
-    results = {name: [worker.load_result(tmp, name, r) for r in range(n)]
-               for name in jobs}
-    files = {}
-    for name, job in jobs.items():
-        if job["kind"] == "cli":
-            with np.load(tmp / f"{name}.npz") as z:
-                files[name] = z["radiance"]
-        elif job.get("checkpoint"):
-            files[name] = load_checkpoint(job["checkpoint"], "cpu")
-    return n, tmp, jobs, results, files
+    results, files, failure = {}, {}, None
+    t0 = time.perf_counter()
+    try:
+        worker.launch(spec, limit_s=LAUNCH_LIMIT_S)
+        seconds = time.perf_counter() - t0
+        results = {name: [worker.load_result(tmp, name, r) for r in range(n)]
+                   for name in jobs}
+        for name, job in jobs.items():
+            if job["kind"] == "cli":
+                with np.load(tmp / f"{name}.npz") as z:
+                    files[name] = z["radiance"]
+            elif job.get("checkpoint"):
+                files[name] = load_checkpoint(job["checkpoint"], "cpu")
+    except Exception as e:  # noqa: BLE001 - every test of the world reports it
+        seconds = time.perf_counter() - t0
+        failure = f"{type(e).__name__}: {e}"
+    tails = []
+    for r in range(n):
+        log = tmp / f"rank{r}.log"
+        tail = log.read_text()[-1500:] if log.exists() else "(no log)"
+        tails.append(f"--- rank {r} ---\n{tail}")
+    why = (f"world {n}: launch and read-back {seconds:.1f} s (limit "
+           f"{LAUNCH_LIMIT_S} s), pid {os.getpid()}\n" + "\n".join(tails))
+    return World(n, tmp, jobs, results, files, failure, why)
 
 
 def _single_of(job):
@@ -538,51 +574,54 @@ def _single_of(job):
 
 @pytest.mark.parametrize("name", JOB_NAMES)
 def test_process_group(world, name, cornell):
-    n, tmp, jobs, launched, files = world
+    n, tmp, jobs = world.n, world.tmp, world.jobs
+    why = world.why  # every assertion below carries the launch's record
+    assert world.failure is None, f"{world.failure}\n{why}"
     job = jobs[name]
-    results = launched[name]
+    results = world.results[name]
     if job["kind"] == "render":
         base, rays = _single_of(job)
         for res in results:  # every rank holds the whole image and count
-            assert torch.equal(res["image"], results[0]["image"])
-            assert res["rays"] == rays
+            assert torch.equal(res["image"], results[0]["image"]), why
+            assert res["rays"] == rays, why
         if name.startswith("tile_"):
-            assert torch.equal(results[0]["image"], base)
+            assert torch.equal(results[0]["image"], base), why
         else:
-            _close(results[0]["image"], base)
+            _close(results[0]["image"], base, err_msg=why)
     elif job["kind"] == "accumulate":
         base, rays = tpipe.render_image_wavefront(cornell, CAM, 32, 32, spp=4,
                                                   seed=3, pool_size=256)
-        straight = launched["accumulate"][0]
+        straight = world.results["accumulate"][0]
         for res in results:
-            assert res["spp"] == 4 and sum(res["rays"]) == rays
+            assert res["spp"] == 4 and sum(res["rays"]) == rays, why
             # a resumed accumulation equals the uninterrupted one bit for bit
-            assert torch.equal(res["rgb_sum"], straight["rgb_sum"])
-        _close(results[0]["rgb_sum"] / 4.0, base, rtol=1e-6, atol=1e-7)
+            assert torch.equal(res["rgb_sum"], straight["rgb_sum"]), why
+        _close(results[0]["rgb_sum"] / 4.0, base, rtol=1e-6, atol=1e-7, err_msg=why)
         if "checkpoint" in job:
-            loaded, seed, _ = files[name]
-            assert loaded.spp == 2 and seed == 3
-            assert loaded.rgb_sum.shape == (32, 32, 3)
+            loaded, seed, _ = world.files[name]
+            assert loaded.spp == 2 and seed == 3, why
+            assert loaded.rgb_sum.shape == (32, 32, 3), why
     elif job["kind"] == "raises":
         want = (f"image height 31 must divide evenly across {n} tile shards"
                 if name == "bad_height"
                 else f"spp {n + 1} must divide evenly across {n} shards")
-        assert [res["message"] for res in results] == [want] * n
+        assert [res["message"] for res in results] == [want] * n, why
     else:
         # rank 0 alone wrote the image and the stats line
-        assert [res["rc"] for res in results] == [0] * n
-        assert all(res["stdout"] == "" for res in results[1:])
+        assert [res["rc"] for res in results] == [0] * n, why
+        assert all(res["stdout"] == "" for res in results[1:]), why
         lines = results[0]["stdout"].strip().splitlines()
-        assert len(lines) == 1 and '"rays"' in lines[0]
+        assert len(lines) == 1 and '"rays"' in lines[0], why
         argv = [a for a in job["argv"] if a != "--tile-shard"]
         out = tmp / f"{name}_single.npz"
         argv[argv.index("--npz") + 1] = str(out)
         argv[argv.index("--output") + 1] = str(tmp / f"{name}_single.png")
         from metalpathtracer_torch import cli as tcli
 
-        assert tcli.main(argv) == 0
+        assert tcli.main(argv) == 0, why
         with np.load(out) as b:
-            np.testing.assert_array_equal(files[name], b["radiance"])
+            np.testing.assert_array_equal(world.files[name], b["radiance"],
+                                          err_msg=why)
 
 
 def test_a_failing_rank_fails_the_launch(tmp_path):
