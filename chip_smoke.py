@@ -11,8 +11,11 @@ starts from the closest hit's winners and runs the epilogue in its own
 registers (`shade_hit`, or on the wavefront at one bounce an advance
 `shade_bank_hit`, the shading that also banks the finished paths); the
 epilogue's own kernel runs with NEE (its closest hits and shadow rays'),
-`shade` and `shade_bank` on the BVH path. Nine kernel entries in six
-sources.
+`shade` and `shade_bank` on the BVH path; and the wavefront's
+regeneration: the restart (each lane's pixel and sample, and where it
+restarts its jittered primary ray), the window's queue pop, and the pool
+sort's key and gather (`csrc/wavefront.cu`). Thirteen kernel entries in
+seven sources.
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
@@ -146,7 +149,7 @@ Phases, each raising on failure:
     equal to the eager loop's, on the scan plus what its idle steps (run
     by a block past its last live lane, counted in the program's report)
     launch, each an eager bounce step's launches (the flagships' exactly
-    408 / 408 / 817 and 128 / 128 / 132 on both loops, PERF.md; the bounce
+    408 / 408 / 408 and 128 / 128 / 132 on both loops, PERF.md; the bounce
     step's front end and shading kernel 408 and 128 each: on the wavefront
     `shade_bank_hit`, on the scan `shade_hit`; the hit epilogue's own
     kernel 0); host reads
@@ -182,7 +185,24 @@ Phases, each raising on failure:
     bound, the larger of its bytes at the memory rate and its operations
     (counted from its source) at the f32 peak; then the global loads each
     function of `csrc/shade.cu` issues before its first global store (its
-    SASS), of this tree's build and, with `--against`, the other's.
+    SASS), of this tree's build and, with `--against`, the other's;
+19. (run after phase 18) the wavefront's regeneration kernels
+    (`restart_lanes`, `queue_pop`, `tileset_key`, `permute_lanes`) vs their
+    plain twins, bit-equal (NaN where both are NaN), at the calls the paths
+    make: the flagship wavefront's advance CAPTURE_CALL (32,768 lanes: its
+    queue pop and restart, and the sort after it), a viewer frame's pool
+    (16,384) and drain (1,024) calls, and the queue at the drain's width
+    (the viewer pool's call cut to 1,024 lanes: the drain pops no queue);
+    each with its device, call and plain time, the time of one PyTorch call
+    that computes the same function where there is one (`torch.cumsum` for
+    the queue's ranks, `index_select` of the packed lane state for the
+    gather) and its bound, the larger of its bytes at the memory rate and
+    its operations (the restart's threefry at the int32 rate, its rays and
+    the key's slab tests at the f32 peak). Phase 17 also holds each of the
+    four, inside a captured flagship window as the last replay computed
+    it, to an eager launch and to its twin; and every wavefront path of
+    phases 7, 8 and 17 must launch them (the key and the gather as often
+    as each other).
 No earlier path runs at a smaller depth than before. Every path through
 `trace_wavefront` (phases 7, 8, 9, 11, 12, 14, 15) runs its windows as CUDA
 graph replays, and every scan render (phases 6, 9, 10, 11, 12, 14, 15) its
@@ -195,7 +215,8 @@ must not run). A launch is counted where it runs: each kernel adds to a
 tally on the device (`render/kernels/_build.py`), which a graph replay
 moves as an eager launch does; the wrappers' Python counts hold the
 eager launches and those traced into a capture, and must equal the
-tallies where nothing was replayed. Every traced bounce step must launch
+tallies where nothing was replayed (the regeneration's kernels too).
+Every traced bounce step must launch
 both tile kernels once and the threefry kernel exactly once (its bundle),
 with at least two draws, the front end at least once, and exactly one of
 the shading kernels or, with NEE, the plain shading; a step that does not
@@ -313,6 +334,22 @@ KERNELS = {
                            also_replaces="metalpathtracer_tpu/render/integrator.py:702, "
                                          f"{TPU_FILE}:1315"),
 }
+# the wavefront's regeneration (no Pallas body either: the JAX package's
+# XLA fusions of its jitted window's lane refill and pool sort)
+TPU_INTEGRATOR = "metalpathtracer_tpu/render/integrator.py"
+WAVEFRONT_CU = "metalpathtracer_torch/csrc/wavefront.cu"
+KERNELS.update(
+    restart_lanes=dict(source=WAVEFRONT_CU, replaces=f"{TPU_INTEGRATOR}:768",
+                       also_replaces=f"{TPU_INTEGRATOR}:624, "
+                                     "metalpathtracer_tpu/render/pipeline.py:33"),
+    queue_pop=dict(source=WAVEFRONT_CU, replaces=f"{TPU_INTEGRATOR}:979"),
+    tileset_key=dict(source=WAVEFRONT_CU, replaces=f"{TPU_INTEGRATOR}:835",
+                     also_replaces=f"{TPU_FILE}:967"),
+    permute_lanes=dict(source=WAVEFRONT_CU, replaces=f"{TPU_INTEGRATOR}:916"))
+# their wrappers (render/kernels/wavefront.py), by the names of their
+# device tallies, and the keys of their launches in a counted path's record
+REGEN = ("restart_lanes", "queue_pop", "tileset_key", "permute_lanes")
+REGEN_KEYS = ("restart_launches", "queue_launches", "key_launches", "permute_launches")
 # the bounce step's kernels, by the names of their device tallies
 # (render/kernels/_build.py), and the keys of their launches in a counted
 # path's record
@@ -694,22 +731,26 @@ def wrapper_module(name: str):
 
 
 @contextlib.contextmanager
-def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING):
+def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING
+                   + REGEN):
     """Route the kernels named in `which` through their plain versions (the
     threefry kernel's wrapper is `threefry_bundle`, which every draw goes
-    through; the bounce step's wrappers are looked up on their modules at
-    every call, and `hit_front` names the sphere pass's wrapper too, which
-    launches its kernel), on the eager loop: a plain version reads the
-    device on the host, which no CUDA graph may capture."""
+    through; the bounce step's and the regeneration's wrappers are looked
+    up on their modules at every call, and `hit_front` names the sphere
+    pass's wrapper too, which launches its kernel), on the eager loop: a
+    plain version reads the device on the host, which no CUDA graph may
+    capture."""
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
 
     plain = {"mm_closest_hit": (tmm, "mm_closest_hit", tmm.mm_closest_hit_reference),
              "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
              "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference),
              **{w: (wrapper_module(w), w, getattr(wrapper_module(w), f"{w}_reference"))
-                for w in WRAPPER_KERNEL}}
+                for w in WRAPPER_KERNEL},
+             **{k: (twfk, k, getattr(twfk, f"{k}_reference")) for k in REGEN}}
     which = [w for k in which for w in (
         [w for w, kk in WRAPPER_KERNEL.items() if kk == k] if k in SHADING else [k])]
     kernels = {k: getattr(plain[k][0], plain[k][1]) for k in which}
@@ -754,7 +795,9 @@ def counted_path(tiles: bool = True):
     run the epilogue themselves) or the plain shading with next-event
     estimation (`nee_steps`, counted in `graphs.STATS`); a step that
     shades from anything but the winners runs the hit epilogue at least
-    once."""
+    once. The wavefront's regeneration kernels likewise (REGEN_KEYS the
+    tallies, `<wrapper>_calls` the wrappers'; `require_regen` holds a
+    wavefront path to them), and their plain versions must not run."""
     import torch
 
     from metalpathtracer_torch.render import graphs
@@ -763,13 +806,16 @@ def counted_path(tiles: bool = True):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render.kernels import threefry as tfk
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
 
-    calls = dict(plain_mm=0, plain_cull=0, plain_threefry=0, plain_shading=0)
+    calls = dict(plain_mm=0, plain_cull=0, plain_threefry=0, plain_shading=0,
+                 plain_regen=0)
     odd_steps = []  # (bundle launches, draws) of a step that broke the rule
     odd_shading = []  # (shading launches, NEE steps) of a step that broke it
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
                  tmm.cull_pass_reference, tfk.threefry_bundle_reference)
     twins = {k: getattr(wrapper_module(k), f"{k}_reference") for k in WRAPPER_KERNEL}
+    regen_twins = {k: getattr(twfk, f"{k}_reference") for k in REGEN}
 
     def counter(key, fn):
         def wrapped(*a, **k):
@@ -802,6 +848,8 @@ def counted_path(tiles: bool = True):
     tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
     for k, fn in twins.items():
         setattr(wrapper_module(k), f"{k}_reference", counter("plain_shading", fn))
+    for k, fn in regen_twins.items():
+        setattr(twfk, f"{k}_reference", counter("plain_regen", fn))
     result = {}
     try:
         torch.cuda.synchronize()
@@ -810,6 +858,8 @@ def counted_path(tiles: bool = True):
         tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
         for k in WRAPPER_KERNEL:
             getattr(wrapper_module(k), k).launches = 0
+        for k in REGEN:
+            getattr(twfk, k).launches = 0
         _build.zero_tallies()
         replays = graphs.STATS["replays"]
         nee_steps = graphs.STATS["nee_steps"]
@@ -819,6 +869,8 @@ def counted_path(tiles: bool = True):
          tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
         for k, fn in twins.items():
             setattr(wrapper_module(k), f"{k}_reference", fn)
+        for k, fn in regen_twins.items():
+            setattr(twfk, f"{k}_reference", fn)
         graphs.clear()
     replayed = graphs.STATS["replays"] - replays
     done = executed()
@@ -833,6 +885,8 @@ def counted_path(tiles: bool = True):
                   epilogue_calls=tsh.hit_epilogue.launches,
                   **{f"{k}_calls": getattr(tsh, k).launches for k in SHADES},
                   **dict(zip(SHADING_KEYS, shading)),
+                  **{f"{k}_calls": getattr(twfk, k).launches for k in REGEN},
+                  **dict(zip(REGEN_KEYS, executed_regen())),
                   nee_steps=graphs.STATS["nee_steps"] - nee_steps)
     if any(calls.values()):
         raise RuntimeError(f"the path ran a plain version: {calls}")
@@ -863,6 +917,37 @@ def counted_path(tiles: bool = True):
                                         *(result[f"{k}_calls"] for k in SHADES))):
         raise RuntimeError(f"the card ran other launches than the wrappers made: "
                            f"{result}")
+    if not replayed and any(result[key] != result[f"{k}_calls"]
+                            for k, key in zip(REGEN, REGEN_KEYS)):
+        raise RuntimeError(f"the card ran other regeneration launches than the "
+                           f"wrappers made: {result}")
+
+
+def require_regen(counts, what: str, sorting: bool = True):
+    """A wavefront path's counted record (`counted_path`) must have run the
+    regeneration's kernels: the restart and the queue pop, and with
+    `sorting` (a scene with triangles) the sort's key and gather, as often
+    as each other."""
+    regen = [counts[k] for k in REGEN_KEYS]
+    if min(regen[:2]) == 0 or (sorting and min(regen[2:]) == 0) or regen[2] != regen[3]:
+        raise RuntimeError(f"{what}: the regeneration's kernels {REGEN} ran {regen} "
+                           f"times on the card")
+
+
+def regen_text(counts) -> str:
+    """The regeneration kernels' launches of a counted path, for a log."""
+    return ", ".join(f"{k} {counts[key]}" for k, key in zip(REGEN, REGEN_KEYS))
+
+
+def executed_regen() -> tuple:
+    """The regeneration kernels' launches (REGEN) run on this process's
+    card since the tallies were last zeroed: one read."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
+    return tuple(done.get(k, (0, 0))[0] for k in REGEN)
 
 
 def shading_text(counts) -> str:
@@ -1762,11 +1847,14 @@ def phase_paths(profile_on: bool, w=1280, h=720):
                             image_mean=float(images[name].mean()))
         if name == "scan":
             result[name]["image"] = images[name]
+        else:
+            require_regen(counts, f"[7] {name}")
         log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
-            f"threefry {counts['threefry_launches']}, {shading_text(counts)}; "
+            f"threefry {counts['threefry_launches']} ({counts['threefry_draws']} draws), "
+            f"{shading_text(counts)}, {regen_text(counts)}; "
             f"image mean {images[name].mean():.4f}")
     frac, dmean = compare_images(images["wavefront"], images["scan"],
                                  "wavefront vs scan image")
@@ -1802,6 +1890,7 @@ def phase_legs(scenes, profile_on: bool):
             raise RuntimeError(f"{name}: bad image {img.shape}")
         if not img.mean() > 0.05:
             raise RuntimeError(f"{name}: image is black: mean {img.mean()}")
+        require_regen(counts, f"[8] {name}")
         rec = dict(seconds=dt, rays=rays, mrays_per_sec=rays / dt / 1e6,
                    image_mean=float(img.mean()), counts=counts,
                    tiles=scene.mm_tile_box.shape[0], **stats)
@@ -1813,14 +1902,14 @@ def phase_legs(scenes, profile_on: bool):
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
-            f"threefry {counts['threefry_launches']}, {shading_text(counts)}; "
-            f"image mean {img.mean():.4f}")
+            f"threefry {counts['threefry_launches']}, {shading_text(counts)}, "
+            f"{regen_text(counts)}; image mean {img.mean():.4f}")
     return result
 
 
 # kernel-name families of the profile's groups, in order of matching
 KERNEL_FAMILIES = (
-    *((k, (f"{k}_kernel",)) for k in SHADING),
+    *((k, (f"{k}_kernel",)) for k in SHADING + REGEN),
     ("mm_closest_hit", ("mm_closest_hit_kernel",)),
     ("cull_tiles", ("cull_tiles_kernel",)),
     ("threefry", ("threefry_kernel",)),
@@ -1880,7 +1969,8 @@ def profile(fn, name, steps: int) -> str:
 
 # the ranges whose device events `range_table` also splits by kernel name
 SPLIT_RANGES = ("hit.front", "hit.kernel_inputs", "wavefront.bank", "step.shade",
-                "step.shade_bank")
+                "step.shade_bank", "wavefront.restart_lanes", "wavefront.queue",
+                "wavefront.sort_pool")
 
 
 def kernel_label(name: str) -> str:
@@ -2068,6 +2158,14 @@ def phase_small_vs_plain(scene):
             raise RuntimeError(f"{name}: the render with the bounce step's twins "
                                f"differs at {int((a != e).sum())} values, rays {ra} vs "
                                f"{re_}")
+        # the regeneration's kernels against their twins likewise
+        if name == "wavefront":
+            with plain_versions(REGEN):
+                g, rg = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
+            if not torch.equal(a, g) or ra != rg:
+                raise RuntimeError(f"{name}: the render with the regeneration's twins "
+                                   f"differs at {int((a != g).sum())} values, rays {ra} "
+                                   f"vs {rg}")
         with plain_versions():
             b, rb = fn(scene, Camera.reset(), 320, 180, 2, seed=1, cfg=cfg)
         frac, dmean = compare_images(a.cpu().numpy(), b.cpu().numpy(),
@@ -2075,9 +2173,9 @@ def phase_small_vs_plain(scene):
         result[name] = dict(divergent=frac, mean_diff=dmean, rays=ra, plain_rays=rb)
         log(f"[9] {name} 320x180 spp 2 depth 8, kernels vs plain: {frac:.5f} of "
             f"pixels differ by > 1e-3, means by {dmean:.2e}, rays {ra} vs {rb}; "
-            "with the RNG's twin alone, and with the bounce step's twins alone "
-            "(the front end's, the hit epilogue's and the four shadings'): "
-            "bit-equal")
+            "with the RNG's twin alone, with the bounce step's twins alone "
+            "(the front end's, the hit epilogue's and the four shadings') and, on "
+            "the wavefront, with the regeneration's four twins alone: bit-equal")
 
     # the golden reference-scene case of tests/test_golden.py, on the card
     golden_scene = upload_scene(
@@ -2464,7 +2562,8 @@ def phase_bvh(sets, n_each, chunk):
         if rc != 0:
             raise RuntimeError(f"cli.main --intersector {kind} {extra} returned {rc}")
         # the bounce step's kernels' launches on the card, this render alone
-        counts[name] = dict(zip(SHADING_KEYS, executed_shading()))
+        counts[name] = dict(zip(SHADING_KEYS, executed_shading()),
+                            **dict(zip(REGEN_KEYS, executed_regen())))
         moved = {k: graphs.STATS[k] - before[k] for k in before}
         ran = tmm.mm_closest_hit.launches - launches[0]
         if (ran > 0) != (kind == "mm"):
@@ -2698,7 +2797,7 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             launches = {k: sum(res["counts"][k] for res in results)
                         for k in ("steps", "mm_launches", "cull_launches",
                                   "threefry_launches", "threefry_draws",
-                                  *SHADING_KEYS)}
+                                  *SHADING_KEYS, *REGEN_KEYS)}
             by_rank = [res["counts"]["mm_launches"] for res in results]
             if job["kind"] == "cli":
                 if any(res["rc"] != 0 for res in results) or any(
@@ -3028,7 +3127,13 @@ GRAPH_CALL = 5
 # the flagship's counts (PERF.md): mm_closest_hit, cull_tiles, threefry;
 # on the wavefront and on the scan (4 samples of 32 bounce steps, each with a
 # live lane, and a jitter bundle a sample)
-FLAGSHIP_LAUNCHES = (408, 408, 817)
+# (the restart draws the wavefront's jitter itself: threefry launches one
+# bundle a bounce step, 408, where it launched 817 with the jitter's 409)
+FLAGSHIP_LAUNCHES = (408, 408, 408)
+# the flagship wavefront's restarts (408 advances and the start's) and its
+# sorts' keys and gathers (one every four advances); its queue pops are
+# those of the advances before the drain
+FLAGSHIP_RESTARTS, FLAGSHIP_SORTS = 409, 102
 SCAN_FLAGSHIP_LAUNCHES = (128, 128, 132)
 
 
@@ -3578,7 +3683,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         return dict(outs=outs, rays=rays, frames=frames, s=secs, launched=executed(),
-                    shading=executed_shading(),
+                    shading=executed_shading(), regen=executed_regen(),
                     stats={k: v - before[k] for k, v in graphs.STATS.items()})
 
     def same(a, b, what):
@@ -3601,6 +3706,9 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
                                f"{SHADING}, the eager loop "
                                f"{a['shading']}, {b['stats']['idle_steps']} idle steps: "
                                f"{want} expected")
+        if b["regen"] != a["regen"] or (scan and any(a["regen"])):
+            raise RuntimeError(f"[17] {name}: {what}: the card ran {b['regen']} {REGEN}, "
+                               f"the eager loop {a['regen']}")
 
     graphs.clear()
     counted = {}
@@ -3627,6 +3735,13 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         raise RuntimeError(f"[17] {name}: the bounce step's kernels {SHADING} ran "
                            f"{eager['shading']} eager, {graph['shading']} replayed; "
                            f"{want} expected on both")
+    restarts, queue, keys, gathers = eager["regen"]
+    if flagship and not scan and not (
+            restarts == FLAGSHIP_RESTARTS and keys == gathers == FLAGSHIP_SORTS
+            and 0 < queue < steps):
+        raise RuntimeError(f"[17] {name}: the regeneration's kernels {REGEN} ran "
+                           f"{eager['regen']}; {FLAGSHIP_RESTARTS} restarts and "
+                           f"{FLAGSHIP_SORTS} sorts expected")
     # counted_path cleared the cache: this render warms up and captures the
     # graphs that the timed renders replay
     first = once(False)
@@ -3669,7 +3784,8 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
     med = {k: statistics.median(v) for k, v in times.items()}
     launched = dict(zip(("mm_launches", "cull_launches", "threefry_launches",
                          "threefry_draws"), eager["launched"]),
-                    **dict(zip(SHADING_KEYS, eager["shading"])))
+                    **dict(zip(SHADING_KEYS, eager["shading"])),
+                    **dict(zip(REGEN_KEYS, eager["regen"])))
     idle = steady["idle_steps"]
     rec = dict(
         launched=launched, launched_graph=graph["launched"],
@@ -3697,7 +3813,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
         f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
         f"card (eager loop): mm_closest_hit {c['mm_launches']}, "
         f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
-        f"({c['threefry_draws']} draws), {shading_text(c)}"
+        f"({c['threefry_draws']} draws), {shading_text(c)}, {regen_text(c)}"
         + (f", graph loop {graph['launched']} and {graph['shading']} with {idle} idle "
            f"steps past the last live lane" if scan
            else ", equal in every render of both loops")
@@ -3887,6 +4003,7 @@ def phase_graphs(scene, bunny, card, sass, tsass):
         record[name] = graph_vs_eager(name, fn, card, samples=samples,
                                       flagship=flagship, tiles=tiles)
     record["in_window"] = phase_in_window(scene, sass, tsass)
+    record["regen_in_window"] = phase_regen_in_window(scene)
     # the bounce step GRAPH_CALL of a captured block (the block's last step
     # where it is shorter)
     call = min(GRAPH_CALL, tint.SCAN_BLOCK)
@@ -4036,6 +4153,299 @@ def phase_scan_blocks(scene, card):
     (OUT / "scan_blocks.json").write_text(json.dumps(record, indent=1))
     return record
 
+# ---------------------------------------------------------------------------
+# 19: the wavefront's regeneration kernels (csrc/wavefront.cu)
+# ---------------------------------------------------------------------------
+
+# what a restarted lane computes besides its loads and stores: its threefry
+# pair's integer work (20 rounds of add, rotate and xor, 5 key injections;
+# the int64 divisions of its item into pixel and sample left out, so a
+# lower count) and the ray's f32 operations (the two screen coordinates,
+# three components of four operations and a subtraction, the norm's three
+# products, two adds and root, three divisions)
+RESTART_INT_OPS = 20 * 3 + 5 * 2
+RAYGEN_FLOP = 4 + 3 * 5 + 6 + 3
+
+
+def _deep_clone(a):
+    """Clones of every tensor in `a` (tuples, lists and dicts walked; a
+    NamedTuple plan kept as it is)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: _deep_clone(v) for k, v in a.items()}
+    if isinstance(a, (tuple, list)) and not hasattr(a, "_fields"):
+        return type(a)(_deep_clone(v) for v in a)
+    return a
+
+
+def _regen_lanes(args) -> int:
+    return args[0]["item"].shape[0] if isinstance(args[0], dict) else args[0].shape[0]
+
+
+def regen_flat(kernel: str, out, args) -> tuple:
+    """A regeneration wrapper's outputs as a flat tuple of tensors: the
+    queue's returns, then the operands it updates in place."""
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    if kernel == "queue_pop":
+        return (*out, *args[2:6])
+    if kernel == "tileset_key":
+        return (out,)
+    if kernel == "restart_lanes":
+        return tuple(out[k] for k in twfk.LANE_FIELDS)
+    return (*(out[0][k] for k in twfk.LANE_FIELDS), *(out[1] or ()))
+
+
+@contextlib.contextmanager
+def recorded_regen(picks: dict):
+    """The regeneration kernels' wrappers wrapped while the block runs:
+    `picks` maps a set's name to (lanes, {wrapper: k}), and the k-th call
+    of that wrapper on that many lanes (from 1) has its arguments cloned,
+    before the call (the queue updates its operands in place), into the
+    yielded {name: {wrapper: args}}. The calls go through."""
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    kernels = {k: getattr(twfk, k) for k in REGEN}
+    seen, got = {}, {name: {} for name in picks}
+
+    def recorder(kernel):
+        def wrapped(*args, **kw):
+            lanes = _regen_lanes(args)
+            k = seen[(kernel, lanes)] = seen.get((kernel, lanes), 0) + 1
+            for name, (want_lanes, at) in picks.items():
+                if lanes == want_lanes and at.get(kernel) == k:
+                    got[name][kernel] = _deep_clone(args)
+            return kernels[kernel](*args, **kw)
+        wrapped.launches = 0
+        return wrapped
+
+    for k in REGEN:
+        setattr(twfk, k, recorder(k))
+    try:
+        yield got
+    finally:
+        for k, fn in kernels.items():
+            setattr(twfk, k, fn)
+
+
+def regen_bound(kernel: str, args) -> dict:
+    """The least time of one call of a regeneration kernel on the card: the
+    bytes it must move for this call's data (each input once, each output
+    once; a lane that does not restart copies its state, one that restarts
+    writes a new one; the queue moves the accumulator rows of the lanes
+    that banked; the key reads the rays of live lanes) at the memory rate,
+    and its operations (the restarted lanes' threefry at the int32 rate and
+    their rays at the f32 peak; the key's slab tests at the f32 peak)."""
+    n = _regen_lanes(args)
+    int_ops = flop = 0
+    if kernel == "restart_lanes":
+        r = int(args[1].sum())
+        state = 36 + 8 + 4 + 1  # o, d, tp; bounce; prev_pdf; alive
+        nbytes = n * (16 + 1 + 16) + (n - r) * 2 * state + r * state + 48 + 8
+        int_ops, flop = r * RESTART_INT_OPS, r * RAYGEN_FLOP
+    elif kernel == "queue_pop":
+        b, ka = int(args[0].sum()), args[3].shape[1]
+        nbytes = n * (1 + 1 + 8 + 1) + b * (3 * 4 * ka + 8 + 8) + 16
+    elif kernel == "tileset_key":
+        live, nc = int(args[2].sum()), args[3].shape[0]
+        nbytes = n * (1 + 4) + live * 24 + nc * 32
+        flop = live * nc * CULL_FLOP_PER_PAIR
+    else:
+        ka = args[1]["acc"].shape[1]
+        row = 4 * (3 + 3 + ka + 3 + 3 + 1) + 8 * 5 + 1
+        if args[2] is not None:
+            row += 8 + 4 * ka
+        nbytes = n * (8 + 2 * row)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (flop / PEAK_F32_FLOPS
+              + int_ops / (INT32_PER_SM_CLOCK * H100_SMS * _sm_clock_hz())) * 1e3
+    return dict(bytes=nbytes, flop=flop, int_ops=int_ops, bound_ms=max(byte_ms, ops_ms),
+                bound_by="bytes" if byte_ms >= ops_ms else "operations")
+
+
+_CLOCK = []
+
+
+def _sm_clock_hz() -> float:
+    if not _CLOCK:
+        _CLOCK.append(top_sm_clock_hz())
+    return _CLOCK[0]
+
+
+def regen_library(kernel: str, args):
+    """One PyTorch call that computes a regeneration kernel's function,
+    where there is one: the queue's ranks (`torch.cumsum` of the bank
+    mask), the gather (`index_select` of the lane state packed into one
+    byte tensor, packed outside the timing). The port calls neither."""
+    import torch
+
+    if kernel == "queue_pop":
+        bank = args[0]
+        return lambda: torch.cumsum(bank, 0)
+    if kernel == "permute_lanes":
+        perm, lanes, pend = args
+        n = perm.shape[0]
+        parts = [lanes[k] for k in sorted(lanes)] + list(pend or ())
+        pack = torch.cat([t.reshape(n, -1).view(torch.uint8) for t in parts], 1)
+        return lambda: torch.index_select(pack, 0, perm)
+    return None
+
+
+def regen_vs_twin(kernel: str, args, what: str) -> dict:
+    """One call of a regeneration kernel against its twin on the same
+    inputs (each on its own clones: the queue works in place): bit for bit
+    (NaN where both are NaN); then its device time, call time, the twin's
+    call time, the library call's device time and the bound."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    fn, twin = getattr(twfk, kernel), getattr(twfk, f"{kernel}_reference")
+    mine, theirs = _deep_clone(args), _deep_clone(args)
+    got = regen_flat(kernel, fn(*mine), mine)
+    want = regen_flat(kernel, twin(*theirs), theirs)
+    torch.cuda.synchronize()
+    bad, err = 0, 0.0
+    for a, b in zip(got, want, strict=True):
+        if a.dtype.is_floating_point:
+            bad += int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        else:
+            bad += int((a != b).sum())
+    if bad:
+        raise RuntimeError(f"[19] {kernel} vs its twin ({what}): {bad} values differ, "
+                           f"max |difference| {err}")
+    work = _deep_clone(args)
+    ms = device_ms(lambda: fn(*work))
+    c_ms = call_ms(lambda: fn(*work), 20)
+    plain = _deep_clone(args)
+    p_ms = call_ms(lambda: twin(*plain), 3)
+    lib = regen_library(kernel, args)
+    lib_ms = device_ms(lib) if lib is not None else None
+    b = regen_bound(kernel, args)
+    rec = dict(lanes=_regen_lanes(args), ms=ms, call_ms=c_ms, plain_ms=p_ms,
+               library_ms=lib_ms, max_abs_err=err, **b, share=b["bound_ms"] / ms)
+    log(f"    {kernel} vs twin ({what}, {rec['lanes']} lanes): bit-equal; kernel "
+        f"{ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us per call, twin "
+        f"{p_ms:.3f} ms, library call "
+        + (f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else "none")
+        + f"; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: "
+        f"{b['bytes'] / 1e6:.2f} MB), {100 * rec['share']:.1f}% of it reached")
+    return rec
+
+
+def regen_sets(pool: dict, viewer: dict) -> dict:
+    """Phase 19's calls: the flagship advance's (`pool`) and a viewer
+    frame's pool and drain calls (`viewer`), and the queue at the drain's
+    width, made from the viewer pool's call (its first VIEWER_DRAIN lanes:
+    the drain pops no queue)."""
+    sets = {**pool, **viewer}
+    q = viewer["viewer_pool"]["queue_pop"]
+    w = VIEWER_DRAIN
+    sets["viewer_drain"]["queue_pop"] = (
+        *(t[:w].contiguous() for t in q[:6]), *q[6:])
+    return sets
+
+
+def phase_regen(sets: dict) -> dict:
+    """19: the regeneration kernels against their twins at the calls the
+    paths make (`sets`: name -> {wrapper: args}), each bit-equal, with its
+    device, call and plain time, the library call's and the bound."""
+    record = {}
+    for name, calls in sets.items():
+        for kernel in REGEN:
+            if kernel in calls:
+                record[f"{name}_{kernel}"] = dict(
+                    set=name, kernel=kernel, **regen_vs_twin(kernel, calls[kernel], name))
+    missing = [f"{name}_{k}" for name in sets for k in REGEN
+               if f"{name}_{k}" not in record]
+    if missing:
+        raise RuntimeError(f"[19] no call recorded for {missing}")
+    return record
+
+
+@contextlib.contextmanager
+def recorded_regen_in_capture(lanes: int):
+    """The regeneration kernels' wrappers wrapped: while a CUDA graph is
+    being captured, the first call of each on `lanes` lanes has its
+    arguments cloned before it and its outputs (and the queue's updated
+    operands) after it; the clones are graph nodes, so after a replay they
+    hold that replay's values. Yields {wrapper: (args, outputs)}."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    kernels = {k: getattr(twfk, k) for k in REGEN}
+    got = {}
+
+    def recorder(kernel):
+        def wrapped(*args, **kw):
+            take = (torch.cuda.is_current_stream_capturing() and kernel not in got
+                    and _regen_lanes(args) == lanes)
+            before = _deep_clone(args) if take else None
+            out = kernels[kernel](*args, **kw)
+            if take:
+                got[kernel] = before, tuple(t.clone() for t in regen_flat(kernel, out, args))
+            return out
+        wrapped.launches = 0
+        return wrapped
+
+    graphs.clear()
+    for k in REGEN:
+        setattr(twfk, k, recorder(k))
+    try:
+        yield got
+    finally:
+        for k, fn in kernels.items():
+            setattr(twfk, k, fn)
+        graphs.clear()
+
+
+def phase_regen_in_window(scene) -> dict:
+    """17 (and 19): inside one captured flagship window, the first call of
+    each regeneration kernel on the pool's lanes as the last replay
+    computed it: bit-equal to an eager launch at the same inputs and to its
+    twin."""
+    import torch
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render import pipeline as tpipe
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    graphs.zero_stats()
+    with recorded_regen_in_capture(POOL) as rec:
+        tpipe.render_image_wavefront(scene, Camera.reset(), 1280, 720, 4, seed=0,
+                                     cfg=RenderConfig(max_depth=32), pool_size=POOL)
+    torch.cuda.synchronize()
+    stats = dict(graphs.STATS)
+    if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != set(REGEN):
+        raise RuntimeError(f"[17] regeneration in a window: recorded {sorted(rec)}, "
+                           f"{stats}")
+    out = {}
+    for kernel, (args, recorded) in rec.items():
+        for who, fn in (("eager launch", getattr(twfk, kernel)),
+                        ("twin", getattr(twfk, f"{kernel}_reference"))):
+            mine = _deep_clone(args)
+            again = regen_flat(kernel, fn(*mine), mine)
+            if not all(torch.equal(a, b) or (a.dtype.is_floating_point and bool(
+                    ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+                    for a, b in zip(again, recorded, strict=True)):
+                raise RuntimeError(f"[17] the window's {kernel} node differs from its "
+                                   f"{who} at its inputs")
+        out[kernel] = dict(lanes=_regen_lanes(args), bit_equal=True)
+    log(f"[17] in a captured window ({stats['replays']} replays): the first "
+        f"{', '.join(REGEN)} call on {POOL} lanes each bit-equal to an eager launch and "
+        "to its twin at the same inputs")
+    return dict(stats=stats, kernels=out)
+
 
 def _launches():
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
@@ -4115,8 +4525,24 @@ def main(argv=None) -> int:
     # (921,600 lanes), the pool advance's and a viewer frame's
     shading_sets = {f"scan_step{k}": {kernel: v[0] for kernel, v in calls.items() if v}
                     for k, calls in enumerate(shading_steps(scene, 1280, 720, 2), 1)}
-    mm_pool, cull_pool, pool_draws = capture_pool_call(shading_sets)
-    of_viewer = capture_viewer_calls(scene, shading_sets)
+    # and the regeneration kernels' calls of the same advance (the restart
+    # after it, the start's being the first; the sort after it, every
+    # fourth advance's), and of a viewer frame's pool and drain
+    from metalpathtracer_torch import viewer as tviewer
+
+    pool_picks = {"pool": (POOL, {"restart_lanes": CAPTURE_CALL + 1,
+                                  "queue_pop": CAPTURE_CALL,
+                                  "tileset_key": CAPTURE_CALL // 4,
+                                  "permute_lanes": CAPTURE_CALL // 4})}
+    with recorded_regen(pool_picks) as regen_pool:
+        mm_pool, cull_pool, pool_draws = capture_pool_call(shading_sets)
+    viewer_picks = {
+        "viewer_pool": (tviewer.POOL_SIZE, {"restart_lanes": 5, "queue_pop": 5,
+                                            "tileset_key": 2, "permute_lanes": 2}),
+        "viewer_drain": (VIEWER_DRAIN, {"restart_lanes": 1, "tileset_key": 1,
+                                        "permute_lanes": 1})}
+    with recorded_regen(viewer_picks) as regen_viewer:
+        of_viewer = capture_viewer_calls(scene, shading_sets)
     sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
     sets["pool"] = captured_set(mm_pool, cull_pool[1])
     # the drain's lanes are the longest paths: they may all be among spheres
@@ -4212,6 +4638,13 @@ def main(argv=None) -> int:
                 f"{k} {v['loads_before_store']} ({v['wide_before_store']}) of "
                 f"{v['loads']}" for k, v in fns.items()))
     del shading_sets
+    log("[19] the regeneration's kernels vs their twins: the flagship's advance "
+        f"{CAPTURE_CALL} (its queue pop and restart, and the sort after it), a viewer "
+        "frame's pool and drain calls, and the queue at the drain's width")
+    t0 = time.perf_counter()
+    regen = phase_regen(regen_sets(regen_pool, regen_viewer))
+    log(f"[19] {len(regen)} calls compared and timed in {time.perf_counter() - t0:.1f} s")
+    del regen_pool, regen_viewer
     torch.cuda.empty_cache()
     sweep = against = None
     if args.sweep:
@@ -4333,6 +4766,20 @@ def main(argv=None) -> int:
             bound_ms=at["bound_ms"], bound_by=at["bound_by"], share=at["share"],
             library_ms=None,
             launches_by_path={k: v[key] for k, v in per_path.items()}))
+    # the regeneration's kernels: the main path's launches, and their times
+    # at its shape (the pool advance); the library call where one PyTorch
+    # call computes the same function
+    for kernel, key in zip(REGEN, REGEN_KEYS):
+        at = regen[f"pool_{kernel}"]
+        kernels["kernels"].append(dict(
+            name=kernel, route="cuda", **KERNELS[kernel],
+            launches=main_path[key], launches_path="wavefront", lanes=at["lanes"],
+            max_abs_err=max(v["max_abs_err"] for v in regen.values()
+                            if v["kernel"] == kernel),
+            ms=at["ms"], call_ms=at["call_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"], share=at["share"],
+            library_ms=at["library_ms"],
+            launches_by_path={k: v.get(key) for k, v in per_path.items()}))
     summary = dict(card=card, build_s=build_s, cull_sass=sass, against=against,
                    mm_vs_twin=kvt, oracle=oracle,
                    cull_vs_plain=cull, mm_vs_twin_tile_p256=kvt256,
@@ -4340,6 +4787,7 @@ def main(argv=None) -> int:
                    threefry_lane={k: lane_issue(v)
                                   for k, v in tsass["per_blocks"].items()},
                    threefry_vs_twin=draws, bounce_kernels_vs_twins=bounce_kernels,
+                   regen_vs_twins=regen,
                    shade_sass_loads=loads,
                    sweep=sweep, paths=paths, legs=legs,
                    small_vs_plain=small, checkpointed=checkpointed,

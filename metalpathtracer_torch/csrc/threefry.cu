@@ -10,7 +10,9 @@
 //   counter (c0, c1) = (sample_id[i], (bounce[i] << 8) | purpose)
 // in native uint32 (wrapping adds, rotates as funnel shifts), with the key
 // schedule and the injection after each block of 4 rounds of
-// metalpathtracer_torch/core/rng.py::threefry2x32, and writes, from output
+// metalpathtracer_torch/core/rng.py::threefry2x32 (the rounds live in
+// threefry_rounds.cuh, which wavefront.cu's restart shares for its jitter
+// draw), and writes, from output
 // element `offset` on, one of:
 //   pair (mode 0):        (2, n): bits_to_uniform of both words;
 //   triple (mode 1):      (3, n): the pair, then the first word of a second
@@ -56,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry_rounds.cuh"
+
 #ifndef THREEFRY_THREADS
 #define THREEFRY_THREADS 256
 #endif
@@ -66,10 +70,8 @@ constexpr int kThreads = THREEFRY_THREADS;
 constexpr int kMaxDraws = 8;
 constexpr int kMaxBlocks = 8;
 constexpr int kPair = 0, kTriple = 1, kUnitVector = 2, kSingle = 3;
-constexpr uint32_t kParity = 0x1BD11BDAu;  // threefry key-schedule parity
 constexpr uint32_t kHigh = 0x80000000u;    // c1 bit of uniform3's second block
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
-constexpr float kTwoTo24 = 1.0f / 16777216.0f;  // 2^-24
 
 struct Operand {
   const void* ptr;  // null for a value
@@ -97,52 +99,6 @@ __device__ __forceinline__ uint32_t word(const Operand& a, long long i) {
     return (uint32_t)static_cast<const long long*>(a.ptr)[k];
   }
   return (uint32_t)static_cast<const int*>(a.ptr)[k];
-}
-
-// one round, rotating by R, of every chain
-template <int R, int K>
-__device__ __forceinline__ void one_round(uint32_t (&x0)[K], uint32_t (&x1)[K]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    x0[j] += x1[j];
-    x1[j] = __funnelshift_l(x1[j], x1[j], R);
-    x1[j] ^= x0[j];
-  }
-}
-
-template <int R0, int R1, int R2, int R3, int K>
-__device__ __forceinline__ void rounds(uint32_t (&x0)[K], uint32_t (&x1)[K]) {
-  one_round<R0>(x0, x1);
-  one_round<R1>(x0, x1);
-  one_round<R2>(x0, x1);
-  one_round<R3>(x0, x1);
-}
-
-template <int K>
-__device__ __forceinline__ void inject(uint32_t (&x0)[K], uint32_t (&x1)[K],
-                                       uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    x0[j] += a;
-    x1[j] += b;
-  }
-}
-
-// Threefry-2x32, 20 rounds, of key (k0, k1) on K counters (x0, x1), in place
-template <int K>
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t (&x0)[K], uint32_t (&x1)[K]) {
-  const uint32_t k2 = kParity ^ k0 ^ k1;
-  inject(x0, x1, k0, k1);
-  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k1, k2 + 1u);
-  rounds<17, 29, 16, 24>(x0, x1); inject(x0, x1, k2, k0 + 2u);
-  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k0, k1 + 3u);
-  rounds<17, 29, 16, 24>(x0, x1); inject(x0, x1, k1, k2 + 4u);
-  rounds<13, 15, 26, 6>(x0, x1);  inject(x0, x1, k2, k0 + 5u);
-}
-
-__device__ __forceinline__ float to_uniform(uint32_t w) {
-  return __fmul_rn(__uint2float_rn(w >> 8), kTwoTo24);
 }
 
 template <int K>

@@ -171,6 +171,7 @@ def run_rank(spec: dict, rank: int, around=contextlib.nullcontext) -> None:
 
     out_dir = Path(spec["out_dir"])
     scenes: dict = {}
+    finished = False
     try:
         for job in spec["jobs"]:
             barrier()  # the ranks start a job together
@@ -202,8 +203,13 @@ def run_rank(spec: dict, rank: int, around=contextlib.nullcontext) -> None:
                   f"{time.perf_counter() - t0:.2f} s, max RSS "
                   f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024} MiB",
                   file=sys.stderr, flush=True)
+        finished = True
     finally:
         if world > 1:
+            if finished:
+                # no rank tears its group down while a peer's last messages
+                # to it may still be in flight
+                barrier()
             dist.destroy_process_group()
 
 
@@ -298,7 +304,13 @@ def main(argv=None) -> int:
         return 2
     _die_with_launcher()
     run_rank(json.loads(Path(argv[0]).read_text()), int(argv[1]))
-    return 0
+    # every result is on disk: leave without the interpreter's teardown, in
+    # which a rank of a gloo world could abort ("terminate called without an
+    # active exception", exit code -6) after its last job and so fail the
+    # world it had finished
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

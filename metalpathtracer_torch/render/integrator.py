@@ -40,8 +40,8 @@ from metalpathtracer_torch.render.intersect import (
     surface_interaction_packed,
 )
 from metalpathtracer_torch.render.kernels import shade
+from metalpathtracer_torch.render.kernels import wavefront as wfk
 from metalpathtracer_torch.render.kernels.intersect_mm import (
-    _cull_hit_mask,
     closest_hit_mm_full,
     closest_hit_mm_winners,
 )
@@ -494,17 +494,6 @@ SORT_EVERY = 4  # advances between pool sorts (at most spb)
 DRAIN_WIDTH = 1024  # the pool narrows to this once the queue is empty
 
 
-def _tileset_key(scene, o, d, alive):
-    """Each lane's tile-set signature: bit c set where the lane's ray enters
-    coarse box c (the quantity the subgroup cull unions). Dead lanes and
-    lanes that enter no box share key 0 (neither costs kernel work)."""
-    chit, _ = _cull_hit_mask(o, d, alive.to(torch.float32),
-                             scene.mm_coarse_box, T_MIN)  # (nc, n)
-    nc = scene.mm_coarse_box.shape[0]
-    bits = 1 << torch.arange(nc, dtype=torch.int64, device=o.device)
-    return (chit.to(torch.int64) * bits[:, None]).sum(dim=0)
-
-
 def trace_wavefront(scene, camera, width, height, spp, seed,
                     cfg: RenderConfig = DEFAULT_CONFIG,
                     pool_size: int | None = None,
@@ -568,10 +557,6 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
                                             shadow_rays=int(report[3]))
 
 
-_LANE_FIELDS = ("item", "schunk", "acc", "o", "d", "bounce", "light", "tp",
-                "prev_pdf", "alive")
-
-
 class _Wavefront:
     """One render shape of `trace_wavefront`: its host plan, its static
     buffers, and the functions that advance them. `window` and
@@ -582,7 +567,14 @@ class _Wavefront:
 
     Per render, `start` takes what changes between calls of one shape: the
     camera, whose basis it copies into `basis`, and the first sample id,
-    which it writes into `sample_offset`; both are read on the device."""
+    which it writes into `sample_offset`; both are read on the device.
+
+    A lane's state (`wfk.LANE_FIELDS`) holds its work item and sample
+    chunk, its path, and the pixel and sample its item names, which every
+    restart writes (`wfk.restart_lanes`) and the advance's bounce steps
+    read. The regeneration runs on `render/kernels/wavefront.py`'s kernels:
+    the restart, the window's queue pop, and the pool sort's key and
+    gather (the sort itself is `torch.argsort`)."""
 
     def __init__(self, scene, width, height, spp, seed, cfg, pool,
                  pixel_offset, n_pix):
@@ -607,6 +599,8 @@ class _Wavefront:
                     break
         self.n_pix, self.spb, self.bank_k = n_pix, spb, bank_k
         self.groups = n_pix // bank_k
+        self.lane_plan = wfk.LanePlan(width, height, self.groups, bank_k, spb,
+                                      pixel_offset, seed)
         self.per_item = bank_k * spb  # path completions per work item
         self.plan = shade.BankPlan(cfg.max_depth, cfg.clamp_radiance, bank_k, spb,
                                    self.per_item)
@@ -650,11 +644,12 @@ class _Wavefront:
             d=torch.zeros((n, 3), **f32), bounce=torch.zeros(n, **i64),
             light=torch.zeros((n, 3), **f32), tp=torch.zeros((n, 3), **f32),
             prev_pdf=torch.zeros(n, **f32),
-            alive=torch.zeros(n, dtype=torch.bool, device=self.lane_ids.device))
+            alive=torch.zeros(n, dtype=torch.bool, device=self.lane_ids.device),
+            pixel=torch.zeros(n, **i64), sample=torch.zeros(n, **i64))
 
     @staticmethod
     def _store(bufs, st):
-        for k in _LANE_FIELDS:
+        for k in wfk.LANE_FIELDS:
             bufs[k].copy_(st[k])
 
     def _report(self, alive):
@@ -666,22 +661,6 @@ class _Wavefront:
 
     # ---- the lane program
 
-    def pix_samp_of(self, item, schunk):
-        # item % groups names a local framebuffer row; the pixel id is global
-        pixel = ((item % self.groups) * self.bank_k + schunk // self.spb
-                 + self.pixel_offset)
-        # int64; the RNG wraps it to a u32 word
-        sample = (item // self.groups) * self.spb + schunk % self.spb \
-            + self.sample_offset
-        return pixel, sample
-
-    def ray_for(self, item, schunk):
-        from metalpathtracer_torch.render.pipeline import rays_from_basis
-
-        pixel, sample = self.pix_samp_of(item, schunk)
-        return rays_from_basis(self.basis, self.width, self.height, pixel,
-                               sample, self.seed)
-
     def advance(self, st):
         """bpi bounce steps and the per-path bookkeeping. Returns the new
         state and the masks `more` (the lane restarts on its item's next
@@ -692,10 +671,8 @@ class _Wavefront:
         steps."""
         cfg, counters = self.cfg, self.counters
         alive, bounce = st["alive"], st["bounce"]
-        o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp",
-                                                     "prev_pdf"))
-        with span("wavefront.bank"):
-            pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
+        o, d, light, tp, prev_pdf, pixel, sample = (
+            st[k] for k in ("o", "d", "light", "tp", "prev_pdf", "pixel", "sample"))
         fused = ((alive, st["schunk"], st["acc"], self.plan) if self.bpi == 1
                  else None)
         still, banked = alive, None
@@ -723,43 +700,19 @@ class _Wavefront:
         return st, more, bank
 
     def restart_lanes(self, st, restart):
-        """Fresh primary rays where the (item, schunk) changed."""
+        """Fresh primary rays where `restart` (the lane's (item, schunk)
+        changed), and every lane's pixel and sample: one kernel."""
         with span("wavefront.restart_lanes"):
-            no, nd = self.ray_for(st["item"], st["schunk"])
-            r = restart[:, None]
-            return dict(
-                st, o=torch.where(r, no, st["o"]), d=torch.where(r, nd, st["d"]),
-                tp=torch.where(r, 1.0, st["tp"]),
-                bounce=torch.where(restart, 0, st["bounce"]),
-                prev_pdf=torch.where(restart, 0.0, st["prev_pdf"]),
-                alive=st["alive"] | restart,
-            )
+            return wfk.restart_lanes(st, restart, self.basis, self.sample_offset,
+                                     self.lane_plan)
 
     def sort_pool(self, st, pend=None):
         """Reorder the lanes by tile-set signature (stable); the pending
         banks (pend_idx, pend_rgb) ride along."""
         with span("wavefront.sort_pool"):
-            ka = self.ka
-            key = _tileset_key(self.scene, st["o"], st["d"], st["alive"])
-            perm = torch.argsort(key, stable=True)
-            fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
-                      st["prev_pdf"][:, None]]
-            iparts = [st["item"], st["schunk"], st["bounce"],
-                      st["alive"].to(torch.int64)]
-            if pend is not None:
-                fparts.append(pend[1])
-                iparts.append(pend[0])
-            fpack = torch.cat(fparts, dim=1)[perm]
-            ipack = torch.stack(iparts, dim=1)[perm]
-            st = dict(
-                st, o=fpack[:, 0:3], d=fpack[:, 3:6], acc=fpack[:, 6:6 + ka],
-                light=fpack[:, 6 + ka:9 + ka], tp=fpack[:, 9 + ka:12 + ka],
-                prev_pdf=fpack[:, 12 + ka], item=ipack[:, 0], schunk=ipack[:, 1],
-                bounce=ipack[:, 2], alive=ipack[:, 3] > 0,
-            )
-            if pend is None:
-                return st, None
-            return st, (ipack[:, 4], fpack[:, 13 + ka:])
+            key = wfk.tileset_key(st["o"], st["d"], st["alive"],
+                                  self.scene.mm_coarse_box, T_MIN)
+            return wfk.permute_lanes(torch.argsort(key, stable=True), st, pend)
 
     # ---- once a render, eagerly
 
@@ -770,17 +723,12 @@ class _Wavefront:
 
         self.basis.copy_(camera_basis(camera, self.width, self.height))
         self.sample_offset.fill_(sample_offset)
-        item0 = self.lane_ids.clone()
-        schunk0 = torch.zeros(self.pool, **self.i64)
-        o0, d0 = self.ray_for(item0, schunk0)
-        self._store(self.st, dict(
-            item=item0, schunk=schunk0,
-            acc=torch.zeros((self.pool, self.ka), **self.f32),
-            o=o0, d=d0, bounce=torch.zeros(self.pool, **self.i64),
-            light=torch.zeros((self.pool, 3), **self.f32),
-            tp=torch.ones((self.pool, 3), **self.f32),
-            prev_pdf=torch.zeros(self.pool, **self.f32), alive=item0 < self.total,
-        ))
+        st = self._lanes(self.pool)
+        st["item"].copy_(self.lane_ids)
+        # every lane restarts; those past the queue's end stay dead
+        st = self.restart_lanes(st, torch.ones_like(st["alive"]))
+        st["alive"] = st["item"] < self.total
+        self._store(self.st, st)
         self.fb.zero_()
         for c in self.counters.values():
             c.zero_()
@@ -825,16 +773,11 @@ class _Wavefront:
             for _ in range(self.sort_every):
                 st, more, bank = self.advance(st)
                 with span("wavefront.queue"):
-                    pend = (torch.where(bank, st["item"] % groups, pend[0]),
-                            torch.where(bank[:, None], st["acc"], pend[1]))
-                    st["acc"] = torch.where(bank[:, None], 0.0, st["acc"])
-                    # queue pop: a banked lane's rank among banked lanes
-                    new_item = next_item + torch.cumsum(bank.to(torch.int64), 0) - 1
-                    regen = bank & (new_item < total)
-                    st["item"] = torch.where(regen, new_item, st["item"])
-                st = self.restart_lanes(st, more | regen)
-                with span("wavefront.queue"):
-                    next_item = torch.clamp(next_item + bank.sum(), max=total)
+                    # in place on the item, accumulator and pending bank
+                    restart, next_item = wfk.queue_pop(
+                        bank, more, st["item"], st["acc"], *pend, next_item, total,
+                        groups)
+                st = self.restart_lanes(st, restart)
             if self.sorting:
                 st, pend = self.sort_pool(st, pend)
         with span("wavefront.queue"):

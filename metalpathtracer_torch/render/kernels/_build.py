@@ -42,14 +42,17 @@ NVCC_FLAGS = (
 # closest hit's front end in the sphere pass's (the same kernel, which
 # without feature pointers writes the sphere winner alone); the wavefront's
 # shading and bank, and both shadings from the closest hit's raw winners
-# (the epilogue in registers), in the shading's (entries of one lane body)
+# (the epilogue in registers), in the shading's (entries of one lane body);
+# the wavefront's four regeneration kernels in one source
 SOURCES = {"hit_front": "sphere_pass", "shade_bank": "shade", "shade_hit": "shade",
-           "shade_bank_hit": "shade"}
-# flags of one source's build: the bounce step's kernels round every
-# product on its own, as their plain versions' separate torch kernels do
-# (nvcc would contract a * b + c into one FMA)
+           "shade_bank_hit": "shade", "restart_lanes": "wavefront",
+           "queue_pop": "wavefront", "tileset_key": "wavefront",
+           "permute_lanes": "wavefront"}
+# flags of one source's build: the bounce step's and the restart's kernels
+# round every product on their own, as their plain versions' separate torch
+# kernels do (nvcc would contract a * b + c into one FMA)
 KERNEL_FLAGS = {name: ("-fmad=false",)
-                for name in ("sphere_pass", "hit_epilogue", "shade")}
+                for name in ("sphere_pass", "hit_epilogue", "shade", "wavefront")}
 
 
 def source_of(kernel: str) -> str:
@@ -79,7 +82,9 @@ def build(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> Path:
     (a comparison with an earlier kernel). The compiler's output goes to
     `<library>.log`."""
     name = source_of(name)
-    src = (Path(csrc) / f"{name}.cu").read_bytes()
+    # the source and every header beside it (`#include "*.cuh"`)
+    src = b"".join(p.read_bytes() for p in [Path(csrc) / f"{name}.cu",
+                                             *sorted(Path(csrc).glob("*.cuh"))])
     flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()), *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
@@ -137,6 +142,15 @@ ENTRY_ARGS = {
                             ctypes.c_float, ctypes.c_int, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_longlong)),
+    # n, width, height, groups, bank_k, spb, pixel_offset, the seed word
+    "restart_lanes": (19, (ctypes.c_longlong,) * 7 + (ctypes.c_uint32,)),
+    # n, the accumulator's width, total, groups
+    "queue_pop": (9, (ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong)),
+    # n, the coarse boxes, t_min
+    "tileset_key": (5, (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)),
+    # n, the accumulator's width
+    "permute_lanes": (29, (ctypes.c_longlong, ctypes.c_int)),
 }
 
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
 kernel (also against the brute-force oracle), the tile cull and the RNG's
 threefry (bit-equal in every mode and every bundle of draws the paths make,
-one launch a bundle, also inside a CUDA graph), and the
+one launch a bundle, also inside a CUDA graph), the bounce step's and
+the wavefront regeneration's kernels (bit-equal, eagerly and inside a
+CUDA graph), and the
 wavefront integrator, the progressive path (checkpointed CLI, progressive
 wavefront, the viewer's frames) and the BVH study path on the card. These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
@@ -1101,7 +1103,8 @@ def _counted():
             *done.get("threefry", (0, 0)),
             *(done.get(k, (0, 0))[0]
               for k in ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
-                        "shade_bank_hit")))
+                        "shade_bank_hit", "restart_lanes", "queue_pop", "tileset_key",
+                        "permute_lanes")))
 
 
 def _render_counted(fn, eager):
@@ -1154,6 +1157,9 @@ def test_graph_windows_equal_the_eager_loop(scene, case):
     assert ca[6] == ca[7] == 0 and (ca[8] + ca[9] > 0) != cfg.nee
     assert (ca[9] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
     assert (ca[8] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
+    # the regeneration runs on its kernels on every route: restart, queue,
+    # the sort's key and gather
+    assert min(ca[10:]) > 0 and ca[12] == ca[13]
     # a new shape warms each function up eagerly and captures it on its
     # second run; the next render replays every window and drain block
     assert first["captures"] >= 1 and first["replays"] >= 1
@@ -1399,11 +1405,190 @@ def test_flagship_shades_from_the_winners(scene, tmp_path, integrator):
     graphs.clear()
     for eager in (True, False):
         launched = _render_counted(lambda: cli.main(argv), eager)[1]
-        mm, cull, bundles, _, front, epilogue, shade, bank, hit, bank_hit = launched
+        mm, cull, bundles, _, front, epilogue, shade, bank, hit, bank_hit, *regen = launched
         if integrator == "wavefront":
-            assert (mm, cull, bundles, front, bank_hit) == (408, 408, 817, 408, 408)
+            # the restart draws the jitter itself: one bundle a bounce step
+            assert (mm, cull, bundles, front, bank_hit) == (408, 408, 408, 408, 408)
             assert epilogue == shade == bank == hit == 0
+            assert regen[0] == 409 and min(regen) > 0
         else:  # the graph loop's idle steps launch a step's kernels too
             assert (mm, cull, bundles - 4, front, hit) == (mm, mm, mm, mm, mm)
             assert mm >= 128 and (mm == 128 or not eager)
             assert epilogue == shade == bank == bank_hit == 0
+            assert not any(regen)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront's regeneration kernels (csrc/wavefront.cu) against their
+# twins, bit for bit, eagerly and replayed in a CUDA graph; the flagship on
+# them
+# ---------------------------------------------------------------------------
+
+REGEN = ("restart_lanes", "queue_pop", "tileset_key", "permute_lanes")
+
+
+def _regen_operands(scene, kernel, n, seed):
+    """A regeneration kernel's operands at n lanes, from numpy seeds: the
+    lane state of a pool whose items run out part-way (`queue_pop`'s
+    bank and more masks, its queue head and total), rays at the reference
+    scene's coarse boxes with zero direction components, origins on box
+    planes and dead lanes (`tileset_key`), a permutation with the pending
+    bank (`permute_lanes`)."""
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    r = np.random.default_rng(seed)
+    dev = "cuda"
+    ka, groups = 12, 3 * n
+    f = lambda *s: torch.as_tensor(r.standard_normal(s).astype(np.float32),  # noqa: E731
+                                   device=dev)
+    i = lambda hi: torch.as_tensor(r.integers(0, hi, n), device=dev)  # noqa: E731
+    lanes = dict(item=i(4 * groups), schunk=i(16), acc=f(n, ka), o=f(n, 3), d=f(n, 3),
+                 bounce=i(32), light=f(n, 3), tp=f(n, 3), prev_pdf=f(n),
+                 alive=torch.as_tensor(r.random(n) < 0.6, device=dev), pixel=i(1 << 20),
+                 sample=i(1 << 10))
+    if kernel == "restart_lanes":
+        plan = twfk.LanePlan(1280, 720, groups, 4, 4, 1280 * 7, 0x5EED)
+        basis = tpipe.camera_basis(Camera.reset(), 1280, 720).to(dev)
+        return (lanes, torch.as_tensor(r.random(n) < 0.4, device=dev), basis,
+                torch.tensor(5, device=dev), plan)
+    if kernel == "queue_pop":
+        bank = torch.as_tensor(r.random(n) < 0.15, device=dev)
+        more = ~bank & torch.as_tensor(r.random(n) < 0.3, device=dev)
+        head = int(r.integers(0, 1 << 20))
+        total = head + int(bank.sum()) // 2  # the queue runs out part-way
+        return (bank, more, lanes["item"], lanes["acc"], i(groups), f(n, ka),
+                torch.tensor(head, device=dev), total, groups)
+    if kernel == "tileset_key":
+        boxes = scene.mm_coarse_box
+        o, d = lanes["o"] * 20.0, lanes["d"]
+        d[torch.as_tensor(r.random((n, 3)) < 0.15, device=dev)] = 0.0
+        on = torch.as_tensor(r.random(n) < 0.2, device=dev)
+        c = torch.as_tensor(r.integers(0, boxes.shape[0], n), device=dev)
+        a = torch.as_tensor(r.integers(0, 3, n), device=dev)
+        rows = torch.arange(n, device=dev)
+        o[rows[on], a[on]] = boxes[c[on], a[on]]
+        return o, d, lanes["alive"], boxes, T_MIN
+    perm = torch.as_tensor(r.permutation(n), device=dev)
+    return perm, lanes, (i(groups), f(n, ka))
+
+
+def _regen_call(kernel, args):
+    """A regeneration kernel's (or twin's) outputs as a flat tuple: the
+    in-place queue's updated tensors after its returns."""
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    out = getattr(twfk, kernel)(*args)
+    if kernel == "queue_pop":
+        return (*out, *args[2:6])
+    if kernel == "tileset_key":
+        return (out,)
+    if kernel == "restart_lanes":
+        return tuple(out[k] for k in twfk.LANE_FIELDS)
+    return (*(out[0][k] for k in twfk.LANE_FIELDS), *out[1])
+
+
+def _fresh(args):
+    """Clones of the tensors of `args` (and of a lane dict's): the queue
+    updates its operands in place."""
+    def clone(a):
+        if isinstance(a, dict):
+            return {k: v.clone() for k, v in a.items()}
+        if isinstance(a, tuple) and not hasattr(a, "_fields"):  # not a plan
+            return tuple(clone(x) for x in a)
+        return a.clone() if isinstance(a, torch.Tensor) else a
+    return tuple(clone(a) for a in args)
+
+
+@pytest.mark.parametrize("n", [1024, 16384, 32768])
+@pytest.mark.parametrize("kernel", REGEN)
+def test_regen_kernel_matches_twin(scene, kernel, n):
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    args = _regen_operands(scene, kernel, n, n + len(kernel))
+    twin = getattr(twfk, f"{kernel}_reference")
+    before = getattr(twfk, kernel).launches
+    got = _regen_call(kernel, _fresh(args))
+    assert getattr(twfk, kernel).launches == before + 1
+    with pytest.MonkeyPatch.context() as m:  # the wrapper's name runs its twin
+        m.setattr(twfk, kernel, twin)
+        want = _regen_call(kernel, _fresh(args))
+    torch.cuda.synchronize()
+    _bit_equal(got, want)
+    if kernel == "queue_pop":  # lanes regenerate, and the queue runs out
+        restart, head, item = got[0], got[1], got[2]
+        assert bool(restart.any()) and int(head) == args[7]
+        assert bool((args[0] & ~restart).any())
+    if kernel == "tileset_key":
+        assert int((got[0] != -(1 << 31)).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1024, 16384, 32768])
+@pytest.mark.parametrize("kernel", REGEN)
+def test_regen_kernel_in_a_cuda_graph_equals_its_twin(scene, kernel, n):
+    # captured once and replayed on new operands copied into the captured
+    # inputs, as a wavefront window replays them
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    static = _regen_operands(scene, kernel, n, 7)
+    fn = getattr(twfk, kernel)
+    _regen_call(kernel, _fresh(static))  # the warm-up launch makes the tally
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _regen_call(kernel, static)
+
+    def copy_into(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                dst[k].copy_(src[k])
+        elif isinstance(dst, tuple) and not hasattr(dst, "_fields"):
+            for a, b in zip(dst, src):
+                copy_into(a, b)
+        elif isinstance(dst, torch.Tensor) and dst.data_ptr() != scene.mm_coarse_box.data_ptr():
+            dst.copy_(src)
+
+    for seed in (8, 9):
+        fresh = _regen_operands(scene, kernel, n, seed)
+        if kernel == "queue_pop":  # the captured call's total and groups
+            fresh = (*fresh[:7], *static[7:])
+        copy_into(static, fresh)
+        kept = _fresh(static)
+        graph.replay()
+        torch.cuda.synchronize()
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(twfk, kernel, getattr(twfk, f"{kernel}_reference"))
+            want = _regen_call(kernel, kept)
+        _bit_equal(out, want)
+    assert fn is getattr(twfk, kernel)
+
+
+def test_flagship_wavefront_regenerates_on_the_kernels(scene):
+    # the main path on both loops: the same image, and per render one
+    # restart a bounce step and the start's, one queue pop an advance of the
+    # feed, one key and gather every four advances; the jitter is drawn in
+    # the restart, so threefry draws a bounce step's bundle alone
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.kernels import _build
+
+    def render():
+        return render_image_wavefront(scene, Camera.reset(), 1280, 720, 4, seed=0,
+                                      cfg=RenderConfig(max_depth=32), pool_size=1 << 15)
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    _build.zero_tallies()
+    runs = []
+    for eager in (True, False, False):
+        (img, rays), _ = _render_counted(render, eager)
+        done = _build.tallies("cuda")
+        runs.append((img, rays, tuple(done.get(k, (0, 0))[0] for k in REGEN),
+                     done["threefry"], done["mm_closest_hit"][0]))
+        _build.zero_tallies()
+    (img, rays, regen, threefry, steps) = runs[0]
+    for other in runs[1:]:
+        assert torch.equal(img, other[0]) and rays == other[1]
+        assert other[2:] == runs[0][2:]
+    restart, queue, key, permute = regen
+    assert steps == 408 and threefry == (408, 816)
+    assert restart == steps + 1 and 0 < queue < steps
+    assert key == permute == steps // 4

@@ -40,7 +40,6 @@ from metalpathtracer_torch.render.kernels import shade as tsh
 from metalpathtracer_torch.render.pipeline import render_image_wavefront
 from metalpathtracer_torch import scene as tscene
 from metalpathtracer_torch.scene import presets
-from metalpathtracer_torch.utils.metrics import span
 from metalpathtracer_tpu.render import camera as jcam
 from metalpathtracer_tpu.render import integrator as jint
 from metalpathtracer_tpu.render import render_image_wavefront as j_render_wavefront
@@ -365,8 +364,8 @@ def _before_advance(self, st):
     cfg, counters = self.cfg, self.counters
     alive, bounce = st["alive"], st["bounce"]
     o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp", "prev_pdf"))
-    with span("wavefront.bank"):
-        pixel, sample = self.pix_samp_of(st["item"], st["schunk"])
+    # the pixel and sample the lane's last restart wrote (`wfk.restart_lanes`)
+    pixel, sample = st["pixel"], st["sample"]
     still = alive
     for k in range(self.bpi):
         step_active = still & (bounce + k < cfg.max_depth)

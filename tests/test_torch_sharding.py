@@ -665,6 +665,40 @@ def test_a_rank_without_its_results_fails_the_launch(tmp_path, how):
         signal.signal(signal.SIGCHLD, before)
 
 
+def test_a_rank_that_finished_leaves_without_the_interpreter_teardown(tmp_path,
+                                                                    monkeypatch):
+    # a rank whose jobs are all on disk exits 0 at once: the interpreter's
+    # teardown, where a gloo rank could abort with code -6 after its last
+    # job, never runs; a rank whose run raises is not made to exit 0
+    import json
+
+    spec_file = tmp_path / "spec.json"
+    spec_file.write_text(json.dumps({}))
+    ran, exits = [], []
+
+    class _Exited(Exception):
+        pass
+
+    def fake_exit(code):
+        exits.append(code)
+        raise _Exited
+
+    monkeypatch.setattr(worker, "_die_with_launcher", lambda: None)
+    monkeypatch.setattr(worker, "run_rank", lambda spec, rank: ran.append(rank))
+    monkeypatch.setattr(worker.os, "_exit", fake_exit)
+    with pytest.raises(_Exited):
+        worker.main([str(spec_file), "1"])
+    assert ran == [1] and exits == [0]
+
+    def failing(spec, rank):
+        raise RuntimeError("a job failed")
+
+    monkeypatch.setattr(worker, "run_rank", failing)
+    with pytest.raises(RuntimeError, match="a job failed"):
+        worker.main([str(spec_file), "0"])
+    assert exits == [0]
+
+
 # ---------------------------------------------------------------------------
 # (iv) against the JAX package's sharded renders
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from metalpathtracer_torch import cli as tcli
 from metalpathtracer_torch.render import camera as tcam
 from metalpathtracer_torch.render import device_scene as tds
 from metalpathtracer_torch.render import integrator as tint
+from metalpathtracer_torch.render.kernels import wavefront as twfk
 from metalpathtracer_torch.render.pipeline import render_image, render_image_wavefront
 from metalpathtracer_tpu.render import camera as jcam
 from metalpathtracer_tpu.render import device_scene as jds
@@ -181,8 +182,13 @@ def test_tileset_key_bits():
         mm_coarse_box=torch.as_tensor(box))
     o = torch.tensor([[0.5, 0.5, -5.0]] * 2)
     d = torch.tensor([[0.0, 0.0, 1.0]] * 2)
-    key = tint._tileset_key(scene, o, d, torch.tensor([True, False]))
-    assert key.tolist() == [0b101, 0]
+    alive = torch.tensor([True, False])
+    bits = twfk.tileset_bits(o, d, alive, scene.mm_coarse_box, tint.T_MIN)
+    assert bits.tolist() == [0b101, 0]
+    # the sort's int32 key: the signature minus 2^31, in the same order
+    key = twfk.tileset_key(o, d, alive, scene.mm_coarse_box, tint.T_MIN)
+    assert key.dtype == torch.int32
+    assert key.tolist() == [0b101 - (1 << 31), -(1 << 31)]
 
 
 @pytest.fixture(scope="module")
