@@ -258,8 +258,10 @@ Usage:
                                      # at 1, 4, 8 and max_depth on the
                                      # flagship scan and the viewer's scan
                                      # frames, timed in turns; then [R]:
-                                     # device time by profiler range of an
-                                     # eager render of both flagships, and
+                                     # device time by profiler range of a
+                                     # render of both flagships on the graph
+                                     # path (replays through their capture-
+                                     # time node maps), and
                                      # the graph path's seconds and device
                                      # time of both and the bunny300k leg
                                      # (--profile runs [R] too); inside the
@@ -289,6 +291,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
+sys.path.insert(0, str(ROOT))
+
+# the prefix of the port's profiler ranges: device events of that name are
+# the ranges' own spans, not work
+from metalpathtracer_torch.utils.metrics import SPAN_PREFIX  # noqa: E402
 T_MIN = 1e-4
 # t of a hit both sides agree on: the CPU tests' closest-hit bound
 # (tests/test_torch_closest_hit.py, from tests/test_intersect_mm.py)
@@ -408,11 +415,6 @@ SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 SWEEP_THREADS = (64, 128, 256)
 
-
-# the prefix of the port's profiler ranges (metalpathtracer_torch/utils/
-# metrics.py::span): device events of that name are the ranges' own spans,
-# not work
-SPAN_PREFIX = "mpt/"
 
 _T0 = time.perf_counter()
 
@@ -1989,60 +1991,49 @@ def kernel_label(name: str) -> str:
     return name[:cut][:140]
 
 
-def range_table(fn, name: str, steps: int) -> dict:
-    """One warm `fn()` and one under torch.profiler (host and device), both
-    on the eager loop (`graphs.eager()`: a replay runs no Python, so only
-    eager launches can be told apart by the code that made them). Each
-    device event is charged to the innermost range of the port's `span`s
-    (SPAN_PREFIX) open on the host when it was launched (its CUDA runtime
-    call, or else the torch op it is linked to); events launched outside
-    every range are "(no range)". Returns {range: [device ms, events]} and
-    logs the table with each range's events a bounce step (`steps`: the
-    bounce steps of one run), and the events of SPLIT_RANGES by kernel name
-    (`split`). A kernel's device time is the same in a replay; the gaps
-    between kernels are not."""
+def range_table(fn, name: str) -> dict:
+    """`fn()` on the graph path by the port's spans: warm runs until one
+    captures and warms nothing, then up to 3 runs under torch.profiler
+    (host and device), keeping the first whose replays all match their
+    graphs' capture-time node maps, else the one with the fewest that do
+    not (the profiler loses records). Each device event is charged by
+    `metrics.charge_events`: an eager one to the innermost span
+    (SPAN_PREFIX) open at its launch, a replay's through its graph's map to
+    the span that captured its node; events launched outside every span
+    are "(no range)". Returns {range: [device ms, events]} with the replays
+    and the unmatched ones, and logs the table with each range's events a
+    bounce step (`steps`: the run's closest-hit launches, one a bounce step
+    on these paths), and the events of SPLIT_RANGES by kernel name
+    (`split`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.utils import metrics
 
-    cuda = torch.autograd.DeviceType.CUDA
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with graphs.eager(), contextlib.redirect_stdout(io.StringIO()):
-        fn()
-        torch.cuda.synchronize()
-        with tprofile(activities=acts) as prof:
+    best = None
+    with contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(4):
+            before = dict(graphs.STATS)
             fn()
-            torch.cuda.synchronize()
-    ranges, runtime, ops, device = [], {}, {}, []
-    for e in prof.profiler.kineto_results.events():
-        ename = e.name()
-        if e.device_type() == cuda:
-            if not ename.startswith(SPAN_PREFIX):
-                device.append((e.correlation_id(), e.linked_correlation_id(),
-                               e.duration_ns(), ename))
-        elif ename.startswith(SPAN_PREFIX):
-            ranges.append((e.start_ns(), e.end_ns(), ename[len(SPAN_PREFIX):]))
-        elif ename.startswith("cu"):  # a CUDA API call (cudaLaunchKernel, ...)
-            runtime[e.correlation_id()] = e.start_ns()
-        else:
-            ops.setdefault(e.correlation_id(), e.start_ns())
-    launched = []
-    for corr, linked, ns, ename in device:
-        at = runtime.get(corr, ops.get(linked))
-        launched.append((at if at is not None else -1, ns, ename))
-    launched.sort()
-    ranges.sort()
-    table, split, stack, k = {}, {}, [], 0
-    for at, ns, ename in launched:
-        while k < len(ranges) and ranges[k][0] <= at:
-            while stack and stack[-1][1] < ranges[k][0]:
-                stack.pop()
-            stack.append(ranges[k])
-            k += 1
-        while stack and stack[-1][1] < at:
-            stack.pop()
-        key = stack[-1][2] if stack and at >= 0 else "(no range)"
+            if (graphs.STATS["captures"] == before["captures"]
+                    and graphs.STATS["eager_runs"] == before["eager_runs"]):
+                break
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with tprofile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            got = metrics.charge_events(*metrics.profile_events(prof), graphs.span_maps())
+            if best is None or got[2] < best[2]:
+                best = got
+            if got[2] == 0:
+                break
+    charges, replays, unmatched = best
+    steps = max(1, sum("mm_closest_hit_kernel" in ename for _, _, ename in charges))
+    table, split = {}, {}
+    for key, ns, ename in charges:
         row = table.setdefault(key, [0.0, 0])
         row[0] += ns / 1e6
         row[1] += 1
@@ -2054,23 +2045,23 @@ def range_table(fn, name: str, steps: int) -> dict:
     lines = [f"{k}: {v[0]:.2f} ms ({100 * v[0] / total:.1f}%), {v[1]} events, "
              f"{v[1] / steps:.1f} a bounce step"
              for k, v in sorted(table.items(), key=lambda kv: -kv[1][0])]
-    log(f"    ranges {name} (eager, profiled): {total:.1f} ms of device time in "
-        f"{len(launched)} events, {len(launched) / steps:.1f} a bounce step over "
-        f"{steps} steps; " + "; ".join(lines))
+    log(f"    ranges {name} (graph path, profiled): {total:.1f} ms of device time in "
+        f"{len(charges)} events, {len(charges) / steps:.1f} a bounce step over "
+        f"{steps} steps; {replays} replays, {unmatched} unmatched; " + "; ".join(lines))
     for key, kernels in split.items():
         log(f"    inside {key} ({name}), by kernel: " + "; ".join(
             f"{k}: {v[0]:.2f} ms, {v[1]} events, {v[1] / steps:.1f} a bounce step"
             for k, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
-    return dict(total_ms=total, events=len(launched), steps=steps, ranges=table,
-                split=split)
+    return dict(total_ms=total, events=len(charges), steps=steps, ranges=table,
+                split=split, replays=replays, unmatched=unmatched)
 
 
 def phase_ranges(scene, bunny, card) -> dict:
     """Where a bounce step's device time goes, by the port's profiler
     ranges, and what the graph path takes: the flagship scan (1280x720,
     spp 4, depth 32), the flagship wavefront (the same, pool 2^15) and, with
-    `bunny`, the bunny300k leg. Each: a range table of one eager render
-    (`range_table`), then on the graph path a warm render, GRAPH_REPEATS
+    `bunny`, the bunny300k leg. Each: a range table of one render on the
+    graph path (`range_table`), then a warm render, GRAPH_REPEATS
     timed ones (median and range) and one profiled (`device_busy`: its
     device time, events and busy share)."""
     import statistics
@@ -2084,21 +2075,19 @@ def phase_ranges(scene, bunny, card) -> dict:
 
     cam = Camera.reset()
     paths = {
-        "flagship_scan": (lambda: tpipe.render_image(
-            scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32)), 128),
-        "flagship_wavefront": (lambda: tpipe.render_image_wavefront(
+        "flagship_scan": lambda: tpipe.render_image(
+            scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32)),
+        "flagship_wavefront": lambda: tpipe.render_image_wavefront(
             scene, cam, 1280, 720, 4, seed=0, cfg=RenderConfig(max_depth=32),
-            pool_size=POOL), 408)}
+            pool_size=POOL)}
     if bunny is not None:
-        paths["bunny300k_leg"] = (lambda: tpipe.render_image_wavefront(
+        paths["bunny300k_leg"] = lambda: tpipe.render_image_wavefront(
             bunny, cam, LEG_W, LEG_H, LEG_SPP, seed=0,
-            cfg=RenderConfig(max_depth=LEG_DEPTH), pool_size=POOL), None)
+            cfg=RenderConfig(max_depth=LEG_DEPTH), pool_size=POOL)
     record = {}
-    for name, (fn, steps) in paths.items():
+    for name, fn in paths.items():
         graphs.clear()
-        rec = {}
-        if steps:
-            rec["ranges"] = range_table(fn, name, steps)
+        rec = {"ranges": range_table(fn, name)}
         fn()
         torch.cuda.synchronize()
         secs = []

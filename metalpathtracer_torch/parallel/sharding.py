@@ -52,6 +52,7 @@ from metalpathtracer_torch.render.integrator import (
     trace_wavefront,
 )
 from metalpathtracer_torch.render.pipeline import AccumState, render_tile
+from metalpathtracer_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,10 +180,11 @@ def _sum_rays(rays: int, mesh: Mesh, device, tiles: bool = True,
     for on, n, group in ((tiles, mesh.n_tiles, mesh.tiles_group),
                          (samples, mesh.n_samples, mesh.samples_group)):
         if on and n > 1:
-            wire = "cpu" if dist.get_backend(group) == "gloo" else device
-            count = torch.tensor(rays, dtype=torch.int64, device=wire)
-            dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
-            rays = int(count)
+            with span("shard.rays"):
+                wire = "cpu" if dist.get_backend(group) == "gloo" else device
+                count = torch.tensor(rays, dtype=torch.int64, device=wire)
+                dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+                rays = int(count)
     return rays
 
 
@@ -400,9 +402,10 @@ def accumulate_sharded(state: AccumState, scene, camera, n_samples: int,
         raise ValueError(f"n_samples must be positive, got {n_samples}")
     if mesh is None:
         mesh = make_mesh()
-    state, rays = shard_accumulate(state, scene, camera, int(n_samples), seed,
-                                   cfg, pool_size, mesh.tile_index, mesh.n_tiles)
-    return state, _sum_rays(rays, mesh, scene.device, samples=False)
+    with span("entry.accumulate_sharded", str(state.spp)):
+        state, rays = shard_accumulate(state, scene, camera, int(n_samples), seed,
+                                       cfg, pool_size, mesh.tile_index, mesh.n_tiles)
+        return state, _sum_rays(rays, mesh, scene.device, samples=False)
 
 
 def gather_accum(state: AccumState, mesh: Mesh) -> AccumState:

@@ -40,21 +40,37 @@ caller who swaps a function that a window looks up on its module (a
 comparison with a plain version, a count of bounce steps) calls `clear()`
 before and after, so that no graph traced with the swap outlives it.
 
-`STATS` counts captures (and their seconds), replays, eager runs, host
-reads, the scan's idle steps (bounce steps a block ran with no live
-lane, which the eager loop does not run) and the bounce steps traced
-through the plain shading with next-event estimation (`nee_steps`: run
-eagerly or traced into a capture; the shading kernel runs every other
-step) since it was last zeroed; `chip_smoke.py` reads it.
+`STATS` counts captures (and their seconds), replays and the graph nodes
+they ran (`replayed_ops`: each replay adds its graph's node count, no
+device read), eager runs, host reads, the scan's idle steps (bounce steps
+a block ran with no live lane, which the eager loop does not run) and the
+bounce steps traced through the plain shading with next-event estimation
+(`nee_steps`: run eagerly or traced into a capture; the shading kernel
+runs every other step) since it was last zeroed; `chip_smoke.py` and the
+benchmark read it.
+
+Every run opens the span `graphs.run.<fn>` and every read
+`graphs.read.<fn>` (`utils/metrics.py::span`; `<fn>`: the function whose
+report it reads). A replay runs no Python, so the spans inside the
+functions exist only while they run eagerly or are captured: during a
+capture each span marks the graph nodes its code captured (the driver's
+node count of the capturing stream), and the entry keeps, for each
+captured function, its node count and that map (`span_maps`), through
+which `metrics.charge_events` charges a replay's device events to the
+spans that launched them.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import functools
 import time
 
 import torch
+
+from metalpathtracer_torch.utils import metrics
 
 # Entries kept. Every entry point reuses one shape at a time: progressive
 # steps, viewer frames until a resize, repeated renders of one scene, a
@@ -69,8 +85,8 @@ import torch
 # ones before them (a viewer resized and back), under 3 GB.
 CACHE_SIZE = 4
 
-STATS = dict(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
-             idle_steps=0, nee_steps=0)
+STATS = dict(captures=0, capture_s=0.0, replays=0, replayed_ops=0, eager_runs=0,
+             reads=0, idle_steps=0, nee_steps=0)
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _eager = [0]  # depth of nested `eager()` blocks
@@ -93,8 +109,51 @@ def clear() -> None:
 
 
 def zero_stats() -> None:
-    STATS.update(captures=0, capture_s=0.0, replays=0, eager_runs=0, reads=0,
-                 idle_steps=0, nee_steps=0)
+    STATS.update(captures=0, capture_s=0.0, replays=0, replayed_ops=0, eager_runs=0,
+                 reads=0, idle_steps=0, nee_steps=0)
+
+
+def span_maps() -> dict:
+    """{"graphs.run.<fn>": {node count: segments}} of every cached entry's
+    captured functions (`metrics.CaptureSpans`): what `metrics.charge_events`
+    reads a replay's device events through. Two entries whose function has
+    one node count share a map (the same shape of work)."""
+    out: dict = {}
+    for made in _cache.values():
+        for name, (count, segments) in made.nodes.items():
+            out.setdefault("graphs.run." + name, {})[count] = segments
+    return out
+
+
+@functools.cache
+def _driver():
+    """The CUDA driver's capture info and graph node count, through ctypes
+    (torch binds neither)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    get = lib.cuStreamGetCaptureInfo_v2  # stream, status, id, graph, deps, count
+    get.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+    get.restype = ctypes.c_int
+    nodes = lib.cuGraphGetNodes  # graph, nodes (null: count only), count
+    nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    nodes.restype = ctypes.c_int
+    return get, nodes
+
+
+def captured_nodes(device) -> int:
+    """The number of nodes captured so far into the graph that `device`'s
+    current stream is capturing."""
+    get, nodes = _driver()
+    status, graph, count = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_size_t()
+    rc = get(torch.cuda.current_stream(device).cuda_stream, ctypes.byref(status),
+             None, ctypes.byref(graph), None, None)
+    if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"no capture to count: CUDA driver error {rc}, "
+                           f"capture status {status.value}")
+    rc = nodes(graph, None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA driver error {rc}")
+    return count.value
 
 
 def entry(key, owner, build) -> "Entry":
@@ -123,8 +182,11 @@ class Entry:
         self.program = program
         self.device = program.report.device
         self.graphs: dict = {}  # name -> CUDAGraph
+        # name -> (node count, span segments) of its graph (`span_maps`)
+        self.nodes: dict = {}
         self.warm: set = set()
         self.pool = None
+        self.last = None  # the function run last: whose report `read` reads
 
     def replayed(self) -> bool:
         """Whether `run` captures and replays: on the card, outside
@@ -133,26 +195,30 @@ class Entry:
                 and self.program.capturable)
 
     def run(self, name: str) -> None:
-        fn = getattr(self.program, name)
-        if not self.replayed():
-            STATS["eager_runs"] += 1
-            fn()
-            return
-        with torch.cuda.device(self.device):
-            if name not in self.graphs:
-                if name not in self.warm:
-                    self._warm_up(fn)
-                    self.warm.add(name)
-                    return
-                self._capture(name, fn)
-            self.graphs[name].replay()
-        STATS["replays"] += 1
+        self.last = name
+        with metrics.span("graphs.run." + name):
+            fn = getattr(self.program, name)
+            if not self.replayed():
+                STATS["eager_runs"] += 1
+                fn()
+                return
+            with torch.cuda.device(self.device):
+                if name not in self.graphs:
+                    if name not in self.warm:
+                        self._warm_up(fn)
+                        self.warm.add(name)
+                        return
+                    self._capture(name, fn)
+                self.graphs[name].replay()
+            STATS["replays"] += 1
+            STATS["replayed_ops"] += self.nodes[name][0]
 
     def read(self) -> list:
         """The program's report on the host: the one read of a window or
         block."""
-        STATS["reads"] += 1
-        return self.program.report.tolist()
+        with metrics.span("graphs.read." + self.last):
+            STATS["reads"] += 1
+            return self.program.report.tolist()
 
     def _warm_up(self, fn) -> None:
         main = torch.cuda.current_stream(self.device)
@@ -169,13 +235,16 @@ class Entry:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool), metrics.capture_spans(
+                    "graphs.run." + name, lambda: captured_nodes(self.device)) as spans:
                 fn()
+                nodes = spans.close()
         except BaseException:
             for key, value in list(_cache.items()):
                 if value is self:
                     del _cache[key]
             raise
         self.graphs[name] = graph
+        self.nodes[name] = nodes
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0

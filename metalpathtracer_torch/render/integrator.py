@@ -721,44 +721,47 @@ class _Wavefront:
         `sample_offset` on; the framebuffer and the counters at 0."""
         from metalpathtracer_torch.render.pipeline import camera_basis
 
-        self.basis.copy_(camera_basis(camera, self.width, self.height))
-        self.sample_offset.fill_(sample_offset)
-        st = self._lanes(self.pool)
-        st["item"].copy_(self.lane_ids)
-        # every lane restarts; those past the queue's end stay dead
-        st = self.restart_lanes(st, torch.ones_like(st["alive"]))
-        st["alive"] = st["item"] < self.total
-        self._store(self.st, st)
-        self.fb.zero_()
-        for c in self.counters.values():
-            c.zero_()
-        self.next_item.fill_(min(self.pool, self.total))
+        with span("wavefront.start"):
+            self.basis.copy_(camera_basis(camera, self.width, self.height))
+            self.sample_offset.fill_(sample_offset)
+            st = self._lanes(self.pool)
+            st["item"].copy_(self.lane_ids)
+            # every lane restarts; those past the queue's end stay dead
+            st = self.restart_lanes(st, torch.ones_like(st["alive"]))
+            st["alive"] = st["item"] < self.total
+            self._store(self.st, st)
+            self.fb.zero_()
+            for c in self.counters.values():
+                c.zero_()
+            self.next_item.fill_(min(self.pool, self.total))
 
     def compact(self):
         """After the feed: clear the residue of dead lanes (lanes that
         banked in the feed hold none; cleared regardless, so the flush adds
         nothing twice) and, where the pool is wider than the drain, move the
         live lanes first into the drain's buffers."""
-        st = self.st
-        dead = ~st["alive"]
-        st["light"].copy_(torch.where(dead[:, None], 0.0, st["light"]))
-        st["acc"].copy_(torch.where(dead[:, None], 0.0, st["acc"]))
-        if self.drain is not None:
-            live_first = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
-            self._store(self.drain, {k: v[live_first][:self.drain_w]
-                                     for k, v in st.items()})
+        with span("wavefront.compact"):
+            st = self.st
+            dead = ~st["alive"]
+            st["light"].copy_(torch.where(dead[:, None], 0.0, st["light"]))
+            st["acc"].copy_(torch.where(dead[:, None], 0.0, st["acc"]))
+            if self.drain is not None:
+                live_first = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
+                self._store(self.drain, {k: v[live_first][:self.drain_w]
+                                         for k, v in st.items()})
 
     def flush(self):
         """Every dead lane whose item is real banks its accumulator; returns
         the framebuffer's (n_pix, 3) rows, a copy of the static buffer."""
-        st = self.drain if self.drain is not None else self.st
-        w = st["item"].shape[0]
-        banked = ~st["alive"] & (st["item"] < self.total)
-        idx = torch.where(banked, st["item"] % self.groups,
-                          self.groups + self.lane_ids[:w])
-        self.fb.index_add_(0, idx, st["acc"])
-        # (groups, 3K) rows are K row-major (pixel, rgb) blocks
-        return self.fb[:self.groups].reshape(self.n_pix, 3).clone()
+        with span("wavefront.flush"):
+            st = self.drain if self.drain is not None else self.st
+            w = st["item"].shape[0]
+            banked = ~st["alive"] & (st["item"] < self.total)
+            idx = torch.where(banked, st["item"] % self.groups,
+                              self.groups + self.lane_ids[:w])
+            self.fb.index_add_(0, idx, st["acc"])
+            # (groups, 3K) rows are K row-major (pixel, rgb) blocks
+            return self.fb[:self.groups].reshape(self.n_pix, 3).clone()
 
     # ---- the functions the card replays as CUDA graphs
 
@@ -844,16 +847,17 @@ class _Scan:
         """A call's pixel ids, first sample id (an int or a one-element
         tensor) and camera basis (a `camera_basis` on the device; None for
         `trace`); the accumulator and the counters at 0."""
-        self.pixel_id.copy_(pixel_id)
-        if isinstance(first_sample, torch.Tensor):
-            self.sample_id.copy_(first_sample.reshape(()))
-        else:
-            self.sample_id.fill_(first_sample)
-        if basis is not None:
-            self.basis.copy_(basis)
-        self.acc.zero_()
-        for c in self.counters.values():
-            c.zero_()
+        with span("scan.begin"):
+            self.pixel_id.copy_(pixel_id)
+            if isinstance(first_sample, torch.Tensor):
+                self.sample_id.copy_(first_sample.reshape(()))
+            else:
+                self.sample_id.fill_(first_sample)
+            if basis is not None:
+                self.basis.copy_(basis)
+            self.acc.zero_()
+            for c in self.counters.values():
+                c.zero_()
 
     def load_rays(self, o, d):
         """`trace`'s primary rays, made by its caller, in place of
@@ -864,7 +868,8 @@ class _Scan:
 
     def result(self):
         """(rgb_sum (n, 3), rays int64 0-d tensor): copies of the buffers."""
-        return self.acc.clone(), self.counters["rays"].clone()
+        with span("scan.result"):
+            return self.acc.clone(), self.counters["rays"].clone()
 
     # ---- the functions the card replays as CUDA graphs
 

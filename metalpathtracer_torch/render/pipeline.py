@@ -29,6 +29,7 @@ from metalpathtracer_torch.render.integrator import (
     scan_samples,
     trace_wavefront,
 )
+from metalpathtracer_torch.utils.metrics import span
 
 
 def camera_basis(camera: Camera, width: int, height: int) -> torch.Tensor:
@@ -170,16 +171,18 @@ def accumulate(state: AccumState, scene, camera: Camera, width: int,
     """Add `n_samples` new samples to the progressive state; `seed` is the
     u32 seed word. The sample counter doubles as the RNG sample id, so a
     camera change is just a fresh `init_accum`. Returns a new state: the
-    one passed in is not modified and stays valid."""
-    pixel_id = torch.arange(width * height, dtype=torch.int64,
-                            device=scene.device)
-    sample_ids = range(state.spp, state.spp + n_samples)
-    rgb_sum, _ = render_tile(scene, camera, width, height, pixel_id,
-                             sample_ids, seed, cfg)
-    return AccumState(
-        rgb_sum=state.rgb_sum + rgb_sum.reshape(height, width, 3),
-        spp=state.spp + n_samples,
-    )
+    one passed in is not modified and stays valid. Its span
+    (`entry.accumulate`) carries the first sample id."""
+    with span("entry.accumulate", str(state.spp)):
+        pixel_id = torch.arange(width * height, dtype=torch.int64,
+                                device=scene.device)
+        sample_ids = range(state.spp, state.spp + n_samples)
+        rgb_sum, _ = render_tile(scene, camera, width, height, pixel_id,
+                                 sample_ids, seed, cfg)
+        return AccumState(
+            rgb_sum=state.rgb_sum + rgb_sum.reshape(height, width, 3),
+            spp=state.spp + n_samples,
+        )
 
 
 def accumulate_wavefront(state: AccumState, scene, camera: Camera, width: int,
@@ -190,22 +193,26 @@ def accumulate_wavefront(state: AccumState, scene, camera: Camera, width: int,
     front end's path: sample ids continue at `state.spp` (`sample_offset`),
     so progressive estimates match the scan route's up to addition order.
     Returns (new state, rays_traced int); the state passed in is not
-    modified."""
-    fb, rays, _ = trace_wavefront(
-        scene, camera, width, height, n_samples, seed, cfg, pool_size,
-        sample_offset=state.spp,
-    )
-    return (
-        AccumState(
-            rgb_sum=state.rgb_sum + fb.reshape(height, width, 3),
-            spp=state.spp + n_samples,
-        ),
-        rays,
-    )
+    modified. Its span (`entry.accumulate_wavefront`) carries the first
+    sample id."""
+    with span("entry.accumulate_wavefront", str(state.spp)):
+        fb, rays, _ = trace_wavefront(
+            scene, camera, width, height, n_samples, seed, cfg, pool_size,
+            sample_offset=state.spp,
+        )
+        return (
+            AccumState(
+                rgb_sum=state.rgb_sum + fb.reshape(height, width, 3),
+                spp=state.spp + n_samples,
+            ),
+            rays,
+        )
 
 
 def to_image(state: AccumState, clamp: bool = True) -> torch.Tensor:
     """Resolve the progressive state to a linear image: the running mean,
-    clamped to [0, 1] for display unless `clamp` is off."""
-    img = state.rgb_sum / float(max(state.spp, 1))
-    return torch.clamp(img, 0.0, 1.0) if clamp else img
+    clamped to [0, 1] for display unless `clamp` is off. Its span
+    (`entry.to_image`) carries the samples it resolves."""
+    with span("entry.to_image", str(state.spp)):
+        img = state.rgb_sum / float(max(state.spp, 1))
+        return torch.clamp(img, 0.0, 1.0) if clamp else img

@@ -5,7 +5,9 @@ one launch a bundle, also inside a CUDA graph), the bounce step's and
 the wavefront regeneration's kernels (bit-equal, eagerly and inside a
 CUDA graph), and the
 wavefront integrator, the progressive path (checkpointed CLI, progressive
-wavefront, the viewer's frames) and the BVH study path on the card. These tests need an NVIDIA card (sm_90a)
+wavefront, the viewer's frames) and the BVH study path on the card, and
+each replay's device events against its graph's capture-time span map.
+These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
 without JAX:
 
@@ -1592,3 +1594,54 @@ def test_flagship_wavefront_regenerates_on_the_kernels(scene):
     assert steps == 408 and threefry == (408, 816)
     assert restart == steps + 1 and 0 < queue < steps
     assert key == permute == steps // 4
+
+
+# ---------------------------------------------------------------------------
+# the spans on the graph path: each replay's device events against the node
+# map its capture recorded (`graphs.span_maps`, `metrics.charge_events`),
+# and `STATS["replayed_ops"]` against the replayed events of the profile
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["scan", "wavefront"])
+def test_replays_match_their_capture_span_maps(scene, kind):
+    from torch.profiler import ProfilerActivity, profile
+
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.utils import metrics
+
+    w, h, spp, cfg = 160, 90, 2, RenderConfig(max_depth=8)
+
+    def one_pass(state):
+        if kind == "scan":
+            state = tpipe.accumulate(state, scene, Camera.reset(), w, h, spp, 5, cfg)
+        else:  # 28,800 paths through 4,096 lanes: windows and drain blocks
+            state, _ = tpipe.accumulate_wavefront(state, scene, Camera.reset(), w, h,
+                                                  spp, 5, cfg, 4096)
+        return tpipe.to_image(state)
+
+    graphs.clear()
+    state = tpipe.init_accum(w, h, "cuda")
+    for _ in range(4):  # until a pass captures and warms nothing
+        before = dict(graphs.STATS)
+        one_pass(state)
+        if (graphs.STATS["captures"] == before["captures"]
+                and graphs.STATS["eager_runs"] == before["eager_runs"]):
+            break
+    torch.cuda.synchronize()
+    graphs.zero_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_pass(state)
+        torch.cuda.synchronize()
+    device, host = metrics.profile_events(prof)
+    charges, replays, unmatched = metrics.charge_events(device, host, graphs.span_maps())
+    launches = {corr for name, _, _, corr in host if name.startswith("cudaGraphLaunch")}
+    replayed = [d for d in device if d[3] in launches]
+    maps = graphs.span_maps()
+    assert replays == graphs.STATS["replays"] > 0 and graphs.STATS["eager_runs"] == 0
+    assert unmatched == 0, (replays, unmatched, {k: list(v) for k, v in maps.items()})
+    assert len(replayed) == graphs.STATS["replayed_ops"]
+    assert all(span != metrics.NO_SPAN for span, _, _ in charges)
+    charged = {span for span, _, _ in charges}
+    assert "hit.mm_closest_hit" in charged and "hit.front" in charged
+    graphs.clear()

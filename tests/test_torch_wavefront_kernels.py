@@ -560,9 +560,10 @@ def test_wrappers_reject_bad_operands(case):
 
 def test_the_regeneration_runs_in_its_spans(render_scenes, monkeypatch):
     """Each kernel's call is inside its profiler range: the restart in
-    `wavefront.restart_lanes`, the queue in `wavefront.queue`, the key and
-    gather in `wavefront.sort_pool`; the advance opens no `wavefront.bank`
-    at one bounce an advance."""
+    `wavefront.restart_lanes` (the first pool's inside `wavefront.start`),
+    the queue in `wavefront.queue`, the key and gather in
+    `wavefront.sort_pool`; the advance opens no `wavefront.bank` at one
+    bounce an advance."""
     opened, where = [], {}
     class _Span:
         def __init__(self, name):
@@ -590,7 +591,8 @@ def test_the_regeneration_runs_in_its_spans(render_scenes, monkeypatch):
     render_image_wavefront(render_scenes["bunny"], tcam.Camera.reset(), 24, 16, 2,
                            cfg=tint.RenderConfig(max_depth=4), pool_size=128)
     graphs.clear()
-    assert where["restart_lanes"] == {("wavefront.restart_lanes",)}
+    assert where["restart_lanes"] == {("wavefront.restart_lanes",),
+                                      ("wavefront.start", "wavefront.restart_lanes")}
     assert where["queue_pop"] == {("wavefront.queue",)}
     assert where["tileset_key"] == where["permute_lanes"] == {("wavefront.sort_pool",)}
     # at one bounce an advance without NEE the shading banks (here its twin
