@@ -247,7 +247,9 @@ Usage:
                                      # 32 warps per block, aiming at 64, 128
                                      # and 256 warps per SM, and `threefry`
                                      # with 64, 128 and 256 threads a block,
-                                     # on the device
+                                     # and `mm_closest_hit` at cluster
+                                     # widths 1, 2, 4 and 8 at 8, 128, 256
+                                     # and 7,200 subgroups, on the device
     python3 chip_smoke.py --against _archive/parent
                                      # also time the three kernels built
                                      # from another checkout's sources
@@ -414,6 +416,8 @@ RANK_TIMEOUT_S, WORLD_LIMIT_S = 120, 420
 SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
 SWEEP_WARPS, SWEEP_FILL = (8, 16, 32), (64, 128, 256)
 SWEEP_THREADS = (64, 128, 256)
+SWEEP_CLUSTERS = (1, 2, 4, 8)  # CTAs a closest-hit walk is shared over
+SWEEP_GROUPS = (8, 128, 7200)  # subgroups of the tile_p 256 sets made for it
 
 
 _T0 = time.perf_counter()
@@ -881,7 +885,8 @@ def counted_path(tiles: bool = True):
                   cull_calls=tmm.cull_tiles.launches,
                   threefry_calls=tfk.threefry_bundle.launches,
                   threefry_call_draws=tfk.threefry_bundle.draws,
-                  mm_launches=done[0], cull_launches=done[1],
+                  mm_launches=done[0], mm_clustered=clustered_launches(),
+                  cull_launches=done[1],
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
                   front_calls=tmm.hit_front.launches + tsh.sphere_pass.launches,
                   epilogue_calls=tsh.hit_epilogue.launches,
@@ -980,6 +985,18 @@ def executed() -> tuple:
     done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
     return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
             *done.get("threefry", (0, 0)))
+
+
+def clustered_launches() -> int:
+    """The closest hit's launches that shared walks over clusters on this
+    process's card since the tallies were last zeroed (its tally's second
+    slot)."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
+    return done.get("mm_closest_hit", (0, 0))[1]
 
 
 class SyncCounter:
@@ -1159,12 +1176,13 @@ def captured_set(args, active, min_hits=1):
                 active=int((active > 0.5).sum()))
 
 
-def closest_hit_bound(args, walked):
+def closest_hit_bound(args, walked, cluster=1):
     """The least time of one `mm_closest_hit` call on the card: the pairs
     its subgroups walked (walked x 128 x tile_p) at FLOP_PER_PAIR, and the
     bytes it must move (inputs once: features, lane bounds, counts, the
     walked list and smin entries, the distinct tiles walked at 64 B per
-    triangle; outputs (t, col) once)."""
+    triangle; outputs (t, col) once). `cluster`: the CTAs, each on an SM of
+    its own, that the call shared each subgroup's walk over."""
     import torch
 
     lists, counts, _, x, lane_bound, w, _ = args
@@ -1178,16 +1196,19 @@ def closest_hit_bound(args, walked):
     pairs = n_walked * 128 * tile_p
     flop_ms = pairs * FLOP_PER_PAIR / PEAK_F32_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    # one subgroup's walk runs on one SM: the longest walk at one SM's share
-    # of the peak is a second lower bound, which the uneven walks can exceed
+    # one subgroup's walk runs on the `cluster` SMs of its cluster: the
+    # longest walk at their share of the peak is a second lower bound, which
+    # the uneven walks can exceed
     longest_ms = (int(walked.max()) * 128 * tile_p * FLOP_PER_PAIR
-                  / (PEAK_F32_FLOPS / H100_SMS) * 1e3) if walked.numel() else 0.0
+                  / (PEAK_F32_FLOPS * cluster / H100_SMS) * 1e3
+                  if walked.numel() else 0.0)
     q = torch.quantile(walked.float(), torch.tensor([0.5, 0.9], device=walked.device))
     return dict(pairs=pairs, tiles_read=tiles, bytes=nbytes,
                 bound_ms=max(flop_ms, byte_ms),
                 bound_by="operations" if flop_ms >= byte_ms else "bytes",
                 walked_p50=float(q[0]), walked_p90=float(q[1]),
-                walked_max=int(walked.max()), longest_walk_ms=longest_ms)
+                walked_max=int(walked.max()), longest_walk_ms=longest_ms,
+                cluster=cluster)
 
 
 def phase_kernel_vs_twin(scene, sets):
@@ -1232,8 +1253,8 @@ def phase_kernel_vs_twin(scene, sets):
         c_ms = call_ms(lambda: tmm.mm_closest_hit(*args), 20)
         r_ms = call_ms(lambda: tmm.mm_closest_hit_reference(*args), 3)
         passing = float(args[1].float().mean())
-        b = closest_hit_bound(args, wk)
         g = wk.numel()
+        b = closest_hit_bound(args, wk, mm_cluster(args))
         record[name] = dict(
             rays=n, active=st["active"], subgroups=g,
             triangle_hits=hits, mismatches=n_mis, near_ties=n_tie, edges=n_edge,
@@ -1253,16 +1274,29 @@ def phase_kernel_vs_twin(scene, sets):
             f"{int(wr.sum())}, equal on all {int(agree.sum())} of {g} subgroups "
             f"whose lanes agree on t; {b['pairs']} pairs, {b['tiles_read']} tiles "
             f"read, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), "
-            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached; the longest walk "
-            f"on one SM {b['longest_walk_ms'] * 1e3:.2f} us")
+            f"{100 * b['bound_ms'] / k_ms:.1f}% of it reached; cluster width "
+            f"{b['cluster']}, the longest walk on its {b['cluster']} SM(s) "
+            f"{b['longest_walk_ms'] * 1e3:.2f} us")
     return record
+
+
+def mm_cluster(args) -> int:
+    """The cluster width `mm_closest_hit` takes for a set's arguments on
+    this card."""
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    lists, w = args[0], args[5]
+    return tmm.cluster_width(lists.shape[0], w.shape[1],
+                             tmm.card_sms(lists.device.index or 0))
 
 
 def launcher(kernel: str, args, **build):
     """(launch, outputs): `launch()` runs `kernel` (the build that
     `_build.launch`'s `defines` / `csrc` select) on a set's arguments into
     outputs of its own, uncounted, as the sweep and the comparison with
-    another checkout time it."""
+    another checkout time it. `mm_closest_hit` takes the cluster width the
+    wrapper would (`mm_cluster`); another checkout's entry without one
+    (before clusters) runs its one-CTA launch."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
@@ -1284,6 +1318,11 @@ def launcher(kernel: str, args, **build):
         outs = (torch.empty(g * 128, device=x.device),
                 torch.empty(g * 128, dtype=torch.int32, device=x.device), None)
         ins, scalars = (lists, counts, smin, x, lb, w), (g, nt, w.shape[1], float(t_min))
+        csrc = build.get("csrc")
+        if csrc is not None and "int cluster" not in (
+                Path(csrc) / "mm_closest_hit.cu").read_text():
+            return older_mm(csrc, ins, outs, scalars), outs[:2]
+        scalars += (mm_cluster(args),)
     else:
         x, active, box, t_min, occ = args
         g, nt = x.shape[0] // 128, box.shape[0]
@@ -1295,6 +1334,33 @@ def launcher(kernel: str, args, **build):
         _build.launch(kernel, ins, outs, scalars, x.device, **build)
 
     return launch, outs[:2] if outs[2] is None else outs
+
+
+def older_mm(csrc: Path, ins, outs, scalars):
+    """`launch()` of the closest hit built from another checkout's sources
+    `csrc` whose entry takes no cluster width: (pointers, n_groups,
+    n_tiles, tile_p, t_min, device, stream, tally)."""
+    import ctypes
+
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    fn = _build.load_library("mm_closest_hit", (), csrc).mm_closest_hit_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    device = ins[3].device
+    ptrs = [None if t is None else t.data_ptr() for t in (*ins, *outs)]
+    tally = _build.tally("mm_closest_hit", device)
+
+    def launch():
+        rc = fn(*ptrs, *scalars, device.index or 0,
+                torch.cuda.current_stream(device).cuda_stream, tally.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"{csrc}'s mm_closest_hit launch failed: CUDA error {rc}")
+
+    return launch
 
 
 def other_threefry(csrc: Path, args):
@@ -1378,6 +1444,72 @@ def phase_sweep(kernel: str, variants: dict, sets: dict):
         record[name] = row
         log(f"[S] {kernel} {name}: "
             + ", ".join(f"{k} {ms * 1e3:.2f} us" for k, ms in row.items()))
+    return record
+
+
+def subgroup_set(st, idx):
+    """The set of subgroups `idx` (repeats allowed) of set `st`."""
+    import torch
+
+    lists, counts, smin, x, lb, w, t_min = st["args"]
+    lanes = (idx[:, None] * 128 + torch.arange(128, device=idx.device)).reshape(-1)
+    return dict(args=(lists[idx].contiguous(), counts[idx].contiguous(),
+                      smin[idx].contiguous(), x[lanes].contiguous(),
+                      lb[lanes].contiguous(), w, t_min))
+
+
+def cluster_sets(mm_sets):
+    """The closest hit's calls at the paths' subgroup counts on both tile
+    widths: at tile_p 128 the reference scene's sets (the scan's 7,200
+    subgroups, the pool's 256, a viewer frame's 128 and its drain's 8); at
+    tile_p 256 bunny300k's bounce (256) and SWEEP_GROUPS of its subgroups,
+    spread evenly or repeated."""
+    import torch
+
+    sets = {k: v for k, v in mm_sets.items() if k.startswith("reference_")}
+    base = mm_sets["bunny300k_bounce1"]
+    g = base["args"][0].shape[0]
+    sets["bunny300k_bounce1"] = base
+    for n in SWEEP_GROUPS:
+        idx = (torch.arange(n, device=base["args"][0].device) * g // n if n <= g
+               else torch.arange(n, device=base["args"][0].device) % g)
+        sets[f"bunny300k_bounce1_g{n}"] = subgroup_set(base, idx)
+    return sets
+
+
+def phase_cluster_sweep(sets: dict):
+    """`mm_closest_hit` at every cluster width that a set's tile_p allows:
+    (t, col, walked) bit-equal to one CTA's, each width timed on the device
+    (device_ms, a CUDA graph of its launches), beside the width that
+    `cluster_width` picks for the set."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
+
+    record = {}
+    for name, st in sets.items():
+        args = st["args"]
+        g, tile_p = args[0].shape[0], args[5].shape[1]
+        ref = tmm._launch(*args, True, 1)
+        row = {}
+        for c in SWEEP_CLUSTERS:
+            if tile_p % (c * tmm.CLUSTER_SLICE_COLS):
+                continue
+            out = tmm._launch(*args, True, c)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise RuntimeError(f"cluster sweep {name}: width {c} differs from one CTA")
+            row[c] = device_ms(lambda: tmm._launch(*args, False, c))
+        walked = ref[2].long()
+        record[name] = dict(subgroups=g, tile_p=tile_p, rule=mm_cluster(args),
+                            best=min(row, key=row.get), walked_max=int(walked.max()),
+                            walked_mean=float(walked.float().mean()),
+                            ms={str(c): ms for c, ms in row.items()})
+        log(f"[S] mm_closest_hit {name} ({g} subgroups, tile_p {tile_p}, walks "
+            f"max {int(walked.max())}, mean {float(walked.float().mean()):.2f}): "
+            + ", ".join(f"C={c} {ms * 1e3:.2f} us" for c, ms in row.items())
+            + f"; the rule takes {record[name]['rule']}, the fastest is "
+            f"{record[name]['best']}")
     return record
 
 
@@ -1656,7 +1788,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     # the kernels count their launches on the module's names, which are
     # these wrappers while they are in place; the run is eager, so that the
     # wrappers see every call with its values (a CUDA graph replays none)
-    mm.launches = cull.launches = draw.launches = draw.draws = 0
+    mm.launches = mm.clustered = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
     for k in WRAPPER_KERNEL:
@@ -1854,7 +1986,8 @@ def phase_paths(profile_on: bool, w=1280, h=720):
         log(f"[{6 if name == 'scan' else 7}] {name}: {stats['seconds']} s, "
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
-            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+            f"{counts['mm_launches']} ({counts['mm_clustered']} clustered), "
+            f"cull_tiles {counts['cull_launches']}, "
             f"threefry {counts['threefry_launches']} ({counts['threefry_draws']} draws), "
             f"{shading_text(counts)}, {regen_text(counts)}; "
             f"image mean {images[name].mean():.4f}")
@@ -1903,7 +2036,8 @@ def phase_legs(scenes, profile_on: bool):
         log(f"[8] {name} ({scene.num_tris} triangles, {rec['tiles']} tiles): "
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
-            f"{counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+            f"{counts['mm_launches']} ({counts['mm_clustered']} clustered), "
+            f"cull_tiles {counts['cull_launches']}, "
             f"threefry {counts['threefry_launches']}, {shading_text(counts)}, "
             f"{regen_text(counts)}; image mean {img.mean():.4f}")
     return result
@@ -3432,7 +3566,7 @@ def recorded_in_capture(call: int):
                 got["threefry"] = _clone(args), _clone(out)
         return out
 
-    mm.launches = cull.launches = draw.launches = draw.draws = 0
+    mm.launches = mm.clustered = cull.launches = draw.launches = draw.draws = 0
     graphs.clear()
     tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
     for k in WRAPPER_KERNEL:
@@ -4450,8 +4584,9 @@ def main(argv=None) -> int:
                     help="also time mm_closest_hit built with 1, 2, 4 and 8 "
                          "column slices per tile and 1 and 4 rays per thread, "
                          "cull_tiles with at most 8, 16 and 32 warps per "
-                         "block aiming at 64, 128 and 256 warps per SM, and "
-                         "threefry with 64, 128 and 256 threads a block")
+                         "block aiming at 64, 128 and 256 warps per SM, "
+                         "threefry with 64, 128 and 256 threads a block, and "
+                         "mm_closest_hit at cluster widths 1, 2, 4 and 8")
     ap.add_argument("--against", metavar="DIR",
                     help="also time the three kernels built from the sources "
                          "of the checkout DIR against this one's, and run both "
@@ -4651,6 +4786,9 @@ def main(argv=None) -> int:
             "threefry": phase_sweep("threefry", {
                 f"T={t}": (f"THREEFRY_THREADS={t}",) for t in SWEEP_THREADS},
                 draw_args)}
+        log(f"[S] mm_closest_hit's cluster widths {SWEEP_CLUSTERS} at the paths' "
+            "subgroup counts")
+        sweep["mm_cluster"] = phase_cluster_sweep(cluster_sets(mm_sets))
     if args.against:
         log(f"[A] the three kernels built from {args.against} and from this checkout")
         against = phase_against(Path(args.against).resolve(),
@@ -4708,6 +4846,7 @@ def main(argv=None) -> int:
              ms=mm["ms"], call_ms=mm["call_ms"], plain_ms=mm["plain_ms"],
              bound_ms=mm["bound_ms"],
              bound_by=mm["bound_by"], share=mm["share"], library_ms=None,
+             cluster=mm["cluster"], longest_walk_ms=mm["longest_walk_ms"],
              launches_by_path={k: v["mm_launches"] for k, v in per_path.items()}),
         dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
              launches=main_path["cull_launches"], max_abs_err=cl["max_abs_err"],

@@ -10,7 +10,8 @@ and the flags, loaded with `ctypes`, and launched on the current stream by
 `launch`.
 
 Every launch also adds to its kernel's `tally` on the device: thread 0 of
-block 0 adds one launch (and the threefry kernel its draws). A CUDA graph's
+block 0 adds one launch (and the threefry kernel its draws, the closest hit
+its launches that shared walks over thread block clusters). A CUDA graph's
 replay runs the kernels it captured, and so moves their tallies as eager
 launches do, while it runs none of the wrappers' Python. Nothing here runs
 at import time: the CPU-only test environment imports every module and has
@@ -115,8 +116,9 @@ def load_library(name: str, defines: tuple = (), csrc: Path = CSRC_DIR) -> ctype
 # each kernel's C entry point: its pointer count and scalar types (the
 # device, the stream and the tally follow them)
 ENTRY_ARGS = {
+    # n_groups, n_tiles, tile_p, t_min, the cluster width
     "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float)),
+                           ctypes.c_float, ctypes.c_int)),
     "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
     # n, seed, the draw count and 8 packed draws, then (layout, value) of
     # pixel, sample, bounce
@@ -214,9 +216,10 @@ _tallies: dict = {}
 def tally(kernel: str, device) -> torch.Tensor:
     """`kernel`'s (launches, draws) on `device` since the last
     `zero_tallies`, a (2,) int64 tensor there that the kernel adds to
-    itself. Made at the kernel's first launch on the device, which a stream
-    capture may not be: it would capture the zeroing (a graph's warm-up
-    launches first)."""
+    itself (the closest hit's second slot: its clustered launches). Made
+    at the kernel's first launch on the device, which a stream capture may
+    not be: it would capture the zeroing (a graph's warm-up launches
+    first)."""
     key = (kernel, torch.device(device).index or 0)
     found = _tallies.get(key)
     if found is None:
@@ -228,8 +231,9 @@ def tally(kernel: str, device) -> torch.Tensor:
 
 
 def tallies(device) -> dict:
-    """{kernel: (launches, draws)} of every kernel launched on `device`: one
-    read of the device, after the work queued before it."""
+    """{kernel: (launches, draws)} of every kernel launched on `device`
+    (`mm_closest_hit`: (launches, clustered launches)): one read of the
+    device, after the work queued before it."""
     index = torch.device(device).index or 0
     names = [k for k, i in _tallies if i == index]
     if not names:

@@ -50,6 +50,8 @@ TPU workarounds of the reference that are not ported, and why:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -62,10 +64,18 @@ T_MIN = 1e-4
 TRI_PARALLEL_EPS = 1e-5
 NUM_FEATURES = 12
 SLAB_FLOATS = 16  # one compact slab row: [n, v0.n, e1, v0 x e1, e2, e2 x v0]
-LANES = 128  # rays per subgroup: one tile list, one CUDA block
+LANES = 128  # rays per subgroup: one tile list, one CUDA block or cluster
 TILE_P_SMALL = 128  # triangles per tile up to TILE_SWITCH_TRIS ...
 TILE_P_LARGE = 256  # ... and beyond
 TILE_SWITCH_TRIS = 24 * 1024
+# the closest-hit kernel's cluster widths (`cluster_width`): a CTA's column
+# slice of a tile is split over its 8 warps, 4 columns unrolled, so it holds
+# a multiple of 32 columns; 8 CTAs is the portable cluster size
+CLUSTER_SLICE_COLS = 32
+MAX_CLUSTER = 8
+# a call shares its walks over clusters while its CTAs stay within this
+# many per SM (chosen on the card, `chip_smoke.py --sweep`)
+CLUSTER_CTAS_PER_SM = 8
 # subgroups per batched matmul in the plain twin: bounds its temporaries
 # to ~0.3 GB each at tile_p 128
 TWIN_GROUP_CHUNK = 1024
@@ -229,6 +239,27 @@ def build_weights(prim_type, p0, p1, p2) -> dict:
 # --------------------------------------------------------------------------
 
 
+def cluster_width(n_groups: int, tile_p: int, sm_count: int) -> int:
+    """The CTAs that share each subgroup's walk in a closest-hit launch: the
+    widest power of two up to MAX_CLUSTER whose column slices keep whole
+    CLUSTER_SLICE_COLS columns of a tile, while n_groups x width CTAs stay
+    within CLUSTER_CTAS_PER_SM per SM. A call of few subgroups (the
+    wavefront's pool and drain) spreads its longest walk over several SMs;
+    one that fills the card by itself (the scan's 7,200 subgroups) keeps
+    one CTA a subgroup."""
+    width = 1
+    while (2 * width <= MAX_CLUSTER and tile_p % (2 * width * CLUSTER_SLICE_COLS) == 0
+           and n_groups * 2 * width <= CLUSTER_CTAS_PER_SM * sm_count):
+        width *= 2
+    return width
+
+
+@functools.cache
+def card_sms(index: int) -> int:
+    """The SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
                    return_walked: bool = False):
     """Closest accepted hit per ray over its subgroup's tile list.
@@ -243,9 +274,10 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
     each subgroup tested before its early exit, which is what the kernel's
     work (walked x 128 x tile_p ray-triangle pairs) is counted from.
 
-    CUDA tensors launch `csrc/mm_closest_hit.cu` (and count the launch in
-    `mm_closest_hit.launches`); CPU tensors take the plain twin
-    `mm_closest_hit_reference`. Any other device raises.
+    CUDA tensors launch `csrc/mm_closest_hit.cu`, each subgroup's walk on
+    the `cluster_width` CTAs that the call's shape and the card give
+    (`_launch`); CPU tensors take the plain twin `mm_closest_hit_reference`.
+    Any other device raises.
     """
     g, nt = lists.shape
     n = g * LANES
@@ -263,17 +295,35 @@ def mm_closest_hit(lists, counts, smin, x, lane_bound, w, t_min: float,
                                         w, t_min, return_walked)
     if x.device.type != "cuda":
         raise ValueError(f"mm_closest_hit: no kernel for device {x.device}")
-    t = torch.empty(n, dtype=torch.float32, device=x.device)
-    col = torch.empty(n, dtype=torch.int32, device=x.device)
+    cluster = cluster_width(g, tile_p, card_sms(x.device.index or 0))
+    return _launch(lists, counts, smin, x, lane_bound, w, t_min, return_walked, cluster)
+
+
+def _launch(lists, counts, smin, x, lane_bound, w, t_min, return_walked, cluster):
+    """The kernel on `mm_closest_hit`'s checked CUDA operands, each walk on
+    `cluster` CTAs (1, 2, 4 or 8, each CTA a slice of whole
+    CLUSTER_SLICE_COLS columns): every width gives the same outputs, which
+    is what the card's tests and `chip_smoke.py`'s sweep hold it to. Counts
+    the launch in `mm_closest_hit.launches`, and in
+    `mm_closest_hit.clustered` where the walks are shared."""
+    g, nt = lists.shape
+    tile_p = w.shape[1]
+    if cluster not in (1, 2, 4, MAX_CLUSTER) or tile_p % (cluster * CLUSTER_SLICE_COLS):
+        raise ValueError(f"mm_closest_hit: no cluster of {cluster} CTAs at "
+                         f"tile_p {tile_p}")
+    t = torch.empty(g * LANES, dtype=torch.float32, device=x.device)
+    col = torch.empty(g * LANES, dtype=torch.int32, device=x.device)
     walked = (torch.empty(g, dtype=torch.int32, device=x.device)
               if return_walked else None)
     _build.launch("mm_closest_hit", (lists, counts, smin, x, lane_bound, w),
-            (t, col, walked), (g, nt, tile_p, float(t_min)), x.device)
+                  (t, col, walked), (g, nt, tile_p, float(t_min), cluster), x.device)
     mm_closest_hit.launches += 1
+    mm_closest_hit.clustered += cluster > 1
     return (t, col, walked) if return_walked else (t, col)
 
 
 mm_closest_hit.launches = 0
+mm_closest_hit.clustered = 0
 
 
 def mm_closest_hit_reference(lists, counts, smin, x, lane_bound, w,

@@ -238,6 +238,66 @@ def test_wrapper_rejects_bad_inputs(scenes):
         tmm.mm_closest_hit(*meta, T_MIN)
 
 
+# (subgroups, tile_p): the scan's 921,600 lanes, the viewer's scan, the
+# wavefront pool (2^15 lanes), the viewer's pool (2^14), a drain (1,024)
+SCAN, VIEWER_SCAN, POOL, VIEWER_POOL, DRAIN = 7200, 1152, 256, 128, 8
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n_groups,tile_p,width", [
+    (SCAN, 128, 1), (SCAN, 256, 1), (VIEWER_SCAN, 128, 1), (VIEWER_SCAN, 256, 1),
+    (POOL, 128, 4), (POOL, 256, 4), (VIEWER_POOL, 128, 4), (VIEWER_POOL, 256, 8),
+    (DRAIN, 128, 4), (DRAIN, 256, 8)])
+def test_cluster_width_at_the_paths_shapes(n_groups, tile_p, width):
+    # the scan fills the card with one CTA a subgroup; the wavefront's pool
+    # and drain share each walk over a cluster, as wide as the tile allows
+    # while the call's CTAs stay within CLUSTER_CTAS_PER_SM an SM
+    assert tmm.cluster_width(n_groups, tile_p, H100_SMS) == width
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+@pytest.mark.parametrize("tile_p", [32, 64, 128, 256, 512])
+def test_cluster_width_keeps_whole_slices(tile_p, sms):
+    # every width is a power of two up to MAX_CLUSTER that leaves each CTA
+    # whole CLUSTER_SLICE_COLS columns (its warps' slices keep their unroll),
+    # never grows with the subgroup count, and clusters only a call whose
+    # CTAs fit the rule's share of the card
+    widths = [tmm.cluster_width(g, tile_p, sms) for g in range(1, 20000, 7)]
+    for g, c in zip(range(1, 20000, 7), widths):
+        assert c in (1, 2, 4, 8) and c <= tmm.MAX_CLUSTER
+        assert tile_p % (c * tmm.CLUSTER_SLICE_COLS) == 0
+        assert c == 1 or g * c <= tmm.CLUSTER_CTAS_PER_SM * sms
+    assert widths == sorted(widths, reverse=True)
+    assert widths[0] == min(tmm.MAX_CLUSTER, tile_p // tmm.CLUSTER_SLICE_COLS)
+    assert widths[-1] == 1
+
+
+def test_cpu_wrapper_counts_no_clustered_launch(scenes):
+    # a CPU tensor never launches and never asks the card for its width
+    _, ts = scenes
+    lists, counts, smin, x, lb = _kernel_args(ts, 512, 8)
+    before = tmm.mm_closest_hit.launches, tmm.mm_closest_hit.clustered
+    got = tmm.mm_closest_hit(lists, counts, smin, x, lb, ts.mm_w, T_MIN,
+                             return_walked=True)
+    assert (tmm.mm_closest_hit.launches, tmm.mm_closest_hit.clustered) == before
+    ref = tmm.mm_closest_hit_reference(lists, counts, smin, x, lb, ts.mm_w, T_MIN,
+                                       return_walked=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 8, 16, -2])
+def test_launch_rejects_bad_cluster_widths(scenes, cluster):
+    # tile_p 128 splits into 1, 2 or 4 slices of 32 columns; nothing else
+    # reaches the card
+    _, ts = scenes
+    assert ts.mm_w.shape[1] == 128
+    lists, counts, smin, x, lb = _kernel_args(ts, 128, 6)
+    before = tmm.mm_closest_hit.launches
+    with pytest.raises(ValueError, match="cluster"):
+        tmm._launch(lists, counts, smin, x, lb, ts.mm_w, T_MIN, False, cluster)
+    assert tmm.mm_closest_hit.launches == before
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_twin_early_exit_equals_full_scan(scenes, seed):
     # the best-t early exit may only skip tiles that cannot change any

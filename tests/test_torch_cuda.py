@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
-kernel (also against the brute-force oracle), the tile cull and the RNG's
+kernel (also against the brute-force oracle; its walks shared over thread
+block clusters bit-equal to one CTA's), the tile cull and the RNG's
 threefry (bit-equal in every mode and every bundle of draws the paths make,
 one launch a bundle, also inside a CUDA graph), the bounce step's and
 the wavefront regeneration's kernels (bit-equal, eagerly and inside a
@@ -311,15 +312,16 @@ def test_kernel_matches_twin_at_pool_width(scene, bunny70k, which):
     _assert_walks_agree(t, t_ref, walked, walked_ref)
 
 
-def _tie_case(order):
+def _tie_case(order, cols=(5, 40, 100, 128 + 3)):
     """One subgroup of 128 rays straight down -z onto one triangle that the
-    slab holds four times: columns 5, 40 and 100 of tile 0 (three column
-    slices at any K up to 4) and column 3 of tile 1. `order` is the list."""
+    slab holds at each of `cols`: by default columns 5, 40 and 100 of tile 0
+    (three column slices at any K up to 4, and three CTAs of a cluster of 4)
+    and column 3 of tile 1. `order` is the list."""
     tile_p = 128
     v = np.zeros((2 * tile_p, 3, 3), np.float32)  # zero rows: never accepted
     tri = np.asarray([[-2.0, -2.0, -5.0], [2.0, -2.0, -5.0], [0.0, 2.0, -5.0]],
                      np.float32)
-    for c in (5, 40, 100, tile_p + 3):
+    for c in cols:
         v[c] = tri
     w = tmm.tri_weight_slab(v[:, 0], v[:, 1], v[:, 2], tile_p)
     r = np.random.default_rng(3)
@@ -370,6 +372,146 @@ def test_kernel_walks_no_tile_and_every_tile(scene):
     assert (~same).float().mean().item() <= 1e-3 and int((col_ref >= 0).sum()) > 50
     torch.testing.assert_close(t[same & (col_ref >= 0)], t_ref[same & (col_ref >= 0)],
                                rtol=5e-4, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the closest hit's walks shared over thread block clusters: every width
+# bit-equal to one CTA (the one-CTA launch is the kernel as it was)
+# ---------------------------------------------------------------------------
+
+
+def _widths(tile_p):
+    return [c for c in (1, 2, 4, 8) if tile_p % (c * tmm.CLUSTER_SLICE_COLS) == 0]
+
+
+def _at_width(args, cluster, return_walked=True):
+    # the kernel with each walk forced onto `cluster` CTAs
+    return tmm._launch(*args, return_walked, cluster)
+
+
+def _assert_widths_agree(args, widths):
+    """(t, col, walked) of every width in `widths` torch.equal to one CTA's;
+    returns one CTA's."""
+    one = _at_width(args, 1)
+    for c in widths:
+        got = _at_width(args, c)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t", "col", "walked"), got, one):
+            assert torch.equal(a, b), f"cluster {c}: {name} differs from one CTA"
+    return one
+
+
+@pytest.mark.parametrize("lanes", [1 << 15, 1024])
+@pytest.mark.parametrize("which", ["tile_p128", "tile_p256"])
+def test_clustered_kernel_equals_one_cta_and_the_twin(scene, bunny70k, which, lanes):
+    # the wavefront pool's 32,768 lanes and a drain call's 1,024, at every
+    # cluster width the tile width allows; one CTA against the twin as the
+    # kernel always was (the twin's batched matmul may round otherwise)
+    sc = scene if which == "tile_p128" else bunny70k
+    tile_p = sc.mm_w.shape[1]
+    assert tile_p == int(which[6:])
+    o, d = _rays(lanes, 41 + lanes)
+    occ = torch.full((lanes,), float("inf"), device="cuda")
+    args = tmm.kernel_inputs(sc, o, d, occ) + (sc.mm_w, T_MIN)
+    widths = _widths(tile_p)
+    assert len(widths) == (3 if tile_p == 128 else 4)
+    t, col, walked = _assert_widths_agree(args, widths)
+    t_ref, col_ref, walked_ref = tmm.mm_closest_hit_reference(*args, return_walked=True)
+    same = col == col_ref
+    assert (~same).float().mean().item() <= 1e-3
+    hit = same & (col_ref >= 0)
+    assert int(hit.sum()) > lanes // 20
+    torch.testing.assert_close(t[hit], t_ref[hit], rtol=5e-4, atol=1e-2)
+    assert int(walked.max()) > 1
+    _assert_walks_agree(t, t_ref, walked, walked_ref)
+
+
+@pytest.mark.parametrize("cols,winners", [
+    ((5, 40, 100, 128 + 3), (5, 128 + 3)),     # the lowest column in CTA 0
+    ((70, 100, 128 + 40), (70, 128 + 40)),     # in CTAs 2 and 3 of four
+    ((100, 36, 128 + 96), (36, 128 + 96)),     # a later CTA's tie in tile 1
+])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_clustered_kernel_tie_rules(scene, cluster, cols, winners):
+    # equal t in columns that lie in different CTAs of a cluster: the lowest
+    # column wins inside a tile, and across tiles the first in list order
+    for order, winner in zip(((0, 1), (1, 0)), winners):
+        args = _tie_case(order, cols)
+        t, col, walked = _at_width(args, cluster)
+        t_ref, col_ref, walked_ref = tmm.mm_closest_hit_reference(*args,
+                                                                  return_walked=True)
+        assert (col == winner).all() and torch.equal(col, col_ref)
+        assert torch.equal(t, t_ref)
+        assert walked.tolist() == walked_ref.tolist() == [2]
+
+
+@pytest.mark.parametrize("which", ["tile_p128", "tile_p256"])
+def test_clustered_kernel_walks_no_tile_and_every_tile(scene, bunny70k, which):
+    # counts 0 and every tile with no exit, at every width
+    sc = scene if which == "tile_p128" else bunny70k
+    n = 1024
+    o, d = _rays(n, 33)
+    occ = torch.full((n,), float("inf"), device="cuda")
+    lists, counts, smin, x, lb = tmm.kernel_inputs(sc, o, d, occ)
+    g, nt = lists.shape
+    counts = torch.full((g,), nt, dtype=torch.int32, device="cuda")
+    counts[0] = 0
+    lists = torch.arange(nt, dtype=torch.int32, device="cuda").repeat(g, 1)
+    smin = torch.zeros((g, nt), device="cuda")
+    lb = torch.full_like(lb, float("inf"))
+    args = (lists, counts, smin, x, lb, sc.mm_w, T_MIN)
+    t, col, walked = _assert_widths_agree(args, _widths(sc.mm_w.shape[1]))
+    assert walked.tolist() == [0] + [nt] * (g - 1)
+    assert (col[:128] == -1).all() and torch.isinf(t[:128]).all()
+    assert int((col >= 0).sum()) > 50
+
+
+def test_clustered_kernel_in_a_cuda_graph_and_its_tally(scene):
+    # a clustered launch captured and replayed equals its eager launch; the
+    # tally's second slot counts clustered launches, replays included, and
+    # no one-CTA launch
+    from metalpathtracer_torch.render.kernels import _build
+
+    n = 1 << 15
+    o, d = _rays(n, 47)
+    occ = torch.full((n,), float("inf"), device="cuda")
+    args = tmm.kernel_inputs(scene, o, d, occ) + (scene.mm_w, T_MIN)
+    eager = _at_width(args, 4)
+    torch.cuda.synchronize()
+    _build.zero_tallies()
+    clustered = tmm.mm_closest_hit.clustered
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _at_width(args, 4)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    assert _build.tallies("cuda")["mm_closest_hit"] == (3, 3)
+    _at_width(args, 1)
+    tmm.mm_closest_hit(*args)  # the pool's 256 subgroups: the rule clusters them
+    torch.cuda.synchronize()
+    assert _build.tallies("cuda")["mm_closest_hit"] == (5, 4)
+    assert tmm.mm_closest_hit.clustered == clustered + 2  # the capture and the rule's
+
+
+def test_cluster_width_on_the_card_at_the_paths_shapes(scene):
+    # the scan's 7,200 subgroups take one CTA; the pool's 256 and a drain's 8
+    # take a cluster
+    sms = tmm.card_sms(0)
+    assert tmm.cluster_width(7200, 128, sms) == 1
+    assert tmm.cluster_width(7200, 256, sms) == 1
+    assert tmm.cluster_width(256, 128, sms) > 1 and tmm.cluster_width(8, 128, sms) > 1
+    assert tmm.cluster_width(256, 256, sms) > 1 and tmm.cluster_width(8, 256, sms) > 1
+
+
+def test_clustered_kernel_rejects_bad_widths(scene):
+    o, d = _rays(256, 3)
+    occ = torch.full((256,), float("inf"), device="cuda")
+    args = tmm.kernel_inputs(scene, o, d, occ) + (scene.mm_w, T_MIN)
+    for bad in (0, 3, 8, 16):  # 8 CTAs leave tile_p 128 16 columns each
+        with pytest.raises(ValueError, match="cluster"):
+            _at_width(args, bad)
 
 
 def test_wavefront_on_card_matches_scan(scene):
@@ -1109,6 +1251,13 @@ def _counted():
                         "permute_lanes")))
 
 
+def _clustered():
+    # the closest hit's launches that shared walks over clusters
+    from metalpathtracer_torch.render.kernels import _build
+
+    return _build.tallies("cuda").get("mm_closest_hit", (0, 0))[1]
+
+
 def _render_counted(fn, eager):
     from metalpathtracer_torch.render import graphs
 
@@ -1406,16 +1555,20 @@ def test_flagship_shades_from_the_winners(scene, tmp_path, integrator):
     argv += ["--wavefront"] if integrator == "wavefront" else []
     graphs.clear()
     for eager in (True, False):
+        clustered = _clustered()
         launched = _render_counted(lambda: cli.main(argv), eager)[1]
+        clustered = _clustered() - clustered
         mm, cull, bundles, _, front, epilogue, shade, bank, hit, bank_hit, *regen = launched
         if integrator == "wavefront":
             # the restart draws the jitter itself: one bundle a bounce step
             assert (mm, cull, bundles, front, bank_hit) == (408, 408, 408, 408, 408)
+            assert clustered == mm  # the pool's 256 subgroups share their walks
             assert epilogue == shade == bank == hit == 0
             assert regen[0] == 409 and min(regen) > 0
         else:  # the graph loop's idle steps launch a step's kernels too
             assert (mm, cull, bundles - 4, front, hit) == (mm, mm, mm, mm, mm)
             assert mm >= 128 and (mm == 128 or not eager)
+            assert clustered == 0  # 7,200 subgroups: one CTA each
             assert epilogue == shade == bank == bank_hit == 0
             assert not any(regen)
 
