@@ -61,7 +61,9 @@ class Passes:
         self.cfg = integrator.RenderConfig(
             max_depth=int(traffic["max_depth"]),
             clamp_radiance=bool(r.get("clamp_radiance", False)),
-            adaptive_offset=bool(r.get("adaptive_offset", True)))
+            adaptive_offset=bool(r.get("adaptive_offset", True)),
+            nee=bool(r.get("nee", False)),
+            rr_start=int(r.get("rr_start", 0)))
         self.camera = camera(config["camera"])
         self.seed = rng.seed_from_int(seed)
         self.device = scene.device

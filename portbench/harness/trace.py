@@ -13,6 +13,7 @@ reductions below run on a recorded trace as well (`tests/data`).
 
 from __future__ import annotations
 
+import heapq
 import re
 
 ANNOTATION_PREFIXES = ("portbench/", "mpt/", "ProfilerStep")
@@ -62,10 +63,12 @@ def charge(rows, layers: dict) -> dict:
     patterns finds the event's name) and of "unclaimed" events."""
     out = {k: 0 for k in layers}
     out["unclaimed"] = 0
+    keys: dict = {}  # a name's layer, matched once a name
     for name, s, e in rows:
-        key = next((k for k, pats in layers.items()
-                    if any(p.search(name) for p in pats)), "unclaimed")
-        out[key] += e - s
+        if name not in keys:
+            keys[name] = next((k for k, pats in layers.items()
+                               if any(p.search(name) for p in pats)), "unclaimed")
+        out[keys[name]] += e - s
     return out
 
 
@@ -93,6 +96,24 @@ def top_ops(rows, n: int = 10):
     return [[k, v / 1e9] for k, v in ranked]
 
 
+def innermost(rows, points):
+    """For each of the ascending `points`, the shortest of `rows` open at it
+    (start <= point < end; of equal ones the first in `rows`), or None: one
+    sweep, so that a trace of a few hundred thousand events reads in
+    seconds."""
+    order = sorted(range(len(rows)), key=lambda i: rows[i][1])
+    heap, out, k = [], [], 0
+    for at in points:
+        while k < len(order) and rows[order[k]][1] <= at:
+            i = order[k]
+            heapq.heappush(heap, (rows[i][2] - rows[i][1], i))
+            k += 1
+        while heap and rows[heap[0][1]][2] <= at:  # closed: closed for later points too
+            heapq.heappop(heap)
+        out.append(rows[heap[0][1]] if heap else None)
+    return out
+
+
 def idle_gaps(device_rows, host_rows, lo: int, hi: int, n: int = 10):
     """[[what the host was doing, seconds], ...]: the device's idle time in
     [lo, hi], each gap charged to the harness range and the innermost host
@@ -107,14 +128,12 @@ def idle_gaps(device_rows, host_rows, lo: int, hi: int, n: int = 10):
         gaps.append((t, hi))
     ranges = [r for r in host_rows if r[0].startswith("portbench/")]
     ops = [r for r in host_rows if not r[0].startswith(ANNOTATION_PREFIXES)]
+    mids = [(s + e) // 2 for s, e in gaps]
     total: dict = {}
-    for s, e in gaps:
-        mid = (s + e) // 2
-        where = [r for r in ranges if r[1] <= mid < r[2]]
-        inner = [r for r in ops if r[1] <= mid < r[2]]
-        label = (min(where, key=lambda r: r[2] - r[1])[0] if where else "(no range)")
+    for (s, e), where, inner in zip(gaps, innermost(ranges, mids), innermost(ops, mids)):
+        label = where[0] if where else "(no range)"
         if inner:
-            label += " > " + min(inner, key=lambda r: r[2] - r[1])[0]
+            label += " > " + inner[0]
         total[label] = total.get(label, 0) + (e - s)
     ranked = sorted(total.items(), key=lambda kv: -kv[1])[:n]
     return [[k, v / 1e9] for k, v in ranked]

@@ -96,3 +96,13 @@ def test_a_reader_with_nothing_to_read_returns_nothing():
     got = {k: f(ctx) for k, f in readers.items()}
     assert got.pop("graphs.reads_per_pass") == 2.0
     assert all(v is None for v in got.values())
+
+
+def test_innermost_is_the_shortest_open_row(recorded):
+    """The sweep against a plain scan of every row at every gap's middle."""
+    dev, host, lo, hi = recorded
+    ops = [r for r in host if not r[0].startswith(trace.ANNOTATION_PREFIXES)]
+    points = sorted({(s + e) // 2 for _, s, e in dev} | {lo, hi})
+    for at, got in zip(points, trace.innermost(ops, points)):
+        open_ = [r for r in ops if r[1] <= at < r[2]]
+        assert got == (min(open_, key=lambda r: r[2] - r[1]) if open_ else None)
