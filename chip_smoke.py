@@ -34,13 +34,20 @@ Phases, each raising on failure:
    bit; each set's tested pairs, bound and share of the bound;
 3. `closest_hit_mm_full` on the kernels vs the brute-force oracle on a
    65,536-ray subset (tests/test_intersect_mm.py's criteria);
-4. `cull_tiles` vs its plain version, bit-equal, at 39 tiles (921,600
-   primary rays, the 32,768 pool lanes of the same flagship advance, and
-   the viewer frame's 16,384 and 1,024 lanes of the same two advances),
-   311 tiles (bunny70k) and 1,242 tiles (bunny300k), the latter two on
-   32,768 rays after one bounce with an active mask and the sphere pass's
-   occlusion bound; with its issue estimate (the SASS count per pair at
-   one instruction per lane per clock on every SM);
+4. the tile cull vs its plain versions, bit-equal: the entry the paths
+   launch, `_cull_tile_lists` (the cull that sorts each subgroup's row into
+   the closest hit's lists in its block, by rank or by radix as the row's
+   length picks), against `cull_tile_lists_reference`, and the plain
+   cull's entry `cull_tiles` against `cull_pass_reference`, at 39 tiles
+   (921,600 primary rays, the 32,768 pool lanes of the same flagship
+   advance, and the viewer frame's 16,384 and 1,024 lanes of the same two
+   advances), 311 tiles (bunny70k) and 1,242 tiles (bunny300k), the latter
+   two on 32,768 rays after one bounce with an active mask and the sphere
+   pass's occlusion bound; each set's route, both entries' device times,
+   the plain cull followed by the torch ops that sorted its rows before
+   (`tail_ms`), the lists entry's bound and its issue estimate (the SASS
+   count per pair of the rank route's function at one instruction per lane
+   per clock on every SM);
 5. `mm_closest_hit` at tile_p 256 (bunny300k) vs its twin on 32,768
    primary and 32,768 bounce-1 rays, and vs the brute oracle on 8,192;
 6. the scan path: `cli.main` at 1280x720, spp 4, depth 32 (its bounce
@@ -243,8 +250,8 @@ Usage:
     python3 chip_smoke.py --sweep    # also time `mm_closest_hit` built
                                      # with 1, 2, 4 and 8 column slices
                                      # and 1 and 4 rays per thread,
-                                     # `cull_tiles` with at most 8, 16 and
-                                     # 32 warps per block, aiming at 64, 128
+                                     # `cull_tile_lists` with at most 8,
+                                     # 16 and 32 warps per block, aiming at 64, 128
                                      # and 256 warps per SM, and `threefry`
                                      # with 64, 128 and 256 threads a block,
                                      # and `mm_closest_hit` at cluster
@@ -315,8 +322,9 @@ KERNELS = {
     "mm_closest_hit": dict(source="metalpathtracer_torch/csrc/mm_closest_hit.cu",
                            replaces=f"{TPU_FILE}:477",
                            also_replaces=f"{TPU_FILE}:555"),
-    "cull_tiles": dict(source="metalpathtracer_torch/csrc/cull_tiles.cu",
-                       replaces=f"{TPU_FILE}:712"),
+    "cull_tile_lists": dict(source="metalpathtracer_torch/csrc/cull_tiles.cu",
+                            replaces=f"{TPU_FILE}:712",
+                            also_replaces=f"{TPU_FILE}:1008"),
     "threefry": dict(source="metalpathtracer_torch/csrc/threefry.cu",
                      replaces="benchmarks/mosaic_probe.py:42"),
     # the bounce step's XLA fusions (no Pallas body): the sphere pass with
@@ -388,6 +396,9 @@ CAPTURE_CALL = 100
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
 CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
+# the list cull's sets timed against another checkout's plain cull and its
+# torch tail: the scan's bounce step, the pool call, and bunny300k's
+AGAINST_CULL = ("reference_primary", "reference_pool", "bunny300k_bounce1")
 H100_SMS = 132  # the SMs the peaks above are summed over
 # int32 instructions an SM issues a clock: 16 INT32 units in each of its 4
 # partitions (NVIDIA's Hopper architecture white paper); the integer
@@ -484,11 +495,17 @@ def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
 
 def cull_sass(so: Path) -> dict:
     """The cull kernel's SASS (`cuobjdump -sass` of its library, kept in
-    OUT): the innermost loop with the most FMULs is the slab-test loop,
-    whose FMULs are 6 per (ray, tile) pair, so its instructions (NOPs
-    aside) over its pairs are the instructions issued per pair. With the card's top SM
-    clock (nvidia-smi clocks.max.sm) for the issue estimate."""
-    text = sass(so, "cull_tiles")
+    OUT), of the function the paths' few-tile rows run (the list cull's
+    rank route, `cull_tiles_kernel<1, 0>`): the innermost loop with the most
+    FMULs is the slab-test loop, whose FMULs are 6 per (ray, tile) pair, so
+    its instructions (NOPs aside) over its pairs are the instructions issued
+    per pair. With the card's top SM clock (nvidia-smi clocks.max.sm) for
+    the issue estimate."""
+    functions = sass(so, "cull_tiles").split("Function : ")[1:]
+    text = next((f for f in functions if "cull_tiles_kernelILi1ELi0E" in
+                 f.splitlines()[0]), None)
+    if text is None:
+        raise RuntimeError("cull_tiles: no rank-route function in the SASS")
     insts, labels, pending = [], {}, []
     for line in text.splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
@@ -737,7 +754,7 @@ def wrapper_module(name: str):
 
 
 @contextlib.contextmanager
-def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING
+def plain_versions(which=("mm_closest_hit", "cull_tile_lists", "threefry") + SHADING
                    + REGEN):
     """Route the kernels named in `which` through their plain versions (the
     threefry kernel's wrapper is `threefry_bundle`, which every draw goes
@@ -752,7 +769,7 @@ def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING
     from metalpathtracer_torch.render.kernels import wavefront as twfk
 
     plain = {"mm_closest_hit": (tmm, "mm_closest_hit", tmm.mm_closest_hit_reference),
-             "cull_tiles": (tmm, "cull_tiles", tmm.cull_pass_reference),
+             "cull_tile_lists": (tmm, "_cull_tile_lists", tmm.cull_tile_lists_reference),
              "threefry": (tfk, "threefry_bundle", tfk.threefry_bundle_reference),
              **{w: (wrapper_module(w), w, getattr(wrapper_module(w), f"{w}_reference"))
                 for w in WRAPPER_KERNEL},
@@ -776,11 +793,13 @@ def plain_versions(which=("mm_closest_hit", "cull_tiles", "threefry") + SHADING
 def counted_path(tiles: bool = True):
     """Count one path's bounce steps, kernel launches, threefry draws and
     plain-version calls: every count is 0 on entry; the dict is filled on
-    exit. `mm_launches`, `cull_launches`, `threefry_launches` and
+    exit. `mm_launches`, `cull_launches` (`cull_radix` of them sorted by
+    radix), `threefry_launches` and
     `threefry_draws` are what ran on the card: the kernels' own tallies
     (`kernels/_build.py`), which a CUDA graph's replay moves as an eager
-    launch does. `mm_calls`, `cull_calls`, `threefry_calls` and `steps` are
-    the wrappers' and the bounce step's Python calls: the eager launches and
+    launch does. `mm_calls`, `cull_calls` (`cull_routes` by sort route),
+    `threefry_calls` and `steps` are the wrappers' and the bounce step's
+    Python calls: the eager launches and
     the launches traced into a capture. Every traced bounce step must launch
     both tile kernels once and the threefry kernel exactly once (one
     bundle), with at least two draws, and no plain version may run; a
@@ -819,7 +838,7 @@ def counted_path(tiles: bool = True):
     odd_steps = []  # (bundle launches, draws) of a step that broke the rule
     odd_shading = []  # (shading launches, NEE steps) of a step that broke it
     originals = (tint._bounce_step, tmm.mm_closest_hit_reference,
-                 tmm.cull_pass_reference, tfk.threefry_bundle_reference)
+                 tmm.cull_tile_lists_reference, tfk.threefry_bundle_reference)
     twins = {k: getattr(wrapper_module(k), f"{k}_reference") for k in WRAPPER_KERNEL}
     regen_twins = {k: getattr(twfk, f"{k}_reference") for k in REGEN}
 
@@ -850,7 +869,7 @@ def counted_path(tiles: bool = True):
     graphs.clear()
     tint._bounce_step = step
     tmm.mm_closest_hit_reference = counter("plain_mm", originals[1])
-    tmm.cull_pass_reference = counter("plain_cull", originals[2])
+    tmm.cull_tile_lists_reference = counter("plain_cull", originals[2])
     tfk.threefry_bundle_reference = counter("plain_threefry", originals[3])
     for k, fn in twins.items():
         setattr(wrapper_module(k), f"{k}_reference", counter("plain_shading", fn))
@@ -860,7 +879,8 @@ def counted_path(tiles: bool = True):
     try:
         torch.cuda.synchronize()
         tmm.mm_closest_hit.launches = 0
-        tmm.cull_tiles.launches = 0
+        tmm._cull_tile_lists.launches = 0
+        tmm._cull_tile_lists.routes = {"rank": 0, "radix": 0}
         tfk.threefry_bundle.launches = tfk.threefry_bundle.draws = 0
         for k in WRAPPER_KERNEL:
             getattr(wrapper_module(k), k).launches = 0
@@ -872,7 +892,7 @@ def counted_path(tiles: bool = True):
         yield result
     finally:
         (tint._bounce_step, tmm.mm_closest_hit_reference,
-         tmm.cull_pass_reference, tfk.threefry_bundle_reference) = originals
+         tmm.cull_tile_lists_reference, tfk.threefry_bundle_reference) = originals
         for k, fn in twins.items():
             setattr(wrapper_module(k), f"{k}_reference", fn)
         for k, fn in regen_twins.items():
@@ -882,11 +902,12 @@ def counted_path(tiles: bool = True):
     done = executed()
     shading = executed_shading()
     result.update(calls, steps=step.calls, mm_calls=tmm.mm_closest_hit.launches,
-                  cull_calls=tmm.cull_tiles.launches,
+                  cull_calls=tmm._cull_tile_lists.launches,
+                  cull_routes=dict(tmm._cull_tile_lists.routes),
                   threefry_calls=tfk.threefry_bundle.launches,
                   threefry_call_draws=tfk.threefry_bundle.draws,
                   mm_launches=done[0], mm_clustered=clustered_launches(),
-                  cull_launches=done[1],
+                  cull_launches=done[1], cull_radix=cull_radix_launches(),
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
                   front_calls=tmm.hit_front.launches + tsh.sphere_pass.launches,
                   epilogue_calls=tsh.hit_epilogue.launches,
@@ -983,8 +1004,19 @@ def executed() -> tuple:
     from metalpathtracer_torch.render.kernels import _build
 
     done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
-    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
+    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tile_lists", (0, 0))[0],
             *done.get("threefry", (0, 0)))
+
+
+def cull_radix_launches() -> int:
+    """The list cull's launches that sorted by radix on this process's card
+    since the tallies were last zeroed (its tally's second slot)."""
+    import torch
+
+    from metalpathtracer_torch.render.kernels import _build
+
+    done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
+    return done.get("cull_tile_lists", (0, 0))[1]
 
 
 def clustered_launches() -> int:
@@ -1323,6 +1355,13 @@ def launcher(kernel: str, args, **build):
                 Path(csrc) / "mm_closest_hit.cu").read_text():
             return older_mm(csrc, ins, outs, scalars), outs[:2]
         scalars += (mm_cluster(args),)
+    elif kernel == "cull_tile_lists":
+        x, active, box, t_min, occ = args
+        g, nt = x.shape[0] // 128, box.shape[0]
+        outs = (torch.empty((g, nt), dtype=torch.int32, device=x.device),
+                torch.empty(g, dtype=torch.int32, device=x.device),
+                torch.empty((g, nt), device=x.device), torch.empty(g * 128, device=x.device))
+        ins, scalars = (x, active, occ, box), (g, nt, float(t_min))
     else:
         x, active, box, t_min, occ = args
         g, nt = x.shape[0] // 128, box.shape[0]
@@ -1334,6 +1373,30 @@ def launcher(kernel: str, args, **build):
         _build.launch(kernel, ins, outs, scalars, x.device, **build)
 
     return launch, outs[:2] if outs[2] is None else outs
+
+
+def cull_and_tail(args, **build):
+    """(launch, outputs): the plain cull's entry `cull_tiles` (the build
+    that `build` selects: another checkout's with `csrc`) followed by the
+    torch ops that made the closest hit's lists of its rows before the list
+    cull sorted them in its blocks: the any flags summed, one stable sort,
+    the casts, and the lane bound's minimum with occ. `outputs` is a list
+    that each launch refills with (lists, counts, smin, lane_bound)."""
+    import torch
+
+    launch_rows, (sgm, gent, lb) = launcher("cull_tiles", args, **build)
+    occ = args[4]
+    outs = []
+
+    def launch():
+        launch_rows()
+        counts = sgm.sum(dim=1).to(torch.int32)
+        smin, lists = torch.sort(gent, dim=1, stable=True)
+        outs[:] = (lists.to(torch.int32), counts, smin,
+                   lb if occ is None else torch.minimum(lb, occ))
+
+    launch()
+    return launch, outs
 
 
 def older_mm(csrc: Path, ins, outs, scalars):
@@ -1516,7 +1579,9 @@ def phase_cluster_sweep(sets: dict):
 def phase_against(other: Path, kernel_sets: dict):
     """Each kernel built from `other`'s sources (a checkout of another
     commit) and from this one's, on every set: outputs bit-equal, and both
-    timed on the device in turns other, this, this, other."""
+    timed on the device in turns other, this, this, other. The list cull
+    is held against `other`'s plain cull followed by the torch ops that
+    sorted its rows (`cull_and_tail`)."""
     import torch
 
     csrc = other / "metalpathtracer_torch" / "csrc"
@@ -1525,6 +1590,7 @@ def phase_against(other: Path, kernel_sets: dict):
         for name, st in sets.items():
             args = kernel_args(kernel, st)
             runs = {"other": other_threefry(csrc, args) if kernel == "threefry"
+                    else cull_and_tail(args, csrc=csrc) if kernel == "cull_tile_lists"
                     else launcher(kernel, args, csrc=csrc),
                     "this": launcher(kernel, args)}
             for launch, _ in runs.values():
@@ -1627,9 +1693,9 @@ def phase_oracle(scene, sets, n_each, chunk):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
     o, d = oracle_rays(sets, n_each)
-    before = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    before = tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
     t1, i1, *_ = tmm.closest_hit_mm_full(scene, o, d, T_MIN)
-    if (tmm.mm_closest_hit.launches, tmm.cull_tiles.launches) != (
+    if (tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches) != (
             before[0] + 1, before[1] + 1):
         raise RuntimeError("closest_hit_mm_full did not launch both kernels")
     t0, i0 = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=chunk)
@@ -1649,8 +1715,8 @@ def phase_oracle(scene, sets, n_each, chunk):
 
 
 def cull_args_of(scene, o, d, act):
-    """`cull_tiles`' arguments for rays (o, d) as `closest_hit_mm_full`
-    makes them (the sphere pass's t as occlusion bound)."""
+    """The cull's arguments for rays (o, d) as `closest_hit_mm_full` makes
+    them (the sphere pass's t as occlusion bound)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
@@ -1662,12 +1728,15 @@ def cull_args_of(scene, o, d, act):
 
 
 def cull_bound(args):
-    """The least time of one `cull_tiles` call: CULL_FLOP_PER_PAIR on every
-    (ray, tile) pair, and the bytes of its inputs and outputs once."""
+    """The least time of one list cull call: CULL_FLOP_PER_PAIR on every
+    (ray, tile) pair, and the bytes of its inputs and outputs once: 8 per
+    (subgroup, tile) (list and smin), 4 per subgroup (its count) and 4 per
+    lane (lane_bound)."""
     x, active, tile_box, _, occ = args
     n, nt = x.shape[0], tile_box.shape[0]
-    nbytes = (x.numel() + active.numel() + occ.numel() + tile_box.numel()) * 4 \
-        + (n // 128) * nt * 5 + n * 4
+    nbytes = (x.numel() + active.numel() + tile_box.numel()
+              + (0 if occ is None else occ.numel())) * 4 \
+        + (n // 128) * (nt * 8 + 4) + n * 4
     flop_ms = n * nt * CULL_FLOP_PER_PAIR / PEAK_F32_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(pairs=n * nt, bytes=nbytes, bound_ms=max(flop_ms, byte_ms),
@@ -1675,39 +1744,55 @@ def cull_bound(args):
 
 
 def phase_cull(name, args, sass):
-    """cull_tiles vs cull_pass_reference on the inputs closest_hit_mm_full
-    gives them: bit-equal outputs, and both timed. `sass` (cull_sass) gives
+    """The list cull `_cull_tile_lists` vs `cull_tile_lists_reference`, and
+    the plain cull `cull_tiles` vs `cull_pass_reference`, on the inputs
+    closest_hit_mm_full gives them: bit-equal outputs (a NaN lane bound
+    where the plain version has one), and each timed; beside them the plain
+    cull followed by the torch ops that sorted its rows before the list
+    cull did (`cull_and_tail`, this tree's build). `sass` (cull_sass) gives
     the issue estimate: the loop's instructions per pair at one per lane
     per clock of every SM at the card's top SM clock."""
     import torch
 
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    out_k = tmm.cull_tiles(*args)
-    out_r = tmm.cull_pass_reference(*args)
-    torch.cuda.synchronize()
-    for what, k, r in zip(("sgm", "gent", "lane_bound"), out_k, out_r):
-        if not torch.equal(k, r):
-            bad = int((k != r).sum())
-            raise RuntimeError(f"cull_tiles vs plain ({name}): {what} differs "
-                               f"at {bad} places")
-    fin = torch.isfinite(out_r[1])
-    err = float((out_k[1][fin] - out_r[1][fin]).abs().max()) if fin.any() else 0.0
-    k_ms = device_ms(lambda: tmm.cull_tiles(*args))
-    c_ms = call_ms(lambda: tmm.cull_tiles(*args), 20)
-    r_ms = call_ms(lambda: tmm.cull_pass_reference(*args), 3)
     n, nt = args[0].shape[0], args[2].shape[0]
+    route = tmm.sort_route(nt)
+    for entry, plain, names in (
+            (tmm._cull_tile_lists, tmm.cull_tile_lists_reference,
+             ("lists", "counts", "smin", "lane_bound")),
+            (tmm.cull_tiles, tmm.cull_pass_reference, ("sgm", "gent", "lane_bound"))):
+        out_k, out_r = entry(*args), plain(*args)
+        torch.cuda.synchronize()
+        for what, k, r in zip(names, out_k, out_r):
+            same = k == r
+            if k.dtype.is_floating_point:
+                same |= torch.isnan(k) & torch.isnan(r)
+            if k.dtype != r.dtype or not bool(same.all()):
+                raise RuntimeError(f"{entry.__name__} vs plain ({name}): {what} differs "
+                                   f"at {int((~same).sum())} places")
+    fin = torch.isfinite(out_r[1])  # the plain cull's gent
+    err = float((out_k[1][fin] - out_r[1][fin]).abs().max()) if fin.any() else 0.0
+    k_ms = device_ms(lambda: tmm._cull_tile_lists(*args))
+    rows_ms = device_ms(lambda: tmm.cull_tiles(*args))
+    tail_ms = device_ms(cull_and_tail(args)[0])
+    c_ms = call_ms(lambda: tmm._cull_tile_lists(*args), 20)
+    r_ms = call_ms(lambda: tmm.cull_tile_lists_reference(*args), 3)
     b = cull_bound(args)
     issue_ms = n * nt * sass["per_pair"] / (H100_SMS * 128 * sass["clock_hz"]) * 1e3
-    rec = dict(rays=n, tiles=nt, active=int((args[1] > 0.5).sum()), max_abs_err=err,
-               passing=float(out_r[0].float().mean()), ms=k_ms, call_ms=c_ms,
-               plain_ms=r_ms, **b, share=b["bound_ms"] / k_ms, issue_ms=issue_ms,
+    rec = dict(rays=n, tiles=nt, route=route, active=int((args[1] > 0.5).sum()),
+               max_abs_err=err, passing=float(out_r[0].float().mean()), ms=k_ms,
+               rows_ms=rows_ms, tail_ms=tail_ms, call_ms=c_ms, plain_ms=r_ms, **b,
+               share=b["bound_ms"] / k_ms, issue_ms=issue_ms,
                issue_share=issue_ms / k_ms)
-    log(f"    cull_tiles vs plain ({name}): {n} rays x {nt} tiles, bit-equal, "
-        f"{rec['passing']:.4f} of (subgroup, tile) pairs pass; kernel {k_ms * 1e3:.2f} us on the device, {c_ms * 1e3:.2f} us "
-        f"per call, plain {r_ms:.3f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
-        f"({b['bound_by']}), {100 * rec['share']:.1f}% of it reached; issue "
-        f"estimate {issue_ms * 1e3:.2f} us ({100 * rec['issue_share']:.1f}%)")
+    log(f"    cull vs plain ({name}): {n} rays x {nt} tiles, {route} sort, both "
+        f"entries bit-equal, {rec['passing']:.4f} of (subgroup, tile) pairs pass; "
+        f"lists {k_ms * 1e3:.2f} us on the device ({c_ms * 1e3:.2f} us per call), "
+        f"plain cull {rows_ms * 1e3:.2f} us, plain cull and its torch tail "
+        f"{tail_ms * 1e3:.2f} us, plain versions {r_ms:.3f} ms; bound "
+        f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {100 * rec['share']:.1f}% "
+        f"of it reached; issue estimate {issue_ms * 1e3:.2f} us "
+        f"({100 * rec['issue_share']:.1f}%)")
     return rec
 
 
@@ -1731,7 +1816,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     """`run()` with the kernels wrapped. `picks` maps a name to
     `pick(i, lanes, k)`: asked at every `mm_closest_hit` call (the i-th of
     the run, the k-th on that many lanes, both from 1), and where it says
-    yes that call's arguments and those of the `cull_tiles` call of the
+    yes that call's arguments and those of the `_cull_tile_lists` call of the
     same advance are cloned under the name, and so are the arguments of
     every `threefry_bundle` call after it until the next `mm_closest_hit`
     call (the advance's bundles: the bounce step's, then the restart's
@@ -1746,7 +1831,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
+    kernels = tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle
     shading_kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
     seen = {"mm": 0, "by_lanes": {}, "cull": None, "drawing": None, "front": None}
     captured = {}
@@ -1789,8 +1874,9 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     # these wrappers while they are in place; the run is eager, so that the
     # wrappers see every call with its values (a CUDA graph replays none)
     mm.launches = mm.clustered = cull.launches = draw.launches = draw.draws = 0
+    cull.routes = {"rank": 0, "radix": 0}
     graphs.clear()
-    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
+    tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle = mm, cull, draw
     for k in WRAPPER_KERNEL:
         setattr(wrapper_module(k), k, shaded(k))
     try:
@@ -1799,7 +1885,7 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     except _Captured:
         pass
     finally:
-        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle = kernels
         for k, fn in shading_kernels.items():
             setattr(wrapper_module(k), k, fn)
         graphs.clear()
@@ -1885,7 +1971,7 @@ def shading_steps(scene, w, h, steps, stride=1, cam=None, cfg=None, seed=0):
 
 def capture_pool_call(shading=None):
     """The CAPTURE_CALL-th `mm_closest_hit` call of the flagship wavefront
-    render, and the `cull_tiles` and `threefry` calls of the same advance
+    render, and the `_cull_tile_lists` and `threefry` calls of the same advance
     (and into `shading` its bounce step's kernels' calls)."""
     from metalpathtracer_torch import cli
 
@@ -1926,7 +2012,7 @@ def viewer_loop(scene, integrator="wavefront"):
 def capture_viewer_calls(scene, shading=None):
     """Of one viewer frame at the defaults: the 5th `mm_closest_hit` call on
     the viewer's pool and the first on the drain's lanes, each with its
-    `cull_tiles` and `threefry` calls (and into `shading` its bounce step's
+    `_cull_tile_lists` and `threefry` calls (and into `shading` its bounce step's
     kernels' calls)."""
     from metalpathtracer_torch import viewer
 
@@ -1987,7 +2073,7 @@ def phase_paths(profile_on: bool, w=1280, h=720):
             f"{stats['rays']} rays, {stats['mrays_per_sec']} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']} ({counts['mm_clustered']} clustered), "
-            f"cull_tiles {counts['cull_launches']}, "
+            f"cull_tile_lists {counts['cull_launches']} ({counts['cull_radix']} radix), "
             f"threefry {counts['threefry_launches']} ({counts['threefry_draws']} draws), "
             f"{shading_text(counts)}, {regen_text(counts)}; "
             f"image mean {images[name].mean():.4f}")
@@ -2037,7 +2123,7 @@ def phase_legs(scenes, profile_on: bool):
             f"{dt:.3f} s, {rays} rays, {rec['mrays_per_sec']:.3f} Mrays/s, "
             f"{counts['steps']} bounce steps traced, launches on the card: mm_closest_hit "
             f"{counts['mm_launches']} ({counts['mm_clustered']} clustered), "
-            f"cull_tiles {counts['cull_launches']}, "
+            f"cull_tile_lists {counts['cull_launches']} ({counts['cull_radix']} radix), "
             f"threefry {counts['threefry_launches']}, {shading_text(counts)}, "
             f"{regen_text(counts)}; image mean {img.mean():.4f}")
     return result
@@ -2377,7 +2463,7 @@ def phase_checkpoint(scan):
         f"(one checkpoint write {write_s:.3f} s); resumed and uninterrupted images "
         f"bit-equal; vs scan {frac:.5f} of pixels differ by > 1e-3, means by "
         f"{dmean:.2e}; launches per 4 spp: mm_closest_hit {c3['mm_launches']}, "
-        f"cull_tiles {c3['cull_launches']}, threefry {c3['threefry_launches']}; "
+        f"cull_tile_lists {c3['cull_launches']}, threefry {c3['threefry_launches']}; "
         "another --fov exits 2")
     return dict(first_s=first["seconds"], resumed_s=resumed["seconds"],
                 straight_s=straight["seconds"], write_s=write_s, counts=c3,
@@ -2427,7 +2513,7 @@ def phase_progressive(scene, scan_image, depth=32):
     wf = record["wavefront"]
     log(f"[11] progressive wavefront: 4 steps of 1 spp in "
         + ", ".join(f"{t:.3f}" for t in wf["step_s"]) + f" s, {wf['rays']} rays, "
-        f"launches: mm_closest_hit {wf['counts']['mm_launches']}, cull_tiles "
+        f"launches: mm_closest_hit {wf['counts']['mm_launches']}, cull_tile_lists "
         f"{wf['counts']['cull_launches']}, threefry {wf['counts']['threefry_launches']}; "
         "accumulate steps in "
         + ", ".join(f"{t:.3f}" for t in record["scan"]["step_s"]) + " s; step for "
@@ -2489,7 +2575,7 @@ def phase_viewer(scene, child_argv=()):
                     if site.split(":")[0] in ("rng.py", "threefry.py"))
     log(f"[12] viewer loop in process at {size[0]}x{size[1]}, depth {VIEWER_DEPTH}: "
         f"{dispatched} frames, launches: mm_closest_hit {counts['mm_launches']}, "
-        f"cull_tiles {counts['cull_launches']} "
+        f"cull_tile_lists {counts['cull_launches']} "
         f"({counts['mm_launches'] / dispatched:.1f} per frame), threefry "
         f"{counts['threefry_launches']} ({counts['threefry_launches'] / dispatched:.1f} "
         f"per frame); frame 5 vs five "
@@ -2589,7 +2675,7 @@ def phase_viewer(scene, child_argv=()):
         f"{VIEWER_STEADY_FROM} on: {fps:.3f} "
         f"frames per second (dt median {rec['dt_median_s']:.3f} s, "
         f"{dts[0]:.3f}-{dts[-1]:.3f} s); per frame: mm_closest_hit "
-        f"{rec['mm_launches_per_frame']:g} launches, cull_tiles "
+        f"{rec['mm_launches_per_frame']:g} launches, cull_tile_lists "
         f"{rec['cull_launches_per_frame']:g}; the key "
         f"after frame {VIEWER_KEY_AFTER} reset the display to 1 spp at frame "
         f"{reset_at[0]} (that frame's dt {rec['reset_frame_dt_s']:.3f} s); "
@@ -2631,14 +2717,14 @@ def phase_bvh(sets, n_each, chunk):
     log(f"[13] reference scene built and uploaded in {bare_s:.2f} s without its "
         f"BVH, {upload_s:.2f} s with it")
     o, d = oracle_rays(sets, n_each)
-    before = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    before = tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
     closest_hit_bvh(scene, o[:1024], d[:1024])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     t1, i1 = closest_hit_bvh(scene, o, d, T_MIN)
     torch.cuda.synchronize()
     bvh_ms = (time.perf_counter() - t0) * 1e3
-    if (tmm.mm_closest_hit.launches, tmm.cull_tiles.launches) != before:
+    if (tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches) != before:
         raise RuntimeError("closest_hit_bvh launched a tile kernel")
     mm_ms = call_ms(lambda: tmm.closest_hit_mm_full(scene, o, d, T_MIN), 5)
     t0_, i0 = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=chunk)
@@ -2674,7 +2760,7 @@ def phase_bvh(sets, n_each, chunk):
                     tsh.shade.launches + tsh.shade_bank.launches,
                     tsh.shade_hit.launches + tsh.shade_bank_hit.launches)
 
-        launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+        launches = tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
         shaded = shading_calls()
         before = dict(graphs.STATS)
         out = io.StringIO()
@@ -2771,7 +2857,7 @@ def phase_sharded_cli(paths):
         result[name] = dict(stats=stats, counts=counts)
         log(f"[14a] cli --tile-shard {name} in a world of one: {stats['seconds']} s, "
             f"{stats['rays']} rays, launches: mm_closest_hit {counts['mm_launches']}, "
-            f"cull_tiles {counts['cull_launches']}, threefry "
+            f"cull_tile_lists {counts['cull_launches']}, threefry "
             f"{counts['threefry_launches']}; image bit-equal to phase "
             f"{6 if name == 'scan' else 7}'s")
     return result
@@ -2844,7 +2930,7 @@ def phase_config5():
         f"depth {CONFIG5_DEPTH}, {CONFIG5_SPP} spp in steps of {CONFIG5_STEP}, world of "
         "one: accumulate_sharded steps " + ", ".join(f"{t:.3f}" for t in secs)
         + f" s ({step_s:.3f} s, {rays / step_s / 1e6:.3f} Mrays/s), {rays} rays, launches: "
-        f"mm_closest_hit {counts['mm_launches']}, cull_tiles {counts['cull_launches']}, "
+        f"mm_closest_hit {counts['mm_launches']}, cull_tile_lists {counts['cull_launches']}, "
         f"threefry {counts['threefry_launches']}; "
         f"render_image_wavefront of {CONFIG5_SPP} spp {whole_s:.3f} s "
         f"({whole_counts['mm_launches']} launches); max |difference| {worst:.3g} "
@@ -2966,7 +3052,7 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
             f"({one['launches']['mm_launches']} launches of each kernel), {ranks} "
             f"ranks {where} together {more['seconds']:.3f} s (mm_closest_hit "
             f"{' + '.join(map(str, more['mm_launches_by_rank']))} = "
-            f"{more['launches']['mm_launches']}, cull_tiles "
+            f"{more['launches']['mm_launches']}, cull_tile_lists "
             f"{more['launches']['cull_launches']}, threefry "
             f"{more['launches']['threefry_launches']}), {more['rays']} rays, "
             f"{more['pixels_differing']} pixels differ from the world of one's "
@@ -3075,7 +3161,7 @@ def phase_nee(card):
         log(f"[15] multimesh NEE, rr_start 3, {name} 320x180 spp 2 depth 8: "
             f"{card_s:.3f} s on the card, {out[1]} vs {b[1]} rays"
             + (f" ({shadow} shadow rays)" if shadow is not None else "")
-            + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tiles "
+            + f", launches: mm_closest_hit {counts['mm_launches']}, cull_tile_lists "
             f"{counts['cull_launches']}, threefry {counts['threefry_launches']} "
             f"({counts['threefry_draws']} draws), {shading_text(counts)}, "
             f"{counts['steps']} bounce steps traced ({counts['nee_steps']} on the plain "
@@ -3247,7 +3333,7 @@ GRAPH_VIEWER_FRAMES = 30
 # the `mm_closest_hit` call of a captured flagship window whose kernels are
 # held against their plain versions
 GRAPH_CALL = 5
-# the flagship's counts (PERF.md): mm_closest_hit, cull_tiles, threefry;
+# the flagship's counts (PERF.md): mm_closest_hit, cull_tile_lists, threefry;
 # on the wavefront and on the scan (4 samples of 32 bounce steps, each with a
 # live lane, and a jitter bundle a sample)
 # (the restart draws the wavefront's jitter itself: threefry launches one
@@ -3508,7 +3594,7 @@ def phase_bounce_kernels(sets: dict) -> dict:
 def recorded_in_capture(call: int):
     """The kernels wrapped: while a CUDA graph is being captured, the
     `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
-    those of the `cull_tiles` and `hit_front` calls before it and of the
+    those of the `_cull_tile_lists` and `hit_front` calls before it and of the
     first `hit_epilogue`, `threefry_bundle` and `shade` or `shade_bank`
     calls after it (its bounce step's); on a scene without triangles, which
     launches no tile kernel, the `call`-th bundle of more than one draw (a
@@ -3522,7 +3608,7 @@ def recorded_in_capture(call: int):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import threefry as tfk
 
-    kernels = tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle
+    kernels = tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle
     shading_kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
     got, seen = {}, {"mm": 0, "cull": None, "steps": 0, "hit_front": None,
                      "sphere_calls": 0}
@@ -3567,14 +3653,15 @@ def recorded_in_capture(call: int):
         return out
 
     mm.launches = mm.clustered = cull.launches = draw.launches = draw.draws = 0
+    cull.routes = {"rank": 0, "radix": 0}
     graphs.clear()
-    tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = mm, cull, draw
+    tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle = mm, cull, draw
     for k in WRAPPER_KERNEL:
         setattr(wrapper_module(k), k, shaded(k))
     try:
         yield got
     finally:
-        tmm.mm_closest_hit, tmm.cull_tiles, tfk.threefry_bundle = kernels
+        tmm.mm_closest_hit, tmm._cull_tile_lists, tfk.threefry_bundle = kernels
         for k, fn in shading_kernels.items():
             setattr(wrapper_module(k), k, fn)
         graphs.clear()
@@ -3935,7 +4022,7 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
     log(f"[17] {name}: graph vs eager bit-equal ({len(eager['outs'])} tensors, "
         f"{GRAPH_REPEATS + 2} renders a loop), rays {eager['rays']}; launches on the "
         f"card (eager loop): mm_closest_hit {c['mm_launches']}, "
-        f"cull_tiles {c['cull_launches']}, threefry {c['threefry_launches']} "
+        f"cull_tile_lists {c['cull_launches']}, threefry {c['threefry_launches']} "
         f"({c['threefry_draws']} draws), {shading_text(c)}, {regen_text(c)}"
         + (f", graph loop {graph['launched']} and {graph['shading']} with {idle} idle "
            f"steps past the last live lane" if scan
@@ -4007,7 +4094,7 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
                      "shade_hit" if what.endswith("_block") else "shade_bank_hit"})
     if stats["captures"] == 0 or stats["replays"] < 2 or set(rec) != kernels:
         raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
-    for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm.cull_tiles),
+    for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm._cull_tile_lists),
                       ("threefry", tfk.threefry_bundle),
                       *((k, getattr(wrapper_module(k), k)) for k in WRAPPER_KERNEL)):
         if kname not in rec:
@@ -4573,7 +4660,7 @@ def phase_regen_in_window(scene) -> dict:
 def _launches():
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    return tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    return tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
 
 
 def main(argv=None) -> int:
@@ -4583,7 +4670,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time mm_closest_hit built with 1, 2, 4 and 8 "
                          "column slices per tile and 1 and 4 rays per thread, "
-                         "cull_tiles with at most 8, 16 and 32 warps per "
+                         "cull_tile_lists with at most 8, 16 and 32 warps per "
                          "block aiming at 64, 128 and 256 warps per SM, "
                          "threefry with 64, 128 and 256 threads a block, and "
                          "mm_closest_hit at cluster widths 1, 2, 4 and 8")
@@ -4685,7 +4772,7 @@ def main(argv=None) -> int:
     # 32,768 rays of a 512x512 view (every 8th pixel), as the legs' pool
     leg_sets = {k: primary_and_bounce(s, LEG_W, LEG_H, stride=8)
                 for k, s in big.items()}
-    log("[4] cull_tiles vs its plain version")
+    log("[4] the tile cull (the lists and the plain rows) vs its plain versions")
     cull_sets = {"reference_primary": cull_args_of(scene, *ref_sets["primary"]),
                  "reference_pool": cull_pool,
                  **{f"reference_{k}": v[1] for k, v in of_viewer.items()}}
@@ -4773,14 +4860,14 @@ def main(argv=None) -> int:
     sweep = against = None
     if args.sweep:
         log(f"[S] mm_closest_hit with {SWEEP_SLICES} column slices per tile and "
-            f"{SWEEP_RAYS} rays per thread; cull_tiles with at most {SWEEP_WARPS} "
+            f"{SWEEP_RAYS} rays per thread; cull_tile_lists with at most {SWEEP_WARPS} "
             f"warps per block, aiming at {SWEEP_FILL} warps per SM; threefry with "
             f"{SWEEP_THREADS} threads a block")
         sweep = {
             "mm_closest_hit": phase_sweep("mm_closest_hit", {
                 f"K={k},R={r}": (f"MM_SLICES={k}", f"MM_RAYS={r}")
                 for r in SWEEP_RAYS for k in SWEEP_SLICES}, mm_sets),
-            "cull_tiles": phase_sweep("cull_tiles", {
+            "cull_tile_lists": phase_sweep("cull_tile_lists", {
                 f"W={w},F={f}": (f"CULL_WARPS={w}", f"CULL_FILL={f}")
                 for f in SWEEP_FILL for w in SWEEP_WARPS}, cull_sets),
             "threefry": phase_sweep("threefry", {
@@ -4792,7 +4879,8 @@ def main(argv=None) -> int:
     if args.against:
         log(f"[A] the three kernels built from {args.against} and from this checkout")
         against = phase_against(Path(args.against).resolve(),
-                                {"cull_tiles": cull_sets, "mm_closest_hit": mm_sets,
+                                {"cull_tile_lists": {k: cull_sets[k] for k in AGAINST_CULL},
+                                 "mm_closest_hit": mm_sets,
                                  "threefry": {k: v for k, v in draw_args.items()
                                               if len(v[4]) > 1}})
         against["renders"] = phase_against_renders(Path(args.against).resolve())
@@ -4848,12 +4936,14 @@ def main(argv=None) -> int:
              bound_by=mm["bound_by"], share=mm["share"], library_ms=None,
              cluster=mm["cluster"], longest_walk_ms=mm["longest_walk_ms"],
              launches_by_path={k: v["mm_launches"] for k, v in per_path.items()}),
-        dict(name="cull_tiles", route="cuda", **KERNELS["cull_tiles"],
+        dict(name="cull_tile_lists", route="cuda", **KERNELS["cull_tile_lists"],
              launches=main_path["cull_launches"], max_abs_err=cl["max_abs_err"],
              ms=cl["ms"], call_ms=cl["call_ms"], plain_ms=cl["plain_ms"],
              bound_ms=cl["bound_ms"],
              bound_by=cl["bound_by"], share=cl["share"], library_ms=None,
-             launches_by_path={k: v["cull_launches"] for k, v in per_path.items()}),
+             sort_route=cl["route"], rows_ms=cl["rows_ms"], tail_ms=cl["tail_ms"],
+             launches_by_path={k: v["cull_launches"] for k, v in per_path.items()},
+             radix_launches_by_path={k: v.get("cull_radix") for k, v in per_path.items()}),
         # torch.rand is Philox, another function: no PyTorch call computes it
         dict(name="threefry", route="cuda", **KERNELS["threefry"],
              launches=main_path["threefry_launches"],

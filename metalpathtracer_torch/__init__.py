@@ -10,8 +10,9 @@ What is ported so far are the CLI's two render paths:
 `render.integrator.trace`) or `render_image_wavefront` (the persistent
 wavefront, `trace_wavefront`) -> `_bounce_step` ->
 `render.kernels.intersect_mm.closest_hit_mm_winners`, whose triangle pass
-runs the hand-written CUDA kernels `csrc/cull_tiles.cu` and
-`csrc/mm_closest_hit.cu` after the front end (`csrc/sphere_pass.cu`: the
+runs the hand-written CUDA kernels `csrc/cull_tiles.cu` (the cull, which
+sorts each subgroup's tile list itself) and `csrc/mm_closest_hit.cu` after
+the front end (`csrc/sphere_pass.cu`: the
 sphere pass and every per-lane operand of the cull and the closest hit);
 every random draw (`core.rng`) runs `csrc/threefry.cu` through
 `render.kernels.threefry` (a bounce step's draws in one launch), and the

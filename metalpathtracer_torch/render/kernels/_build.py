@@ -11,7 +11,8 @@ and the flags, loaded with `ctypes`, and launched on the current stream by
 
 Every launch also adds to its kernel's `tally` on the device: thread 0 of
 block 0 adds one launch (and the threefry kernel its draws, the closest hit
-its launches that shared walks over thread block clusters). A CUDA graph's
+its launches that shared walks over thread block clusters, the list cull its
+launches that sorted by radix). A CUDA graph's
 replay runs the kernels it captured, and so moves their tallies as eager
 launches do, while it runs none of the wrappers' Python. Nothing here runs
 at import time: the CPU-only test environment imports every module and has
@@ -44,16 +45,18 @@ NVCC_FLAGS = (
 # without feature pointers writes the sphere winner alone); the wavefront's
 # shading and bank, and both shadings from the closest hit's raw winners
 # (the epilogue in registers), in the shading's (entries of one lane body);
-# the wavefront's four regeneration kernels in one source
-SOURCES = {"hit_front": "sphere_pass", "shade_bank": "shade", "shade_hit": "shade",
+# the wavefront's four regeneration kernels in one source; the cull that
+# sorts its rows into the closest hit's lists in the plain cull's
+SOURCES = {"cull_tile_lists": "cull_tiles", "hit_front": "sphere_pass", "shade_bank": "shade", "shade_hit": "shade",
            "shade_bank_hit": "shade", "restart_lanes": "wavefront",
            "queue_pop": "wavefront", "tileset_key": "wavefront",
            "permute_lanes": "wavefront"}
-# flags of one source's build: the bounce step's and the restart's kernels
-# round every product on their own, as their plain versions' separate torch
-# kernels do (nvcc would contract a * b + c into one FMA)
+# flags of one source's build: the bounce step's, the restart's and the
+# cull's kernels round every product on their own, as their plain versions'
+# separate torch kernels do (nvcc would contract a * b + c into one FMA)
 KERNEL_FLAGS = {name: ("-fmad=false",)
-                for name in ("sphere_pass", "hit_epilogue", "shade", "wavefront")}
+                for name in ("cull_tiles", "sphere_pass", "hit_epilogue", "shade",
+                             "wavefront")}
 
 
 def source_of(kernel: str) -> str:
@@ -120,6 +123,7 @@ ENTRY_ARGS = {
     "mm_closest_hit": (9, (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_int)),
     "cull_tiles": (7, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
+    "cull_tile_lists": (8, (ctypes.c_int, ctypes.c_int, ctypes.c_float)),
     # n, seed, the draw count and 8 packed draws, then (layout, value) of
     # pixel, sample, bounce
     "threefry": (4, (ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int)
@@ -216,7 +220,8 @@ _tallies: dict = {}
 def tally(kernel: str, device) -> torch.Tensor:
     """`kernel`'s (launches, draws) on `device` since the last
     `zero_tallies`, a (2,) int64 tensor there that the kernel adds to
-    itself (the closest hit's second slot: its clustered launches). Made
+    itself (the closest hit's second slot: its clustered launches;
+    `cull_tile_lists`': its launches that sorted by radix). Made
     at the kernel's first launch on the device, which a stream capture may
     not be: it would capture the zeroing (a graph's warm-up launches
     first)."""
@@ -232,7 +237,8 @@ def tally(kernel: str, device) -> torch.Tensor:
 
 def tallies(device) -> dict:
     """{kernel: (launches, draws)} of every kernel launched on `device`
-    (`mm_closest_hit`: (launches, clustered launches)): one read of the
+    (`mm_closest_hit`: (launches, clustered launches); `cull_tile_lists`:
+    (launches, radix launches)): one read of the
     device, after the work queued before it."""
     index = torch.device(device).index or 0
     names = [k for k, i in _tallies if i == index]

@@ -19,10 +19,10 @@ chain of its non-zero terms over 9 ray features (d, o x d, o). The plain
 twin expands the tiles it gathers to the dense (4, 12) form
 (`expand_slab`) and takes the four 12-term dot products as one batched
 matmul. Before the kernel, the CUDA kernel `csrc/cull_tiles.cu` slab-tests
-every ray against every tile box and reduces the result per 128-lane
-subgroup, from which each subgroup's entry-ordered list of passing tiles is
-sorted. Before the cull, the front end `csrc/sphere_pass.cu` (`hit_front`)
-runs the exact sphere pass and writes every per-lane operand of the cull
+every ray against every tile box, reduces the result per 128-lane subgroup
+and sorts each subgroup's row in the same block into its entry-ordered list
+of passing tiles (`_cull_tile_lists`). Before the cull, the front end
+`csrc/sphere_pass.cu` (`hit_front`) runs the exact sphere pass and writes every per-lane operand of the cull
 and the closest hit (the ray features, the active flags, the occlusion
 bound, padded to whole subgroups) in one pass; after the closest hit, the
 epilogue (the plane-t refine of the winner, the merge, the normal) is a
@@ -82,6 +82,11 @@ TWIN_GROUP_CHUNK = 1024
 # (ray, tile) pairs per step of the plain cull: ~64 MB per f32 temporary
 CULL_TWIN_PAIRS = 1 << 24
 RECIP_CLIP = 1e30  # the cull's reciprocal clip: finite, so no inf * 0
+# the longest rows the cull's block sorts by counting ranks, and by its
+# radix sort (`sort_route`; csrc/cull_tiles.cu's kRankMaxTiles, chosen on
+# the card, and kRadixMaxTiles)
+RANK_SORT_MAX_TILES = 384
+RADIX_SORT_MAX_TILES = 8192
 _INF = float("inf")
 
 
@@ -434,23 +439,13 @@ def cull_tiles(x, active, tile_box, t_min: float, occ=None):
     `cull_tiles.launches`); CPU tensors take `cull_pass_reference`. Any
     other device raises.
     """
-    n, nt = x.shape[0], tile_box.shape[0]
-    f32 = torch.float32
-    _build.check_tensors("cull_tiles", [
-        ("x", x, f32, (n, NUM_FEATURES)),
-        ("active", active, f32, (n,)),
-        ("tile_box", tile_box, f32, (nt, 8)),
-    ] + ([] if occ is None else [("occ", occ, f32, (n,))]), x.device)
-    if n % LANES:
-        raise ValueError(f"cull_tiles: {n} rays is not a multiple of {LANES}")
+    n, nt = _check_cull_operands("cull_tiles", x, active, tile_box, occ)
     if x.device.type == "cpu":
         return cull_pass_reference(x, active, tile_box, t_min, occ)
-    if x.device.type != "cuda":
-        raise ValueError(f"cull_tiles: no kernel for device {x.device}")
     g = n // LANES
     sgm = torch.empty((g, nt), dtype=torch.bool, device=x.device)
-    gent = torch.empty((g, nt), dtype=f32, device=x.device)
-    lane_bound = torch.empty((n,), dtype=f32, device=x.device)
+    gent = torch.empty((g, nt), dtype=torch.float32, device=x.device)
+    lane_bound = torch.empty((n,), dtype=torch.float32, device=x.device)
     _build.launch("cull_tiles", (x, active, occ, tile_box), (sgm, gent, lane_bound),
             (g, nt, float(t_min)), x.device)
     cull_tiles.launches += 1
@@ -458,6 +453,24 @@ def cull_tiles(x, active, tile_box, t_min: float, occ=None):
 
 
 cull_tiles.launches = 0
+
+
+def _check_cull_operands(kernel, x, active, tile_box, occ):
+    """(N, nt) of a cull's operands; raises unless they have the dtypes and
+    shapes `cull_tiles` takes, lie on one device that has the kernel or is
+    the CPU, and N is whole subgroups."""
+    n, nt = x.shape[0], tile_box.shape[0]
+    f32 = torch.float32
+    _build.check_tensors(kernel, [
+        ("x", x, f32, (n, NUM_FEATURES)),
+        ("active", active, f32, (n,)),
+        ("tile_box", tile_box, f32, (nt, 8)),
+    ] + ([] if occ is None else [("occ", occ, f32, (n,))]), x.device)
+    if n % LANES:
+        raise ValueError(f"{kernel}: {n} rays is not a multiple of {LANES}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: no kernel for device {x.device}")
+    return n, nt
 
 
 def cull_pass_reference(x, active, tile_box, t_min: float, occ=None):
@@ -507,18 +520,62 @@ def cull_pass_reference(x, active, tile_box, t_min: float, occ=None):
     return sgm, gent, lane_bound
 
 
+def sort_route(n_tiles: int) -> str:
+    """How `_cull_tile_lists`' kernel sorts a row of `n_tiles`: "rank" (each
+    thread counts the keys below its own) up to RANK_SORT_MAX_TILES, else
+    "radix" (cub's block radix sort) up to RADIX_SORT_MAX_TILES."""
+    if n_tiles > RADIX_SORT_MAX_TILES:
+        raise ValueError(f"cull_tile_lists: {n_tiles} tiles, more than the "
+                         f"{RADIX_SORT_MAX_TILES} a block sorts")
+    return "rank" if n_tiles <= RANK_SORT_MAX_TILES else "radix"
+
+
 def _cull_tile_lists(x, active, tile_box, t_min, occ=None):
-    """Entry-ordered passing-tile lists per 128-lane subgroup:
+    """Entry-ordered passing-tile lists per 128-lane subgroup, the closest-hit
+    kernel's inputs, from the operands `cull_tiles` takes:
       lists (G, nt) int32: passing tiles first, nearest entry first
       counts (G,) int32
       smin (G, nt) f32: the subgroup-min entry at each list position
         (ascending; +inf at non-passing positions)
-      lane_bound (N,) f32: per lane, max entry over its passing tiles.
-    One stable sort gives both the sorted entries and the permutation;
-    equal entries keep ascending tile order."""
-    sgm, gent, lane_bound = cull_tiles(x, active, tile_box, t_min, occ)
+      lane_bound (N,) f32: per lane, max entry over its passing tiles,
+        then min(., occ) where `occ` is given.
+    The order is a stable sort's: equal entries keep ascending tile order.
+
+    CUDA tensors launch `csrc/cull_tiles.cu`'s `cull_tile_lists`, which
+    sorts each row in the cull's block (`sort_route`), and count the launch
+    in `_cull_tile_lists.launches` and its route in `.routes`; CPU tensors
+    take `cull_tile_lists_reference`. Any other device raises."""
+    n, nt = _check_cull_operands("cull_tile_lists", x, active, tile_box, occ)
+    if x.device.type == "cpu":
+        return cull_tile_lists_reference(x, active, tile_box, t_min, occ)
+    route = sort_route(nt)
+    g = n // LANES
+    i32, f32 = torch.int32, torch.float32
+    outs = (torch.empty((g, nt), dtype=i32, device=x.device),
+            torch.empty((g,), dtype=i32, device=x.device),
+            torch.empty((g, nt), dtype=f32, device=x.device),
+            torch.empty((n,), dtype=f32, device=x.device))
+    _build.launch("cull_tile_lists", (x, active, occ, tile_box), outs,
+                  (g, nt, float(t_min)), x.device)
+    _cull_tile_lists.launches += 1
+    _cull_tile_lists.routes[route] += 1
+    return outs
+
+
+_cull_tile_lists.launches = 0
+_cull_tile_lists.routes = {"rank": 0, "radix": 0}
+
+
+def cull_tile_lists_reference(x, active, tile_box, t_min: float, occ=None):
+    """Plain torch twin of `_cull_tile_lists`' kernel: `cull_pass_reference`,
+    the entered tiles counted, one stable sort of each row (the sorted
+    entries and the permutation), the casts, and the lane bound's minimum
+    with `occ`."""
+    sgm, gent, lane_bound = cull_pass_reference(x, active, tile_box, t_min, occ)
     counts = sgm.sum(dim=1).to(torch.int32)
-    smin, lists = torch.sort(gent.contiguous(), dim=1, stable=True)
+    smin, lists = torch.sort(gent, dim=1, stable=True)
+    if occ is not None:
+        lane_bound = torch.minimum(lane_bound, occ)
     return lists.to(torch.int32), counts, smin, lane_bound
 
 
@@ -546,13 +603,13 @@ def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
     """The kernel's inputs for rays (o, d), padded with inactive lanes to
     a multiple of 128: (lists, counts, smin, x, lane_bound). `occ` (N,) is
     each lane's occlusion bound (+inf for none); `active` (N,) bool or
-    None for all lanes. Plain torch around the cull (what `hit_front`
+    None for all lanes. Plain torch around the list cull (what `hit_front`
     writes in one kernel on the card)."""
     x, act, occ = _padded_operands(o, d, active, occ)
     lists, counts, smin, lane_bound = _cull_tile_lists(
         x, act, scene.mm_tile_box, t_min, occ
     )
-    return lists, counts, smin, x, torch.minimum(lane_bound, occ)
+    return lists, counts, smin, x, lane_bound
 
 
 def hit_front(o, d, active, occ_t, sph_center, sph_radius, sph_ids, t_min: float):
@@ -617,10 +674,10 @@ def hit_front_reference(o, d, active, occ_t, sph_center, sph_radius, sph_ids,
 
 def closest_hit_mm_winners(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     """The closest hit up to its epilogue: the front end (the exact sphere
-    pass and the tile operands) and the triangle kernel around the cull and
-    the list sort (on the card `csrc/sphere_pass.cu`, `csrc/cull_tiles.cu`
-    and `csrc/mm_closest_hit.cu`; on a scene of spheres alone the sphere
-    pass).
+    pass and the tile operands), the cull that writes the entry-ordered
+    tile lists, and the triangle kernel (on the card `csrc/sphere_pass.cu`,
+    `csrc/cull_tiles.cu` and `csrc/mm_closest_hit.cu`, one launch each; on
+    a scene of spheres alone the sphere pass).
 
     Returns (t_tri, col, t_s, i_s, slot, tile_passes): the triangle
     kernel's winner (N,) f32 t and (N,) int32 kernel column (-1 on a miss),
@@ -644,7 +701,6 @@ def closest_hit_mm_winners(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     with span("hit.kernel_inputs"):
         lists, counts, smin, lane_bound = _cull_tile_lists(
             x, act, scene.mm_tile_box, t_min, occ)
-        lane_bound = torch.minimum(lane_bound, occ)
     with span("hit.mm_closest_hit"):
         t_t, col = mm_closest_hit(lists, counts, smin, x, lane_bound, scene.mm_w,
                                   t_min)

@@ -410,7 +410,7 @@ class _ViewerLoop:
         from metalpathtracer_torch.render.kernels import _build
 
         done = _build.tallies(self.scene.device)
-        return tuple(done.get(k, (0, 0))[0] for k in ("mm_closest_hit", "cull_tiles"))
+        return tuple(done.get(k, (0, 0))[0] for k in ("mm_closest_hit", "cull_tile_lists"))
 
     def _advance(self, state):
         from metalpathtracer_torch.render.pipeline import (

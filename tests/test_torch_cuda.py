@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain twins: the closest-hit
 kernel (also against the brute-force oracle; its walks shared over thread
-block clusters bit-equal to one CTA's), the tile cull and the RNG's
+block clusters bit-equal to one CTA's), the tile cull (the plain rows and
+the entry-ordered lists it sorts in its blocks) and the RNG's
 threefry (bit-equal in every mode and every bundle of draws the paths make,
 one launch a bundle, also inside a CUDA graph), the bounce step's and
 the wavefront regeneration's kernels (bit-equal, eagerly and inside a
@@ -269,6 +270,107 @@ def test_cull_kernel_is_equivariant_under_permutation(bunny70k, permute):
         assert torch.equal(lb_p, lb[idx])
 
 
+def _assert_lists_equal(args):
+    """`_cull_tile_lists` on the card against its twin: lists and counts
+    equal, smin and lane_bound equal bit for bit (-0 == +0; a NaN where the
+    twin has one, with its bits); one launch, counted by the wrapper under
+    its route and by the kernel's tally (its second slot: radix launches)."""
+    from metalpathtracer_torch.render.kernels import _build
+
+    route = tmm.sort_route(args[2].shape[0])
+    tally0 = _build.tallies("cuda").get("cull_tile_lists", (0, 0))
+    before = tmm._cull_tile_lists.launches, tmm._cull_tile_lists.routes[route]
+    out = tmm._cull_tile_lists(*args)
+    torch.cuda.synchronize()
+    assert (tmm._cull_tile_lists.launches,
+            tmm._cull_tile_lists.routes[route]) == (before[0] + 1, before[1] + 1)
+    tally = _build.tallies("cuda")["cull_tile_lists"]
+    assert (tally[0] - tally0[0], tally[1] - tally0[1]) == (1, int(route == "radix"))
+    ref = tmm.cull_tile_lists_reference(*args)
+    for name, k, r in zip(("lists", "counts", "smin", "lane_bound"), out, ref):
+        assert k.dtype == r.dtype and k.shape == r.shape, name
+        if k.dtype == torch.int32:
+            assert torch.equal(k, r), name
+        else:
+            nan = torch.isnan(r)
+            assert torch.equal(torch.isnan(k), nan), name
+            assert torch.equal(k[~nan], r[~nan]), name
+            assert torch.equal(k[nan].view(torch.int32), r[nan].view(torch.int32)), name
+    return out
+
+
+@pytest.mark.parametrize("nt", [1, 31, 33, 129, tmm.RANK_SORT_MAX_TILES - 1,
+                                tmm.RANK_SORT_MAX_TILES, tmm.RANK_SORT_MAX_TILES + 1,
+                                1242, 4096])
+def test_tile_lists_kernel_matches_twin_at_tile_counts(bunny300k_boxes, nt):
+    # both sort routes, each side of the threshold between them; 1,242 are
+    # bunny300k's boxes, 4,096 a 1M-triangle mesh's count
+    box = bunny300k_boxes if nt == 1242 else _random_boxes(nt, nt)
+    o, d = _rays(4096, nt + 3)
+    lists, counts, smin, lb = _assert_lists_equal(_cull_args(o, d, nt, box))
+    assert counts.any() and (lb > float("-inf")).any()
+
+
+@pytest.mark.parametrize("n", [1 << 15, 921600])
+def test_tile_lists_kernel_matches_twin_at_pool_width(scene, n):
+    # the pool's 32,768 lanes and the scan's 921,600 on the reference
+    # scene's 39 boxes (the rank sort)
+    o, d = _rays(n, 53)
+    lists, counts, _, _ = _assert_lists_equal(_cull_args(o, d, 53, scene.mm_tile_box))
+    assert counts.any() and (counts < scene.mm_tile_box.shape[0]).any()
+
+
+@pytest.mark.parametrize("n", [1 << 15, 921600])
+def test_tile_lists_kernel_matches_twin_on_bunny300k(bunny300k_boxes, n):
+    # 1,242 tiles (the radix sort) at the pool's and the scan's lane counts
+    o, d = _rays(n, 59)
+    _, counts, _, _ = _assert_lists_equal(_cull_args(o, d, 59, bunny300k_boxes))
+    assert counts.any()
+
+
+@pytest.mark.parametrize("nt", [40, 600])
+def test_tile_lists_kernel_keeps_tile_order_on_ties(nt):
+    # duplicated boxes give equal entries at two tiles: the lower tile first
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    box = _random_boxes(nt, 61)
+    box[nt // 2:] = box[:nt // 2]
+    o, d = _rays(8192, 61)
+    lists, counts, smin, _ = _assert_lists_equal(_cull_args(o, d, 61, box))
+    same = smin[:, 1:] == smin[:, :-1]
+    assert (same & torch.isfinite(smin[:, 1:])).any()
+    assert (lists[:, 1:][same] > lists[:, :-1][same]).all()
+
+
+@pytest.mark.parametrize("nt", [129, 600])
+@pytest.mark.parametrize("case", ["inactive_subgroup", "t_min_0", "occ_-inf",
+                                  "occ_+inf", "occ_none", "occ_nan"])
+def test_tile_lists_kernel_matches_twin_on_masks_and_bounds(scene, case, nt):
+    # the plain cull's mask and bound cases, and a NaN occ, on either route
+    n = 1024
+    o, d = _rays(n, 43)
+    x, act, box, t_min, occ = _cull_args(o, d, 43, _random_boxes(nt, 43))
+    if case == "inactive_subgroup":
+        act[256:384] = 0.0
+    elif case == "t_min_0":
+        t_min = 0.0
+    elif case == "occ_none":
+        occ = None
+    elif case == "occ_nan":
+        occ[::5] = float("nan")
+    else:
+        occ = torch.full((n,), float(case[4:]), device="cuda")
+    lists, counts, smin, lb = _assert_lists_equal((x, act, box, t_min, occ))
+    if case in ("inactive_subgroup", "occ_-inf"):
+        dead = slice(2, 3) if case == "inactive_subgroup" else slice(0, n // 128)
+        assert (counts[dead] == 0).all() and torch.isinf(smin[dead]).all()
+        assert torch.equal(lists[dead][0].cpu(), torch.arange(nt, dtype=torch.int32))
+    elif case == "occ_nan":
+        assert torch.isnan(lb[::5]).all()
+    else:
+        assert counts.any()
+
+
 def test_kernel_at_tile_p_256_matches_twin(bunny70k):
     assert bunny70k.mm_w.shape[1] == 256
     o, d = _rays(16384, 5)
@@ -518,11 +620,11 @@ def test_wavefront_on_card_matches_scan(scene):
     cfg = RenderConfig(max_depth=6, bank_k=2)
     cam = Camera.reset()
     a, ra = render_image(scene, cam, 64, 36, 4, seed=7, cfg=cfg)
-    launches = tmm.mm_closest_hit.launches, tmm.cull_tiles.launches
+    launches = tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
     b, rb = render_image_wavefront(scene, cam, 64, 36, 4, seed=7, cfg=cfg,
                                    pool_size=128)
     assert tmm.mm_closest_hit.launches > launches[0]
-    assert tmm.cull_tiles.launches > launches[1]
+    assert tmm._cull_tile_lists.launches > launches[1]
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
     assert ra == rb
 
@@ -1243,7 +1345,7 @@ def _counted():
     from metalpathtracer_torch.render.kernels import _build
 
     done = _build.tallies("cuda")
-    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tiles", (0, 0))[0],
+    return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tile_lists", (0, 0))[0],
             *done.get("threefry", (0, 0)),
             *(done.get(k, (0, 0))[0]
               for k in ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
@@ -1361,22 +1463,23 @@ def test_a_capture_serves_three_progressive_steps(scene):
 def test_a_failed_capture_raises(scene, monkeypatch):
     from metalpathtracer_torch.render import graphs
 
-    cull = tmm.cull_tiles
+    cull = tmm._cull_tile_lists
 
     def syncing(*args, **kw):
         out = cull(*args, **kw)
-        out[0].any().item()  # a host read: no stream capture allows it
+        out[1].any().item()  # a host read: no stream capture allows it
         return out
 
     syncing.launches = 0  # the kernel's wrapper counts on the module's name
-    monkeypatch.setattr(tmm, "cull_tiles", syncing)
+    syncing.routes = {"rank": 0, "radix": 0}
+    monkeypatch.setattr(tmm, "_cull_tile_lists", syncing)
     graphs.clear()
     with pytest.raises(RuntimeError):
         render_image_wavefront(scene, Camera.reset(), 128, 72, 2, seed=1,
                                cfg=RenderConfig(max_depth=6), pool_size=2048)
     assert len(graphs._cache) == 0
     torch.cuda.synchronize()
-    monkeypatch.setattr(tmm, "cull_tiles", cull)
+    monkeypatch.setattr(tmm, "_cull_tile_lists", cull)
     # the card is usable after the failed capture
     a, _ = render_image_wavefront(scene, Camera.reset(), 64, 36, 1, seed=1,
                                   cfg=RenderConfig(max_depth=4), pool_size=128)

@@ -1,5 +1,6 @@
-"""The port's tile cull (`cull_tiles`, its plain twin `cull_pass_reference`
-and `_cull_tile_lists`) against the JAX reference's `_cull_pass`, on the CPU.
+"""The port's tile cull (`cull_tiles`, its plain twin `cull_pass_reference`,
+and `_cull_tile_lists` with its twin `cull_tile_lists_reference`) against
+the JAX reference's `_cull_pass` and `_cull_tile_lists`, on the CPU.
 
 On a CPU tensor `cull_tiles` runs the twin, which computes in the reference
 cull kernel's arithmetic (reciprocals clipped to +-1e30, inactive lanes'
@@ -313,6 +314,134 @@ def test_wrapper_counts_no_launch_on_cpu_and_rejects_bad_inputs():
         tmm.cull_tiles(x, act, box, T_MIN, occ=torch.ones(n, dtype=torch.float64))
     with pytest.raises(ValueError, match="no kernel"):
         tmm.cull_tiles(x.to("meta"), act.to("meta"), box.to("meta"), T_MIN)
+
+
+def _composed_lists(x, active, box, t_min, occ):
+    """The entry-ordered lists as the port composed them around the plain
+    cull before its kernel sorted them: the twin cull, the any flags
+    summed, one stable torch.sort, the casts, then the closest hit's
+    minimum of the lane bound with occ."""
+    sgm, gent, lb = tmm.cull_pass_reference(x, active, box, t_min, occ)
+    counts = sgm.sum(dim=1).to(torch.int32)
+    smin, lists = torch.sort(gent.contiguous(), dim=1, stable=True)
+    if occ is not None:
+        lb = torch.minimum(lb, occ)
+    return lists.to(torch.int32), counts, smin, lb
+
+
+def _tile_list_case(case):
+    """(o, d, active, occ, box) of 512 rays (4 subgroups) for one case of
+    the sorted lists: 40 random boxes unless the case says otherwise."""
+    n, seed = 512, 21
+    o, d = _rays(n, seed)
+    active, occ = _masks(n, seed)
+    nt = {"nt_1": 1, "nt_rank_max": tmm.RANK_SORT_MAX_TILES,
+          "nt_radix_min": tmm.RANK_SORT_MAX_TILES + 1}.get(case, 40)
+    box = _random_boxes(nt, seed)
+    if case == "nt_1":
+        box[0, 0:3], box[0, 4:7] = [-40.0, -10.0, -20.0], [0.0, 20.0, 20.0]
+    elif case == "ties":
+        box[20:] = box[:20]  # duplicated boxes: equal entries at two tiles
+    elif case == "none_and_all":
+        # every box holds the point p; subgroup 0 is dead and enters
+        # nothing, subgroup 1 starts at p and enters every tile at t_min
+        p = np.asarray([-10.0, 5.0, 10.0], np.float32)
+        r = np.random.default_rng(seed)
+        box[:, 0:3] = p - r.uniform(0.5, 8.0, (nt, 3))
+        box[:, 4:7] = p + r.uniform(0.5, 8.0, (nt, 3))
+        active[:128] = 0.0
+        active[128:256] = 1.0
+        o[128:256] = p
+        occ[128:256] = INF
+    elif case == "occ_nan":
+        occ[::5] = np.nan
+    elif case == "occ_-inf":
+        occ[:] = -INF
+    elif case == "occ_none":
+        occ = None
+    return o, d, active, occ, box
+
+
+@pytest.mark.parametrize("case", ["ties", "none_and_all", "occ_nan", "occ_-inf",
+                                  "occ_none", "nt_1", "nt_rank_max", "nt_radix_min"])
+def test_tile_list_twin_matches_composition_and_reference(case):
+    # the lists' twin (what the kernel is held to on the card) against the
+    # composition it replaced and against the reference's _cull_tile_lists
+    # (its XLA cull below 512 tiles), whose lane bound has no minimum with
+    # occ: that is taken here in numpy, which keeps a NaN occ as torch does
+    o, d, active, occ, box = _tile_list_case(case)
+    tocc = None if occ is None else torch.as_tensor(occ)
+    targs = (tmm.ray_features(torch.as_tensor(o), torch.as_tensor(d)),
+             torch.as_tensor(active), torch.as_tensor(box), T_MIN, tocc)
+    twin = tmm.cull_tile_lists_reference(*targs)
+    composed = _composed_lists(*targs)
+    assert [t.dtype for t in twin] == [torch.int32, torch.int32, torch.float32,
+                                        torch.float32]
+    jx = jmm.ray_features(jnp.asarray(o), jnp.asarray(d))
+    jout = jmm._cull_tile_lists(jx, jnp.asarray(active), jnp.asarray(box), T_MIN,
+                                None if occ is None else jnp.asarray(occ), block_r=128)
+    jout = [np.asarray(j) for j in jout]
+    if occ is not None:
+        jout[3] = np.minimum(jout[3], occ)
+    for name, t, c, j in zip(("lists", "counts", "smin", "lane_bound"), twin,
+                             composed, jout):
+        np.testing.assert_array_equal(t.numpy(), c.numpy(), err_msg=name)
+        np.testing.assert_array_equal(t.numpy(), j, err_msg=name)
+    # a stable sort: tiles of equal entries in ascending order, the entered
+    # tiles first
+    lists, counts, smin, lb = (t.numpy() for t in twin)
+    for g in range(lists.shape[0]):
+        same = smin[g, 1:] == smin[g, :-1]
+        assert (lists[g, 1:][same] > lists[g, :-1][same]).all()
+        assert np.isfinite(smin[g, :counts[g]]).all()
+        assert np.isinf(smin[g, counts[g]:]).all()
+    if case == "ties":
+        assert any((smin[g, 1:] == smin[g, :-1])[:counts[g] - 1].any()
+                   for g in range(lists.shape[0]))
+    elif case == "none_and_all":
+        assert counts[0] == 0 and counts[1] == box.shape[0]
+        np.testing.assert_array_equal(lists[1], np.arange(box.shape[0]))
+        assert (smin[1] == np.float32(T_MIN)).all()
+    elif case == "occ_nan":
+        assert np.isnan(lb[::5]).all() and not np.isnan(lb[1::5]).any()
+    elif case == "occ_-inf":
+        assert (counts == 0).all() and (lb == -INF).all()
+    else:
+        assert counts.max() > 0
+
+
+@pytest.mark.parametrize("nt,route", [(1, "rank"), (39, "rank"), (81, "rank"),
+                                      (tmm.RANK_SORT_MAX_TILES, "rank"),
+                                      (tmm.RANK_SORT_MAX_TILES + 1, "radix"),
+                                      (1242, "radix"), (4096, "radix"),
+                                      (tmm.RADIX_SORT_MAX_TILES, "radix")])
+def test_sort_route_by_row_length(nt, route):
+    # the reference scene's 39 tiles and the multimesh's 81 are ranked,
+    # bunny300k's 1,242 and a 1M-triangle mesh's 4,096 radix-sorted
+    assert tmm.sort_route(nt) == route
+
+
+def test_tile_lists_wrapper_counts_no_launch_on_cpu_and_rejects_bad_inputs():
+    n = 256
+    o, d = _rays(n, 9)
+    x = tmm.ray_features(torch.as_tensor(o), torch.as_tensor(d))
+    act = torch.ones(n)
+    box = torch.as_tensor(_random_boxes(10, 9))
+    before = tmm._cull_tile_lists.launches, dict(tmm._cull_tile_lists.routes)
+    out = tmm._cull_tile_lists(x, act, box, T_MIN)
+    assert (tmm._cull_tile_lists.launches, tmm._cull_tile_lists.routes) == before
+    ref = tmm.cull_tile_lists_reference(x, act, box, T_MIN)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmm._cull_tile_lists(x[:200], act[:200], box, T_MIN)
+    with pytest.raises(ValueError):
+        tmm._cull_tile_lists(x, act.bool(), box, T_MIN)
+    with pytest.raises(ValueError):
+        tmm._cull_tile_lists(x, act, box, T_MIN, occ=torch.ones(n, dtype=torch.float64))
+    with pytest.raises(ValueError, match="no kernel"):
+        tmm._cull_tile_lists(x.to("meta"), act.to("meta"), box.to("meta"), T_MIN)
+    with pytest.raises(ValueError, match="a block sorts"):
+        tmm.sort_route(tmm.RADIX_SORT_MAX_TILES + 1)
 
 
 def test_flat_tile_is_hit():
