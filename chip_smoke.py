@@ -8,14 +8,13 @@ port's entry points at full size and checks that every advance went through
 the kernels of its path: the closest hit, the tile cull, the RNG's
 threefry, the bounce step's front end, and its shading, which without NEE
 starts from the closest hit's winners and runs the epilogue in its own
-registers (`shade_hit`, or on the wavefront at one bounce an advance
-`shade_bank_hit`, the shading that also banks the finished paths); the
-epilogue's own kernel runs with NEE (its closest hits and shadow rays'),
-`shade` and `shade_bank` on the BVH path; and the wavefront's
-regeneration: the restart (each lane's pixel and sample, and where it
-restarts its jittered primary ray), the window's queue pop, and the pool
-sort's key and gather (`csrc/wavefront.cu`). Thirteen kernel entries in
-seven sources.
+registers (`shade_hit`, on the wavefront at one bounce an advance with
+the bank: the shading that also banks the finished paths); the epilogue's
+own kernel runs with NEE (its closest hits and shadow rays'), and the BVH
+path shades in plain torch; and the wavefront's regeneration: the restart
+(each lane's pixel and sample, and where it restarts its jittered primary
+ray), the window's queue pop, and the pool sort's key and gather
+(`csrc/wavefront.cu`). Eleven kernel entries in seven sources.
 Phases, each raising on failure:
 
 1. set up: the card, TF32 off, the kernel builds, the instructions the
@@ -88,9 +87,10 @@ Phases, each raising on failure:
     `closest_hit_mm_full`'s on the same rays, and `cli.main --intersector
     bvh` at 320x180, spp 2, depth 8, on the scan and with `--wavefront`,
     against the `mm` render: it must launch neither tile kernel nor the
-    front end or the hit epilogue, shade on a shading kernel, run on
-    its integrator's eager loop by config (no warm-up, capture or replay)
-    and equal its render under `graphs.eager()` bit for bit;
+    front end, the hit epilogue or the shading kernel (it shades in plain
+    torch), run on its integrator's eager loop by config (no warm-up,
+    capture or replay) and equal its render under `graphs.eager()` bit for
+    bit;
 14. the sharded path (`parallel/sharding.py` over `torch.distributed`):
     a. `cli.main --tile-shard` and `--tile-shard --wavefront` on the
        flagship in a world of one: images bit-equal to phases 6 and 7's,
@@ -158,8 +158,8 @@ Phases, each raising on failure:
     launch, each an eager bounce step's launches (the flagships' exactly
     408 / 408 / 408 and 128 / 128 / 132 on both loops, PERF.md; the bounce
     step's front end and shading kernel 408 and 128 each: on the wavefront
-    `shade_bank_hit`, on the scan `shade_hit`; the hit epilogue's own
-    kernel 0); host reads
+    `shade_bank_hit_kernel`, on the scan `shade_hit_kernel`, each the other
+    0; the hit epilogue's own kernel 0); host reads
     a render (one a window, drain block or scan block; on the scan's eager
     loop one a bounce step), flagged synchronising calls inside windows
     and blocks (0 on both loops); the busy share of one profiled render of
@@ -175,18 +175,18 @@ Phases, each raising on failure:
     phases 2, 4, 16 and 18's criteria;
 18. (run after phase 16) the bounce step's kernels (`hit_front`, and as
     `sphere_pass` without the closest hit's operands; `hit_epilogue`;
-    `shade`; `shade_bank`; `shade_hit`; `shade_bank_hit`) vs their plain
-    twins, bit-equal (NaN where both are NaN), at the calls the paths make:
+    `shade_hit`, without and with the bank: `shade_bank_hit`) vs their
+    plain twins, bit-equal (NaN where both are NaN), at the calls the paths make:
     the flagship scan's first and second bounce steps (921,600 lanes), the
     flagship wavefront's advance CAPTURE_CALL (32,768 lanes), a viewer
     frame's pool call 5 (16,384) and drain call 1 (1,024), the bunny300k
     leg's first step (32,768) and config 4's first step (262,144 lanes,
     spheres alone; its closest hit and its shadow rays', the sphere pass and
-    the epilogue alone; without NEE, its shading); every shading entry at
-    each of these shapes (`complete_shading_set`: where a step shaded from
-    the winners, the epilogue's call at those winners and the shading of
-    its output, and the bank's entry on bank operands made from the call's,
-    or the bank dropped), and the front end also on 921,523 of the scan's
+    the epilogue alone; without NEE, its shading); the shading without and
+    with the bank at each of these shapes (`complete_shading_set`: where a
+    step shaded from the winners, the epilogue's call at those winners, and
+    the shading with bank operands made from the call's, or the bank
+    dropped), and the front end also on 921,523 of the scan's
     lanes (not whole 128-lane subgroups) with an active mask and an
     occlusion bound; each with its device, call and plain time and its
     bound, the larger of its bytes at the memory rate and its operations
@@ -289,6 +289,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import inspect
 import io
 import json
 import re
@@ -329,20 +330,16 @@ KERNELS = {
                      replaces="benchmarks/mosaic_probe.py:42"),
     # the bounce step's XLA fusions (no Pallas body): the sphere pass with
     # the closest hit's operands (the front end), the closest hit's
-    # epilogue, the shading without next-event estimation, and the shading
-    # with the wavefront advance's bank
+    # epilogue, and the shading without next-event estimation from the
+    # closest hit's raw winners (the epilogue in the shading's registers),
+    # with the wavefront advance's bank where given
     "hit_front": dict(source="metalpathtracer_torch/csrc/sphere_pass.cu",
                       replaces=f"{TPU_FILE}:1279",
                       also_replaces=f"{TPU_FILE}:395, {TPU_FILE}:1340"),
     "hit_epilogue": dict(source="metalpathtracer_torch/csrc/hit_epilogue.cu",
                          replaces=f"{TPU_FILE}:1315"),
-    "shade": dict(source="metalpathtracer_torch/csrc/shade.cu",
-                  replaces="metalpathtracer_tpu/render/integrator.py:315"),
-    "shade_bank": dict(source="metalpathtracer_torch/csrc/shade.cu",
-                       replaces="metalpathtracer_tpu/render/integrator.py:315",
-                       also_replaces="metalpathtracer_tpu/render/integrator.py:702"),
-    # the two shadings again, from the closest hit's raw winners: the
-    # epilogue in the shading's registers (the bounce step without NEE)
+    # the entry's two device kernels: `shade_hit_kernel` and, given the
+    # bank, `shade_bank_hit_kernel<K>`
     "shade_hit": dict(source="metalpathtracer_torch/csrc/shade.cu",
                       replaces="metalpathtracer_tpu/render/integrator.py:315",
                       also_replaces=f"{TPU_FILE}:1315"),
@@ -367,24 +364,27 @@ KERNELS.update(
 # device tallies, and the keys of their launches in a counted path's record
 REGEN = ("restart_lanes", "queue_pop", "tileset_key", "permute_lanes")
 REGEN_KEYS = ("restart_launches", "queue_launches", "key_launches", "permute_launches")
-# the bounce step's kernels, by the names of their device tallies
-# (render/kernels/_build.py), and the keys of their launches in a counted
-# path's record
-SHADING = ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
-           "shade_bank_hit")
-SHADING_KEYS = ("front_launches", "epilogue_launches", "shade_launches",
-                "shade_bank_launches", "shade_hit_launches", "shade_bank_hit_launches")
-# the shading kernels: one of them (or NEE's plain shading) a bounce step;
-# the last two start from the closest hit's winners and run its epilogue
-SHADES = SHADING[2:]
-FUSED = ("shade_hit", "shade_bank_hit")
+# the bounce step's device kernels (`<name>_kernel`), and the keys of their
+# launches in a counted path's record: the front end, the hit epilogue, and
+# the shading from the closest hit's winners without and with the bank (one
+# of the two, or NEE's or the BVH and brute intersectors' plain shading, a
+# bounce step). Each is counted by its entry's device tally
+# (render/kernels/_build.py): the two shadings by the one entry
+# `shade_hit`'s, whose second slot counts the bank's kernel
+SHADING = ("hit_front", "hit_epilogue", "shade_hit", "shade_bank_hit")
+SHADING_KEYS = ("front_launches", "epilogue_launches", "shade_hit_launches",
+                "shade_bank_hit_launches")
 # their wrappers and the kernel each launches: `intersect_mm.hit_front` the
-# front end, `shade.sphere_pass` the same kernel without the closest hit's
-# operands (a scene of spheres alone), the rest `render/kernels/shade.py`'s
+# front end, `intersect_mm.sphere_pass` the same kernel without the closest
+# hit's operands (a scene of spheres alone), `intersect_mm.hit_epilogue`
+# the epilogue, `shade.shade_hit` the shading
 WRAPPER_KERNEL = {"hit_front": "hit_front", "sphere_pass": "hit_front",
-                  "hit_epilogue": "hit_epilogue", "shade": "shade",
-                  "shade_bank": "shade_bank", "shade_hit": "shade_hit",
-                  "shade_bank_hit": "shade_bank_hit"}
+                  "hit_epilogue": "hit_epilogue", "shade_hit": "shade_hit"}
+# the names the wrappers' calls are recorded and compared under, and the
+# kernel each launches: the wrapper's, and for a `shade_hit` call given a
+# bank its kernel's, `shade_bank_hit` (`as_call`)
+CALL_KERNEL = {**WRAPPER_KERNEL, "shade_bank_hit": "shade_bank_hit"}
+SHADING_CALLS = tuple(CALL_KERNEL)
 # the large-scene legs of the reference's bench.py
 LEG_W = LEG_H = 512
 LEG_SPP, LEG_DEPTH, POOL = 2, 8, 1 << 15
@@ -396,8 +396,8 @@ CAPTURE_CALL = 100
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 FLOP_PER_PAIR = 38  # 19 FMAs: the four determinants of one (ray, triangle)
 CULL_FLOP_PER_PAIR = 12  # the slab test of one (ray, tile box)
-# the list cull's sets timed against another checkout's plain cull and its
-# torch tail: the scan's bounce step, the pool call, and bunny300k's
+# the list cull's sets timed against another checkout's list cull: the
+# scan's bounce step, the pool call, and bunny300k's
 AGAINST_CULL = ("reference_primary", "reference_pool", "bunny300k_bounce1")
 H100_SMS = 132  # the SMs the peaks above are summed over
 # int32 instructions an SM issues a clock: 16 INT32 units in each of its 4
@@ -566,10 +566,11 @@ def sass(so: Path, name: str, keep: bool = True) -> str:
 
 
 def shade_loads(so: Path) -> dict:
-    """Per function of a build of `csrc/shade.cu` (its SASS, not kept:
-    twelve functions): its global loads (LDG) before its first global store (STG)
-    in the SASS's order, how many of those are 16-byte loads, and all its
-    global loads. A lane's loads that come after a store of its own wait
+    """Per function of a build of `csrc/shade.cu` (its SASS, not kept: this
+    tree's six functions, `shade_hit_kernel` and `shade_bank_hit_kernel<K>`):
+    its global loads (LDG) before its first global store (STG) in the
+    SASS's order, how many of those are 16-byte loads, and all its global
+    loads. A lane's loads that come after a store of its own wait
     on that store where the pointers may alias."""
     out = {}
     for chunk in sass(so, "shade", keep=False).split("Function : ")[1:]:
@@ -750,7 +751,24 @@ def wrapper_module(name: str):
     from metalpathtracer_torch.render.kernels import intersect_mm as tmm
     from metalpathtracer_torch.render.kernels import shade as tsh
 
-    return tmm if name == "hit_front" else tsh
+    return tsh if name == "shade_hit" else tmm
+
+
+def call_wrapper(name: str) -> str:
+    """The wrapper of a recorded call's name (SHADING_CALLS)."""
+    return "shade_hit" if name == "shade_bank_hit" else name
+
+
+def as_call(wrapper: str, fn, args, kw) -> tuple:
+    """A call of the bounce-step wrapper `wrapper` (`fn`) as (name
+    (SHADING_CALLS), positional arguments), bound to `fn`'s signature: a
+    `shade_hit` call given a bank is `shade_bank_hit`, its bank the last
+    argument."""
+    bound = inspect.signature(fn).bind(*args, **kw)
+    bank = bound.arguments.pop("bank", None)
+    if bank is None:
+        return wrapper, bound.args
+    return "shade_bank_hit", (*bound.args, bank)
 
 
 @contextlib.contextmanager
@@ -809,18 +827,16 @@ def counted_path(tiles: bool = True):
     the bounce step is swapped here. Without `tiles` (a scene of spheres
     alone, which launches no tile kernel) the threefry kernel alone must
     run on every step. The bounce step's kernels likewise (SHADING_KEYS:
-    `front_launches`, `epilogue_launches`, `shade_launches`,
-    `shade_bank_launches`, `shade_hit_launches`, `shade_bank_hit_launches`
-    the tallies, `*_calls` the wrappers'; the front end's kernel also runs
-    as the sphere pass on a scene of spheres alone, whose wrapper's calls
+    `front_launches`, `epilogue_launches`, `shade_hit_launches` the
+    tallies, `*_calls` the wrappers'; the front end's kernel also runs as
+    the sphere pass on a scene of spheres alone, whose wrapper's calls
     `front_calls` counts too): every traced step must run the front end at
     least once (its closest hit; twice with a shadow ray), and exactly one
-    of the shading kernels (SHADES: from the epilogue's output, with or
-    without the wavefront's bank, or from the closest hit's winners, which
-    run the epilogue themselves) or the plain shading with next-event
-    estimation (`nee_steps`, counted in `graphs.STATS`); a step that
-    shades from anything but the winners runs the hit epilogue at least
-    once. The wavefront's regeneration kernels likewise (REGEN_KEYS the
+    shading: the kernel from the closest hit's winners (with or without
+    the wavefront's bank), which runs the epilogue itself, or the plain
+    shading with next-event estimation (`nee_steps`, counted in
+    `graphs.STATS`), whose closest hit runs the hit epilogue. The
+    wavefront's regeneration kernels likewise (REGEN_KEYS the
     tallies, `<wrapper>_calls` the wrappers'; `require_regen` holds a
     wavefront path to them), and their plain versions must not run."""
     import torch
@@ -849,7 +865,7 @@ def counted_path(tiles: bool = True):
         return wrapped
 
     def shadings():
-        return sum(getattr(tsh, k).launches for k in SHADES)
+        return tsh.shade_hit.launches
 
     def step(*a, **k):
         step.calls += 1
@@ -909,9 +925,9 @@ def counted_path(tiles: bool = True):
                   mm_launches=done[0], mm_clustered=clustered_launches(),
                   cull_launches=done[1], cull_radix=cull_radix_launches(),
                   threefry_launches=done[2], threefry_draws=done[3], replays=replayed,
-                  front_calls=tmm.hit_front.launches + tsh.sphere_pass.launches,
-                  epilogue_calls=tsh.hit_epilogue.launches,
-                  **{f"{k}_calls": getattr(tsh, k).launches for k in SHADES},
+                  front_calls=tmm.hit_front.launches + tmm.sphere_pass.launches,
+                  epilogue_calls=tmm.hit_epilogue.launches,
+                  shade_hit_calls=tsh.shade_hit.launches,
                   **dict(zip(SHADING_KEYS, shading)),
                   **{f"{k}_calls": getattr(twfk, k).launches for k in REGEN},
                   **dict(zip(REGEN_KEYS, executed_regen())),
@@ -921,9 +937,8 @@ def counted_path(tiles: bool = True):
     if result["steps"] == 0 or tiles and min(result["mm_calls"],
                                              result["cull_calls"]) < result["steps"]:
         raise RuntimeError(f"not every bounce step launched both kernels: {result}")
-    fused_calls = sum(result[f"{k}_calls"] for k in FUSED)
-    if min(result["front_calls"], result["epilogue_calls"] + fused_calls) < \
-            result["steps"]:
+    if min(result["front_calls"], result["epilogue_calls"] + result["shade_hit_calls"]) \
+            < result["steps"]:
         raise RuntimeError(f"not every bounce step launched the front end and the "
                            f"hit epilogue (alone or in its shading): {result}")
     if odd_steps:
@@ -934,15 +949,17 @@ def counted_path(tiles: bool = True):
         raise RuntimeError(f"{len(odd_shading)} bounce steps did not shade exactly once "
                            f"(a shading kernel, or the plain shading with NEE), e.g. "
                            f"(launches, NEE steps) {odd_shading[0]}: {result}")
+    shaded = shading[2] + shading[3]  # the shading's kernels, with the bank or not
     if min(done[:3] if tiles else done[2:3]) == 0 or shading[0] == 0 or (
-            shading[1] + shading[4] + shading[5] == 0) or (
-            sum(shading[2:]) == 0 and result["nee_steps"] < result["steps"]):
+            shading[1] + shaded == 0) or (
+            shaded == 0 and result["nee_steps"] < result["steps"]):
         raise RuntimeError(f"a kernel ran no time on the card: {result}")
     if not replayed and (done != (result["mm_calls"], result["cull_calls"],
                                   result["threefry_calls"],
                                   result["threefry_call_draws"])
-                         or shading != (result["front_calls"], result["epilogue_calls"],
-                                        *(result[f"{k}_calls"] for k in SHADES))):
+                         or (*shading[:2], shaded) != (result["front_calls"],
+                                                       result["epilogue_calls"],
+                                                       result["shade_hit_calls"])):
         raise RuntimeError(f"the card ran other launches than the wrappers made: "
                            f"{result}")
     if not replayed and any(result[key] != result[f"{k}_calls"]
@@ -985,14 +1002,15 @@ def shading_text(counts) -> str:
 
 def executed_shading() -> tuple:
     """The bounce step's kernels' launches (SHADING: front end, hit
-    epilogue, and the four shadings) run on this process's card since the
-    tallies were last zeroed: one read."""
+    epilogue, the shading without and with the bank) run on this process's
+    card since the tallies were last zeroed: one read."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
 
     done = _build.tallies(torch.device("cuda", torch.cuda.current_device()))
-    return tuple(done.get(k, (0, 0))[0] for k in SHADING)
+    hit, bank_hit = done.get("shade_hit", (0, 0))
+    return (*(done.get(k, (0, 0))[0] for k in SHADING[:2]), hit - bank_hit, bank_hit)
 
 
 def executed() -> tuple:
@@ -1122,12 +1140,12 @@ def phase_setup():
     from metalpathtracer_torch.render.kernels import _build
 
     t0 = time.perf_counter()
-    sources = sorted({_build.source_of(k) for k in KERNELS})
+    sources = sorted({_build.source_of(k) for k in _build.ENTRY_ARGS})
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         libs = dict(zip(sources, ex.map(_build.build, sources)))
     build_s = time.perf_counter() - t0
     OUT.mkdir(parents=True, exist_ok=True)
-    log(f"[1] built {len(KERNELS)} kernels from {len(libs)} sources in {build_s:.2f} s; "
+    log(f"[1] built {len(_build.ENTRY_ARGS)} kernel entries from {len(libs)} sources in {build_s:.2f} s; "
         "ptxas:")
     for name, so in libs.items():
         compiler_log = so.with_name(so.name + ".log").read_text()
@@ -1182,9 +1200,9 @@ def primary_and_bounce(scene, w, h, stride=1, draws=None, cam=None, cfg=None):
 def sphere_t(scene, o, d):
     """Each ray's nearest sphere's t (the sphere pass), the occlusion bound
     `closest_hit_mm_full` gives the cull."""
-    from metalpathtracer_torch.render.kernels import shade as tsh
+    from metalpathtracer_torch.render.kernels import intersect_mm as tmm
 
-    return tsh.sphere_pass(o, d, scene.sph_center, scene.sph_radius, scene.sph_ids,
+    return tmm.sphere_pass(o, d, scene.sph_center, scene.sph_radius, scene.sph_ids,
                            T_MIN)[0]
 
 
@@ -1327,8 +1345,7 @@ def launcher(kernel: str, args, **build):
     `_build.launch`'s `defines` / `csrc` select) on a set's arguments into
     outputs of its own, uncounted, as the sweep and the comparison with
     another checkout time it. `mm_closest_hit` takes the cluster width the
-    wrapper would (`mm_cluster`); another checkout's entry without one
-    (before clusters) runs its one-CTA launch."""
+    wrapper would (`mm_cluster`)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import _build
@@ -1349,12 +1366,8 @@ def launcher(kernel: str, args, **build):
         g, nt = lists.shape
         outs = (torch.empty(g * 128, device=x.device),
                 torch.empty(g * 128, dtype=torch.int32, device=x.device), None)
-        ins, scalars = (lists, counts, smin, x, lb, w), (g, nt, w.shape[1], float(t_min))
-        csrc = build.get("csrc")
-        if csrc is not None and "int cluster" not in (
-                Path(csrc) / "mm_closest_hit.cu").read_text():
-            return older_mm(csrc, ins, outs, scalars), outs[:2]
-        scalars += (mm_cluster(args),)
+        ins = (lists, counts, smin, x, lb, w)
+        scalars = (g, nt, w.shape[1], float(t_min), mm_cluster(args))
     elif kernel == "cull_tile_lists":
         x, active, box, t_min, occ = args
         g, nt = x.shape[0] // 128, box.shape[0]
@@ -1375,16 +1388,15 @@ def launcher(kernel: str, args, **build):
     return launch, outs[:2] if outs[2] is None else outs
 
 
-def cull_and_tail(args, **build):
-    """(launch, outputs): the plain cull's entry `cull_tiles` (the build
-    that `build` selects: another checkout's with `csrc`) followed by the
-    torch ops that made the closest hit's lists of its rows before the list
-    cull sorted them in its blocks: the any flags summed, one stable sort,
-    the casts, and the lane bound's minimum with occ. `outputs` is a list
-    that each launch refills with (lists, counts, smin, lane_bound)."""
+def cull_and_tail(args):
+    """(launch, outputs): the plain cull's entry `cull_tiles` followed by
+    the torch ops that made the closest hit's lists of its rows before the
+    list cull sorted them in its blocks: the any flags summed, one stable
+    sort, the casts, and the lane bound's minimum with occ. `outputs` is a
+    list that each launch refills with (lists, counts, smin, lane_bound)."""
     import torch
 
-    launch_rows, (sgm, gent, lb) = launcher("cull_tiles", args, **build)
+    launch_rows, (sgm, gent, lb) = launcher("cull_tiles", args)
     occ = args[4]
     outs = []
 
@@ -1397,76 +1409,6 @@ def cull_and_tail(args, **build):
 
     launch()
     return launch, outs
-
-
-def older_mm(csrc: Path, ins, outs, scalars):
-    """`launch()` of the closest hit built from another checkout's sources
-    `csrc` whose entry takes no cluster width: (pointers, n_groups,
-    n_tiles, tile_p, t_min, device, stream, tally)."""
-    import ctypes
-
-    import torch
-
-    from metalpathtracer_torch.render.kernels import _build
-
-    fn = _build.load_library("mm_closest_hit", (), csrc).mm_closest_hit_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    device = ins[3].device
-    ptrs = [None if t is None else t.data_ptr() for t in (*ins, *outs)]
-    tally = _build.tally("mm_closest_hit", device)
-
-    def launch():
-        rc = fn(*ptrs, *scalars, device.index or 0,
-                torch.cuda.current_stream(device).cuda_stream, tally.data_ptr())
-        if rc != 0:
-            raise RuntimeError(f"{csrc}'s mm_closest_hit launch failed: CUDA error {rc}")
-
-    return launch
-
-
-def other_threefry(csrc: Path, args):
-    """(launch, outputs) of a bundle's draws on the threefry kernel of
-    another checkout's sources `csrc`: through `launcher` where its entry
-    takes a bundle, else through the earlier entry of one draw a launch
-    (the four pointers, n, mode, seed, purpose, then (layout, value) of
-    pixel, sample and bounce), one launch a draw, a "single" drawn as a
-    pair whose first row is compared."""
-    import ctypes
-
-    import torch
-
-    from metalpathtracer_torch.render.kernels import _build
-    from metalpathtracer_torch.render.kernels import threefry as tfk
-
-    if "uint64_t d0" in (csrc / "threefry.cu").read_text():
-        return launcher("threefry", args, csrc=csrc)
-    fn = _build.load_library("threefry", (), csrc).threefry_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_uint32, ctypes.c_uint32]
-                   + [ctypes.c_int, ctypes.c_uint32] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    seed, pix, sample, bounce, draws = args
-    device = pix.device
-    ins, _, views, scalars = tfk.launch_plan(seed, pix, sample, bounce, draws, device)
-    n, layouts = scalars[0], scalars[-6:]
-    ptrs = [None if t is None else t.data_ptr() for t in ins]
-    outs = [torch.empty((2, *v.shape) if mode == "single" else v.shape, device=device)
-            for v, (_, mode) in zip(views, draws)]
-    per_draw = [(out.data_ptr(), ("pair" if mode == "single" else mode), purpose)
-                for out, (purpose, mode) in zip(outs, draws)]
-
-    def launch():
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for ptr, mode, purpose in per_draw:
-            rc = fn(*ptrs, ptr, n, ("pair", "triple", "unit_vector").index(mode),
-                    int(seed) & 0xFFFFFFFF, int(purpose) & 0xFFFFFFFF, *layouts,
-                    device.index or 0, stream)
-            if rc != 0:
-                raise RuntimeError(f"{csrc}'s threefry launch failed: CUDA error {rc}")
-
-    return launch, [o[0] if mode == "single" else o for o, (_, mode) in zip(outs, draws)]
 
 
 def kernel_args(kernel: str, st):
@@ -1579,9 +1521,7 @@ def phase_cluster_sweep(sets: dict):
 def phase_against(other: Path, kernel_sets: dict):
     """Each kernel built from `other`'s sources (a checkout of another
     commit) and from this one's, on every set: outputs bit-equal, and both
-    timed on the device in turns other, this, this, other. The list cull
-    is held against `other`'s plain cull followed by the torch ops that
-    sorted its rows (`cull_and_tail`)."""
+    timed on the device in turns other, this, this, other."""
     import torch
 
     csrc = other / "metalpathtracer_torch" / "csrc"
@@ -1589,9 +1529,7 @@ def phase_against(other: Path, kernel_sets: dict):
     for kernel, sets in kernel_sets.items():
         for name, st in sets.items():
             args = kernel_args(kernel, st)
-            runs = {"other": other_threefry(csrc, args) if kernel == "threefry"
-                    else cull_and_tail(args, csrc=csrc) if kernel == "cull_tile_lists"
-                    else launcher(kernel, args, csrc=csrc),
+            runs = {"other": launcher(kernel, args, csrc=csrc),
                     "this": launcher(kernel, args)}
             for launch, _ in runs.values():
                 launch()
@@ -1807,9 +1745,12 @@ class _Captured(Exception):
 
 
 def _clone(args):
+    """The tensors of `args` cloned, inside plain tuples too (a shading's
+    bank); anything else as it is."""
     import torch
 
-    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+    return tuple(a.clone() if isinstance(a, torch.Tensor)
+                 else _clone(a) if type(a) is tuple else a for a in args)
 
 
 def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
@@ -1821,8 +1762,8 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
     every `threefry_bundle` call after it until the next `mm_closest_hit`
     call (the advance's bundles: the bounce step's, then the restart's
     jitter). With `shading` (a dict) the same bounce step's front end
-    (before the closest hit), hit epilogue and shading calls (`shade` or
-    `shade_bank`) are cloned into `shading[name]` as {wrapper: args}. With
+    (before the closest hit), hit epilogue and shading calls are cloned
+    into `shading[name]` as {call name (SHADING_CALLS): args}. With
     `stop` the run is ended at the call after the last pick.
     Returns {name: (mm_args, cull_args, [bundle_args, ...])}."""
     import torch
@@ -1845,7 +1786,8 @@ def capture_calls(run, picks: dict, stop: bool, shading: dict | None = None):
             if kernel == "hit_front":
                 seen["front"] = _clone(args)
             elif seen["drawing"] is not None and shading is not None:
-                shading[seen["drawing"]].setdefault(kernel, _clone(args))
+                name, call = as_call(kernel, shading_kernels[kernel], args, kw)
+                shading[seen["drawing"]].setdefault(name, _clone(call))
             return shading_kernels[kernel](*args, **kw)
         wrapped.launches = 0
         return wrapped
@@ -1919,14 +1861,15 @@ def recorded_draws():
 @contextlib.contextmanager
 def recorded_shading():
     """Every call of the bounce step's kernels' wrappers (WRAPPER_KERNEL),
-    its arguments cloned into the yielded {wrapper: [args, ...]}; the calls
-    go through."""
+    its arguments cloned into the yielded {call name (SHADING_CALLS):
+    [args, ...]}; the calls go through."""
     kernels = {k: getattr(wrapper_module(k), k) for k in WRAPPER_KERNEL}
-    calls = {k: [] for k in WRAPPER_KERNEL}
+    calls = {k: [] for k in SHADING_CALLS}
 
     def recorder(kernel):
         def wrapped(*args, **kw):
-            calls[kernel].append(_clone(args))
+            name, call = as_call(kernel, kernels[kernel], args, kw)
+            calls[name].append(_clone(call))
             return kernels[kernel](*args, **kw)
         wrapped.launches = 0
         return wrapped
@@ -2753,12 +2696,10 @@ def phase_bvh(sets, n_each, chunk):
                     str(OUT / f"small_{tag}.png"), "--npz",
                     str(OUT / f"small_{tag}.npz")] + extra
 
-        def shading_calls():  # (front end, hit epilogue, a shading of the
-            # epilogue's output, a shading from the closest hit's winners)
-            return (tmm.hit_front.launches + tsh.sphere_pass.launches,
-                    tsh.hit_epilogue.launches,
-                    tsh.shade.launches + tsh.shade_bank.launches,
-                    tsh.shade_hit.launches + tsh.shade_bank_hit.launches)
+        def shading_calls():  # (front end, hit epilogue, the shading from
+            # the closest hit's winners)
+            return (tmm.hit_front.launches + tmm.sphere_pass.launches,
+                    tmm.hit_epilogue.launches, tsh.shade_hit.launches)
 
         launches = tmm.mm_closest_hit.launches, tmm._cull_tile_lists.launches
         shaded = shading_calls()
@@ -2778,15 +2719,13 @@ def phase_bvh(sets, n_each, chunk):
         if (ran > 0) != (kind == "mm"):
             raise RuntimeError(f"--intersector {kind} launched {ran} closest-hit kernels")
         # the BVH walk has no front end or epilogue, and shades the hit it
-        # resolves; the tile route shades from its winners (NEE off): every
-        # route shades on a shading kernel
+        # resolves in plain torch; the tile route shades from its winners
+        # (NEE off) on the shading kernel
         shaded = tuple(a - b for a, b in zip(shading_calls(), shaded))
         mm = kind == "mm"
-        if (shaded[0] > 0) != mm or shaded[1] or (shaded[2] > 0) == mm \
-                or (shaded[3] > 0) != mm:
+        if (shaded[0] > 0) != mm or shaded[1] or (shaded[2] > 0) != mm:
             raise RuntimeError(f"--intersector {kind} {extra}: (front end, hit "
-                               f"epilogue, shading, shading from the winners) calls "
-                               f"{shaded}")
+                               f"epilogue, shading from the winners) calls {shaded}")
         seconds[name] = json.loads(out.getvalue().strip().splitlines()[-1])["seconds"]
         images[name] = check_image(OUT / f"small_{name}.npz", (180, 320, 3))
         if kind == "bvh":
@@ -2810,8 +2749,8 @@ def phase_bvh(sets, n_each, chunk):
         f"{routes['bvh_wavefront']['eager_runs']} eager runs, no capture or replay) "
         f"and bit-equal to their renders under graphs.eager(); against mm "
         f"{frac:.5f} / {frac_w:.5f} of pixels differ by > 1e-3, means by "
-        f"{dmean:.2e} / {dmean_w:.2e}; no tile kernel, sphere pass or hit epilogue "
-        f"launched, the shading kernel on every step")
+        f"{dmean:.2e} / {dmean_w:.2e}; no tile kernel, sphere pass, hit epilogue "
+        f"or shading kernel launched (the plain shading on every step)")
     return dict(rays=o.shape[0], mismatches=n_mis, max_abs_err=float(err.max()),
                 walk_ms=bvh_ms, mm_full_ms=mm_ms, render_s=seconds, routes=routes,
                 counts=counts,
@@ -3101,7 +3040,7 @@ def phase_nee(card):
     a = a.cpu().numpy()
     card_s = time.perf_counter() - t0
     mm_n, cull_n, bundles, draws = executed()  # on the card, replays too
-    sph_n, epi_n, shade_n, bank_n, hit_n, bank_hit_n = executed_shading()
+    sph_n, epi_n, hit_n, bank_hit_n = executed_shading()
     if mm_n or cull_n:
         raise RuntimeError("cornell_glass has no triangle, yet a kernel was launched")
     if bundles == 0:
@@ -3109,9 +3048,9 @@ def phase_nee(card):
     # NEE shades in plain torch, by config: the closest hit (the sphere pass,
     # the front end's kernel without operands, and the epilogue) twice a
     # step, the shading kernels never
-    if shade_n or bank_n or hit_n or bank_hit_n or not sph_n == epi_n > 0 or sph_n % 2:
+    if hit_n or bank_hit_n or not sph_n == epi_n > 0 or sph_n % 2:
         raise RuntimeError(f"config 4: {SHADING} launches "
-                           f"{(sph_n, epi_n, shade_n, bank_n, hit_n, bank_hit_n)}")
+                           f"{(sph_n, epi_n, hit_n, bank_hit_n)}")
     t0 = time.perf_counter()
     b, rb = render_image(on_cpu, cam, 512, 512, 2, seed=4, cfg=cfg)
     cpu_s = time.perf_counter() - t0
@@ -3121,16 +3060,14 @@ def phase_nee(card):
     record["config4"] = dict(card_s=card_s, cpu_s=cpu_s, rays=ra, cpu_rays=rb,
                              divergent=frac, mean_diff=dmean, threefry_launches=bundles,
                              threefry_draws=draws, front_launches=sph_n,
-                             epilogue_launches=epi_n, shade_launches=shade_n,
-                             shade_bank_launches=bank_n, shade_hit_launches=hit_n,
+                             epilogue_launches=epi_n, shade_hit_launches=hit_n,
                              shade_bank_hit_launches=bank_hit_n)
     log(f"[15] config 4 (cornell_glass, NEE, rr_start 3) 512x512 spp 2 depth 16: "
         f"{card_s:.3f} s on the card ({card}), {cpu_s:.1f} s on the CPU; {ra} vs {rb} "
         f"rays; {frac:.5f} of pixels differ by > 1e-3, means by {dmean:.2e}; no "
         f"tile kernel launched (spheres alone), threefry {bundles} launches, "
         f"{draws} draws, hit_front {sph_n} (as the sphere pass), hit_epilogue {epi_n}, "
-        f"shade {shade_n}, shade_bank {bank_n}, shade_hit {hit_n}, shade_bank_hit "
-        f"{bank_hit_n} (NEE shades in plain torch)")
+        f"shade_hit {hit_n}, shade_bank_hit {bank_hit_n} (NEE shades in plain torch)")
 
     # a scene with triangles and a light: the shadow rays go through the kernels
     cfg = RenderConfig(max_depth=8, nee=True, rr_start=3)
@@ -3151,7 +3088,7 @@ def phase_nee(card):
             raise RuntimeError(f"multimesh NEE wavefront: {shadow} shadow rays")
         # each closest hit (the step's and its shadow ray's) runs the front
         # end and the epilogue; the shading is plain torch
-        if any(counts[f"{k}_launches"] for k in SHADES) or not (
+        if counts["shade_hit_launches"] or counts["shade_bank_hit_launches"] or not (
                 counts["front_launches"] == counts["epilogue_launches"]
                 == counts["mm_launches"] > 0) or counts["nee_steps"] != counts["steps"]:
             raise RuntimeError(f"multimesh NEE {name}: {counts}")
@@ -3390,7 +3327,7 @@ def shading_bound(kernel: str, args) -> dict:
         nbytes = (24 * n + (8 * n if t_tri is not None else 0) + 12 * n + 32 * rows
                   + 16 * s + 25 * n)
         flop = n * EPILOGUE_FLOP
-    elif kernel in FUSED:
+    else:  # `shade_hit`, and with the bank `shade_bank_hit`
         # every lane reads its state (o, d, light, throughput: 48 B; active,
         # prev_pdf: 5 B) and writes 53 B; a live lane reads the winners (the
         # sphere pass's t, id and slot: 12 B; the triangle kernel's t and
@@ -3398,13 +3335,16 @@ def shading_bound(kernel: str, args) -> dict:
         # (32 B, counted as the distinct rows); a lane that hit reads its
         # draws (unit vector, Fresnel uniform: 16 B; with roulette its
         # uniform, and a bounce a lane) and its material row (the distinct
-        # rows); the epilogue's work on the lanes that hit
+        # rows); the epilogue's work on the lanes that hit. With the bank
+        # every lane also reads its bounce, alive flag, schunk and
+        # accumulator and writes them back with its more and bank flags
+        from metalpathtracer_torch.render.kernels import intersect_mm as tmm
         from metalpathtracer_torch.render.kernels import shade as tsh
 
         active, t_tri, col, s = args[4], args[6], args[7], args[12].shape[0]
-        u_rr, bounce = args[17], args[18]
+        u_rr, bounce = args[17], args[tsh.BOUNCE_ARG]
         bank = kernel == "shade_bank_hit"
-        idx, mat_id = tsh.hit_epilogue(args[0], args[1], *args[6:15])[1::3]
+        idx, mat_id = tmm.hit_epilogue(args[0], args[1], *args[6:15])[1::3]
         hits_mask = active & (idx >= 0)
         hits = int(hits_mask.sum())
         live = int(active.sum())
@@ -3421,32 +3361,7 @@ def shading_bound(kernel: str, args) -> dict:
                   + 53 * n + 8)
         flop = hits * (SHADE_HIT_FLOP + EPILOGUE_FLOP) + n * SHADE_LANE_FLOP
         if bank:
-            ka = args[25].shape[1]
-            nbytes += n * (8 + 1 + 8 + 4 * ka) + n * (4 * ka + 8 + 8 + 1 + 1)
-            flop += n * (BANK_LANE_FLOP + ka)
-    else:
-        # every lane reads its state (o, d, light, throughput: 48 B), its
-        # active flag and its hit's id, and writes 53 B; a lane that hit
-        # also reads its hit and draws (t, normal, front face, material id,
-        # unit vector, Fresnel uniform: 37 B; with roulette its uniform and
-        # a per-lane bounce), one that did not its prev_pdf. With the bank
-        # every lane also reads its bounce, alive flag, schunk and
-        # accumulator and writes them back with its more and bank flags
-        active, idx, mat_id, u_rr, bounce = args[4], args[7], args[10], args[13], args[14]
-        bank = kernel == "shade_bank"
-        hits_mask = active & (idx >= 0)
-        hits = int(hits_mask.sum())
-        rows = int(mat_id[hits_mask].unique().numel())
-        per_hit = 37
-        if u_rr is not None:
-            per_hit += 4
-            if not bank and isinstance(bounce, torch.Tensor) and bounce.numel() == n > 1:
-                per_hit += bounce.element_size()
-        nbytes = (53 * n + per_hit * hits + 4 * (n - hits) + 64 * rows + 24
-                  + 53 * n + 8)
-        flop = hits * SHADE_HIT_FLOP + n * SHADE_LANE_FLOP
-        if bank:
-            ka = args[21].shape[1]
+            ka = args[-1][2].shape[1]  # the bank, last
             nbytes += n * (8 + 1 + 8 + 4 * ka) + n * (4 * ka + 8 + 8 + 1 + 1)
             flop += n * (BANK_LANE_FLOP + ka)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -3457,14 +3372,15 @@ def shading_bound(kernel: str, args) -> dict:
 
 def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
     """One call of a bounce-step wrapper's kernel (`kernel` names the
-    wrapper, WRAPPER_KERNEL) against its twin on the same inputs: bit for
+    call, SHADING_CALLS) against its twin on the same inputs: bit for
     bit (NaN where both are NaN: a lane that misses has a NaN normal on
     both), then its device time, call time, the twin's call time and the
     bound."""
     import torch
 
-    module = wrapper_module(kernel)
-    fn, twin = getattr(module, kernel), getattr(module, f"{kernel}_reference")
+    wrapper = call_wrapper(kernel)
+    module = wrapper_module(wrapper)
+    fn, twin = getattr(module, wrapper), getattr(module, f"{wrapper}_reference")
     got, want = fn(*args), twin(*args)
     torch.cuda.synchronize()
     bad, err = 0, 0.0
@@ -3493,22 +3409,17 @@ def bounce_kernel_vs_twin(kernel: str, args, what: str) -> dict:
     return rec
 
 
-# where a shading's arguments hold the bounce: `shade`'s (after the hit),
-# `shade_hit`'s (after the winners)
-BOUNCE_AT = {"shade": 14, "shade_hit": 18}
-
-
-def bank_operands_of(shade_args, seed: int = 18, kernel: str = "shade"):
-    """`shade_bank`'s operands from a `shade` call's (`shade_bank_hit`'s
-    from a `shade_hit` call's, `kernel`): its bounce one a lane (int64),
-    lanes alive where they are active and on a quarter of the others,
-    random item chunks and accumulators, and the flagship's bank (depth 32,
-    4 pixels an item, 4 samples a pixel)."""
+def bank_operands_of(shade_args, seed: int = 18):
+    """A `shade_bank_hit` call's operands from a `shade_hit` call's: its
+    bounce one a lane (int64), and the bank last: lanes alive where they are
+    active and on a quarter of the others, random item chunks and
+    accumulators, and the flagship's plan (depth 32, 4 pixels an item, 4
+    samples a pixel)."""
     import torch
 
     from metalpathtracer_torch.render.kernels import shade as tsh
 
-    at = BOUNCE_AT[kernel]
+    at = tsh.BOUNCE_ARG
     o, active, bounce = shade_args[0], shade_args[4], shade_args[at]
     n, dev = o.shape[0], o.device
     gen = torch.Generator(device=dev)
@@ -3519,42 +3430,24 @@ def bank_operands_of(shade_args, seed: int = 18, kernel: str = "shade"):
     alive = active | (torch.rand(n, generator=gen, device=dev) < 0.25)
     schunk = torch.randint(0, plan.per_item, (n,), generator=gen, device=dev)
     acc = torch.rand((n, 3 * plan.bank_k), generator=gen, device=dev) * 3.0
-    return (*shade_args[:at], bounce.to(torch.int64), *shade_args[at + 1:], alive,
-            schunk, acc, plan)
-
-
-def with_the_epilogue(hit_args):
-    """A shading from the winners' arguments (`shade_hit`'s or
-    `shade_bank_hit`'s) as the shading of the epilogue's output takes them
-    (`shade`'s or `shade_bank`'s): the winners and the epilogue's tables
-    replaced by the hit the epilogue's kernel computes from them."""
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    hit = tsh.hit_epilogue(hit_args[0], hit_args[1], *hit_args[6:15])
-    return (*hit_args[:6], *hit, *hit_args[15:])
+    return (*shade_args[:at], bounce.to(torch.int64), *shade_args[at + 1:],
+            (alive, schunk, acc, plan))
 
 
 def complete_shading_set(calls: dict) -> dict:
     """A bounce step's recorded shading calls completed to every bounce
     kernel at its shape: where the step shaded from the winners
     (`shade_hit` or `shade_bank_hit`), the epilogue's call at those
-    winners, the shading of its output (`shade`, `shade_bank`), and the
-    other of the two winner entries (the bank dropped, or made by
-    `bank_operands_of`); where it shaded the epilogue's output (`shade`),
-    the bank made likewise."""
+    winners and the other of the two shading calls (the bank dropped, or
+    made by `bank_operands_of`)."""
     calls = dict(calls)
     if "shade_bank_hit" in calls and "shade_hit" not in calls:
-        calls["shade_hit"] = calls["shade_bank_hit"][:23]
+        calls["shade_hit"] = calls["shade_bank_hit"][:-1]
     if "shade_hit" in calls and "shade_bank_hit" not in calls:
-        calls["shade_bank_hit"] = bank_operands_of(calls["shade_hit"],
-                                                   kernel="shade_hit")
+        calls["shade_bank_hit"] = bank_operands_of(calls["shade_hit"])
     if "shade_hit" in calls:
         hit_args = calls["shade_hit"]
         calls.setdefault("hit_epilogue", (hit_args[0], hit_args[1], *hit_args[6:15]))
-        calls.setdefault("shade", with_the_epilogue(hit_args))
-        calls.setdefault("shade_bank", with_the_epilogue(calls["shade_bank_hit"]))
-    if "shade" in calls and "shade_bank" not in calls:
-        calls["shade_bank"] = bank_operands_of(calls["shade"])
     return calls
 
 
@@ -3576,17 +3469,17 @@ def padded_front_of(front_args, drop: int = 77, seed: int = 18):
 
 def phase_bounce_kernels(sets: dict) -> dict:
     """18: the bounce step's kernels (`csrc/sphere_pass.cu`'s front end and
-    sphere pass, `hit_epilogue.cu`, `shade.cu`'s shading and shading with
+    sphere pass, `hit_epilogue.cu`, `shade.cu`'s shading without and with
     the bank) against their twins at the calls the paths make (`sets`: name
-    -> {wrapper: args}), each bit-equal, with its device, call and plain
-    time and its bound."""
+    -> {call name (SHADING_CALLS): args}), each bit-equal, with its device,
+    call and plain time and its bound."""
     record = {}
     for name, calls in sets.items():
-        for wrapper in WRAPPER_KERNEL:
-            if calls.get(wrapper) is not None:
-                record[f"{name}_{wrapper}"] = dict(
-                    set=name, kernel=WRAPPER_KERNEL[wrapper], wrapper=wrapper,
-                    **bounce_kernel_vs_twin(wrapper, calls[wrapper], name))
+        for call in SHADING_CALLS:
+            if calls.get(call) is not None:
+                record[f"{name}_{call}"] = dict(
+                    set=name, kernel=CALL_KERNEL[call], wrapper=call,
+                    **bounce_kernel_vs_twin(call, calls[call], name))
     return record
 
 
@@ -3595,8 +3488,8 @@ def recorded_in_capture(call: int):
     """The kernels wrapped: while a CUDA graph is being captured, the
     `call`-th `mm_closest_hit` call's arguments and outputs are cloned, with
     those of the `_cull_tile_lists` and `hit_front` calls before it and of the
-    first `hit_epilogue`, `threefry_bundle` and `shade` or `shade_bank`
-    calls after it (its bounce step's); on a scene without triangles, which
+    first `hit_epilogue`, `threefry_bundle` and `shade_hit` calls after it
+    (its bounce step's); on a scene without triangles, which
     launches no tile kernel, the `call`-th bundle of more than one draw (a
     bounce step's), and the `call`-th sphere pass and hit epilogue. The
     clones are made inside the capture, so they are outputs of the graph:
@@ -3616,7 +3509,8 @@ def recorded_in_capture(call: int):
     def shaded(kernel):
         def wrapped(*args, **kw):
             out = shading_kernels[kernel](*args, **kw)
-            if torch.cuda.is_current_stream_capturing() and kernel not in got:
+            name, call_args = as_call(kernel, shading_kernels[kernel], args, kw)
+            if torch.cuda.is_current_stream_capturing() and name not in got:
                 if kernel == "hit_front":
                     seen["hit_front"] = _clone(args), _clone(out)
                 elif kernel == "sphere_pass":
@@ -3624,7 +3518,7 @@ def recorded_in_capture(call: int):
                     if seen["mm"] == 0 and seen["sphere_calls"] == call:
                         got["sphere_pass"] = _clone(args), _clone(out)
                 elif "mm" in got or (kernel == "hit_epilogue" and "sphere_pass" in got):
-                    got[kernel] = _clone(args), _clone(out)
+                    got[name] = _clone(call_args), _clone(out)
             return out
         wrapped.launches = 0
         return wrapped
@@ -3834,9 +3728,8 @@ def graph_workloads(scene, bunny, multimesh):
 
 def scan_shading(eager, run) -> tuple:
     """The bounce step's kernels' launches a scan render on the graph loop
-    must make: the eager loop's (SHADING: front end, hit epilogue, shading,
-    shading with the bank) plus an
-    eager bounce step's for every idle step its blocks ran."""
+    must make: the eager loop's (SHADING: front end, hit epilogue, shading)
+    plus an eager bounce step's for every idle step its blocks ran."""
     steps, want = eager["stats"]["reads"], []
     for launched in eager["shading"]:
         per_step, rest = divmod(launched, steps)
@@ -3936,11 +3829,11 @@ def graph_vs_eager(name, fn, card, samples=None, flagship=None, tiles=True):
                            f"{graph['launched']} replayed; {flagship} expected on both")
     # the flagship's bounce steps (one closest hit each) each run the front
     # end and one shading kernel from the closest hit's winners, which runs
-    # the epilogue itself: `shade_hit` on the scan, the shading with the bank
-    # on the wavefront (one bounce an advance); the epilogue's own kernel
-    # runs no time
+    # the epilogue itself: `shade_hit_kernel` on the scan,
+    # `shade_bank_hit_kernel` on the wavefront (one bounce an advance); the
+    # epilogue's own kernel runs no time
     steps = flagship[0] if flagship else 0
-    want = (steps, 0, 0, 0, steps, 0) if scan else (steps, 0, 0, 0, 0, steps)
+    want = (steps, 0, steps, 0) if scan else (steps, 0, 0, steps)
     if flagship and not (eager["shading"] == graph["shading"] == want):
         raise RuntimeError(f"[17] {name}: the bounce step's kernels {SHADING} ran "
                            f"{eager['shading']} eager, {graph['shading']} replayed; "
@@ -4096,7 +3989,8 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
         raise RuntimeError(f"[17] in-{what}: recorded {sorted(rec)}, {stats}")
     for kname, fn in (("mm", tmm.mm_closest_hit), ("cull", tmm._cull_tile_lists),
                       ("threefry", tfk.threefry_bundle),
-                      *((k, getattr(wrapper_module(k), k)) for k in WRAPPER_KERNEL)):
+                      *((k, getattr(wrapper_module(call_wrapper(k)), call_wrapper(k)))
+                        for k in SHADING_CALLS)):
         if kname not in rec:
             continue
         args, out = rec[kname]
@@ -4117,7 +4011,7 @@ def phase_in_window(scene, sass, tsass, what="window", render=None, call=GRAPH_C
         out["mm"] = phase_kernel_vs_twin(
             scene, {f"in_{what}": captured_set(mm_args, cull_args[1])})[f"in_{what}"]
         out["cull"] = phase_cull(f"in_{what}", cull_args, sass)
-    for kname in WRAPPER_KERNEL:
+    for kname in SHADING_CALLS:
         if kname in rec:
             out[kname] = bounce_kernel_vs_twin(kname, rec[kname][0], f"in_{what}")
     graphs.clear()
@@ -4807,7 +4701,7 @@ def main(argv=None) -> int:
     glass = upload_scene(load_scene_xml(str(ROOT / "scenes" / "cornell_glass.xml")), dev)
     (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
                              cfg=RenderConfig(max_depth=16, nee=True, rr_start=3))
-    if any(calls[k] for k in SHADES) or calls["hit_front"] or len(
+    if calls["shade_hit"] or calls["shade_bank_hit"] or calls["hit_front"] or len(
             calls["sphere_pass"]) != 2 or len(calls["hit_epilogue"]) != 2:
         raise RuntimeError(f"config 4's step: {[(k, len(v)) for k, v in calls.items()]}")
     for k, label in enumerate(("config4_step1", "config4_shadow1")):
@@ -4960,21 +4854,15 @@ def main(argv=None) -> int:
     # winners on the main path (the wavefront: the pool advance), the
     # shading from the winners on the scan flagship (its first bounce step,
     # 921,600 lanes); the epilogue's own kernel on the NEE path (the
-    # multimesh wavefront; timed at the pool advance's winners), the
-    # shadings of the epilogue's output on the BVH path (timed at the scan's
-    # and the pool advance's shapes); no single PyTorch call computes any
-    # of them
-    where = {"hit_front": ("wavefront", "pool"),
-             "hit_epilogue": ("nee_multimesh_wavefront", "pool"),
-             "shade": ("bvh_scan", "scan_step1"),
-             "shade_bank": ("bvh_wavefront", "pool"),
-             "shade_hit": ("scan", "scan_step1"),
-             "shade_bank_hit": ("wavefront", "pool")}
-    per_path.update(bvh_scan=bvh["counts"]["bvh"],
-                    bvh_wavefront=bvh["counts"]["bvh_wavefront"])
+    # multimesh wavefront; timed at the pool advance's winners); no single
+    # PyTorch call computes any of them
+    where = {"hit_front": ("wavefront", "pool_hit_front"),
+             "hit_epilogue": ("nee_multimesh_wavefront", "pool_hit_epilogue"),
+             "shade_hit": ("scan", "scan_step1_shade_hit"),
+             "shade_bank_hit": ("wavefront", "pool_shade_bank_hit")}
     for kernel, key in zip(SHADING, SHADING_KEYS):
-        path, shape = where[kernel]
-        at = bounce_kernels[f"{shape}_{kernel}"]
+        path, call = where[kernel]
+        at = bounce_kernels[call]
         kernels["kernels"].append(dict(
             name=kernel, route="cuda", **KERNELS[kernel],
             launches=per_path[path][key], launches_path=path, lanes=at["lanes"],

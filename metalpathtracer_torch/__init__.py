@@ -17,13 +17,13 @@ sphere pass and every per-lane operand of the cull and the closest hit);
 every random draw (`core.rng`) runs `csrc/threefry.cu` through
 `render.kernels.threefry` (a bounce step's draws in one launch), and the
 step's shading without next-event estimation runs `csrc/shade.cu`
-(`render.kernels.shade`) from the closest hit's winners, the epilogue
-computed in its registers (`shade_hit`), on the wavefront at one bounce an
-advance with the advance's bank of finished paths in the same launch
-(`shade_bank_hit`). With next-event estimation, or on the BVH and brute
-intersectors, the closest hit ends in its own epilogue
-(`closest_hit_mm_full`, `csrc/hit_epilogue.cu`) and the shading takes its
-output (`shade`, `shade_bank`, or the plain NEE shading).
+(`render.kernels.shade.shade_hit`) from the closest hit's winners, the
+epilogue computed in its registers, on the wavefront at one bounce an
+advance with the advance's bank of finished paths in the same launch. With
+next-event estimation the closest hit ends in its own epilogue
+(`closest_hit_mm_full`, `csrc/hit_epilogue.cu`) and the plain NEE shading
+takes its output; the BVH and brute intersectors shade in plain torch
+(`shade_reference`).
 
 The host scene layer (`metalpathtracer_torch.scene`: scene model, XML and
 OBJ loaders, presets) is plain numpy, the port's own copy of the

@@ -1,15 +1,22 @@
 // The bounce step's shading without next-event estimation, for Hopper: one
-// launch does what the plain step does after its closest hit.
+// launch does what the plain step does after its closest hit's winners.
 //
 // Replaces the plain torch shading of the port's `_bounce_step`
 // (metalpathtracer_torch/render/integrator.py, with render/bsdf.py's
 // `sky_color` and `sample_bsdf`), whose counterpart in the JAX package is
 // `_bounce_step` (metalpathtracer_tpu/render/integrator.py:315, with
 // render/bsdf.py:80) with `nee` off: no Pallas body, XLA's fusion of the
-// step's elementwise body. For every lane i, with its hit (t, idx, normal,
-// front_face, mat_id: hit_epilogue.cu) and its draws (the unit vector, the
-// Fresnel and the Russian roulette uniforms of the threefry bundle:
-// threefry.cu):
+// closest hit's epilogue (metalpathtracer_tpu/render/pallas/
+// intersect_mm.py:1315-1404) and the step's elementwise body. For every
+// lane i, from the closest hit's raw winners (the triangle kernel's t_tri
+// and col, the sphere pass's t_s, i_s and slot) and its draws (the unit
+// vector, the Fresnel and the Russian roulette uniforms of the threefry
+// bundle: threefry.cu):
+//   the lane computes the epilogue (hit_epilogue.cu: the winner's plane
+//   refine from its refine row, the merge with the sphere, the normal
+//   flipped to oppose d) in registers first, on the lanes that are live
+//   (a dead lane's hit is read by nothing): its hit t, idx, normal,
+//   front_face and mat_id, which are neither written nor read back;
 //   a live lane that missed adds throughput * sky(d) to its light;
 //   a live lane that hit reads its material row mat_bank[mat_id]
 //   [albedo, type, emission, power, fuzz], adds throughput * emission *
@@ -32,14 +39,16 @@
 // or -8: int32 or int64) or one a lane (4 or 8), as the scan's 0-d bounce
 // and the wavefront's per-lane bounces are.
 //
-// Four entries share the lane body (`shade_lane`):
-// - `shade`: the hit as the epilogue wrote it;
-// - `shade_bank`: the wavefront advance's bounce step at one bounce an
-//   advance (render/integrator.py::_Wavefront.advance, whose counterpart in
-//   the JAX package's jitted step is integrator.py:702-760): the shading,
-//   then in the same thread the advance's bank of the lane's finished
-//   path. With its int64 bounce (one a lane), its state alive (bool),
-//   schunk (int64) and acc (3 bank_k floats a lane) it computes
+// One entry, `shade_hit`, launches one of two kernels of the lane body
+// (`shade_lane`):
+// - `shade_hit_kernel`: the shading alone (the scan, and the wavefront at
+//   more than one bounce an advance);
+// - `shade_bank_hit_kernel<K>`: the wavefront advance's bounce step at one
+//   bounce an advance (render/integrator.py::_Wavefront.advance, whose
+//   counterpart in the JAX package's jitted step is integrator.py:702-760):
+//   the shading, then in the same thread the advance's bank of the lane's
+//   finished path. With its int64 bounce (one a lane), its state alive
+//   (bool), schunk (int64) and acc (3 K floats a lane) it computes
 //     bounce' = bounce + 1; survivors = hit_live && bounce' < max_depth;
 //     done = alive && !survivors; ps = clamp(light, 0, 1) (or light);
 //     acc'[slot schunk / spb] = acc + (done ? ps : 0) (every slot adds, 0.0
@@ -47,46 +56,38 @@
 //     light' = done ? 0 : light; schunk + done < per_item ? more : bank;
 //     schunk' = done ? (bank ? 0 : schunk + 1) : schunk
 //   and writes survivors as the lane's active flag, acc', bounce', schunk',
-//   more and bank (render/kernels/shade.py::bank_paths);
-// - `shade_hit` and `shade_bank_hit`: the same two, which start from the
-//   closest hit's raw winners instead of its epilogue's output: the
-//   triangle kernel's (t_tri, col) and the sphere pass's (t_s, i_s, slot).
-//   The lane computes the epilogue (hit_epilogue.cu: the winner's plane
-//   refine from its refine row, the merge with the sphere, the normal
-//   flipped to oppose d) in registers first, on the lanes that are live
-//   (a dead lane's hit is read by nothing), and shades from it: one launch
-//   where the epilogue and the shading were two, and the epilogue's 21 B
-//   a lane are neither written nor read back.
+//   more and bank (render/kernels/shade.py::bank_paths).
+// The entry takes the bank's operands and bank_k K > 0, or null bank
+// pointers and bank_k 0. Its tally counts every launch in its first slot
+// and the launches of `shade_bank_hit_kernel<K>` in its second.
 //
 // Arithmetic: f32, each operation rounded on its own in the plain
-// version's order (render/kernels/shade.py::shade_reference, on
-// render/bsdf.py and core/vecmath.py: a dot product's adds run
-// (x0 + x1) + x2; normalize is a * (1 / sqrt(a.a)), 0 where a.a <= 1e-20;
-// 1 / x is IEEE-rounded as torch's reciprocal is; a scalar constant is the
-// float32 rounding of the plain version's double literal; with the hit's
-// winners, hit_epilogue_reference's order first, and a float id converted
-// to int by truncation as torch's .to(int32)); the library is built with
-// -fmad=false, '/' and sqrtf are IEEE-rounded, and clamps propagate NaN as
-// torch.clamp does. So each entry is bit-equal to its plain version run
-// eagerly on the card.
+// version's order (render/kernels/shade.py::shade_hit_reference:
+// intersect_mm.py::hit_epilogue_reference's order first, a float id
+// converted to int by truncation as torch's .to(int32); then
+// shade_reference and bank_paths, on render/bsdf.py and core/vecmath.py: a
+// dot product's adds run (x0 + x1) + x2; normalize is a * (1 / sqrt(a.a)),
+// 0 where a.a <= 1e-20; 1 / x is IEEE-rounded as torch's reciprocal is; a
+// scalar constant is the float32 rounding of the plain version's double
+// literal); the library is built with -fmad=false, '/' and sqrtf are
+// IEEE-rounded, and clamps propagate NaN as torch.clamp does. So each
+// kernel is bit-equal to its plain version run eagerly on the card.
 //
 // Schedule. A lane issues every load it needs before its first store, in
 // three rounds of independent loads: (1) its state, its draws, its
-// bounce, its hit or its winners, and with the bank its bounce, alive
-// flag, item chunk and whole accumulator row (16-byte loads where the row
-// is 16-byte aligned and a multiple of 4 floats: bank_k 4, 8, 16); (2) with
-// the winners, the refine row (by col) and the sphere's center and
-// material id (by slot); (3) the material row (by mat_id). The pointers
-// are __restrict__, and the bank's width is a template parameter (bank_k 1,
-// 2, 4, 8 or 16, the widths a wavefront picks; the wrapper rejects any
-// other), so the accumulator row lives in registers and no load waits on a
-// store. The slot schunk / spb is an unsigned 32-bit division (schunk <
+// bounce, its winners, and with the bank its bounce, alive flag, item
+// chunk and whole accumulator row (16-byte loads where the row is 16-byte
+// aligned and a multiple of 4 floats: bank_k 4, 8, 16); (2) the refine row
+// (by col) and the sphere's center and material id (by slot); (3) the
+// material row (by mat_id). The pointers are __restrict__, and the bank's
+// width is a template parameter (bank_k 1, 2, 4, 8 or 16, the widths a
+// wavefront picks; the wrapper rejects any other), so the accumulator row
+// lives in registers and no load waits on a store. The slot schunk / spb is an unsigned 32-bit division (schunk <
 // per_item < 2^31, checked by the wrapper).
 //
 // What bounds it on an H100 SXM: bytes. A lane reads its state (o, d,
-// light, throughput: 48 B; active, prev_pdf: 5 B), its hit (t, idx,
-// normal, front_face, mat_id: 25 B) or its winners (20 B, and a 32 B
-// refine row where a triangle won), its draws (16-20 B) and a 64 B
+// light, throughput: 48 B; active, prev_pdf: 5 B), its winners (20 B,
+// and a 32 B refine row where a triangle won), its draws (16-20 B) and a 64 B
 // material row from L1 (the bank has a few rows), and writes 53 B: ~150 B,
 // 138 MB at 921,600 lanes, ~41 us at 3.35 TB/s; ~300 flop a lane (~4 us at
 // 67 TFLOP/s). The bank adds 18 B of state and 2 x 12 bank_k B of
@@ -210,11 +211,7 @@ __device__ __forceinline__ long long bounce_of(const void* __restrict__ bounce,
 struct Args {
   const float *o, *d, *light, *tp;
   const bool* active;
-  const float *prev_pdf, *t;
-  const int* idx;
-  const float* normal;
-  const bool* front;
-  const int* mat_id;
+  const float* prev_pdf;
   const float *unit_vec, *u_fres, *u_rr;
   const void* bounce;
   const float *mat_bank, *sky;
@@ -226,7 +223,7 @@ struct Args {
   int rr_start, adaptive, bounce_layout;
 };
 
-// the wavefront advance's bank (`shade_bank`, `shade_bank_hit`)
+// the wavefront advance's bank (`shade_bank_hit_kernel`)
 struct Bank {
   const bool* alive;
   const long long* schunk;
@@ -239,8 +236,7 @@ struct Bank {
   int clamp, bank_k, vec;
 };
 
-// the closest hit's raw winners (`shade_hit`, `shade_bank_hit`): the
-// triangle kernel's (null without triangles), the sphere pass's, and the
+// the closest hit's raw winners: the triangle kernel's (null without triangles), the sphere pass's, and the
 // tables the epilogue reads
 struct Winners {
   const float* t_tri;
@@ -318,7 +314,7 @@ __device__ __forceinline__ Hit epilogue(const Winners& w, bool live, Vec o, Vec 
   return Hit{tri_wins ? tt : ts, tri_wins ? i_t : is, g, front, tri_wins ? m_t : m_s};
 }
 
-template <int K, bool kHit>
+template <int K>
 __device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
                                            const Winners& w,
                                            unsigned long long* __restrict__ tally) {
@@ -326,7 +322,11 @@ __device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
   constexpr bool kBank = K != 0;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   // the launch, counted on the device: a CUDA graph's replay counts too
-  if (tally != nullptr && i == 0) atomicAdd(tally, 1ull);
+  // (slot 0 every launch of the entry, slot 1 those of the bank's kernel)
+  if (tally != nullptr && i == 0) {
+    atomicAdd(tally, 1ull);
+    if (kBank) atomicAdd(tally + 1, 1ull);
+  }
   const bool in = i < a.n;
 
   // round 1: every load of the lane's own rows, before any store
@@ -354,30 +354,18 @@ __device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
       const float* __restrict__ rr = a.u_rr;
       u_rr = rr[i];
     }
-    if constexpr (kHit) {
-      if (w.has_tris) {
-        const float* __restrict__ tt = w.t_tri;
-        const int* __restrict__ cc = w.col;
-        tk = tt[i];
-        c = cc[i];
-      }
-      const float* __restrict__ t_s = w.t_s;
-      const int* __restrict__ i_s = w.i_s;
-      const int* __restrict__ slot = w.slot;
-      ts = t_s[i];
-      is = i_s[i];
-      k = slot[i];
-    } else {
-      const float* __restrict__ tt = a.t;
-      const int* __restrict__ ii = a.idx;
-      const bool* __restrict__ ff = a.front;
-      const int* __restrict__ mm = a.mat_id;
-      t = tt[i];
-      idx = ii[i];
-      normal = load3(a.normal, i);
-      front = ff[i];
-      mat_id = mm[i];
+    if (w.has_tris) {
+      const float* __restrict__ tt = w.t_tri;
+      const int* __restrict__ cc = w.col;
+      tk = tt[i];
+      c = cc[i];
     }
+    const float* __restrict__ t_s = w.t_s;
+    const int* __restrict__ i_s = w.i_s;
+    const int* __restrict__ slot = w.slot;
+    ts = t_s[i];
+    is = i_s[i];
+    k = slot[i];
     if constexpr (kBank) {
       const long long* __restrict__ b = static_cast<const long long*>(a.bounce);
       const bool* __restrict__ al = bk.alive;
@@ -423,15 +411,13 @@ __device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
   }
   if (!in) return;
 
-  // round 2 (with the winners): the epilogue's rows
-  if constexpr (kHit) {
-    const Hit h = epilogue(w, live, o, d, tk, c, ts, is, k);
-    t = h.t;
-    idx = h.idx;
-    normal = h.normal;
-    front = h.front;
-    mat_id = h.mat_id;
-  }
+  // round 2: the epilogue's rows
+  const Hit h = epilogue(w, live, o, d, tk, c, ts, is, k);
+  t = h.t;
+  idx = h.idx;
+  normal = h.normal;
+  front = h.front;
+  mat_id = h.mat_id;
   const bool miss = idx < 0;
 
   // sky on a miss: horizon + (zenith - horizon) * 0.5 (d.y + 1)
@@ -526,25 +512,14 @@ __device__ __forceinline__ void shade_lane(const Args& a, const Bank& bk,
 }
 
 __global__ void __launch_bounds__(kThreads)
-shade_kernel(Args a, unsigned long long* __restrict__ tally) {
-  shade_lane<0, false>(a, Bank{}, Winners{}, tally);
-}
-
-__global__ void __launch_bounds__(kThreads)
 shade_hit_kernel(Args a, Winners w, unsigned long long* __restrict__ tally) {
-  shade_lane<0, true>(a, Bank{}, w, tally);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-shade_bank_kernel(Args a, Bank bk, unsigned long long* __restrict__ tally) {
-  shade_lane<K, false>(a, bk, Winners{}, tally);
+  shade_lane<0>(a, Bank{}, w, tally);
 }
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 shade_bank_hit_kernel(Args a, Bank bk, Winners w, unsigned long long* __restrict__ tally) {
-  shade_lane<K, true>(a, bk, w, tally);
+  shade_lane<K>(a, bk, w, tally);
 }
 
 int set_device(int device) {
@@ -559,9 +534,8 @@ int set_device(int device) {
 }
 
 Args shade_args(const void* o, const void* d, const void* light, const void* tp,
-                const void* active, const void* prev_pdf, const void* t,
-                const void* idx, const void* normal, const void* front_face,
-                const void* mat_id, const void* unit_vec, const void* u_fres,
+                const void* active, const void* prev_pdf, const void* unit_vec,
+                const void* u_fres,
                 const void* u_rr, const void* bounce, const void* mat_bank,
                 const void* sky, void* o_out, void* d_out, void* light_out,
                 void* tp_out, void* active_out, void* pdf_out, void* rays,
@@ -574,11 +548,6 @@ Args shade_args(const void* o, const void* d, const void* light, const void* tp,
   a.tp = static_cast<const float*>(tp);
   a.active = static_cast<const bool*>(active);
   a.prev_pdf = static_cast<const float*>(prev_pdf);
-  a.t = static_cast<const float*>(t);
-  a.idx = static_cast<const int*>(idx);
-  a.normal = static_cast<const float*>(normal);
-  a.front = static_cast<const bool*>(front_face);
-  a.mat_id = static_cast<const int*>(mat_id);
   a.unit_vec = static_cast<const float*>(unit_vec);
   a.u_fres = static_cast<const float*>(u_fres);
   a.u_rr = static_cast<const float*>(u_rr);
@@ -645,16 +614,12 @@ Winners winners_of(const void* t_tri, const void* col, const void* t_s, const vo
   return w;
 }
 
-template <bool kHit>
 int launch_bank(const Args& a, const Bank& bk, const Winners& w, cudaStream_t stream,
                 unsigned long long* tally) {
   const unsigned grid = (unsigned)((a.n + kThreads - 1) / kThreads);
-#define MPT_BANK_CASE(K)                                                           \
-  case K:                                                                          \
-    if constexpr (kHit)                                                            \
-      shade_bank_hit_kernel<K><<<grid, kThreads, 0, stream>>>(a, bk, w, tally);    \
-    else                                                                           \
-      shade_bank_kernel<K><<<grid, kThreads, 0, stream>>>(a, bk, tally);           \
+#define MPT_BANK_CASE(K)                                                        \
+  case K:                                                                       \
+    shade_bank_hit_kernel<K><<<grid, kThreads, 0, stream>>>(a, bk, w, tally);   \
     break;
   switch (bk.bank_k) {
     MPT_BANK_CASE(1)
@@ -671,104 +636,10 @@ int launch_bank(const Args& a, const Bank& bk, const Winners& w, cudaStream_t st
 
 }  // namespace
 
-extern "C" int shade_launch(const void* o, const void* d, const void* light,
-                            const void* tp, const void* active, const void* prev_pdf,
-                            const void* t, const void* idx, const void* normal,
-                            const void* front_face, const void* mat_id,
-                            const void* unit_vec, const void* u_fres,
-                            const void* u_rr, const void* bounce,
-                            const void* mat_bank, const void* sky, void* o_out,
-                            void* d_out, void* light_out, void* tp_out,
-                            void* active_out, void* pdf_out, void* rays,
-                            long long n, int rr_start, int adaptive,
-                            int bounce_layout, long long bounce_value, int device,
-                            void* stream, void* tally) {
-  int e = set_device(device);
-  if (e != (int)cudaSuccess) return e;
-  if (rr_start > 0 && (u_rr == nullptr || (bounce_layout != 0 && bounce == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
-  const Args a = shade_args(o, d, light, tp, active, prev_pdf, t, idx, normal, front_face,
-                            mat_id, unit_vec, u_fres, u_rr, bounce, mat_bank, sky, o_out,
-                            d_out, light_out, tp_out, active_out, pdf_out, rays, n,
-                            rr_start, adaptive, bounce_layout, bounce_value);
-  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  shade_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      a, static_cast<unsigned long long*>(tally));
-  return (int)cudaGetLastError();
-}
-
-// the shading from the closest hit's winners: the epilogue in registers
-extern "C" int shade_hit_launch(const void* o, const void* d, const void* light,
-                                const void* tp, const void* active,
-                                const void* prev_pdf, const void* t_tri,
-                                const void* col, const void* t_s, const void* i_s,
-                                const void* slot, const void* refine,
-                                const void* sph_center, const void* sph_mat_id,
-                                const void* unit_vec, const void* u_fres,
-                                const void* u_rr, const void* bounce,
-                                const void* mat_bank, const void* sky, void* o_out,
-                                void* d_out, void* light_out, void* tp_out,
-                                void* active_out, void* pdf_out, void* rays,
-                                long long n, int has_tris, int s, float t_min,
-                                int rr_start, int adaptive, int bounce_layout,
-                                long long bounce_value, int device, void* stream,
-                                void* tally) {
-  int e = set_device(device);
-  if (e != (int)cudaSuccess) return e;
-  if ((rr_start > 0 && (u_rr == nullptr || (bounce_layout != 0 && bounce == nullptr))) ||
-      (has_tris && (t_tri == nullptr || col == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
-  const Args a = shade_args(o, d, light, tp, active, prev_pdf, nullptr, nullptr, nullptr,
-                            nullptr, nullptr, unit_vec, u_fres, u_rr, bounce, mat_bank,
-                            sky, o_out, d_out, light_out, tp_out, active_out, pdf_out,
-                            rays, n, rr_start, adaptive, bounce_layout, bounce_value);
-  const Winners w = winners_of(t_tri, col, t_s, i_s, slot, refine, sph_center,
-                               sph_mat_id, has_tris, s, t_min);
-  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  shade_hit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      a, w, static_cast<unsigned long long*>(tally));
-  return (int)cudaGetLastError();
-}
-
-// the shading and the advance's bank: `bounce` is int64, one a lane
-extern "C" int shade_bank_launch(const void* o, const void* d, const void* light,
-                                 const void* tp, const void* active,
-                                 const void* prev_pdf, const void* t, const void* idx,
-                                 const void* normal, const void* front_face,
-                                 const void* mat_id, const void* unit_vec,
-                                 const void* u_fres, const void* u_rr,
-                                 const void* bounce, const void* mat_bank,
-                                 const void* sky, const void* alive,
-                                 const void* schunk, const void* acc, void* o_out,
-                                 void* d_out, void* light_out, void* tp_out,
-                                 void* active_out, void* pdf_out, void* rays,
-                                 void* acc_out, void* bounce_out, void* schunk_out,
-                                 void* more_out, void* bank_out, long long n,
-                                 int rr_start, int adaptive, long long max_depth,
-                                 int clamp, int bank_k, long long spb,
-                                 long long per_item, int device, void* stream,
-                                 void* tally) {
-  int e = set_device(device);
-  if (e != (int)cudaSuccess) return e;
-  if (bounce == nullptr || (rr_start > 0 && u_rr == nullptr))
-    return (int)cudaErrorInvalidValue;
-  Bank bk;
-  e = bank_of(bk, alive, schunk, acc, acc_out, bounce_out, schunk_out, more_out, bank_out,
-              max_depth, clamp, bank_k, spb, per_item);
-  if (e != (int)cudaSuccess) return e;
-  if (n <= 0) return (int)cudaSuccess;
-  const Args a = shade_args(o, d, light, tp, active, prev_pdf, t, idx, normal, front_face,
-                            mat_id, unit_vec, u_fres, u_rr, bounce, mat_bank, sky, o_out,
-                            d_out, light_out, tp_out, active_out, pdf_out, rays, n,
-                            rr_start, adaptive, 8, 0);
-  return launch_bank<false>(a, bk, Winners{}, (cudaStream_t)stream,
-                            static_cast<unsigned long long*>(tally));
-}
-
-// the shading and the bank from the closest hit's winners
-extern "C" int shade_bank_hit_launch(
+// the shading from the closest hit's winners, the epilogue in registers;
+// with bank_k > 0 also the wavefront advance's bank, whose `bounce` is
+// int64, one a lane (bank_k 0: the bank's pointers are null and unread)
+extern "C" int shade_hit_launch(
     const void* o, const void* d, const void* light, const void* tp, const void* active,
     const void* prev_pdf, const void* t_tri, const void* col, const void* t_s,
     const void* i_s, const void* slot, const void* refine, const void* sph_center,
@@ -777,41 +648,36 @@ extern "C" int shade_bank_hit_launch(
     const void* schunk, const void* acc, void* o_out, void* d_out, void* light_out,
     void* tp_out, void* active_out, void* pdf_out, void* rays, void* acc_out,
     void* bounce_out, void* schunk_out, void* more_out, void* bank_out, long long n,
-    int has_tris, int s, float t_min, int rr_start, int adaptive, long long max_depth,
-    int clamp, int bank_k, long long spb, long long per_item, int device, void* stream,
-    void* tally) {
+    int has_tris, int s, float t_min, int rr_start, int adaptive, int bounce_layout,
+    long long bounce_value, long long max_depth, int clamp, int bank_k, long long spb,
+    long long per_item, int device, void* stream, void* tally) {
   int e = set_device(device);
   if (e != (int)cudaSuccess) return e;
-  if (bounce == nullptr || (rr_start > 0 && u_rr == nullptr) ||
-      (has_tris && (t_tri == nullptr || col == nullptr)))
+  const bool banked = bank_k != 0;
+  if ((rr_start > 0 && (u_rr == nullptr || (bounce_layout != 0 && bounce == nullptr))) ||
+      (has_tris && (t_tri == nullptr || col == nullptr)) ||
+      (banked && (bounce == nullptr || bounce_layout != 8)))
     return (int)cudaErrorInvalidValue;
-  Bank bk;
-  e = bank_of(bk, alive, schunk, acc, acc_out, bounce_out, schunk_out, more_out, bank_out,
-              max_depth, clamp, bank_k, spb, per_item);
-  if (e != (int)cudaSuccess) return e;
+  Bank bk{};
+  if (banked) {
+    e = bank_of(bk, alive, schunk, acc, acc_out, bounce_out, schunk_out, more_out,
+                bank_out, max_depth, clamp, bank_k, spb, per_item);
+    if (e != (int)cudaSuccess) return e;
+  }
   if (n <= 0) return (int)cudaSuccess;
-  const Args a = shade_args(o, d, light, tp, active, prev_pdf, nullptr, nullptr, nullptr,
-                            nullptr, nullptr, unit_vec, u_fres, u_rr, bounce, mat_bank,
-                            sky, o_out, d_out, light_out, tp_out, active_out, pdf_out,
-                            rays, n, rr_start, adaptive, 8, 0);
+  const Args a = shade_args(o, d, light, tp, active, prev_pdf, unit_vec, u_fres, u_rr,
+                            bounce, mat_bank, sky, o_out, d_out, light_out, tp_out,
+                            active_out, pdf_out, rays, n, rr_start, adaptive,
+                            bounce_layout, bounce_value);
   const Winners w = winners_of(t_tri, col, t_s, i_s, slot, refine, sph_center,
                                sph_mat_id, has_tris, s, t_min);
-  return launch_bank<true>(a, bk, w, (cudaStream_t)stream,
-                           static_cast<unsigned long long*>(tally));
-}
-
-extern "C" const char* shade_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  auto* counted = static_cast<unsigned long long*>(tally);
+  if (banked) return launch_bank(a, bk, w, (cudaStream_t)stream, counted);
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  shade_hit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, w, counted);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* shade_hit_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-extern "C" const char* shade_bank_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-extern "C" const char* shade_bank_hit_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -5,6 +5,10 @@ Weekend basis (w = -forward, u = up x w, v = w x u; the image plane at
 focal length 1). The camera is a small frozen dataclass of float32 CPU
 tensors; `viewport_basis` computes in float32 on the tensors' device, op
 for op as the reference does, so rays agree with it to an ulp.
+`camera_basis` packs that basis into one tensor and `rays_from_basis`
+jitters the primary rays from it (the math of the reference's
+`pipeline.py::generate_rays`); they live here, below the pipeline, so that
+the integrator and the wavefront's restart kernel import them directly.
 
 The controls (`move`, `rotate`, `zoom`, `apply_inputs`) are host numpy, as
 in the reference, and each returns a new camera: movement 0.1 per step on
@@ -20,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from metalpathtracer_torch.core import vecmath as vm
+from metalpathtracer_torch.core import rng, vecmath as vm
 
 MOVEMENT_SPEED = 0.1
 ROTATION_SPEED = 0.002
@@ -166,6 +170,37 @@ def viewport_basis(cam: Camera, width: int, height: int):
     viewport_v = -v * (2.0 * half_h)
     first_pixel = cam.position - w - 0.5 * viewport_u - 0.5 * viewport_v
     return cam.position, first_pixel, viewport_u, viewport_v
+
+
+def camera_basis(camera: Camera, width: int, height: int) -> torch.Tensor:
+    """`viewport_basis`'s four vectors as rows of one (4, 3) float32 tensor
+    on the camera's device: [origin, first_pixel, viewport_u, viewport_v].
+    A caller moves it to the render device once per render."""
+    return torch.stack(list(viewport_basis(camera, width, height)))
+
+
+def rays_from_basis(basis: torch.Tensor, width: int, height: int, pixel_id,
+                    sample_id, seed):
+    """Jittered primary rays: screen coords sx = (px+u)/W, sy = (py+v)/H
+    with u, v ~ U[0,1); row 0 is the TOP of the image. `basis` is a
+    `camera_basis` on `pixel_id`'s device, `pixel_id` an int64 tensor of
+    u32 pixel ids; nothing is moved between devices."""
+    origin, first_pixel, vu, vv = basis.unbind(0)
+    px = (pixel_id % width).to(torch.float32)
+    py = (pixel_id // width).to(torch.float32)
+    u1, u2 = rng.uniform2(seed, pixel_id, sample_id, 0, rng.PURPOSE_JITTER_X)
+    sx = (px + u1) / width
+    sy = (py + u2) / height
+    d = (
+        first_pixel[None, :]
+        + sx[:, None] * vu[None, :]
+        + sy[:, None] * vv[None, :]
+        - origin[None, :]
+    )
+    # vector_norm accumulates as XLA's jnp.linalg.norm does (bit-equal)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    o = origin.expand_as(d)
+    return o, d
 
 
 @dataclasses.dataclass

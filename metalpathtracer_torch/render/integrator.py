@@ -34,6 +34,7 @@ import torch
 
 from metalpathtracer_torch.core import rng, vecmath as vm
 from metalpathtracer_torch.render import bsdf, graphs
+from metalpathtracer_torch.render.camera import camera_basis, rays_from_basis
 from metalpathtracer_torch.render.intersect import (
     T_MIN,
     closest_hit_bruteforce,
@@ -230,25 +231,27 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     bounce sampled a light (0 otherwise): the MIS counterweight.
 
     The closest hit, then every draw of the step in one bundle, then the
-    shading: without next-event estimation `render/kernels/shade.py::shade`
-    (one kernel on the card), with it `_shade_nee`, plain torch (chosen by
-    the config, and counted in `graphs.STATS["nee_steps"]`). Without
-    next-event estimation on the tile intersector ("auto", "mm") the closest
-    hit stops at its winners (`closest_hit_mm_winners`) and the shading
-    starts from them (`shade.shade_hit`): its kernel computes the epilogue
-    in registers, one launch where the epilogue and `shade` were two.
+    shading, by one of three routes:
+    - with next-event estimation (and lights in the scene) `_shade_nee`,
+      plain torch (counted in `graphs.STATS["nee_steps"]`);
+    - without it on the tile intersector ("auto", "mm") the closest hit
+      stops at its winners (`closest_hit_mm_winners`) and
+      `shade.shade_hit` shades from them: one kernel on the card, which
+      computes the epilogue in registers;
+    - without it on the BVH walk and the brute oracle, which give the
+      surface frame, `shade.shade_reference`, plain torch.
 
     Returns (o, d, light, throughput, still_active, prev_pdf, rays_counted,
-    shadow_counted, tile_passes); rays_counted includes the NEE shadow rays
-    and shadow_counted reports them on their own.
+    shadow_counted, tile_passes, banked); rays_counted includes the NEE
+    shadow rays and shadow_counted reports them on their own.
 
     `bank` (the wavefront's lanes at one bounce an advance: (alive, schunk,
-    acc, `shade.BankPlan`), with `bounce` an int64 tensor) adds a tenth
-    item: without NEE the shading is `shade.shade_bank` (from the winners
-    `shade.shade_bank_hit`), which also banks the paths that ended, and the
-    item is its (acc, bounce, schunk, more, bank), with light 0 where a
-    path banked and still_active the lanes whose path goes on; with NEE it
-    is None and the caller banks (`shade.bank_paths`).
+    acc, `shade.BankPlan`), with `bounce` an int64 tensor) has `shade_hit`
+    bank the paths that ended in the same launch: `banked` is then its
+    (acc, bounce, schunk, more, bank), with light 0 where a path banked and
+    still_active the lanes whose path goes on. Without a bank, and on the
+    other routes, `banked` is None and the caller banks
+    (`shade.bank_paths`).
     """
     use_nee = cfg.nee and scene.num_lights > 0
     from_winners = not use_nee and cfg.intersector in ("auto", "mm")
@@ -274,21 +277,18 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
                           _step_draws(use_nee, cfg.rr_start > 0))
     if use_nee:
         graphs.STATS["nee_steps"] += 1
-        out = _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
-                         cfg, hit, drawn, tile_passes)
-        return out if bank is None else (*out, None)
+        return (*_shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce,
+                            cfg, hit, drawn, tile_passes), None)
     args = (o, d, light, throughput, active, prev_pdf, *hit, drawn[0], drawn[1],
             drawn[-1] if cfg.rr_start > 0 else None, bounce, scene.mat_bank,
             scene.sky, cfg.rr_start, cfg.adaptive_offset)
     shadow = torch.zeros((), dtype=torch.int64, device=o.device)
-    if bank is None:
+    if not from_winners:
         with span("step.shade"):
-            out = (shade.shade_hit if from_winners else shade.shade)(*args)
-        return (*out, shadow, tile_passes)
-    with span("step.shade_bank"):
-        o, d, light, throughput, active, prev_pdf, rays, *banked = (
-            shade.shade_bank_hit if from_winners else shade.shade_bank)(*args, *bank)
-    return o, d, light, throughput, active, prev_pdf, rays, shadow, tile_passes, banked
+            return (*shade.shade_reference(*args), shadow, tile_passes, None)
+    with span("step.shade" if bank is None else "step.shade_bank"):
+        out = shade.shade_hit(*args, bank=bank)
+    return (*out[:7], shadow, tile_passes, None if bank is None else out[7:])
 
 
 def _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce, cfg, hit,
@@ -299,7 +299,8 @@ def _shade_nee(scene, o, d, light, throughput, active, prev_pdf, bounce, cfg, hi
     closest hit), the BSDF's sample and its pdf for the next bounce's MIS,
     the offset, Russian roulette and the masked state update. `hit` is the
     step's (t, idx, normal, front_face, mat_id), `drawn` its draws
-    (`_step_draws(True, ...)`). Returns what `_bounce_step` returns."""
+    (`_step_draws(True, ...)`). Returns `_bounce_step`'s items but the
+    last."""
     t, idx, normal, front_face, mat_id = hit
     with span("step.update"):
         rays_counted = active.sum(dtype=torch.int64)
@@ -666,24 +667,23 @@ class _Wavefront:
         state and the masks `more` (the lane restarts on its item's next
         sample) and `bank` (the lane finished its item). At one bounce an
         advance the step's shading banks the paths that ended
-        (`shade.shade_bank_hit` or `shade.shade_bank`: one kernel on the
-        card); with more, or with NEE, `shade.bank_paths` does after the
-        steps."""
+        (`shade.shade_hit` with its bank: one kernel on the card); with
+        more, with NEE, or on the BVH walk and the brute oracle,
+        `shade.bank_paths` does after the steps."""
         cfg, counters = self.cfg, self.counters
         alive, bounce = st["alive"], st["bounce"]
         o, d, light, tp, prev_pdf, pixel, sample = (
             st[k] for k in ("o", "d", "light", "tp", "prev_pdf", "pixel", "sample"))
         fused = ((alive, st["schunk"], st["acc"], self.plan) if self.bpi == 1
                  else None)
-        still, banked = alive, None
+        still = alive
         for k in range(self.bpi):
             with span("wavefront.counters"):
                 step_active = still & (bounce + k < cfg.max_depth)
-            o, d, light, tp, still, prev_pdf, c, sh, tpass, *rest = _bounce_step(
+            o, d, light, tp, still, prev_pdf, c, sh, tpass, banked = _bounce_step(
                 self.scene, o, d, light, tp, step_active, prev_pdf, pixel,
                 sample, bounce + k if k else bounce, self.seed, cfg, bank=fused,
             )
-            banked = rest[0] if rest else None
             with span("wavefront.counters"):
                 counters["rays"] += c
                 counters["shadow"] += sh
@@ -719,8 +719,6 @@ class _Wavefront:
     def start(self, camera, sample_offset: int):
         """The first pool of lanes for `camera`, samples from
         `sample_offset` on; the framebuffer and the counters at 0."""
-        from metalpathtracer_torch.render.pipeline import camera_basis
-
         with span("wavefront.start"):
             self.basis.copy_(camera_basis(camera, self.width, self.height))
             self.sample_offset.fill_(sample_offset)
@@ -882,8 +880,6 @@ class _Scan:
 
     def start_sample(self):
         """Sample `sample_id`'s jittered primary rays; every lane live."""
-        from metalpathtracer_torch.render.pipeline import rays_from_basis
-
         o, d = rays_from_basis(self.basis, self.width, self.height,
                                self.pixel_id, self.sample_id, self.seed)
         self.o.copy_(o)
@@ -919,7 +915,7 @@ class _Scan:
         for _ in range(k):
             with span("scan.counters"):
                 c["idle"] += (~active.any()).to(torch.int64)
-            o, d, light, tp, active, prev_pdf, rays, shadow, passes = _bounce_step(
+            o, d, light, tp, active, prev_pdf, rays, shadow, passes, _ = _bounce_step(
                 self.scene, o, d, light, tp, active, prev_pdf, self.pixel_id,
                 self.sample_id, bounce, self.seed, self.cfg,
             )

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (closest hit, tile cull, the RNG's threefry,
-and the bounce step's sphere pass, hit epilogue and shading), their plain
-twins, their tables, and how they are built and launched.
+"""The hand-written CUDA kernels (closest hit, tile cull, sphere pass and
+hit epilogue in `intersect_mm`; the RNG's threefry; the bounce step's
+shading in `shade`; the wavefront's regeneration in `wavefront`), their
+plain twins, their tables, and how they are built and launched.
 
 The names of the reference's `metalpathtracer_tpu.render.pallas`."""
 

@@ -12,9 +12,9 @@ and the flags, loaded with `ctypes`, and launched on the current stream by
 Every launch also adds to its kernel's `tally` on the device: thread 0 of
 block 0 adds one launch (and the threefry kernel its draws, the closest hit
 its launches that shared walks over thread block clusters, the list cull its
-launches that sorted by radix). A CUDA graph's
-replay runs the kernels it captured, and so moves their tallies as eager
-launches do, while it runs none of the wrappers' Python. Nothing here runs
+launches that sorted by radix, the shading its launches with the bank). A
+CUDA graph's replay runs the kernels it captured, and so moves their
+tallies as eager launches do, while it runs none of the wrappers' Python. Nothing here runs
 at import time: the CPU-only test environment imports every module and has
 no `nvcc`.
 """
@@ -42,13 +42,13 @@ NVCC_FLAGS = (
 )
 # the kernels whose entry point lives in another kernel's source: the
 # closest hit's front end in the sphere pass's (the same kernel, which
-# without feature pointers writes the sphere winner alone); the wavefront's
-# shading and bank, and both shadings from the closest hit's raw winners
-# (the epilogue in registers), in the shading's (entries of one lane body);
-# the wavefront's four regeneration kernels in one source; the cull that
-# sorts its rows into the closest hit's lists in the plain cull's
-SOURCES = {"cull_tile_lists": "cull_tiles", "hit_front": "sphere_pass", "shade_bank": "shade", "shade_hit": "shade",
-           "shade_bank_hit": "shade", "restart_lanes": "wavefront",
+# without feature pointers writes the sphere winner alone); the shading
+# from the closest hit's raw winners (the epilogue in registers, the
+# wavefront's bank where given) in the shading's; the wavefront's four
+# regeneration kernels in one source; the cull that sorts its rows into the
+# closest hit's lists in the plain cull's
+SOURCES = {"cull_tile_lists": "cull_tiles", "hit_front": "sphere_pass",
+           "shade_hit": "shade", "restart_lanes": "wavefront",
            "queue_pop": "wavefront", "tileset_key": "wavefront",
            "permute_lanes": "wavefront"}
 # flags of one source's build: the bounce step's, the restart's and the
@@ -57,6 +57,14 @@ SOURCES = {"cull_tile_lists": "cull_tiles", "hit_front": "sphere_pass", "shade_b
 KERNEL_FLAGS = {name: ("-fmad=false",)
                 for name in ("cull_tiles", "sphere_pass", "hit_epilogue", "shade",
                              "wavefront")}
+
+
+def device_of(kernel: str, x: torch.Tensor) -> str:
+    """"cpu" or "cuda", the device type of `x` that `kernel`'s wrapper
+    serves (the CPU by the plain twin); raises on any other."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: no kernel for device {x.device}")
+    return x.device.type
 
 
 def source_of(kernel: str) -> str:
@@ -133,21 +141,13 @@ ENTRY_ARGS = {
     # n, whether there are triangles, the sphere count, t_min
     "hit_epilogue": (15, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float)),
-    # n, rr_start, adaptive offset, the bounce's (layout, value)
-    "shade": (24, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong)),
-    # n, rr_start, adaptive offset, max_depth, clamp, bank_k, spb, per_item
-    "shade_bank": (32, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_longlong)),
-    # n, whether there are triangles, the sphere count, t_min, then the
-    # shading's scalars
-    "shade_hit": (27, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong)),
-    "shade_bank_hit": (35, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_longlong, ctypes.c_longlong)),
+    # n, whether there are triangles, the sphere count, t_min, rr_start,
+    # adaptive offset, the bounce's (layout, value), then the bank's
+    # max_depth, clamp, bank_k (0: no bank), spb, per_item
+    "shade_hit": (35, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong)),
     # n, width, height, groups, bank_k, spb, pixel_offset, the seed word
     "restart_lanes": (19, (ctypes.c_longlong,) * 7 + (ctypes.c_uint32,)),
     # n, the accumulator's width, total, groups
@@ -221,7 +221,8 @@ def tally(kernel: str, device) -> torch.Tensor:
     """`kernel`'s (launches, draws) on `device` since the last
     `zero_tallies`, a (2,) int64 tensor there that the kernel adds to
     itself (the closest hit's second slot: its clustered launches;
-    `cull_tile_lists`': its launches that sorted by radix). Made
+    `cull_tile_lists`': its launches that sorted by radix; `shade_hit`'s:
+    its launches with the bank, `shade_bank_hit_kernel<K>`'s). Made
     at the kernel's first launch on the device, which a stream capture may
     not be: it would capture the zeroing (a graph's warm-up launches
     first)."""
@@ -238,7 +239,8 @@ def tally(kernel: str, device) -> torch.Tensor:
 def tallies(device) -> dict:
     """{kernel: (launches, draws)} of every kernel launched on `device`
     (`mm_closest_hit`: (launches, clustered launches); `cull_tile_lists`:
-    (launches, radix launches)): one read of the
+    (launches, radix launches); `shade_hit`: (launches, launches with the
+    bank)): one read of the
     device, after the work queued before it."""
     index = torch.device(device).index or 0
     names = [k for k, i in _tallies if i == index]

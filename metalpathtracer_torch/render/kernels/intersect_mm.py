@@ -22,13 +22,16 @@ matmul. Before the kernel, the CUDA kernel `csrc/cull_tiles.cu` slab-tests
 every ray against every tile box, reduces the result per 128-lane subgroup
 and sorts each subgroup's row in the same block into its entry-ordered list
 of passing tiles (`_cull_tile_lists`). Before the cull, the front end
-`csrc/sphere_pass.cu` (`hit_front`) runs the exact sphere pass and writes every per-lane operand of the cull
-and the closest hit (the ray features, the active flags, the occlusion
-bound, padded to whole subgroups) in one pass; after the closest hit, the
-epilogue (the plane-t refine of the winner, the merge, the normal) is a
-kernel of `render/kernels/shade.py`, or, where the bounce step shades
-without next-event estimation, the first part of its shading kernel
-(`closest_hit_mm_winners` returns the winners it starts from).
+`csrc/sphere_pass.cu` (`hit_front`) runs the exact sphere pass and writes
+every per-lane operand of the cull and the closest hit (the ray features,
+the active flags, the occlusion bound, padded to whole subgroups) in one
+pass (on a scene of spheres alone the same kernel without those operands,
+`sphere_pass`); after the closest
+hit, the epilogue (the plane-t refine of the winner, the merge, the
+normal) is the CUDA kernel `csrc/hit_epilogue.cu` (`hit_epilogue`), or,
+where the bounce step shades without next-event estimation, the first
+part of its shading kernel (`closest_hit_mm_winners` returns the winners
+it starts from; `render/kernels/shade.py::shade_hit`).
 
 TPU workarounds of the reference that are not ported, and why:
 - the bf16 hi/lo "pack" weight slab and the precision modes: they work
@@ -56,7 +59,8 @@ import numpy as np
 import torch
 
 from metalpathtracer_torch.core import vecmath as vm
-from metalpathtracer_torch.render.kernels import _build, shade
+from metalpathtracer_torch.render.intersect import ray_sphere
+from metalpathtracer_torch.render.kernels import _build
 from metalpathtracer_torch.scene import PRIM_SPHERE, PRIM_TRIANGLE
 from metalpathtracer_torch.utils.metrics import span
 
@@ -612,13 +616,64 @@ def kernel_inputs(scene, o, d, occ, active=None, t_min=T_MIN):
     return lists, counts, smin, x, lane_bound
 
 
+# --------------------------------------------------------------------------
+# the sphere pass and the front end: one kernel, csrc/sphere_pass.cu
+# --------------------------------------------------------------------------
+
+
+def sphere_pass(o, d, sph_center, sph_radius, sph_ids, t_min: float):
+    """Each ray's nearest sphere: o, d (N, 3) f32 rays; sph_center (S, 3),
+    sph_radius (S,) f32 and sph_ids (S,) int32 the sphere SoA (padding
+    spheres have radius 0). Returns (t (N,) f32, inf on a miss; idx (N,)
+    int32 the sphere's primitive id, -1 on a miss; slot (N,) int32 the
+    first slot of the smallest t, 0 on a miss)."""
+    n, s = o.shape[0], sph_center.shape[0]
+    f32 = torch.float32
+    _build.check_tensors("sphere_pass", [
+        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
+        ("sph_center", sph_center, f32, (s, 3)),
+        ("sph_radius", sph_radius, f32, (s,)),
+        ("sph_ids", sph_ids, torch.int32, (s,)),
+    ], o.device)
+    if _build.device_of("sphere_pass", o) == "cpu":
+        return sphere_pass_reference(o, d, sph_center, sph_radius, sph_ids, t_min)
+    t = torch.empty(n, dtype=f32, device=o.device)
+    idx = torch.empty(n, dtype=torch.int32, device=o.device)
+    slot = torch.empty(n, dtype=torch.int32, device=o.device)
+    if n:  # the front end's kernel without its operands: the winner alone
+        _build.launch("hit_front", (o.contiguous(), d.contiguous(), None, None,
+                                    sph_center, sph_radius, sph_ids),
+                      (t, idx, slot, None, None, None), (n, s, float(t_min)),
+                      o.device, align=4)
+        sphere_pass.launches += 1
+    return t, idx, slot
+
+
+sphere_pass.launches = 0
+
+
+def sphere_pass_reference(o, d, sph_center, sph_radius, sph_ids, t_min: float):
+    """Plain torch twin of `sphere_pass`: `ray_sphere` over the (N, S)
+    pairs and `torch.min` over the spheres (the first slot of equal t)."""
+    n = o.shape[0]
+    if sph_center.shape[0] == 0:
+        return (torch.full((n,), _INF, dtype=torch.float32, device=o.device),
+                torch.full((n,), -1, dtype=torch.int32, device=o.device),
+                torch.zeros((n,), dtype=torch.int32, device=o.device))
+    t = ray_sphere(o[:, None, :], d[:, None, :], sph_center[None, :, :],
+                   sph_radius[None, :], t_min)
+    t_best, slot = torch.min(t, dim=1)
+    idx = torch.where(torch.isinf(t_best), -1, sph_ids[slot])
+    return t_best, idx, slot.to(torch.int32)
+
+
 def hit_front(o, d, active, occ_t, sph_center, sph_radius, sph_ids, t_min: float):
     """The closest hit's front end: each lane's nearest sphere and every
     per-lane operand of the cull and the closest hit. o, d (N, 3) f32 rays;
     active (N,) bool or None (every lane live); occ_t (N,) f32 or None, a
     bound past which hits do not matter; the sphere SoA (sph_center (S, 3),
     sph_radius (S,) f32, sph_ids (S,) int32). Returns (t_s (N,) f32, i_s
-    (N,) int32, slot (N,) int32: `shade.sphere_pass`'s; x (N_pad, 12) f32,
+    (N,) int32, slot (N,) int32: `sphere_pass`'s; x (N_pad, 12) f32,
     act (N_pad,) f32, occ (N_pad,) f32: the operands of `_cull_tile_lists`
     and `mm_closest_hit`, N_pad = N rounded up to 128, occ = min(t_s, occ_t)
     (the sphere winner bounds the triangles' search)).
@@ -635,11 +690,9 @@ def hit_front(o, d, active, occ_t, sph_center, sph_radius, sph_ids, t_min: float
         ("sph_ids", sph_ids, torch.int32, (s,)),
     ] + ([] if active is None else [("active", active, torch.bool, (n,))])
       + ([] if occ_t is None else [("occ_t", occ_t, f32, (n,))]), o.device)
-    if o.device.type == "cpu":
+    if _build.device_of("hit_front", o) == "cpu":
         return hit_front_reference(o, d, active, occ_t, sph_center, sph_radius,
                                    sph_ids, t_min)
-    if o.device.type != "cuda":
-        raise ValueError(f"hit_front: no kernel for device {o.device}")
     n_pad = n + (-n) % LANES
     dev = o.device
     outs = (torch.empty(n, dtype=f32, device=dev),
@@ -664,12 +717,106 @@ hit_front.launches = 0
 def hit_front_reference(o, d, active, occ_t, sph_center, sph_radius, sph_ids,
                         t_min: float):
     """Plain torch twin of `hit_front`: the sphere pass
-    (`shade.sphere_pass_reference`), the occlusion bound, then the features,
+    (`sphere_pass_reference`), the occlusion bound, then the features,
     the cast and the padding (`_padded_operands`)."""
-    t_s, i_s, slot = shade.sphere_pass_reference(o, d, sph_center, sph_radius,
+    t_s, i_s, slot = sphere_pass_reference(o, d, sph_center, sph_radius,
                                                  sph_ids, t_min)
     occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
     return (t_s, i_s, slot, *_padded_operands(o, d, active, occ))
+
+
+# --------------------------------------------------------------------------
+# the closest hit's epilogue
+# --------------------------------------------------------------------------
+
+
+def hit_epilogue(o, d, t_tri, col, t_s, i_s, slot, refine, sph_center,
+                 sph_mat_id, t_min: float):
+    """The closest hit from its two passes. o, d (N, 3) f32 rays; t_tri
+    (N,) f32 and col (N,) int32 the triangle kernel's winner (t and kernel
+    column, -1 on a miss), both None on a scene without triangles; t_s,
+    i_s, slot (N,) the sphere pass's (`sphere_pass`); refine (T, 8) f32 the
+    rows [n, n.v0, prim, mat, 0, 0] of the kernel's columns; sph_center
+    (S, 3) f32, sph_mat_id (S,) int32.
+    Returns (t (N,) f32, idx (N,) int32 (-1 on a miss), normal (N, 3) f32
+    opposing d, front_face (N,) bool, mat_id (N,) int32); normal and mat_id
+    are garbage on a miss."""
+    n, s = o.shape[0], sph_center.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    tris = t_tri is not None
+    _build.check_tensors("hit_epilogue", [
+        ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
+        ("t_s", t_s, f32, (n,)), ("i_s", i_s, i32, (n,)), ("slot", slot, i32, (n,)),
+        ("refine", refine, f32, (refine.shape[0], 8)),
+        ("sph_center", sph_center, f32, (s, 3)),
+        ("sph_mat_id", sph_mat_id, i32, (s,)),
+    ] + ([("t_tri", t_tri, f32, (n,)), ("col", col, i32, (n,))] if tris else []),
+        o.device)
+    if _build.device_of("hit_epilogue", o) == "cpu":
+        return hit_epilogue_reference(o, d, t_tri, col, t_s, i_s, slot, refine,
+                                      sph_center, sph_mat_id, t_min)
+    dev = o.device
+    t = torch.empty(n, dtype=f32, device=dev)
+    idx = torch.empty(n, dtype=i32, device=dev)
+    normal = torch.empty((n, 3), dtype=f32, device=dev)
+    front = torch.empty(n, dtype=torch.bool, device=dev)
+    mat_id = torch.empty(n, dtype=i32, device=dev)
+    if n:
+        _build.launch("hit_epilogue", (o.contiguous(), d.contiguous(), t_tri, col,
+                                       t_s, i_s, slot, refine, sph_center, sph_mat_id),
+                      (t, idx, normal, front, mat_id), (n, int(tris), s, float(t_min)),
+                      dev)
+        hit_epilogue.launches += 1
+    return t, idx, normal, front, mat_id
+
+
+hit_epilogue.launches = 0
+
+
+def hit_epilogue_reference(o, d, t_tri, col, t_s, i_s, slot, refine, sph_center,
+                           sph_mat_id, t_min: float):
+    """Plain torch twin of `hit_epilogue`: the winner's refine row gathered,
+    its t re-derived from its plane (a re-test that rejects the kernel's
+    winner keeps the kernel's t), merged with the sphere pass."""
+    n = o.shape[0]
+    if sph_center.shape[0]:
+        k = slot.to(torch.int64)
+        c, m_s = sph_center[k], sph_mat_id[k]
+    else:
+        c = torch.zeros_like(o)
+        m_s = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    sph_n = vm.normalize(o + t_s[:, None] * d - c)
+    if t_tri is not None:
+        row = refine[col.clamp(min=0).to(torch.int64)]
+        nvec = row[:, 0:3]
+        ndotv0 = row[:, 3]
+        i_t = row[:, 4].to(torch.int32)
+        m_t = row[:, 5].to(torch.int32)
+        denom = vm.dot(nvec, d)
+        parallel = torch.abs(denom) <= TRI_PARALLEL_EPS
+        t_plane = (ndotv0 - vm.dot(nvec, o)) / torch.where(parallel, 1.0, denom)
+        t_exact = torch.where((~parallel) & (t_plane > t_min), t_plane, _INF)
+        # an exact re-test that rejects the kernel's winner keeps the
+        # kernel's t rather than reporting a miss (no edge sparkle)
+        tri_hit = (col >= 0) & torch.isfinite(t_tri)
+        t_t = torch.where(
+            tri_hit, torch.where(torch.isfinite(t_exact), t_exact, t_tri), _INF
+        )
+        i_t = torch.where(tri_hit, i_t, -1)
+        tri_n = vm.normalize(nvec)
+    else:
+        t_t = torch.full((n,), _INF, dtype=torch.float32, device=o.device)
+        i_t = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+        m_t = torch.zeros((n,), dtype=torch.int32, device=o.device)
+        tri_n = torch.zeros_like(o)
+    tri_wins = t_t < t_s
+    t = torch.where(tri_wins, t_t, t_s)
+    idx = torch.where(tri_wins, i_t, i_s)
+    mat_id = torch.where(tri_wins, m_t, m_s)
+    normal = vm.where3(tri_wins, tri_n, sph_n)
+    front_face = vm.dot(normal, d) < 0.0
+    normal = vm.where3(front_face, normal, -normal)
+    return t, idx, normal, front_face, mat_id
 
 
 def closest_hit_mm_winners(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
@@ -684,14 +831,14 @@ def closest_hit_mm_winners(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     both None on a scene without triangles; the sphere pass's t_s (N,) f32,
     i_s (N,) int32 prim id and slot (N,) int32; tile_passes the (128-lane
     subgroup, tile) pairs of the lists in units of 2^20 ray-triangle tests.
-    `shade.hit_epilogue` refines and merges them (`closest_hit_mm_full`),
-    or the shading does in its own launch (`shade.shade_hit`). `active` and
-    `occ_t` as `closest_hit_mm_full` takes them."""
+    `hit_epilogue` refines and merges them (`closest_hit_mm_full`), or the
+    shading does in its own launch (`render/kernels/shade.py::shade_hit`).
+    `active` and `occ_t` as `closest_hit_mm_full` takes them."""
     n = o.shape[0]
     if scene.num_tris == 0:
         with span("hit.sphere_pass"):
-            t_s, i_s, slot = shade.sphere_pass(o, d, scene.sph_center,
-                                               scene.sph_radius, scene.sph_ids, t_min)
+            t_s, i_s, slot = sphere_pass(o, d, scene.sph_center, scene.sph_radius,
+                                         scene.sph_ids, t_min)
         return (None, None, t_s, i_s, slot,
                 torch.zeros((), dtype=torch.float32, device=o.device))
     with span("hit.front"):
@@ -728,7 +875,7 @@ def closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=None):
     t_t, col, t_s, i_s, slot, tile_passes = closest_hit_mm_winners(
         scene, o, d, t_min, active, occ_t)
     with span("hit.epilogue"):
-        t, idx, normal, front_face, mat_id = shade.hit_epilogue(
+        t, idx, normal, front_face, mat_id = hit_epilogue(
             o, d, t_t, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,
             scene.sph_mat_id, t_min)
     return t, idx, normal, front_face, mat_id, tile_passes

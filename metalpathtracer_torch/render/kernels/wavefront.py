@@ -33,9 +33,9 @@ from typing import NamedTuple
 
 import torch
 
+from metalpathtracer_torch.render.camera import rays_from_basis
 from metalpathtracer_torch.render.kernels import _build
 from metalpathtracer_torch.render.kernels.intersect_mm import _cull_hit_mask
-from metalpathtracer_torch.render.kernels.shade import _device_of
 
 # a wavefront lane's state (`integrator._Wavefront`): its dtype and its
 # trailing shape (acc's width is 3 bank_k)
@@ -101,7 +101,7 @@ def restart_lanes(lanes: dict, restart, basis, sample_offset, plan: LanePlan) ->
         lanes, _RESTART_READS, n) + [
         ("restart", restart, _BOOL, (n,)), ("basis", basis, _F32, (4, 3)),
         ("sample_offset", sample_offset, _I64, ())], dev)
-    if _device_of("restart_lanes", lanes["item"]) == "cpu":
+    if _build.device_of("restart_lanes", lanes["item"]) == "cpu":
         return restart_lanes_reference(lanes, restart, basis, sample_offset, plan)
     o, d, tp = (torch.empty((n, 3), dtype=_F32, device=dev) for _ in range(3))
     bounce, pixel, sample = (torch.empty(n, dtype=_I64, device=dev) for _ in range(3))
@@ -124,12 +124,9 @@ restart_lanes.launches = 0
 
 def restart_lanes_reference(lanes: dict, restart, basis, sample_offset,
                             plan: LanePlan) -> dict:
-    """Plain torch twin of `restart_lanes`: `pixel_sample`, the pipeline's
+    """Plain torch twin of `restart_lanes`: `pixel_sample`, the camera's
     `rays_from_basis` (its jitter drawn by `core/rng.py`) for every lane,
     and the masked reset."""
-    # imported here: the pipeline imports the integrator, which imports this
-    from metalpathtracer_torch.render.pipeline import rays_from_basis
-
     pixel, sample = pixel_sample(lanes["item"], lanes["schunk"], sample_offset, plan)
     no, nd = rays_from_basis(basis, plan.width, plan.height, pixel, sample, plan.seed)
     r = restart[:, None]
@@ -167,7 +164,7 @@ def queue_pop(bank, more, item, acc, pend_idx, pend_rgb, next_item, total: int,
         ("item", item, _I64, (n,)), ("acc", acc, _F32, (n, ka)),
         ("pend_idx", pend_idx, _I64, (n,)), ("pend_rgb", pend_rgb, _F32, (n, ka)),
         ("next_item", next_item, _I64, ())], dev)
-    if _device_of("queue_pop", item) == "cpu":
+    if _build.device_of("queue_pop", item) == "cpu":
         return queue_pop_reference(bank, more, item, acc, pend_idx, pend_rgb, next_item,
                                    total, groups)
     for name, t in (("item", item), ("acc", acc), ("pend_idx", pend_idx),
@@ -230,7 +227,7 @@ def tileset_key(o, d, alive, coarse_box, t_min: float):
     _build.check_tensors("tileset_key", [
         ("o", o, _F32, (n, 3)), ("d", d, _F32, (n, 3)), ("alive", alive, _BOOL, (n,)),
         ("coarse_box", coarse_box, _F32, (nc, 8))], o.device)
-    if _device_of("tileset_key", o) == "cpu":
+    if _build.device_of("tileset_key", o) == "cpu":
         return tileset_key_reference(o, d, alive, coarse_box, t_min)
     key = torch.empty(n, dtype=torch.int32, device=o.device)
     if n:
@@ -264,7 +261,7 @@ def permute_lanes(perm, lanes: dict, pend=None):
     if pend is not None:
         checks += [("pend_idx", pend[0], _I64, (n,)), ("pend_rgb", pend[1], _F32, (n, ka))]
     _build.check_tensors("permute_lanes", checks, dev)
-    if _device_of("permute_lanes", perm) == "cpu":
+    if _build.device_of("permute_lanes", perm) == "cpu":
         return permute_lanes_reference(perm, lanes, pend)
     out = {k: torch.empty_like(lanes[k], memory_format=torch.contiguous_format)
            for k in LANE_FIELDS}

@@ -1,8 +1,8 @@
 """Rendering pipeline: ray generation, sample batching, progressive state.
 
-Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays` (and
-`rays_from_basis`, its math on a basis already on the device),
-`render_tile`, `render_image`, `render_image_wavefront`, and the
+Port of `metalpathtracer_tpu/render/pipeline.py`: `generate_rays` (the
+math on a basis already on the device, `camera_basis` and
+`rays_from_basis`, is in `render/camera.py`), `render_tile`, `render_image`, `render_image_wavefront`, and the
 progressive state `AccumState` with `init_accum`, `accumulate`,
 `accumulate_wavefront` and `to_image`. Samples of a pass are traced one
 after another and summed; passes split spp as the reference does, so the
@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from metalpathtracer_torch.core import rng
-from metalpathtracer_torch.render.camera import Camera, viewport_basis
+from metalpathtracer_torch.render.camera import Camera, camera_basis, rays_from_basis
 from metalpathtracer_torch.render.integrator import (
     DEFAULT_CONFIG,
     RenderConfig,
@@ -32,43 +32,12 @@ from metalpathtracer_torch.render.integrator import (
 from metalpathtracer_torch.utils.metrics import span
 
 
-def camera_basis(camera: Camera, width: int, height: int) -> torch.Tensor:
-    """`viewport_basis`'s four vectors as rows of one (4, 3) float32 tensor
-    on the camera's device: [origin, first_pixel, viewport_u, viewport_v].
-    A caller moves it to the render device once per render."""
-    return torch.stack(list(viewport_basis(camera, width, height)))
-
-
 def generate_rays(camera: Camera, width: int, height: int, pixel_id, sample_id,
                   seed):
     """Jittered primary rays from `camera`: `rays_from_basis` of its
     `camera_basis`, moved to `pixel_id`'s device."""
     basis = camera_basis(camera, width, height).to(pixel_id.device)
     return rays_from_basis(basis, width, height, pixel_id, sample_id, seed)
-
-
-def rays_from_basis(basis: torch.Tensor, width: int, height: int, pixel_id,
-                    sample_id, seed):
-    """Jittered primary rays: screen coords sx = (px+u)/W, sy = (py+v)/H
-    with u, v ~ U[0,1); row 0 is the TOP of the image. `basis` is a
-    `camera_basis` on `pixel_id`'s device, `pixel_id` an int64 tensor of
-    u32 pixel ids; nothing is moved between devices."""
-    origin, first_pixel, vu, vv = basis.unbind(0)
-    px = (pixel_id % width).to(torch.float32)
-    py = (pixel_id // width).to(torch.float32)
-    u1, u2 = rng.uniform2(seed, pixel_id, sample_id, 0, rng.PURPOSE_JITTER_X)
-    sx = (px + u1) / width
-    sy = (py + u2) / height
-    d = (
-        first_pixel[None, :]
-        + sx[:, None] * vu[None, :]
-        + sy[:, None] * vv[None, :]
-        - origin[None, :]
-    )
-    # vector_norm accumulates as XLA's jnp.linalg.norm does (bit-equal)
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    o = origin.expand_as(d)
-    return o, d
 
 
 def render_tile(scene, camera, width, height, pixel_id, sample_ids, seed, cfg):

@@ -88,7 +88,8 @@ def test_generate_rays_same_basis_within_one_ulp(name, size, monkeypatch):
     w, h = size
     basis = [torch.as_tensor(np.array(v))
              for v in jcam.viewport_basis(CAMERAS[name](jcam), w, h)]
-    monkeypatch.setattr(tpipe, "viewport_basis", lambda cam, w_, h_: basis)
+    # `camera_basis` (render/camera.py) looks the basis up on its module
+    monkeypatch.setattr(tcam, "viewport_basis", lambda cam, w_, h_: basis)
     (jo, jd), (to, td) = _rays(name, w, h)
     np.testing.assert_array_equal(to, jo)
     _assert_vec_ulp(td, jd)

@@ -938,9 +938,10 @@ def test_bounce_step_launches_one_bundle(scene):
 
 
 # ---------------------------------------------------------------------------
-# the bounce step's kernels (render/kernels/shade.py: the sphere pass, the
-# hit epilogue, the shading and the shading with the wavefront's bank;
-# render/kernels/intersect_mm.py: the front end) against their plain twins
+# the bounce step's kernels (render/kernels/intersect_mm.py: the sphere
+# pass, the front end and the hit epilogue; render/kernels/shade.py: the
+# shading from the winners, with and without the wavefront's bank; and the
+# plain route of the BVH and brute intersectors) against their plain twins
 # on the card: bit for bit, as each rounds every operation of its twin alone
 # and in its order (a lane that misses everything has a NaN normal on both
 # sides)
@@ -966,9 +967,7 @@ def _bounce_scene(which, scene, bunny70k=None):
 
 def _hit_parts(s, o, d):
     """The sphere pass's and the triangle kernel's results for rays (o, d)."""
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    t_s, i_s, slot = tsh.sphere_pass(o, d, s.sph_center, s.sph_radius, s.sph_ids, T_MIN)
+    t_s, i_s, slot = tmm.sphere_pass(o, d, s.sph_center, s.sph_radius, s.sph_ids, T_MIN)
     if not s.num_tris:
         return t_s, i_s, slot, None, None
     args = tmm.kernel_inputs(s, o, d, t_s, None, T_MIN) + (s.mm_w, T_MIN)
@@ -979,28 +978,24 @@ def _hit_parts(s, o, d):
 @pytest.mark.parametrize("which", ["reference", "glass"])
 @pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
 def test_sphere_pass_kernel_matches_twin(scene, n, which):
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
     s = _bounce_scene(which, scene)
     o, d = _rays(n, n + 1)
     args = (o, d, s.sph_center, s.sph_radius, s.sph_ids, T_MIN)
-    before = tsh.sphere_pass.launches
-    got = tsh.sphere_pass(*args)
-    assert tsh.sphere_pass.launches == before + 1
-    _bit_equal(got, tsh.sphere_pass_reference(*args))
+    before = tmm.sphere_pass.launches
+    got = tmm.sphere_pass(*args)
+    assert tmm.sphere_pass.launches == before + 1
+    _bit_equal(got, tmm.sphere_pass_reference(*args))
     assert n < 1000 or bool((got[1] >= 0).any())
     # no spheres at all: every lane misses
-    empty = tsh.sphere_pass(o, d, s.sph_center[:0], s.sph_radius[:0], s.sph_ids[:0],
+    empty = tmm.sphere_pass(o, d, s.sph_center[:0], s.sph_radius[:0], s.sph_ids[:0],
                             T_MIN)
-    _bit_equal(empty, tsh.sphere_pass_reference(o, d, s.sph_center[:0],
+    _bit_equal(empty, tmm.sphere_pass_reference(o, d, s.sph_center[:0],
                                                 s.sph_radius[:0], s.sph_ids[:0], T_MIN))
 
 
 @pytest.mark.parametrize("which", ["reference", "glass", "bunny70k", "no_spheres"])
 @pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
 def test_hit_epilogue_kernel_matches_twin(scene, bunny70k, n, which):
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
     s = _bounce_scene("reference" if which == "no_spheres" else which, scene, bunny70k)
     o, d = _rays(n, n + 2)
     t_s, i_s, slot, t_t, col = _hit_parts(s, o, d)
@@ -1010,42 +1005,11 @@ def test_hit_epilogue_kernel_matches_twin(scene, bunny70k, n, which):
         t_s = torch.full_like(t_s, float("inf"))
         i_s, slot = torch.full_like(i_s, -1), torch.zeros_like(slot)
     args = (o, d, t_t, col, t_s, i_s, slot, s.mm_refine, center, mat, T_MIN)
-    before = tsh.hit_epilogue.launches
-    got = tsh.hit_epilogue(*args)
-    assert tsh.hit_epilogue.launches == before + 1
-    _bit_equal(got, tsh.hit_epilogue_reference(*args))
+    before = tmm.hit_epilogue.launches
+    got = tmm.hit_epilogue(*args)
+    assert tmm.hit_epilogue.launches == before + 1
+    _bit_equal(got, tmm.hit_epilogue_reference(*args))
     assert n < 1000 or bool((got[1] >= 0).any())
-
-
-@pytest.mark.parametrize("bounce_kind", ["int", "0-d", "per-lane"])
-@pytest.mark.parametrize("rr_start,adaptive", [(0, True), (0, False), (2, True)])
-@pytest.mark.parametrize("n", [1, 1000, 32768, 921600])
-def test_shade_kernel_matches_twin(scene, n, rr_start, adaptive, bounce_kind):
-    from metalpathtracer_torch.core import rng
-    from metalpathtracer_torch.render import integrator as tint
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    o, d = _rays(n, n + 3)
-    r = np.random.default_rng(n)
-    light = torch.as_tensor(r.uniform(0, 0.5, (n, 3)).astype(np.float32), device="cuda")
-    tp = torch.as_tensor(r.uniform(0.02, 1.0, (n, 3)).astype(np.float32), device="cuda")
-    active = torch.as_tensor(r.uniform(size=n) > 0.2, device="cuda")
-    prev_pdf = torch.as_tensor(r.uniform(0, 2, n).astype(np.float32), device="cuda")
-    pix = torch.arange(n, device="cuda")
-    bounce = {"int": 3, "0-d": torch.tensor(3, device="cuda"),
-              "per-lane": torch.as_tensor(r.integers(0, 6, n), device="cuda")}[bounce_kind]
-    t, idx, normal, front, mat_id, _ = tmm.closest_hit_mm_full(scene, o, d, T_MIN,
-                                                               active=active)
-    drawn = rng.draws(7, pix, 1, bounce, tint._step_draws(False, rr_start > 0))
-    args = (o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
-            drawn[0], drawn[1], drawn[-1] if rr_start else None, bounce,
-            scene.mat_bank, scene.sky, rr_start, adaptive)
-    before = tsh.shade.launches
-    got = tsh.shade(*args)
-    assert tsh.shade.launches == before + 1
-    want = tsh.shade_reference(*args)
-    _bit_equal(got, want)
-    assert int(got[6]) == int(active.sum())
 
 
 @pytest.mark.parametrize("which", ["reference", "bunny70k", "no_spheres"])
@@ -1068,57 +1032,6 @@ def test_hit_front_kernel_matches_twin(scene, bunny70k, n, masks, which):
     assert tmm.hit_front.launches == before + 1
     _bit_equal(got, tmm.hit_front_reference(*args))
     assert got[3].shape == (n + (-n) % 128, 12)
-
-
-def _bank_operands(scene, n, seed, bank_k, clamp, rr_start):
-    """A wavefront step's shading and bank operands on the card: random
-    lanes (some at their last bounce, some dead, light above 1), their
-    closest hit and their draws."""
-    from metalpathtracer_torch.core import rng
-    from metalpathtracer_torch.render import integrator as tint
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    r = np.random.default_rng(seed)
-    max_depth, spb = 6, 2
-    plan = tsh.BankPlan(max_depth, clamp, bank_k, spb, bank_k * spb)
-    o, d = _rays(n, seed)
-
-    def dev(a):
-        return torch.as_tensor(a, device="cuda")
-
-    alive = dev(r.uniform(size=n) > 0.15)
-    bounce = dev(r.integers(0, max_depth + 1, n))
-    active = alive & (bounce < max_depth)
-    light = dev(r.uniform(0.0, 1.5, (n, 3)).astype(np.float32))
-    tp = dev(r.uniform(0.02, 1.0, (n, 3)).astype(np.float32))
-    prev_pdf = dev(r.uniform(0.0, 2.0, n).astype(np.float32))
-    schunk = dev(r.integers(0, plan.per_item, n))
-    acc = dev(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32))
-    t, idx, normal, front, mat_id, _ = tmm.closest_hit_mm_full(scene, o, d, T_MIN,
-                                                               active=active)
-    drawn = rng.draws(7, torch.arange(n, device="cuda"), 1, bounce,
-                      tint._step_draws(False, rr_start > 0))
-    return ((o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
-             drawn[0], drawn[1], drawn[-1] if rr_start else None, bounce,
-             scene.mat_bank, scene.sky, rr_start, True), (alive, schunk, acc, plan))
-
-
-@pytest.mark.parametrize("rr_start", [0, 2])
-@pytest.mark.parametrize("clamp", [False, True])
-@pytest.mark.parametrize("bank_k", [1, 2, 4, 8, 16])
-@pytest.mark.parametrize("n", [1, 1000, 32768])
-def test_shade_bank_kernel_matches_twin(scene, n, bank_k, clamp, rr_start):
-    from metalpathtracer_torch.render.kernels import shade as tsh
-
-    shade_args, bank = _bank_operands(scene, n, n + bank_k, bank_k, clamp, rr_start)
-    before = tsh.shade_bank.launches
-    got = tsh.shade_bank(*shade_args, *bank)
-    assert tsh.shade_bank.launches == before + 1
-    want = tsh.shade_bank_reference(*shade_args, *bank)
-    _bit_equal(got, want)
-    assert int(got[6]) == int(shade_args[4].sum())
-    if n >= 1000:  # lanes go on, finish a path, and bank
-        assert bool(got[4].any()) and bool(got[10].any()) and bool(got[11].any())
 
 
 def _winner_operands(s, n, seed, rr_start, bounce_kind="0-d"):
@@ -1150,6 +1063,21 @@ def _winner_operands(s, n, seed, rr_start, bounce_kind="0-d"):
             rr_start == 0)
 
 
+def _bank_of(args, seed, bank_k, clamp, spb=4, max_depth=6):
+    """The wavefront's bank for a step's winner operands (`_winner_operands`
+    with a per-lane bounce): the lanes alive (those active and some dead
+    ones), their item chunks and accumulators, and the plan."""
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    n = args[0].shape[0]
+    r = np.random.default_rng(seed)
+    plan = tsh.BankPlan(max_depth, clamp, bank_k, spb, spb * bank_k)
+    return (args[4] | torch.as_tensor(r.uniform(size=n) < 0.2, device="cuda"),
+            torch.as_tensor(r.integers(0, plan.per_item, n), device="cuda"),
+            torch.as_tensor(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32),
+                            device="cuda"), plan)
+
+
 @pytest.mark.parametrize("which", ["reference", "glass", "bunny70k"])
 @pytest.mark.parametrize("rr_start", [0, 2])
 @pytest.mark.parametrize("n", [1, 1024, 16384, 32768, 921600])
@@ -1163,9 +1091,9 @@ def test_shade_hit_kernel_matches_twin(scene, bunny70k, n, rr_start, which):
     assert tsh.shade_hit.launches == before + 1
     _bit_equal(got, tsh.shade_hit_reference(*args))
     assert int(got[6]) == int(args[4].sum())
-    # the same as the epilogue's kernel, then the shading's
-    hit = tsh.hit_epilogue(*args[:2], *args[6:15])
-    _bit_equal(got, tsh.shade(*args[:6], *hit, *args[15:]))
+    # the same as the epilogue's kernel, then the plain shading
+    hit = tmm.hit_epilogue(*args[:2], *args[6:15])
+    _bit_equal(got, tsh.shade_reference(*args[:6], *hit, *args[15:]))
 
 
 @pytest.mark.parametrize("which", ["reference", "glass"])
@@ -1176,56 +1104,72 @@ def test_shade_bank_hit_kernel_matches_twin(scene, n, bank_k, rr_start, clamp, w
     from metalpathtracer_torch.render.kernels import shade as tsh
 
     s = _bounce_scene(which, scene)
-    r = np.random.default_rng(n + bank_k)
     args = _winner_operands(s, n, n + 6, rr_start, "per-lane")
-    plan = tsh.BankPlan(6, clamp, bank_k, 4, 4 * bank_k)
-    bank = (args[4] | torch.as_tensor(r.uniform(size=n) < 0.2, device="cuda"),
-            torch.as_tensor(r.integers(0, plan.per_item, n), device="cuda"),
-            torch.as_tensor(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32),
-                            device="cuda"), plan)
-    before = tsh.shade_bank_hit.launches
-    got = tsh.shade_bank_hit(*args, *bank)
-    assert tsh.shade_bank_hit.launches == before + 1
-    _bit_equal(got, tsh.shade_bank_hit_reference(*args, *bank))
-    hit = tsh.hit_epilogue(*args[:2], *args[6:15])
-    _bit_equal(got, tsh.shade_bank(*args[:6], *hit, *args[15:], *bank))
+    bank = _bank_of(args, n + bank_k, bank_k, clamp)
+    before = tsh.shade_hit.launches
+    got = tsh.shade_hit(*args, bank=bank)
+    assert tsh.shade_hit.launches == before + 1
+    assert len(got) == 12
+    _bit_equal(got, tsh.shade_hit_reference(*args, bank=bank))
     if n >= 1024:  # lanes go on, finish a path, and bank
         assert bool(got[4].any()) and bool(got[10].any()) and bool(got[11].any())
 
 
-@pytest.mark.parametrize("entry", ["shade", "shade_bank", "shade_hit", "shade_bank_hit"])
+@pytest.mark.parametrize("which", ["reference", "glass"])
+@pytest.mark.parametrize("bank_k", [0, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rr_start,clamp", [(0, False), (2, True)])
+@pytest.mark.parametrize("n", [1, 1024, 32768])
+def test_the_plain_route_on_the_card_equals_shade_hit(scene, n, rr_start, clamp, bank_k,
+                                                      which):
+    # the BVH and brute intersectors' route: the epilogue's kernel, then
+    # `shade_reference` and (with the bank, bank_k 0 meaning none)
+    # `bank_paths` in plain torch on the card, bit for bit what `shade_hit`
+    # computes from the winners in one launch
+    from metalpathtracer_torch.render.kernels import shade as tsh
+
+    s = _bounce_scene(which, scene)
+    args = _winner_operands(s, n, n + 7 + bank_k, rr_start, "per-lane")
+    bank = _bank_of(args, n + bank_k, bank_k, clamp) if bank_k else None
+    got = tsh.shade_hit(*args, bank=bank)
+    hit = tmm.hit_epilogue(*args[:2], *args[6:15])
+    want = tsh.shade_reference(*args[:6], *hit, *args[15:])
+    if bank is not None:
+        o, d, light, tp, still, prev_pdf, rays = want
+        alive, schunk, acc, plan = bank
+        light, acc, bounce, alive, schunk, more, banked = tsh.bank_paths(
+            light, still, alive, args[tsh.BOUNCE_ARG], schunk, acc, plan)
+        want = (o, d, light, tp, alive, prev_pdf, rays, acc, bounce, schunk, more,
+                banked)
+    assert len(got) == len(want) == (12 if bank_k else 7)
+    _bit_equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["shade_hit", "shade_bank_hit"])
 def test_shading_entries_in_a_cuda_graph_equal_their_twins(scene, entry):
     # captured once and replayed on new operands copied into the captured
-    # inputs: what a wavefront window or a scan block does
+    # inputs: what a wavefront window or a scan block does; `shade_hit`
+    # without a bank and with one (its bank kernel, which its tally's second
+    # slot counts)
+    from metalpathtracer_torch.render.kernels import _build
     from metalpathtracer_torch.render.kernels import shade as tsh
 
     n = 32768
-    fn, twin = getattr(tsh, entry), getattr(tsh, f"{entry}_reference")
-    banked = "bank" in entry
+    banked = entry == "shade_bank_hit"
 
     def operands(seed):
         args = _winner_operands(scene, n, seed, 2, "per-lane" if banked else "0-d")
-        if not entry.endswith("_hit"):
-            args = (*args[:6], *tsh.hit_epilogue(*args[:2], *args[6:15]), *args[15:])
-        if banked:
-            r = np.random.default_rng(seed)
-            plan = tsh.BankPlan(6, True, 4, 4, 16)
-            args = (*args, args[4] | torch.as_tensor(r.uniform(size=n) < 0.2,
-                                                     device="cuda"),
-                    torch.as_tensor(r.integers(0, 16, n), device="cuda"),
-                    torch.as_tensor(r.uniform(0.0, 3.0, (n, 12)).astype(np.float32),
-                                    device="cuda"), plan)
-        return args
+        return args, (_bank_of(args, seed, 4, True) if banked else None)
 
-    static = operands(41)
-    fn(*static)  # the warm-up launch makes the kernel's tally
+    static, bank = operands(41)
+    tsh.shade_hit(*static, bank=bank)  # the warm-up launch makes the kernel's tally
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = fn(*static)
+        out = tsh.shade_hit(*static, bank=bank)
+    before = _build.tallies("cuda")["shade_hit"]
     for seed in (42, 43):
-        fresh = operands(seed)
-        for a, b in zip(static, fresh):
+        fresh, fresh_bank = operands(seed)
+        for a, b in zip((*static, *(bank or ())), (*fresh, *(fresh_bank or ()))):
             if isinstance(a, torch.Tensor) and a.data_ptr() not in (
                     scene.mm_refine.data_ptr(), scene.sph_center.data_ptr(),
                     scene.sph_mat_id.data_ptr(), scene.mat_bank.data_ptr(),
@@ -1233,8 +1177,10 @@ def test_shading_entries_in_a_cuda_graph_equal_their_twins(scene, entry):
                 a.copy_(b)
         graph.replay()
         torch.cuda.synchronize()
-        _bit_equal(out, twin(*static))
+        _bit_equal(out, tsh.shade_hit_reference(*static, bank=bank))
         assert bool(out[4].any())
+    after = _build.tallies("cuda")["shade_hit"]
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2 if banked else 0)
 
 
 def test_bounce_kernels_count_replays(scene):
@@ -1266,9 +1212,9 @@ def test_bounce_kernels_count_replays(scene):
     done = _build.tallies("cuda")
     for k in ("hit_front", "shade_hit", "mm_closest_hit", "threefry"):
         assert done[k][0] == 4, (k, done[k])
+    assert done["shade_hit"][1] == 0  # no launch of the bank's kernel
     # the epilogue runs in the shading's registers
-    for k in ("hit_epilogue", "shade"):
-        assert done.get(k, (0, 0))[0] == 0, (k, done[k])
+    assert done.get("hit_epilogue", (0, 0))[0] == 0, done["hit_epilogue"]
     _bit_equal(got[:7], want[:7])
 
 
@@ -1277,11 +1223,13 @@ def test_shade_bank_counts_replays(scene):
     # closest hit, one bundle and the shading with its bank, which computes
     # the epilogue
     from metalpathtracer_torch.render.kernels import _build
+    from metalpathtracer_torch.render.kernels import shade as tsh
     from metalpathtracer_torch.render import integrator as tint
 
-    shade_args, bank = _bank_operands(scene, 4096, 13, 4, True, 1)
+    shade_args = _winner_operands(scene, 4096, 13, 1, "per-lane")
+    bank = _bank_of(shade_args, 13, 4, True, spb=2)
     o, d, light, tp, active, prev_pdf = shade_args[:6]
-    bounce = shade_args[14]
+    bounce = shade_args[tsh.BOUNCE_ARG]
     pix = torch.arange(4096, device="cuda")
     cfg = RenderConfig(max_depth=6, rr_start=1, clamp_radiance=True)
 
@@ -1300,10 +1248,10 @@ def test_shade_bank_counts_replays(scene):
         graph.replay()
     torch.cuda.synchronize()
     done = _build.tallies("cuda")
-    for k in ("hit_front", "shade_bank_hit", "mm_closest_hit", "threefry"):
+    for k in ("hit_front", "shade_hit", "mm_closest_hit", "threefry"):
         assert done[k][0] == 4, (k, done[k])
-    for k in ("hit_epilogue", "shade", "shade_bank", "shade_hit"):
-        assert done.get(k, (0, 0))[0] == 0, k
+    assert done["shade_hit"][1] == 4  # every launch the bank's kernel
+    assert done.get("hit_epilogue", (0, 0))[0] == 0
     _bit_equal(got[:7] + tuple(got[9]), want[:7] + tuple(want[9]))
 
 
@@ -1321,14 +1269,14 @@ def test_bounce_step_routes_nee_to_the_plain_shading(scene):
     # with it the closest hit's and the shadow rays' epilogues and the plain
     # shading
     for nee, shaded, passes, epilogues in ((False, 1, 1, 0), (True, 0, 2, 2)):
-        counts = (tsh.shade.launches + tsh.shade_hit.launches,
-                  tmm.hit_front.launches + tsh.sphere_pass.launches,
-                  tsh.hit_epilogue.launches, graphs.STATS["nee_steps"])
+        counts = (tsh.shade_hit.launches,
+                  tmm.hit_front.launches + tmm.sphere_pass.launches,
+                  tmm.hit_epilogue.launches, graphs.STATS["nee_steps"])
         tint._bounce_step(scene, o, d, *args, RenderConfig(max_depth=8, nee=nee))
         torch.cuda.synchronize()
-        moved = (tsh.shade.launches + tsh.shade_hit.launches - counts[0],
-                 tmm.hit_front.launches + tsh.sphere_pass.launches - counts[1],
-                 tsh.hit_epilogue.launches - counts[2],
+        moved = (tsh.shade_hit.launches - counts[0],
+                 tmm.hit_front.launches + tmm.sphere_pass.launches - counts[1],
+                 tmm.hit_epilogue.launches - counts[2],
                  graphs.STATS["nee_steps"] - counts[3])
         assert scene.num_lights > 0
         assert moved == (shaded, passes, epilogues, int(nee))
@@ -1344,13 +1292,16 @@ def _counted():
     # the kernels' device tallies: a replay runs no wrapper, only kernels
     from metalpathtracer_torch.render.kernels import _build
 
+    # (the shading's entry: `shade_hit_kernel`'s launches, then those of
+    # `shade_bank_hit_kernel<K>`, its tally's second slot)
     done = _build.tallies("cuda")
+    hit, bank_hit = done.get("shade_hit", (0, 0))
     return (done.get("mm_closest_hit", (0, 0))[0], done.get("cull_tile_lists", (0, 0))[0],
             *done.get("threefry", (0, 0)),
+            *(done.get(k, (0, 0))[0] for k in ("hit_front", "hit_epilogue")),
+            hit - bank_hit, bank_hit,
             *(done.get(k, (0, 0))[0]
-              for k in ("hit_front", "hit_epilogue", "shade", "shade_bank", "shade_hit",
-                        "shade_bank_hit", "restart_lanes", "queue_pop", "tileset_key",
-                        "permute_lanes")))
+              for k in ("restart_lanes", "queue_pop", "tileset_key", "permute_lanes")))
 
 
 def _clustered():
@@ -1404,15 +1355,15 @@ def test_graph_windows_equal_the_eager_loop(scene, case):
     # every kernel ran, but the shading kernels, which NEE's plain shading
     # replaces (by config), and the epilogue, which without NEE runs in the
     # shading's registers; at one bounce an advance the shading banks
-    # (shade_bank_hit), at two it is `shade_hit` and the plain bank; the
-    # shading of the epilogue's output (shade, shade_bank) does not run here
+    # (shade_bank_hit_kernel), at two it is shade_hit_kernel and the plain
+    # bank
     assert ca == cb == cc and min(ca[:5]) > 0 and (ca[5] > 0) == cfg.nee
-    assert ca[6] == ca[7] == 0 and (ca[8] + ca[9] > 0) != cfg.nee
-    assert (ca[9] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
-    assert (ca[8] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
+    assert (ca[6] + ca[7] > 0) != cfg.nee
+    assert (ca[7] > 0) == (not cfg.nee and cfg.bounces_per_iter == 1)
+    assert (ca[6] > 0) == (not cfg.nee and cfg.bounces_per_iter > 1)
     # the regeneration runs on its kernels on every route: restart, queue,
     # the sort's key and gather
-    assert min(ca[10:]) > 0 and ca[12] == ca[13]
+    assert min(ca[8:]) > 0 and ca[10] == ca[11]
     # a new shape warms each function up eagerly and captures it on its
     # second run; the next render replays every window and drain block
     assert first["captures"] >= 1 and first["replays"] >= 1
@@ -1507,12 +1458,12 @@ def _scan_run(fn, eager):
 def _scan_launches_agree(eager, graph, samples):
     """The graph run's launches are the eager loop's plus its idle steps',
     each an eager bounce step's: (closest hit, cull, threefry, draws,
-    front end, hit epilogue, shade, shade_bank, shade_hit, shade_bank_hit)
-    per step from the eager run, whose reads are its steps; the jitter
-    draws one bundle (of one draw) a sample."""
+    front end, hit epilogue, shade_hit_kernel, shade_bank_hit_kernel) per
+    step from the eager run, whose reads are its steps; the jitter draws
+    one bundle (of one draw) a sample."""
     (_, e, es), (_, g, gs) = eager, graph
     assert es["idle_steps"] == 0 and es["reads"] > 0
-    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0, 0, 0, 0)):
+    for k, jitter in enumerate((0, 0, samples, samples, 0, 0, 0, 0)):
         per_step, rest = divmod(e[k] - jitter, es["reads"])
         assert rest == 0
         assert g[k] == e[k] + gs["idle_steps"] * per_step
@@ -1661,18 +1612,19 @@ def test_flagship_shades_from_the_winners(scene, tmp_path, integrator):
         clustered = _clustered()
         launched = _render_counted(lambda: cli.main(argv), eager)[1]
         clustered = _clustered() - clustered
-        mm, cull, bundles, _, front, epilogue, shade, bank, hit, bank_hit, *regen = launched
+        mm, cull, bundles, _, front, epilogue, hit, bank_hit, *regen = launched
         if integrator == "wavefront":
-            # the restart draws the jitter itself: one bundle a bounce step
+            # the restart draws the jitter itself: one bundle a bounce step;
+            # every step's shading banks (one bounce an advance)
             assert (mm, cull, bundles, front, bank_hit) == (408, 408, 408, 408, 408)
             assert clustered == mm  # the pool's 256 subgroups share their walks
-            assert epilogue == shade == bank == hit == 0
+            assert epilogue == hit == 0
             assert regen[0] == 409 and min(regen) > 0
         else:  # the graph loop's idle steps launch a step's kernels too
             assert (mm, cull, bundles - 4, front, hit) == (mm, mm, mm, mm, mm)
             assert mm >= 128 and (mm == 128 or not eager)
             assert clustered == 0  # 7,200 subgroups: one CTA each
-            assert epilogue == shade == bank == bank_hit == 0
+            assert epilogue == bank_hit == 0
             assert not any(regen)
 
 

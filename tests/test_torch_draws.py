@@ -233,5 +233,6 @@ def test_bounce_step_through_one_bundle_equals_separate_draws(
         assert len(specs[0]) == 5 and int(one[7]) > 0  # shadow rays were traced
     monkeypatch.setattr(trng, "draws", _separate_draws)
     separate = tint._bounce_step(cornell_mesh, *inputs, cfg)
-    for a, b in zip(one, separate):
+    assert one[9] is None and separate[9] is None  # no bank given
+    for a, b in zip(one[:9], separate[:9]):
         assert torch.equal(a, b)

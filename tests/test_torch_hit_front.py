@@ -1,10 +1,11 @@
 """The closest hit's front end (`render/kernels/intersect_mm.py::hit_front`)
 and the wavefront's shading with its bank (`render/kernels/shade.py::
-shade_bank`) on the CPU, where each wrapper runs its plain twin: against the
-plain code each replaced, against the JAX reference, and a small wavefront
-render against the advance as it was. The CUDA kernels (`csrc/sphere_pass.cu`'s
-`hit_front`, `csrc/shade.cu`'s `shade_bank`) are held bit-equal to the same
-twins on the card (tests/test_torch_cuda.py, chip_smoke.py phase 18).
+shade_hit` given `bank=`) on the CPU, where each wrapper runs its plain
+twin: against the plain code each replaced, against the JAX reference, and
+a small wavefront render against the advance as it was. The CUDA kernels
+(`csrc/sphere_pass.cu`'s `hit_front`, `csrc/shade.cu`'s `shade_hit` with
+its bank) are held bit-equal to the same twins on the card
+(tests/test_torch_cuda.py, chip_smoke.py phase 18).
 
 Tolerances:
 - the front end against the plain pass before it (the sphere pass, then
@@ -16,8 +17,9 @@ Tolerances:
   tests/test_torch_shade.py's bounds (d, o and the 1 column equal, o x d at
   rtol 1e-6, atol 1e-4, o.d and |o|^2 at rtol 1e-6; t at rtol 5e-4, atol
   1e-2; sphere ids equal);
-- the shading with its bank against `shade_reference` and the bank code of
-  the advance before it: `torch.equal` (the same torch operations);
+- the shading with its bank against the shading without it and the bank
+  code of the advance before it: `torch.equal` (the same torch
+  operations);
 - a wavefront render against one on the advance and closest hit before
   them: `torch.equal`; against the JAX reference's wavefront:
   tests/test_torch_wavefront.py's bound (under 2% of pixels off by > 1e-3,
@@ -99,7 +101,7 @@ def _before_front(o, d, active, occ_t, center, radius, ids):
     occlusion bound as `closest_hit_mm_full` and `kernel_inputs` ran them
     before the front end."""
     n = o.shape[0]
-    t_s, i_s, slot = tsh.sphere_pass_reference(o, d, center, radius, ids, T_MIN)
+    t_s, i_s, slot = tmm.sphere_pass_reference(o, d, center, radius, ids, T_MIN)
     occ = t_s if occ_t is None else torch.minimum(t_s, occ_t)
     pad = (-n) % 128
     x = _before_ray_features(o, d)
@@ -192,10 +194,10 @@ def test_closest_hit_runs_the_front_end_once_a_call(reference_scene, monkeypatch
     glass = t_upload(tscene.load_scene_xml(
         os.path.join(REPO, "scenes", "cornell_glass.xml")), "cpu")
     calls = []
-    front, sphere_pass = tmm.hit_front, tsh.sphere_pass
+    front, sphere_pass = tmm.hit_front, tmm.sphere_pass
     monkeypatch.setattr(tmm, "hit_front",
                         lambda *a: calls.append("front") or front(*a))
-    monkeypatch.setattr(tsh, "sphere_pass",
+    monkeypatch.setattr(tmm, "sphere_pass",
                         lambda *a: calls.append("spheres") or sphere_pass(*a))
     o, d = (torch.as_tensor(a) for a in _rays(300, 5))
     active, occ_t = _masks(300, 5)
@@ -234,7 +236,8 @@ def _before_bank(light, still, alive, bounce, schunk, acc, plan, bpi=1):
 def _bank_inputs(scene, n, seed, bank_k, clamp, rr_start):
     """A wavefront step's shading and bank operands: random lanes (some at
     their last bounce, some dead, light above 1 where clamp bites), their
-    closest hit and their draws."""
+    closest hit's winners and their draws (`shade.shade_hit`'s arguments,
+    the bounce at `shade.BOUNCE_ARG`)."""
     r = np.random.default_rng(seed)
     max_depth, spb = 6, 2
     plan = tsh.BankPlan(max_depth, clamp, bank_k, spb, bank_k * spb)
@@ -247,13 +250,14 @@ def _bank_inputs(scene, n, seed, bank_k, clamp, rr_start):
     prev_pdf = torch.as_tensor(r.uniform(0.0, 2.0, n).astype(np.float32))
     schunk = torch.as_tensor(r.integers(0, plan.per_item, n))
     acc = torch.as_tensor(r.uniform(0.0, 3.0, (n, 3 * bank_k)).astype(np.float32))
-    t, idx, normal, front, mat_id, _ = tmm.closest_hit_mm_full(scene, o, d, T_MIN,
+    t_tri, col, t_s, i_s, slot, _ = tmm.closest_hit_mm_winners(scene, o, d, T_MIN,
                                                                active=active)
     drawn = rng.draws(7, torch.arange(n), 1, bounce,
                       tint._step_draws(False, rr_start > 0))
-    shade_args = (o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
-                  drawn[0], drawn[1], drawn[-1] if rr_start else None, bounce,
-                  scene.mat_bank, scene.sky, rr_start, True)
+    shade_args = (o, d, light, tp, active, prev_pdf, t_tri, col, t_s, i_s, slot,
+                  scene.mm_refine, scene.sph_center, scene.sph_mat_id, T_MIN, drawn[0],
+                  drawn[1], drawn[-1] if rr_start else None, bounce, scene.mat_bank,
+                  scene.sky, rr_start, True)
     return shade_args, (alive, schunk, acc, plan)
 
 
@@ -265,17 +269,17 @@ def test_shade_bank_equals_shade_then_the_bank_before_it(reference_scene, bank_k
     _, ts = reference_scene
     n = 1000
     shade_args, bank = _bank_inputs(ts, n, 40 + bank_k, bank_k, clamp, rr_start)
-    got = tsh.shade_bank(*shade_args, *bank)
+    got = tsh.shade_hit(*shade_args, bank=bank)
     assert got == tuple(got) and len(got) == 12
-    o, d, light, tp, still, prev_pdf, rays = tsh.shade_reference(*shade_args)
+    o, d, light, tp, still, prev_pdf, rays = tsh.shade_hit(*shade_args)
     alive, schunk, acc, plan = bank
     light, acc, bounce, survivors, schunk, more, banked = _before_bank(
-        light, still, alive, shade_args[14], schunk, acc, plan)
+        light, still, alive, shade_args[tsh.BOUNCE_ARG], schunk, acc, plan)
     want = (o, d, light, tp, survivors, prev_pdf, rays, acc, bounce, schunk, more,
             banked)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert torch.equal(tsh.shade_bank_reference(*shade_args, *bank)[7], acc)
+    assert torch.equal(tsh.shade_hit_reference(*shade_args, bank=bank)[7], acc)
     # lanes that go on, that finish a path and restart, and that bank
     done = alive & ~survivors
     assert bool(survivors.any()) and bool(more.any()) and bool(banked.any())
@@ -288,7 +292,7 @@ def test_bank_paths_is_the_bank_before_it_at_two_bounces(reference_scene):
     _, ts = reference_scene
     shade_args, (alive, schunk, acc, plan) = _bank_inputs(ts, 500, 9, 4, True, 0)
     still = shade_args[4]
-    light, bounce = shade_args[2], shade_args[14]
+    light, bounce = shade_args[2], shade_args[tsh.BOUNCE_ARG]
     got = tsh.bank_paths(light, still, alive, bounce, schunk, acc, plan, 2)
     want = _before_bank(light, still, alive, bounce, schunk, acc, plan, bpi=2)
     for g, w in zip(got, want):
@@ -299,14 +303,14 @@ def test_shade_bank_rejects_bad_operands(reference_scene):
     _, ts = reference_scene
     shade_args, (alive, schunk, acc, plan) = _bank_inputs(ts, 256, 3, 2, False, 0)
     with pytest.raises(ValueError, match="acc"):
-        tsh.shade_bank(*shade_args, alive, schunk, acc[:, :3], plan)
+        tsh.shade_hit(*shade_args, bank=(alive, schunk, acc[:, :3], plan))
     with pytest.raises(ValueError, match="schunk"):
-        tsh.shade_bank(*shade_args, alive, schunk.to(torch.int32), acc, plan)
+        tsh.shade_hit(*shade_args, bank=(alive, schunk.to(torch.int32), acc, plan))
     with pytest.raises(ValueError, match="bounce"):
-        bad = shade_args[:14] + (3,) + shade_args[15:]
-        tsh.shade_bank(*bad, alive, schunk, acc, plan)
+        bad = shade_args[:tsh.BOUNCE_ARG] + (3,) + shade_args[tsh.BOUNCE_ARG + 1:]
+        tsh.shade_hit(*bad, bank=(alive, schunk, acc, plan))
     with pytest.raises(ValueError, match="bank_k"):
-        tsh.shade_bank(*shade_args, alive, schunk, acc, plan._replace(spb=0))
+        tsh.shade_hit(*shade_args, bank=(alive, schunk, acc, plan._replace(spb=0)))
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +323,7 @@ def _before_closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=Non
     kernel inputs (features, cast, padding, cull, sort), the closest hit and
     the epilogue."""
     n = o.shape[0]
-    t_s, i_s, slot = tsh.sphere_pass(o, d, scene.sph_center, scene.sph_radius,
+    t_s, i_s, slot = tmm.sphere_pass(o, d, scene.sph_center, scene.sph_radius,
                                      scene.sph_ids, t_min)
     t_t = col = None
     if scene.num_tris > 0:
@@ -333,7 +337,7 @@ def _before_closest_hit_mm_full(scene, o, d, t_min=T_MIN, active=None, occ_t=Non
         t_t, col = t_t[:n], col[:n]
     else:
         tile_passes = torch.zeros((), dtype=torch.float32)
-    t, idx, normal, front_face, mat_id = tsh.hit_epilogue(
+    t, idx, normal, front_face, mat_id = tmm.hit_epilogue(
         o, d, t_t, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,
         scene.sph_mat_id, t_min)
     return t, idx, normal, front_face, mat_id, tile_passes
@@ -343,24 +347,27 @@ def _before_bounce_step(scene, o, d, light, tp, active, prev_pdf, pixel, sample,
                         seed, cfg):
     """`_bounce_step` as it was without next-event estimation on the tile
     intersector: the closest hit through its epilogue (`_trace_rays`), the
-    draws, then `shade`; every other route as it is."""
+    draws, then the shading (`shade_reference`); every other route as it
+    is."""
     if cfg.nee or cfg.intersector not in ("auto", "mm"):
         return tint._bounce_step(scene, o, d, light, tp, active, prev_pdf, pixel,
-                                 sample, bounce, seed, cfg)
+                                 sample, bounce, seed, cfg)[:9]
     o, d = o.contiguous(), d.contiguous()
     t, idx, normal, front, mat_id, tile_passes = tint._trace_rays(scene, o, d, cfg,
                                                                   active=active)
     drawn = rng.draws(seed, pixel, sample, bounce, tint._step_draws(False,
                                                                     cfg.rr_start > 0))
-    out = tsh.shade(o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
-                    drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None, bounce,
-                    scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
+    out = tsh.shade_reference(o, d, light, tp, active, prev_pdf, t, idx, normal, front,
+                              mat_id, drawn[0], drawn[1],
+                              drawn[-1] if cfg.rr_start > 0 else None, bounce,
+                              scene.mat_bank, scene.sky, cfg.rr_start,
+                              cfg.adaptive_offset)
     return (*out, torch.zeros((), dtype=torch.int64), tile_passes)
 
 
 def _before_advance(self, st):
-    """`_Wavefront.advance` as it was: every step shaded by `shade` after
-    the closest hit's epilogue, then the plain bank."""
+    """`_Wavefront.advance` as it was: every step shaded after the closest
+    hit's epilogue, then the plain bank."""
     cfg, counters = self.cfg, self.counters
     alive, bounce = st["alive"], st["bounce"]
     o, d, light, tp, prev_pdf = (st[k] for k in ("o", "d", "light", "tp", "prev_pdf"))
@@ -415,17 +422,15 @@ def test_wavefront_equals_the_advance_before_it(wavefront_scenes, monkeypatch, c
         return render_image_wavefront(scene, cam, w, h, spp, seed=5, cfg=cfg,
                                       pool_size=pool, return_stats=True)
 
-    calls = []
-    for name in ("shade_bank", "shade_bank_hit"):
-        fused = getattr(tsh, name)
-        monkeypatch.setattr(tsh, name,
-                            lambda *a, fused=fused: calls.append(1) or fused(*a))
+    banked, shade_hit = [], tsh.shade_hit
+    monkeypatch.setattr(tsh, "shade_hit", lambda *a, bank=None: banked.append(
+        bank is not None) or shade_hit(*a, bank=bank))
     got, rays, stats = render()
     monkeypatch.undo()
     # the step banks in its shading (from the closest hit's winners, on
-    # the tile intersector) exactly where it shades with `shade` at one
-    # bounce an advance
-    assert bool(calls) == (cfg.bounces_per_iter == 1 and not cfg.nee)
+    # the tile intersector) exactly where it shades at one bounce an
+    # advance without NEE
+    assert any(banked) == (cfg.bounces_per_iter == 1 and not cfg.nee)
     with monkeypatch.context() as m:
         m.setattr(tint._Wavefront, "advance", _before_advance)
         m.setattr(tint, "closest_hit_mm_full", _before_closest_hit_mm_full)

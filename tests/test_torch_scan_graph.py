@@ -78,7 +78,7 @@ def _eager_trace(scene, o, d, pixel_id, sample_id, seed, cfg):
     rays = torch.zeros((), dtype=torch.int64)
     bounce = 0
     while bounce < cfg.max_depth and bool(active.any()):
-        o, d, light, tp, active, prev_pdf, counted, _, _ = tint._bounce_step(
+        o, d, light, tp, active, prev_pdf, counted, _, _, _ = tint._bounce_step(
             scene, o, d, light, tp, active, prev_pdf, pixel_id, sample_id, bounce,
             seed, cfg)
         rays = rays + counted

@@ -1,6 +1,8 @@
-"""The bounce step's three kernels' plain twins (`render/kernels/shade.py`)
-against the JAX reference, and the restructured bounce step against the
-plain step it replaced, on the CPU.
+"""The bounce step's plain twins (the sphere pass and the closest hit's
+epilogue, `render/kernels/intersect_mm.py`; the shading,
+`render/kernels/shade.py::shade_reference`) against the JAX reference, and
+the restructured bounce step against the plain step it replaced, on the
+CPU.
 
 On a CPU tensor each wrapper runs its twin; the CUDA kernels
 (`csrc/sphere_pass.cu`, `hit_epilogue.cu`, `shade.cu`) are held bit-equal
@@ -134,7 +136,7 @@ def test_sphere_pass_matches_reference(reference_scene, every_material, which, n
     o, d = _rays(n, n) if which == "reference" else _box_rays(n, n)
     jt, jidx, jc, jm = (np.asarray(v) for v in jmm._sphere_hit_exact(
         js, jnp.asarray(o), jnp.asarray(d), T_MIN))
-    t, idx, slot = tsh.sphere_pass(torch.as_tensor(o), torch.as_tensor(d),
+    t, idx, slot = tmm.sphere_pass(torch.as_tensor(o), torch.as_tensor(d),
                                    ts.sph_center, ts.sph_radius, ts.sph_ids, T_MIN)
     assert t.dtype == torch.float32 and idx.dtype == slot.dtype == torch.int32
     np.testing.assert_array_equal(idx.numpy(), jidx)
@@ -154,10 +156,10 @@ def test_sphere_pass_ties_take_the_lowest_slot_and_no_spheres_miss():
     center = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [5.0, 0.0, 0.0]])
     radius = torch.tensor([1.0, 1.0, 1.0])
     ids = torch.tensor([7, 3, 9], dtype=torch.int32)
-    t, idx, slot = tsh.sphere_pass(o, d, center, radius, ids, T_MIN)
+    t, idx, slot = tmm.sphere_pass(o, d, center, radius, ids, T_MIN)
     assert t[0] == 4.0 and idx.tolist() == [7, -1] and slot.tolist() == [0, 0]
     assert torch.isinf(t[1])
-    t, idx, slot = tsh.sphere_pass(o, d, center[:0], radius[:0], ids[:0], T_MIN)
+    t, idx, slot = tmm.sphere_pass(o, d, center[:0], radius[:0], ids[:0], T_MIN)
     assert torch.isinf(t).all() and idx.tolist() == [-1, -1] and slot.tolist() == [0, 0]
 
 
@@ -206,16 +208,16 @@ def test_hit_epilogue_matches_reference_closest_hit(reference_scene, every_mater
         js, ts = j_upload(_mesh_only(jscene)), t_upload(_mesh_only(tscene), "cpu")
         o, d = _rays(1024, 5)
     ot, dt = torch.as_tensor(o), torch.as_tensor(d)
-    t_s, i_s, slot = tsh.sphere_pass(ot, dt, ts.sph_center, ts.sph_radius,
+    t_s, i_s, slot = tmm.sphere_pass(ot, dt, ts.sph_center, ts.sph_radius,
                                      ts.sph_ids, T_MIN)
     t_tri = col = None
     if ts.num_tris:
         args = tmm.kernel_inputs(ts, ot, dt, t_s, None, T_MIN)
         t_tri, col = (v[:len(o)] for v in tmm.mm_closest_hit(*args, ts.mm_w, T_MIN))
-    out = tsh.hit_epilogue(ot, dt, t_tri, col, t_s, i_s, slot, ts.mm_refine,
+    out = tmm.hit_epilogue(ot, dt, t_tri, col, t_s, i_s, slot, ts.mm_refine,
                            ts.sph_center, ts.sph_mat_id, T_MIN)
     # the wrapper's route on the CPU is the twin itself
-    for a, b in zip(out, tsh.hit_epilogue_reference(
+    for a, b in zip(out, tmm.hit_epilogue_reference(
             ot, dt, t_tri, col, t_s, i_s, slot, ts.mm_refine, ts.sph_center,
             ts.sph_mat_id, T_MIN)):
         assert torch.equal(a, b) or torch.allclose(a, b, equal_nan=True, rtol=0, atol=0)
@@ -250,15 +252,16 @@ def _lane_state(n, seed):
 
 
 def _shade_step(ts, state, pix, sample, bounce, seed, cfg):
-    """`_trace_rays`, the step's draws and `shade`: the port's bounce step
-    without next-event estimation, written out."""
+    """`_trace_rays`, the step's draws and `shade_reference`: the port's
+    bounce step without next-event estimation, written out."""
     o, d, light, tp, active, prev_pdf = (torch.as_tensor(a) for a in state)
     t, idx, normal, front, mat_id, passes = tint._trace_rays(ts, o, d, cfg, active)
     drawn = rng.draws(seed, torch.as_tensor(pix), sample, bounce,
                       tint._step_draws(False, cfg.rr_start > 0))
-    out = tsh.shade(o, d, light, tp, active, prev_pdf, t, idx, normal, front, mat_id,
-                    drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None,
-                    bounce, ts.mat_bank, ts.sky, cfg.rr_start, cfg.adaptive_offset)
+    out = tsh.shade_reference(o, d, light, tp, active, prev_pdf, t, idx, normal, front,
+                              mat_id, drawn[0], drawn[1],
+                              drawn[-1] if cfg.rr_start > 0 else None, bounce,
+                              ts.mat_bank, ts.sky, cfg.rr_start, cfg.adaptive_offset)
     return (*out, passes)
 
 
@@ -321,16 +324,16 @@ def test_wrappers_reject_bad_inputs(every_material):
     _, ts = every_material
     o, d = (torch.as_tensor(v) for v in _box_rays(8, 1))
     with pytest.raises(ValueError):
-        tsh.sphere_pass(o.double(), d, ts.sph_center, ts.sph_radius, ts.sph_ids, T_MIN)
+        tmm.sphere_pass(o.double(), d, ts.sph_center, ts.sph_radius, ts.sph_ids, T_MIN)
     with pytest.raises(ValueError):
-        tsh.sphere_pass(o[:, :2], d, ts.sph_center, ts.sph_radius, ts.sph_ids, T_MIN)
+        tmm.sphere_pass(o[:, :2], d, ts.sph_center, ts.sph_radius, ts.sph_ids, T_MIN)
     with pytest.raises(ValueError):  # no kernel for the device
-        tsh.sphere_pass(o.to("meta"), d.to("meta"), ts.sph_center.to("meta"),
+        tmm.sphere_pass(o.to("meta"), d.to("meta"), ts.sph_center.to("meta"),
                         ts.sph_radius.to("meta"), ts.sph_ids.to("meta"), T_MIN)
-    t_s, i_s, slot = tsh.sphere_pass(o, d, ts.sph_center, ts.sph_radius, ts.sph_ids,
+    t_s, i_s, slot = tmm.sphere_pass(o, d, ts.sph_center, ts.sph_radius, ts.sph_ids,
                                      T_MIN)
     with pytest.raises(ValueError):
-        tsh.hit_epilogue(o, d, None, None, t_s, i_s.long(), slot, ts.mm_refine,
+        tmm.hit_epilogue(o, d, None, None, t_s, i_s.long(), slot, ts.mm_refine,
                          ts.sph_center, ts.sph_mat_id, T_MIN)
     with pytest.raises(ValueError):
         tsh._bounce_operand(torch.zeros(3), 8, o.device)

@@ -1,13 +1,14 @@
 """The shading that starts from the closest hit's raw winners
-(`render/kernels/shade.py::shade_hit`, `shade_bank_hit`) and the bounce
-step's route through it (`render/integrator.py::_bounce_step` without
-next-event estimation on the tile intersector) on the CPU, where each
-wrapper runs its plain twin: against the composition it replaced (the
-closest hit through its epilogue, `closest_hit_mm_full`, then `shade` or
-`shade_bank`), against the JAX reference's bounce step, and small scan and
-wavefront renders against renders on the old route. The CUDA entries
-(`csrc/shade.cu`'s `shade_hit`, `shade_bank_hit`) are held bit-equal to the
-same twins on the card (tests/test_torch_cuda.py, chip_smoke.py phase 18).
+(`render/kernels/shade.py::shade_hit`, with and without the wavefront's
+bank) and the bounce step's route through it
+(`render/integrator.py::_bounce_step` without next-event estimation on the
+tile intersector) on the CPU, where the wrapper runs its plain twin:
+against the composition it replaced (the closest hit through its
+epilogue, `closest_hit_mm_full`, then `shade_reference` and, with the
+bank, `bank_paths`), against the JAX reference's bounce step, and small
+scan and wavefront renders against renders on the old route. The CUDA
+entry (`csrc/shade.cu`'s `shade_hit`) is held bit-equal to the same twin
+on the card (tests/test_torch_cuda.py, chip_smoke.py phase 18).
 
 Tolerances:
 - the new route against the old composition, step and render: bit for bit
@@ -158,8 +159,9 @@ def _old_bounce_step(scene, o, d, light, throughput, active, prev_pdf, pixel_id,
                      sample_id, bounce, seed, cfg, bank=None):
     """The bounce step's route before the shading took the winners: the
     closest hit through its epilogue (`_trace_rays`: `closest_hit_mm_full`),
-    the step's draws, then `shade` or, with the bank, `shade_bank`. With
-    NEE, or off the tile intersector, the step as it is."""
+    the step's draws, then the shading (`shade_reference`) and, with the
+    bank, the bank (`bank_paths`). With NEE, or off the tile intersector,
+    the step as it is."""
     if cfg.nee or cfg.intersector not in ("auto", "mm"):
         return tint._bounce_step(scene, o, d, light, throughput, active, prev_pdf,
                                  pixel_id, sample_id, bounce, seed, cfg, bank)
@@ -172,23 +174,32 @@ def _old_bounce_step(scene, o, d, light, throughput, active, prev_pdf, pixel_id,
             drawn[0], drawn[1], drawn[-1] if cfg.rr_start > 0 else None, bounce,
             scene.mat_bank, scene.sky, cfg.rr_start, cfg.adaptive_offset)
     shadow = torch.zeros((), dtype=torch.int64)
+    o, d, light, throughput, active, prev_pdf, rays = tsh.shade_reference(*args)
     if bank is None:
-        return (*tsh.shade(*args), shadow, passes)
-    o, d, light, throughput, active, prev_pdf, rays, *banked = tsh.shade_bank(
-        *args, *bank)
-    return o, d, light, throughput, active, prev_pdf, rays, shadow, passes, banked
+        return o, d, light, throughput, active, prev_pdf, rays, shadow, passes, None
+    alive, schunk, acc, plan = bank
+    light, acc, bounce, active, schunk, more, banked = tsh.bank_paths(
+        light, active, alive, bounce, schunk, acc, plan)
+    return (o, d, light, throughput, active, prev_pdf, rays, shadow, passes,
+            (acc, bounce, schunk, more, banked))
 
 
-def _count(monkeypatch, names):
-    """Calls of the shading wrappers `names`, counted as they go through."""
-    calls = {k: 0 for k in names}
-    for k in names:
-        fn = getattr(tsh, k)
+def _count(monkeypatch):
+    """Calls of the shading's wrapper (`shade_hit`, and `shade_hit_bank`
+    where a bank was given) and of the epilogue's (`hit_epilogue`), counted
+    as they go through."""
+    calls = dict(shade_hit=0, shade_hit_bank=0, hit_epilogue=0)
+    shade_hit, hit_epilogue = tsh.shade_hit, tmm.hit_epilogue
 
-        def counted(*a, k=k, fn=fn):
-            calls[k] += 1
-            return fn(*a)
-        monkeypatch.setattr(tsh, k, counted)
+    def counted_shade(*a, bank=None):
+        calls["shade_hit" if bank is None else "shade_hit_bank"] += 1
+        return shade_hit(*a, bank=bank)
+
+    def counted_epilogue(*a):
+        calls["hit_epilogue"] += 1
+        return hit_epilogue(*a)
+    monkeypatch.setattr(tsh, "shade_hit", counted_shade)
+    monkeypatch.setattr(tmm, "hit_epilogue", counted_epilogue)
     return calls
 
 
@@ -223,20 +234,21 @@ def test_step_from_the_winners_equals_the_epilogue_then_the_shading(
         acc = torch.as_tensor(r.uniform(0.0, 3.0, (n, 3 * k)).astype(np.float32))
         bank = (alive, schunk, acc, plan)
     args = (scene, o, d, light, tp, active, prev_pdf, pix, sample, bounce, seed, cfg)
-    calls = _count(monkeypatch, ("shade", "shade_bank", "shade_hit", "shade_bank_hit",
-                                 "hit_epilogue"))
+    calls = _count(monkeypatch)
     got = tint._bounce_step(*args, bank=bank)
-    # one shading from the winners, and no epilogue of its own
-    assert calls == dict(shade=0, shade_bank=0, hit_epilogue=0,
-                         shade_hit=int(bank is None),
-                         shade_bank_hit=int(bank is not None))
+    # one shading from the winners a step, and no epilogue of its own
+    assert calls == dict(hit_epilogue=0, shade_hit=int(bank is None),
+                         shade_hit_bank=int(bank is not None))
     want = _old_bounce_step(*args, bank=bank)
-    assert len(got) == len(want) == (9 if bank is None else 10)
+    assert len(got) == len(want) == 10
     for g, w in zip(got[:9], want[:9]):
         assert _same(g, w)
     if bank is not None:
+        assert len(got[9]) == len(want[9]) == 5
         assert all(_same(g, w) for g, w in zip(got[9], want[9]))
         assert bool(got[9][3].any() or got[9][4].any())  # a path ended
+    else:
+        assert got[9] is None and want[9] is None
     # the lanes that miss, that hit, that were dead, and the NaN lanes
     hit = tmm.closest_hit_mm_full(scene, o, d, T_MIN, active=active)
     live_hit = active & (hit[1] >= 0)
@@ -320,10 +332,9 @@ def test_render_on_the_new_route_equals_the_old_route(scenes, monkeypatch, case)
         return render_image_wavefront(scene, _cam(tcam), 16, 12, 2, seed=3, cfg=cfg,
                                       pool_size=64)
 
-    calls = _count(monkeypatch, ("shade", "shade_bank", "shade_hit", "shade_bank_hit",
-                                 "hit_epilogue"))
+    calls = _count(monkeypatch)
     got, rays = render()
-    fused = ("shade_bank_hit" if integrator == "wavefront"
+    fused = ("shade_hit_bank" if integrator == "wavefront"
              and cfg.bounces_per_iter == 1 else "shade_hit")
     assert calls[fused] > 0
     assert sum(calls.values()) == calls[fused]  # no epilogue, no other shading
@@ -352,7 +363,7 @@ def test_closest_hit_mm_full_is_the_winners_then_the_epilogue(scenes):
             scene, o, d, T_MIN, active=active)
         assert (t_tri is None) == (col is None) == (scene.num_tris == 0)
         got = tmm.closest_hit_mm_full(scene, o, d, T_MIN, active=active)
-        want = tsh.hit_epilogue(o, d, t_tri, col, t_s, i_s, slot, scene.mm_refine,
+        want = tmm.hit_epilogue(o, d, t_tri, col, t_s, i_s, slot, scene.mm_refine,
                                 scene.sph_center, scene.sph_mat_id, T_MIN)
         for g, w in zip(got, (*want, passes)):
             assert _same(g, w)
@@ -389,17 +400,17 @@ def test_wrappers_reject_bad_inputs(scenes):
     bank_args = args[:18] + (bounce,) + args[19:]
     alive, schunk = torch.ones(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int64)
     acc = torch.zeros((n, 12))
-    assert len(tsh.shade_bank_hit(*bank_args, alive, schunk, acc, plan)) == 12
+    assert len(tsh.shade_hit(*bank_args, bank=(alive, schunk, acc, plan))) == 12
     with pytest.raises(ValueError, match="acc"):
-        tsh.shade_bank_hit(*bank_args, alive, schunk, acc[:, :3], plan)
+        tsh.shade_hit(*bank_args, bank=(alive, schunk, acc[:, :3], plan))
     with pytest.raises(ValueError, match="bounce"):
-        tsh.shade_bank_hit(*args, alive, schunk, acc, plan)  # an int bounce
+        tsh.shade_hit(*args, bank=(alive, schunk, acc, plan))  # an int bounce
     with pytest.raises(ValueError, match="bank_k"):
-        tsh.shade_bank_hit(*bank_args, alive, schunk, acc, plan._replace(spb=0))
+        tsh.shade_hit(*bank_args, bank=(alive, schunk, acc, plan._replace(spb=0)))
     with pytest.raises(ValueError, match="bank_k 3 must be one of"):  # no wavefront's
-        tsh.shade_bank_hit(*bank_args, alive, schunk, torch.zeros((n, 9)),
-                           plan._replace(bank_k=3, per_item=6))
+        tsh.shade_hit(*bank_args, bank=(alive, schunk, torch.zeros((n, 9)),
+                                        plan._replace(bank_k=3, per_item=6)))
     with pytest.raises(ValueError, match="per_item"):
-        tsh.shade_bank_hit(*bank_args, alive, schunk, acc, plan._replace(per_item=9))
+        tsh.shade_hit(*bank_args, bank=(alive, schunk, acc, plan._replace(per_item=9)))
     with pytest.raises(ValueError, match="schunk"):
-        tsh.shade_bank_hit(*bank_args, alive, schunk.int(), acc, plan)
+        tsh.shade_hit(*bank_args, bank=(alive, schunk.int(), acc, plan))
