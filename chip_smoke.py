@@ -113,6 +113,11 @@ Phases, each raising on failure:
        per-rank launches are summed.
        The same jobs run in a world of one rank started the same way, and
        the seconds of both are printed side by side;
+    d. each rank's own work in config 5's pass over four tile ranks, rank
+       after rank on one card: rays, tile passes and seconds a pass of the
+       dealt rows (counted by `sharding.STATS`) and of the contiguous row
+       blocks the ranks traced before; the dealt rows' busiest rank must be
+       within 5% of the mean in rays and in tile passes;
 15. next-event estimation and Russian roulette on the card (NEE,
     `rr_start` 3), each held to the same render on the CPU (plain
     versions) within the render limit: the reference's config 4
@@ -198,8 +203,10 @@ Phases, each raising on failure:
     plain twins, bit-equal (NaN where both are NaN), at the calls the paths
     make: the flagship wavefront's advance CAPTURE_CALL (32,768 lanes: its
     queue pop and restart, and the sort after it), a viewer frame's pool
-    (16,384) and drain (1,024) calls, and the queue at the drain's width
-    (the viewer pool's call cut to 1,024 lanes: the drain pops no queue);
+    (16,384) and drain (1,024) calls, the queue at the drain's width
+    (the viewer pool's call cut to 1,024 lanes: the drain pops no queue),
+    and advance CAPTURE_CALL of a tile shard (rank 2 of 4 of config 5:
+    every 4th row, `row_stride` 4; every restarted pixel on its rows);
     each with its device, call and plain time, the time of one PyTorch call
     that computes the same function where there is one (`torch.cumsum` for
     the queue's ranks, `index_select` of the packed lane state for the
@@ -278,7 +285,8 @@ Usage:
                                      # device time by kernel name
     python3 chip_smoke.py --cards 4  # phases 1, 6, 7 and 14 alone, 14c with
                                      # one rank on each of 4 cards, joined
-                                     # by nccl (a machine with 4 cards)
+                                     # by nccl (a machine with 4 cards),
+                                     # 14d on the first
     python3 chip_smoke.py --shard-rank SPEC.json RANK
                                      # one rank of phase 14c's worlds (the
                                      # script starts these itself)
@@ -422,6 +430,9 @@ PURPOSE_NAMES = {0: "jitter", 1: "lobe", 2: "fresnel", 3: "rr", 4: "light",
 # depth 8, 16 spp accumulated tile-sharded in steps of spp / 4
 CONFIG5_SIZE, CONFIG5_DEPTH, CONFIG5_SPP = (1920, 1080), 8, 16
 CONFIG5_STEP = CONFIG5_SPP // 4
+# config 5 over four tile ranks, as the sharded cell runs it; the rank
+# whose dealt rows phase 19 records
+SHARD_TILES, SHARD_RANK = 4, 2
 # a collective of phase 14c's ranks, and a whole world of them, may take
 RANK_TIMEOUT_S, WORLD_LIMIT_S = 120, 420
 SWEEP_SLICES, SWEEP_RAYS = (1, 2, 4, 8), (1, 4)
@@ -3002,6 +3013,79 @@ def phase_ranks(sharded_cli, after_two, card, cards=1):
     return record
 
 
+def phase_rank_balance(card, passes: int = 8, warm: int = 3) -> dict:
+    """14d: each rank's own work in config 5's pass (CONFIG5_STEP spp, POOL
+    lanes) over SHARD_TILES tile ranks, rank after rank on the one card (a
+    rank's trace calls no collective, so it is the same on any card):
+    the rays, tile passes and seconds a pass of the dealt rows
+    (`shard_render_wavefront`, counted by `sharding.STATS`) and of the
+    contiguous row block each rank traced before (`trace_wavefront` over
+    rows r H / n .. (r + 1) H / n - 1), `passes` passes after `warm`, the
+    sample ids continuing. Raises unless the dealt rows' busiest rank is
+    within 5% of the ranks' mean in rays and in tile passes."""
+    import statistics
+
+    import torch
+
+    from metalpathtracer_torch.core import rng
+    from metalpathtracer_torch.parallel import sharding
+    from metalpathtracer_torch.render import graphs
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig, trace_wavefront
+    from metalpathtracer_torch.scene import load_scene_xml
+
+    scene = upload_scene(load_scene_xml(str(ROOT / "scenes" / "multimesh.xml")), "cuda")
+    (w, h), n, spp = CONFIG5_SIZE, SHARD_TILES, CONFIG5_STEP
+    cfg, cam, n_local = RenderConfig(max_depth=CONFIG5_DEPTH), Camera.reset(), h // n * w
+
+    def block(r, k):
+        _, rays, stats = trace_wavefront(
+            scene, cam, w, h, spp, rng.seed_from_int(5), cfg, POOL, sample_offset=k * spp,
+            pixel_offset=r * n_local, n_pixels=n_local)
+        return rays, stats["tile_passes"]
+
+    def dealt(r, k):
+        before = dict(sharding.STATS)
+        sharding.shard_render_wavefront(scene, cam, w, h, spp, 5, cfg, POOL, tile_index=r,
+                                        n_tiles=n, sample_offset=k * spp)
+        return (sharding.STATS["rays"] - before["rays"],
+                sharding.STATS["tile_passes"] - before["tile_passes"])
+
+    record = {}
+    for layout, fn in (("blocks", block), ("dealt", dealt)):
+        ranks = []
+        for r in range(n):
+            rays, tiles, ms = [], [], []
+            for k in range(warm + passes):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(r, k)
+                torch.cuda.synchronize()
+                if k >= warm:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    rays.append(got[0])
+                    tiles.append(got[1])
+            ranks.append(dict(rays=statistics.mean(rays), tile_passes=statistics.mean(tiles),
+                              ms=statistics.median(ms), ms_min=min(ms), ms_max=max(ms)))
+        graphs.clear()
+        ratio = {k: max(p[k] for p in ranks) / statistics.mean(p[k] for p in ranks)
+                 for k in ("rays", "tile_passes", "ms")}
+        record[layout] = dict(per_rank=ranks, max_over_mean=ratio)
+        log(f"[14d] config 5's pass over {n} ranks, {layout}, each rank's own trace a pass "
+            f"(mean of {passes}; ms median, min-max): " + "; ".join(
+                f"rank {r} {p['rays']:.0f} rays, {p['tile_passes']:.2f} tile passes, "
+                f"{p['ms']:.2f} ms ({p['ms_min']:.2f}-{p['ms_max']:.2f})"
+                for r, p in enumerate(ranks))
+            + "; busiest / mean: " + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items())
+            + f"; {card}")
+    if max(record["dealt"]["max_over_mean"][k] for k in ("rays", "tile_passes")) > 1.05:
+        raise RuntimeError(f"[14d] dealt rows off balance: {record['dealt']['max_over_mean']}")
+    del scene
+    torch.cuda.empty_cache()
+    return record
+
+
 def config4_camera():
     """Config 4's camera (`benchmarks/run_configs.py`)."""
     from metalpathtracer_torch.render.camera import Camera
@@ -4443,6 +4527,46 @@ def regen_vs_twin(kernel: str, args, what: str) -> dict:
     return rec
 
 
+def advance_picks() -> dict:
+    """The regeneration calls of a render's advance CAPTURE_CALL, as
+    `recorded_regen` picks them: the restart after it (the start's being
+    the first), its queue pop, and the sort after it (every fourth
+    advance's)."""
+    return {"restart_lanes": CAPTURE_CALL + 1, "queue_pop": CAPTURE_CALL,
+            "tileset_key": CAPTURE_CALL // 4, "permute_lanes": CAPTURE_CALL // 4}
+
+
+def capture_shard_regen(scene) -> dict:
+    """The regeneration calls of a tile shard's advance CAPTURE_CALL (the
+    flagship pool set's picks): rank SHARD_RANK of SHARD_TILES's block of
+    config 5's pass on `scene` (`shard_render_wavefront` at CONFIG5_SIZE,
+    depth CONFIG5_DEPTH, CONFIG5_STEP spp, POOL lanes: every SHARD_TILES-th
+    row, the restart's `row_stride`), run eagerly and stopped after it.
+    Raises unless the restart's plan deals the rows and every lane's pixel
+    lies on the block's rows. Returns {"shard": {wrapper: args}}."""
+    from metalpathtracer_torch.parallel import sharding
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    (w, h), cfg = CONFIG5_SIZE, RenderConfig(max_depth=CONFIG5_DEPTH)
+
+    def run():
+        sharding.shard_render_wavefront(scene, Camera.reset(), w, h, CONFIG5_STEP, 5, cfg,
+                                        POOL, tile_index=SHARD_RANK, n_tiles=SHARD_TILES)
+
+    with recorded_regen({"shard": (POOL, advance_picks())}) as got:
+        capture_calls(run, {"shard": lambda i, lanes, k: i == CAPTURE_CALL}, stop=True)
+    lanes, _, _, offset, plan = got["shard"]["restart_lanes"]
+    pixel, _ = twfk.pixel_sample(lanes["item"], lanes["schunk"], offset, plan)
+    rows = pixel // w
+    if plan.row_stride != SHARD_TILES or not bool(
+            ((rows % SHARD_TILES == SHARD_RANK) & (rows < h)).all()):
+        raise RuntimeError(f"[19] the shard's restart: row_stride {plan.row_stride}, rows "
+                           f"{sorted(set((rows % SHARD_TILES).tolist()))} mod {SHARD_TILES}")
+    return got
+
+
 def regen_sets(pool: dict, viewer: dict) -> dict:
     """Phase 19's calls: the flagship advance's (`pool`) and a viewer
     frame's pool and drain calls (`viewer`), and the queue at the drain's
@@ -4597,6 +4721,7 @@ def main(argv=None) -> int:
         sharded_cli = phase_sharded_cli(paths)
         _, after_two = phase_config5()
         phase_ranks(sharded_cli, after_two, card, cards=args.cards)
+        phase_rank_balance(card)
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4635,11 +4760,7 @@ def main(argv=None) -> int:
     # fourth advance's), and of a viewer frame's pool and drain
     from metalpathtracer_torch import viewer as tviewer
 
-    pool_picks = {"pool": (POOL, {"restart_lanes": CAPTURE_CALL + 1,
-                                  "queue_pop": CAPTURE_CALL,
-                                  "tileset_key": CAPTURE_CALL // 4,
-                                  "permute_lanes": CAPTURE_CALL // 4})}
-    with recorded_regen(pool_picks) as regen_pool:
+    with recorded_regen({"pool": (POOL, advance_picks())}) as regen_pool:
         mm_pool, cull_pool, pool_draws = capture_pool_call(shading_sets)
     viewer_picks = {
         "viewer_pool": (tviewer.POOL_SIZE, {"restart_lanes": 5, "queue_pop": 5,
@@ -4648,6 +4769,9 @@ def main(argv=None) -> int:
                                         "permute_lanes": 1})}
     with recorded_regen(viewer_picks) as regen_viewer:
         of_viewer = capture_viewer_calls(scene, shading_sets)
+    # and of a tile shard's advance: the rows dealt, a row_stride above 1
+    regen_shard = capture_shard_regen(
+        upload_scene(load_scene_xml(str(ROOT / "scenes" / "multimesh.xml")), dev))
     sets = {k: closest_hit_set(scene, *v) for k, v in ref_sets.items()}
     sets["pool"] = captured_set(mm_pool, cull_pool[1])
     # the drain's lanes are the longest paths: they may all be among spheres
@@ -4745,11 +4869,13 @@ def main(argv=None) -> int:
     del shading_sets
     log("[19] the regeneration's kernels vs their twins: the flagship's advance "
         f"{CAPTURE_CALL} (its queue pop and restart, and the sort after it), a viewer "
-        "frame's pool and drain calls, and the queue at the drain's width")
+        "frame's pool and drain calls, the queue at the drain's width, and advance "
+        f"{CAPTURE_CALL} of rank {SHARD_RANK} of {SHARD_TILES}'s dealt rows of config 5 "
+        f"(row_stride {SHARD_TILES})")
     t0 = time.perf_counter()
-    regen = phase_regen(regen_sets(regen_pool, regen_viewer))
+    regen = phase_regen({**regen_sets(regen_pool, regen_viewer), **regen_shard})
     log(f"[19] {len(regen)} calls compared and timed in {time.perf_counter() - t0:.1f} s")
-    del regen_pool, regen_viewer
+    del regen_pool, regen_viewer, regen_shard
     torch.cuda.empty_cache()
     sweep = against = None
     if args.sweep:
@@ -4802,6 +4928,7 @@ def main(argv=None) -> int:
     config5, after_two = phase_config5()
     two_ranks = phase_ranks(sharded_cli, after_two, card)
     del after_two
+    rank_balance = phase_rank_balance(card)
     for name in ("scan", "wavefront"):  # compared; what comes back stays small
         (OUT / f"tile_shard_{name}.npz").unlink()
     nee = phase_nee(card)
@@ -4899,6 +5026,7 @@ def main(argv=None) -> int:
                    small_vs_plain=small, checkpointed=checkpointed,
                    progressive=progressive, viewer=viewer, bvh=bvh,
                    sharded_cli=sharded_cli, config5=config5, two_ranks=two_ranks,
+                   rank_balance=rank_balance,
                    nee=nee, graphs=graph, ranges=ranges,
                    total_s=time.perf_counter() - t_start)
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))

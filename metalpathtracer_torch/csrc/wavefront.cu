@@ -12,11 +12,13 @@
 // render/kernels/wavefront.py::*_reference.
 //
 // restart_lanes  one thread a lane. From the lane's work item and its
-//   sample chunk it computes its pixel (item % groups) * bank_k +
-//   schunk / spb + pixel_offset and its sample (item / groups) * spb +
-//   schunk % spb + sample_offset (int64; sample_offset read from its 0-d
-//   tensor, so a replayed CUDA graph sees each render's value) and writes
-//   both for every lane. Where `restart` is set it draws the jitter pair
+//   sample chunk it computes its local pixel l = (item % groups) * bank_k +
+//   schunk / spb, its pixel pixel_offset + l + (l / width) * (row_stride -
+//   1) * width (row_stride 1: a contiguous range; n: every n-th row of a
+//   tile shard) and its sample (item / groups) * spb + schunk % spb +
+//   sample_offset (int64; sample_offset read from its 0-d tensor, so a
+//   replayed CUDA graph sees each render's value) and writes both for
+//   every lane. Where `restart` is set it draws the jitter pair
 //   (threefry of key (seed, pixel), counter (sample, 0): purpose 0 at
 //   bounce 0, threefry_rounds.cuh's rounds) and builds the primary ray from
 //   the (4, 3) camera basis [origin, first_pixel, u, v]:
@@ -105,7 +107,7 @@ struct RestartArgs {
   bool* __restrict__ alive_out;
   long long* __restrict__ pixel_out;
   long long* __restrict__ sample_out;
-  long long n, width, height, groups, bank_k, spb, pixel_offset;
+  long long n, width, height, groups, bank_k, spb, pixel_offset, row_stride;
   uint32_t seed;
 };
 
@@ -116,7 +118,9 @@ restart_lanes_kernel(RestartArgs a, unsigned long long* __restrict__ tally) {
   if (i >= a.n) return;
   const long long item = a.item[i], schunk = a.schunk[i];
   const bool restart = a.restart[i];
-  const long long pixel = (item % a.groups) * a.bank_k + schunk / a.spb + a.pixel_offset;
+  const long long local = (item % a.groups) * a.bank_k + schunk / a.spb;
+  const long long pixel =
+      a.pixel_offset + local + (local / a.width) * ((a.row_stride - 1) * a.width);
   const long long sample = (item / a.groups) * a.spb + schunk % a.spb + *a.sample_offset;
   a.pixel_out[i] = pixel;
   a.sample_out[i] = sample;
@@ -351,11 +355,12 @@ extern "C" int restart_lanes_launch(
     const void* basis, const void* sample_offset, void* o_out, void* d_out, void* tp_out,
     void* bounce_out, void* prev_pdf_out, void* alive_out, void* pixel_out,
     void* sample_out, long long n, long long width, long long height, long long groups,
-    long long bank_k, long long spb, long long pixel_offset, uint32_t seed, int device,
-    void* stream, void* tally) {
+    long long bank_k, long long spb, long long pixel_offset, long long row_stride,
+    uint32_t seed, int device, void* stream, void* tally) {
   const int rc = use_device(device);
   if (rc != 0) return rc;
-  if (width < 1 || height < 1 || groups < 1 || spb < 1) return (int)cudaErrorInvalidValue;
+  if (width < 1 || height < 1 || groups < 1 || spb < 1 || row_stride < 1)
+    return (int)cudaErrorInvalidValue;
   RestartArgs a;
   a.item = static_cast<const long long*>(item);
   a.schunk = static_cast<const long long*>(schunk);
@@ -383,6 +388,7 @@ extern "C" int restart_lanes_launch(
   a.bank_k = bank_k;
   a.spb = spb;
   a.pixel_offset = pixel_offset;
+  a.row_stride = row_stride;
   a.seed = seed;
   if (n <= 0) return (int)cudaSuccess;
   restart_lanes_kernel<<<grid_of(n), kThreads, 0, (cudaStream_t)stream>>>(

@@ -2,8 +2,16 @@
 
 Port of `metalpathtracer_tpu/parallel/sharding.py`. The two scaling axes:
 
-- **tile sharding**: the image is split into row blocks; each rank traces
-  its block alone, and the blocks join by one `all_gather`;
+- **tile sharding**: the image's rows are dealt out over the ranks, rank
+  r of n taking rows r, r + n, r + 2n, ... (its *block*, a (H / n, W, 3)
+  tensor whose row i is image row i n + r); each rank traces its block
+  alone, and the blocks join by one `all_gather`. Dealt rows, not one
+  contiguous band each, because the work is uneven down an image (a sky
+  band costs one ray a path and no triangle test): every rank gets an
+  even share of every band, and no rank waits long for the slowest.
+  The shard-local renders trace these rows, `block_rows` cuts a whole
+  image into its blocks and `join_rows` joins them back; a checkpoint
+  holds the whole image in its usual row order;
 - **sample sharding**: every rank renders the whole image with its own
   slice of the spp budget; the partial sums join by one `all_reduce`.
 
@@ -15,10 +23,11 @@ and the two axes compose into a 2-D mesh (tiles, samples). (One thing does
 depend on the lanes a ray shares its subgroup with: where it meets two
 triangles at exactly one t, a shared edge, the closest hit keeps the one
 its subgroup's tile order reaches first. The scan integrator's subgroups
-are 128 pixels in a row on any layout whose blocks are multiples of 128
-pixels; the wavefront's follow its queue, so a sharded wavefront image can
-differ from the whole one's at such a pixel: 1 of 921,600 on the reference
-scene at 1280x720.)
+are 128 consecutive pixels of a block, so whenever the width is a
+multiple of 128 (1280, 1920) each lies within one image row, as on the
+whole image; the wavefront's follow its queue, so a sharded wavefront
+image can differ from the whole one's at such a pixel: 1 of 921,600 on
+the reference scene at 1280x720.)
 
 One process drives one device: every render path is bound by its host's
 dispatch, so one Python thread feeding several devices would scale by
@@ -32,6 +41,11 @@ arguments (every rank before its first collective, so a bad argument
 raises on all ranks and none waits for one that left), call the
 shard-local function with the mesh's indices and join the parts. A world
 of one calls no collective at all.
+
+`STATS` counts this rank's own traced rays and tile passes (closest-hit
+tile passes, 2^20 ray-triangle tests each; the wavefront integrator
+reports them, the scan does not), summed over the shard-local calls: the
+balance of work between ranks.
 
 The reference's cached jit functions, `shard_map`, `check_vma` and buffer
 donation have no counterpart: nothing here is compiled, and
@@ -54,13 +68,16 @@ from metalpathtracer_torch.render.integrator import (
 from metalpathtracer_torch.render.pipeline import AccumState, render_tile
 from metalpathtracer_torch.utils.metrics import span
 
+# this rank's own work, summed over its shard-local calls
+STATS = {"rays": 0, "tile_passes": 0.0}
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A (tiles, samples) grid of ranks and this rank's place in it: rank =
     tile_index * n_samples + sample_index. `tiles_group` joins the ranks of
-    this rank's column (one sample slice, every row block), `samples_group`
-    those of its row (one row block, every sample slice); None stands for
+    this rank's column (one sample slice, every tile block), `samples_group`
+    those of its row (one tile block, every sample slice); None stands for
     the default process group (a 1-D mesh) or for no group (a world of
     one)."""
 
@@ -154,13 +171,14 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _gather_rows(block: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The row blocks of the "tiles" axis, concatenated; on every rank."""
+    """The blocks of the "tiles" axis, joined into the whole image; on
+    every rank."""
     if mesh.n_tiles == 1:
         return block
     mine = _wire(block.contiguous(), mesh.tiles_group)
     parts = [torch.empty_like(mine) for _ in range(mesh.n_tiles)]
     dist.all_gather(parts, mine, group=mesh.tiles_group)
-    return torch.cat(parts, dim=0).to(block.device)
+    return join_rows(parts).to(block.device)
 
 
 def _sum_samples(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -196,18 +214,21 @@ def _sum_rays(rays: int, mesh: Mesh, device, tiles: bool = True,
 def shard_render(scene, camera, width: int, height: int, spp: int, seed: int,
                  cfg: RenderConfig, tile_index: int = 0, n_tiles: int = 1,
                  sample_index: int = 0, n_samples: int = 1):
-    """The scan integrator on one shard: row block `tile_index` of
-    `n_tiles`, samples `sample_index * spp / n_samples` onward, in one
-    pass. Returns (rgb_sum (height / n_tiles, width, 3), rays int)."""
+    """The scan integrator on one shard: block `tile_index` of `n_tiles`
+    (rows tile_index, tile_index + n_tiles, ...), samples
+    `sample_index * spp / n_samples` onward, in one pass. Returns
+    (rgb_sum (height / n_tiles, width, 3), rays int)."""
     rows_per = height // n_tiles
     spp_per = spp // n_samples
-    first = tile_index * rows_per * width
-    pixel_id = first + torch.arange(rows_per * width, dtype=torch.int64,
-                                    device=scene.device)
+    i64 = dict(dtype=torch.int64, device=scene.device)
+    rows = torch.arange(rows_per, **i64)[:, None] * n_tiles + tile_index
+    pixel_id = (rows * width + torch.arange(width, **i64)).reshape(-1)
     sample_ids = range(sample_index * spp_per, (sample_index + 1) * spp_per)
     rgb_sum, rays = render_tile(scene, camera, width, height, pixel_id,
                                 sample_ids, rng.seed_from_int(seed), cfg)
-    return rgb_sum.reshape(rows_per, width, 3), int(rays)
+    rays = int(rays)
+    STATS["rays"] += rays
+    return rgb_sum.reshape(rows_per, width, 3), rays
 
 
 def shard_render_wavefront(scene, camera, width: int, height: int, spp: int,
@@ -216,23 +237,27 @@ def shard_render_wavefront(scene, camera, width: int, height: int, spp: int,
                            n_tiles: int = 1, sample_index: int = 0,
                            n_samples: int = 1, sample_offset: int = 0):
     """The wavefront integrator on one shard: its queue, lane pool and
-    framebuffer cover the shard's row block alone, while pixel and sample
-    ids stay global. Returns (rgb_sum (height / n_tiles, width, 3), rays)."""
+    framebuffer cover the shard's block alone (rows tile_index,
+    tile_index + n_tiles, ...: `trace_wavefront`'s `row_stride`), while
+    pixel and sample ids stay global. Returns (rgb_sum (height / n_tiles,
+    width, 3), rays)."""
     rows_per = height // n_tiles
-    n_local = rows_per * width
     spp_per = spp // n_samples
-    fb, rays, _ = trace_wavefront(
+    fb, rays, stats = trace_wavefront(
         scene, camera, width, height, spp_per, rng.seed_from_int(seed), cfg,
         pool_size, sample_offset=sample_offset + sample_index * spp_per,
-        pixel_offset=tile_index * n_local, n_pixels=n_local,
+        pixel_offset=tile_index * width, n_pixels=rows_per * width,
+        row_stride=n_tiles,
     )
+    STATS["rays"] += rays
+    STATS["tile_passes"] += stats["tile_passes"]
     return fb.reshape(rows_per, width, 3), rays
 
 
 def shard_accumulate(state: AccumState, scene, camera, n_samples: int,
                      seed: int, cfg: RenderConfig, pool_size: int | None,
                      tile_index: int, n_tiles: int):
-    """`n_samples` more samples on the row block `state` holds (block
+    """`n_samples` more samples on the block `state` holds (block
     `tile_index` of `n_tiles`). Returns (new state, this block's rays)."""
     rows_per, width = state.rgb_sum.shape[:2]
     fb, rays = shard_render_wavefront(
@@ -243,10 +268,16 @@ def shard_accumulate(state: AccumState, scene, camera, n_samples: int,
 
 
 def block_rows(rgb: torch.Tensor, tile_index: int, n_tiles: int):
-    """Row block `tile_index` of `n_tiles` of a whole (H, W, 3) image."""
+    """Block `tile_index` of `n_tiles` of a whole (H, W, 3) image: its rows
+    tile_index, tile_index + n_tiles, ... (a view)."""
     _check_divisible(rgb.shape[0], n_tiles)
-    rows_per = rgb.shape[0] // n_tiles
-    return rgb[tile_index * rows_per:(tile_index + 1) * rows_per]
+    return rgb[tile_index::n_tiles]
+
+
+def join_rows(parts) -> torch.Tensor:
+    """The whole (H, W, 3) image from the blocks of every tile index, in
+    order: `block_rows`' inverse."""
+    return torch.stack(parts, dim=1).reshape(-1, *parts[0].shape[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +289,7 @@ def render_image_sharded(scene, camera, width: int, height: int, spp: int,
                          seed: int = 0, cfg: RenderConfig = DEFAULT_CONFIG,
                          mesh: Mesh | None = None):
     """Tile-sharded render over a 1-D mesh. Returns (image (H, W, 3), rays)
-    on every rank. Each rank traces `height / n` rows; equal to
+    on every rank. Each rank traces every n-th row; equal to
     `render_image` in one pass for any number of ranks."""
     if mesh is None:
         mesh = make_mesh()
@@ -275,7 +306,7 @@ def render_image_wavefront_sharded(scene, camera, width: int, height: int,
                                    mesh: Mesh | None = None,
                                    pool_size: int | None = None):
     """Tile-sharded render where each rank runs the wavefront integrator
-    over its own row block; the framebuffer gather is the one exchange of
+    over its own block of rows; the framebuffer gather is the one exchange of
     pixels. Equal to the wavefront render of one device."""
     if spp <= 0:
         raise ValueError(f"spp must be positive, got {spp}")
@@ -328,7 +359,7 @@ def render_image_sample_sharded_wavefront(scene, camera, width: int,
 
 
 def _default_2d() -> Mesh:
-    """Two sample slices and world / 2 row blocks; a world of one is 1x1."""
+    """Two sample slices and world / 2 tile blocks; a world of one is 1x1."""
     world = _world()[1]
     return make_mesh_2d(1, 1) if world == 1 else make_mesh_2d(world // 2, 2)
 
@@ -379,7 +410,8 @@ def render_image_sharded_2d(scene, camera, width: int, height: int, spp: int,
 
 def init_accum_sharded(width: int, height: int, mesh: Mesh, device) -> AccumState:
     """Row-sharded progressive state: an `AccumState` whose `rgb_sum` is
-    this rank's (height / n, width, 3) block on `device`."""
+    this rank's (height / n, width, 3) block (`block_rows`' layout) on
+    `device`."""
     _check_divisible(height, mesh.n_tiles)
     return AccumState(
         rgb_sum=torch.zeros((height // mesh.n_tiles, width, 3),
@@ -393,8 +425,8 @@ def accumulate_sharded(state: AccumState, scene, camera, n_samples: int,
                        mesh: Mesh | None = None,
                        pool_size: int | None = None) -> tuple[AccumState, int]:
     """Add `n_samples` per pixel to a tile-sharded progressive state: each
-    rank traces its row block with the wavefront integrator, the sample ids
-    continuing at `state.spp`, so the estimate is that of an unsharded
+    rank traces its block of rows with the wavefront integrator, the sample
+    ids continuing at `state.spp`, so the estimate is that of an unsharded
     render of the same total spp. The one collective is the ray count's.
     Checkpoint through `gather_accum`, resume through `shard_accum`.
     Returns (new state, rays traced in this step by all ranks)."""
@@ -409,13 +441,13 @@ def accumulate_sharded(state: AccumState, scene, camera, n_samples: int,
 
 
 def gather_accum(state: AccumState, mesh: Mesh) -> AccumState:
-    """The whole (H, W, 3) state from every rank's block, on every rank: what
-    `io.checkpoint.save_checkpoint` writes."""
+    """The whole (H, W, 3) state from every rank's block, in the image's row
+    order, on every rank: what `io.checkpoint.save_checkpoint` writes."""
     return AccumState(_gather_rows(state.rgb_sum, mesh), state.spp)
 
 
 def shard_accum(state: AccumState, mesh: Mesh) -> AccumState:
-    """This rank's row block of a whole state (one `load_checkpoint` read):
+    """This rank's block of a whole state (one `load_checkpoint` read):
     what `accumulate_sharded` continues from."""
     block = block_rows(state.rgb_sum, mesh.tile_index, mesh.n_tiles)
     return AccumState(block.contiguous(), state.spp)

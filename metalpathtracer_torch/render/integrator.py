@@ -442,7 +442,7 @@ SCAN_BLOCK = 8
 
 def scan_entry(scene, width, height, n, seed, cfg) -> "graphs.Entry":
     """The cached `_Scan` entry of one render shape: `n` lanes (a pass's
-    pixels or a shard's row block) of a width x height image (None for
+    pixels or a tile shard's block) of a width x height image (None for
     `trace`, which takes its rays from the caller), `seed` and `cfg`, on
     `scene`. Samples, bounces, cameras and first sample ids are not in the
     key: `begin` writes them into the program's buffers."""
@@ -500,16 +500,20 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
                     pool_size: int | None = None,
                     sample_offset: int = 0,
                     pixel_offset: int = 0,
-                    n_pixels: int | None = None):
+                    n_pixels: int | None = None,
+                    row_stride: int = 1):
     """Persistent-wavefront path tracing with lane regeneration. `seed` is
     the u32 seed word; the samples traced are `sample_offset` ..
     `sample_offset + spp - 1` of every pixel (a progressive render passes
     the samples it already holds).
 
-    `pixel_offset` / `n_pixels` restrict the queue to the contiguous pixel
-    range `pixel_offset` .. `pixel_offset + n_pixels - 1` (a tile shard):
-    pixel ids stay global for ray generation and the RNG, while the queue's
-    shape and the returned framebuffer cover the local range alone.
+    `pixel_offset` / `n_pixels` / `row_stride` restrict the queue to
+    `n_pixels` pixels from `pixel_offset` on (a tile shard): local pixel l
+    is pixel `pixel_offset + l + (l // width) * (row_stride - 1) * width`,
+    so at a stride of 1 the range is contiguous and at n it takes every
+    n-th row. Pixel ids stay global for ray generation and the RNG, while
+    the queue's shape and the returned framebuffer cover the local range
+    alone, in local order.
 
     A fixed pool of lanes works through the queue of work items, each
     `bank_k` adjacent pixels x `spb` samples. When a path ends, its radiance
@@ -538,8 +542,10 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     n_pix = n_pixels if n_pixels is not None else width * height
     if n_pix * spp > (1 << 31):
         raise ValueError(f"{n_pix * spp} work items overflow the queue")
+    if row_stride < 1:
+        raise ValueError(f"row_stride must be positive, got {row_stride}")
     pool = int(pool_size) if pool_size is not None else min(n_pix * spp, 1 << 15)
-    shape = (width, height, spp, seed, cfg, pool, pixel_offset, n_pix)
+    shape = (width, height, spp, seed, cfg, pool, pixel_offset, n_pix, row_stride)
     entry = graphs.entry(shape, scene, lambda: _Wavefront(scene, *shape))
     wf = entry.program
     wf.start(camera, sample_offset)
@@ -578,7 +584,7 @@ class _Wavefront:
     gather (the sort itself is `torch.argsort`)."""
 
     def __init__(self, scene, width, height, spp, seed, cfg, pool,
-                 pixel_offset, n_pix):
+                 pixel_offset, n_pix, row_stride):
         self.scene, self.width, self.height = scene, width, height
         self.seed, self.cfg, self.pool = seed, cfg, pool
         self.pixel_offset = pixel_offset
@@ -601,7 +607,7 @@ class _Wavefront:
         self.n_pix, self.spb, self.bank_k = n_pix, spb, bank_k
         self.groups = n_pix // bank_k
         self.lane_plan = wfk.LanePlan(width, height, self.groups, bank_k, spb,
-                                      pixel_offset, seed)
+                                      pixel_offset, seed, row_stride)
         self.per_item = bank_k * spb  # path completions per work item
         self.plan = shade.BankPlan(cfg.max_depth, cfg.clamp_radiance, bank_k, spb,
                                    self.per_item)

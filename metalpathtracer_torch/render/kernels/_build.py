@@ -148,8 +148,8 @@ ENTRY_ARGS = {
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong)),
-    # n, width, height, groups, bank_k, spb, pixel_offset, the seed word
-    "restart_lanes": (19, (ctypes.c_longlong,) * 7 + (ctypes.c_uint32,)),
+    # n, width, height, groups, bank_k, spb, pixel_offset, row_stride, the seed word
+    "restart_lanes": (19, (ctypes.c_longlong,) * 8 + (ctypes.c_uint32,)),
     # n, the accumulator's width, total, groups
     "queue_pop": (9, (ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_longlong)),

@@ -52,7 +52,9 @@ class LanePlan(NamedTuple):
     """What a wavefront render's lanes map to: the image (`width`,
     `height`), the work items (`groups` items of `bank_k` pixels, `spb`
     samples a pixel a chunk), the first pixel of the render's range
-    (`pixel_offset`: pixel ids stay global) and the u32 seed word."""
+    (`pixel_offset`: pixel ids stay global), the u32 seed word, and the
+    image rows between two rows of the range (`row_stride`: 1 for a
+    contiguous range, n for every n-th row of a tile shard)."""
 
     width: int
     height: int
@@ -61,6 +63,7 @@ class LanePlan(NamedTuple):
     spb: int
     pixel_offset: int
     seed: int
+    row_stride: int = 1
 
 
 def _lane_checks(lanes, fields, n, ka=None):
@@ -76,10 +79,14 @@ def _lane_checks(lanes, fields, n, ka=None):
 
 def pixel_sample(item, schunk, sample_offset, plan: LanePlan):
     """(pixel, sample) int64 of each lane: item % groups names a framebuffer
-    row of bank_k pixels (ids global), item // groups the item's sample
-    chunk; `sample_offset` (a 0-d int64 tensor or an int) the render's
-    first sample id."""
-    pixel = (item % plan.groups) * plan.bank_k + schunk // plan.spb + plan.pixel_offset
+    row of bank_k pixels, item // groups the item's sample chunk;
+    `sample_offset` (a 0-d int64 tensor or an int) the render's first
+    sample id. Local pixel l is global pixel pixel_offset + l + (l // width)
+    * (row_stride - 1) * width: local row i is image row i * row_stride
+    past the range's first."""
+    local = (item % plan.groups) * plan.bank_k + schunk // plan.spb
+    pixel = (plan.pixel_offset + local
+             + (local // plan.width) * ((plan.row_stride - 1) * plan.width))
     sample = (item // plan.groups) * plan.spb + schunk % plan.spb + sample_offset
     return pixel, sample
 
@@ -113,7 +120,8 @@ def restart_lanes(lanes: dict, restart, basis, sample_offset, plan: LanePlan) ->
                       (o, d, tp, bounce, prev_pdf, alive, pixel, sample),
                       (n, int(plan.width), int(plan.height), int(plan.groups),
                        int(plan.bank_k), int(plan.spb), int(plan.pixel_offset),
-                       int(plan.seed) & 0xFFFFFFFF), dev, align=8)
+                       int(plan.row_stride), int(plan.seed) & 0xFFFFFFFF), dev,
+                      align=8)
         restart_lanes.launches += 1
     return dict(lanes, o=o, d=d, tp=tp, bounce=bounce, prev_pdf=prev_pdf, alive=alive,
                 pixel=pixel, sample=sample)

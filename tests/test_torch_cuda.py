@@ -750,12 +750,12 @@ def test_sharded_row_blocks_on_card_match_the_whole_image(scene):
     whole, rays = render_image(scene, cam, w, h, spp, seed=2, cfg=cfg,
                                spp_per_pass=spp)
     parts = [sh.shard_render(scene, cam, w, h, spp, 2, cfg, i, n) for i in range(n)]
-    assert torch.equal(torch.cat([p[0] for p in parts]) / spp, whole)
+    assert torch.equal(sh.join_rows([p[0] for p in parts]) / spp, whole)
     assert sum(p[1] for p in parts) == rays
     whole, rays = render_image_wavefront(scene, cam, w, h, spp, seed=2, cfg=cfg)
     parts = [sh.shard_render_wavefront(scene, cam, w, h, spp, 2, cfg, None, i, n)
              for i in range(n)]
-    img = torch.cat([p[0] for p in parts]) / spp
+    img = sh.join_rows([p[0] for p in parts]) / spp
     differing = int((img != whole).any(dim=-1).sum())
     assert differing <= 1e-4 * w * h, differing
     assert sum(p[1] for p in parts) == rays
@@ -1730,6 +1730,30 @@ def test_regen_kernel_matches_twin(scene, kernel, n):
         assert bool((args[0] & ~restart).any())
     if kernel == "tileset_key":
         assert int((got[0] != -(1 << 31)).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1024, 32768])
+def test_restart_lanes_deals_rows_like_its_twin(scene, n):
+    # rank 2 of 4 tile shards of 1920x1080: every lane's pixel is on an
+    # image row 2 mod 4, and the kernel is bit-equal to its twin
+    from metalpathtracer_torch.render.kernels import wavefront as twfk
+
+    lanes, restart, _, offset, _ = _regen_operands(scene, "restart_lanes", n, n + 3)
+    w, h, stride, r = 1920, 1080, 4, 2
+    groups = (h // stride) * w // 4
+    plan = twfk.LanePlan(w, h, groups, 4, 4, r * w, 0x5EED, stride)
+    basis = tpipe.camera_basis(Camera.reset(), w, h).to("cuda")
+    args = (lanes, restart, basis, offset, plan)
+    got = _regen_call("restart_lanes", _fresh(args))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(twfk, "restart_lanes", twfk.restart_lanes_reference)
+        want = _regen_call("restart_lanes", _fresh(args))
+    torch.cuda.synchronize()
+    _bit_equal(got, want)
+    pixel = got[twfk.LANE_FIELDS.index("pixel")]
+    local = (lanes["item"] % groups) * 4 + lanes["schunk"] // 4
+    assert torch.equal(pixel, (local // w * stride + r) * w + local % w)
+    assert bool((pixel // w % stride == r).all()) and int(pixel.max()) < w * h
 
 
 @pytest.mark.parametrize("n", [1024, 16384, 32768])

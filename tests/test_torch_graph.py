@@ -107,7 +107,7 @@ def test_windows_driven_by_hand_equal_trace_wavefront(cornell_mesh, pool):
     # drain blocks finish them
     cam, cfg = _cornell_cam(tcam), tint.RenderConfig(max_depth=5, nee=True)
     want, rays, stats = tint.trace_wavefront(cornell_mesh, cam, 48, 32, 2, 9, cfg, pool)
-    wf = tint._Wavefront(cornell_mesh, 48, 32, 2, 9, cfg, pool, 0, 48 * 32)
+    wf = tint._Wavefront(cornell_mesh, 48, 32, 2, 9, cfg, pool, 0, 48 * 32, 1)
     wf.start(cam, 0)
     windows = blocks = 0
     while True:
@@ -177,6 +177,13 @@ def test_a_new_render_shape_makes_a_new_entry(cornell, change):
     assert len(graphs._cache) == 2
 
 
+def test_another_row_stride_makes_a_new_entry(cornell):
+    # the same range length and first pixel, rows dealt instead of contiguous
+    _trace(cornell, _cornell_cam(tcam), n_pixels=192)
+    _trace(cornell, _cornell_cam(tcam), n_pixels=192, row_stride=2)
+    assert len(graphs._cache) == 2
+
+
 def test_another_scene_or_a_swapped_function_makes_a_new_entry(cornell, monkeypatch):
     _trace(cornell, _cornell_cam(tcam))
     other = tds.upload_scene(presets.cornell_spheres(), "cpu")
@@ -242,7 +249,7 @@ def test_no_upload_inside_a_window(cornell_mesh, monkeypatch, what):
     # cull, the closest hit, the tileset sort, the light sampler, the sky and
     # every RNG bundle run under the patch
     cfg = tint.RenderConfig(max_depth=6, nee=True, rr_start=1)
-    wf = tint._Wavefront(cornell_mesh, 48, 32, 1, 9, cfg, 2048, 0, 48 * 32)
+    wf = tint._Wavefront(cornell_mesh, 48, 32, 1, 9, cfg, 2048, 0, 48 * 32, 1)
     wf.start(_cornell_cam(tcam), 0)  # the one upload of a render: the basis
     if what == "drain_block":
         wf.window()

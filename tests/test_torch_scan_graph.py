@@ -315,7 +315,9 @@ def test_a_row_block_of_either_shard_reuses_one_entry(cornell):
               for ti in range(2) for si in range(2)]
     assert len(_scan_entries()) == 1
     for (ti, si), (block, rays) in zip([(0, 0), (0, 1), (1, 0), (1, 1)], blocks):
-        pix = ti * (H // 2) * W + torch.arange(H // 2 * W, dtype=torch.int64)
+        # block ti of 2 holds rows ti, ti + 2, ...
+        rows = torch.arange(H // 2, dtype=torch.int64)[:, None] * 2 + ti
+        pix = (rows * W + torch.arange(W, dtype=torch.int64)).reshape(-1)
         want, want_rays, _ = _eager_tile(cornell, _cam(tcam), W, H, pix,
                                          range(2 * si, 2 * si + 2),
                                          trng.seed_from_int(3), CFG)

@@ -1,13 +1,13 @@
 """The port's sharded path (`parallel/sharding.py`, `trace_wavefront`'s
-`pixel_offset` / `n_pixels`) against the port's renders of one device and
-against the JAX reference's sharded renders, on the CPU.
+`pixel_offset` / `n_pixels` / `row_stride`) against the port's renders of
+one device and against the JAX reference's sharded renders, on the CPU.
 
 Three ways to run the shards:
 - in one process: the shard-local layer (`shard_render`,
   `shard_render_wavefront`, `shard_accumulate`) looped over the shard
-  indices and joined by `torch.cat` / a sum, at the 8 virtual ranks (4x2
-  for the 2-D layouts) and the sizes of tests/test_sharding.py and
-  tests/test_sharding_extra.py;
+  indices and joined by the layer's own `join_rows` / a sum, at the 8
+  virtual ranks (4x2 for the 2-D layouts) and the sizes of
+  tests/test_sharding.py and tests/test_sharding_extra.py;
 - in a world of one: the entry points themselves, which then call no
   collective;
 - under real process groups: one launch of 2 ranks and one of 4 (gloo,
@@ -73,7 +73,7 @@ def _within_render_limit(mine, theirs):
 def _joined(shard, nt, ns, spp):
     """The image and rays of an nt x ns grid of shards run one after another:
     `shard(ti, nt, si, ns)` -> (rgb_sum block, rays); sample slices are
-    added, row blocks concatenated."""
+    added, tile blocks joined by the layer's `join_rows`."""
     rows, rays = [], 0
     for ti in range(nt):
         parts = [shard(ti, nt, si, ns) for si in range(ns)]
@@ -82,7 +82,7 @@ def _joined(shard, nt, ns, spp):
             block = block + p[0]
         rows.append(block)
         rays += sum(p[1] for p in parts)
-    return torch.cat(rows, dim=0) / spp, rays
+    return sh.join_rows(rows) / spp, rays
 
 
 def _scan_shards(scene, w, h, spp, seed, cfg=tint.DEFAULT_CONFIG):
@@ -129,6 +129,28 @@ def test_pixel_range_blocks_join_to_the_whole(cornell_mesh, n):
     assert all(b[0].shape == (n_local, 3) for b in blocks)
     assert torch.equal(torch.cat([b[0] for b in blocks]), whole)
     assert sum(b[1] for b in blocks) == rays
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_row_strided_ranges_join_to_the_whole(cornell_mesh, n):
+    # rank r's range: rows r, r + n, ...; its framebuffer row i is image row
+    # i n + r, and the layer's join puts every row back in its place
+    w = h = 16
+    cfg = tint.RenderConfig(max_depth=4)
+    whole, rays, _ = tint.trace_wavefront(cornell_mesh, CAM, w, h, 4, 7, cfg, 256)
+    n_local = w * h // n
+    blocks = [tint.trace_wavefront(cornell_mesh, CAM, w, h, 4, 7, cfg, 256,
+                                   pixel_offset=r * w, n_pixels=n_local, row_stride=n)
+              for r in range(n)]
+    assert all(b[0].shape == (n_local, 3) for b in blocks)
+    joined = sh.join_rows([b[0].reshape(h // n, w, 3) for b in blocks])
+    assert torch.equal(joined.reshape(w * h, 3), whole)
+    assert sum(b[1] for b in blocks) == rays
+
+
+def test_row_stride_must_be_positive(cornell):
+    with pytest.raises(ValueError, match="row_stride must be positive, got 0"):
+        tint.trace_wavefront(cornell, CAM, 16, 16, 1, 0, n_pixels=128, row_stride=0)
 
 
 def test_pixel_range_matches_reference_range():
@@ -251,6 +273,32 @@ def test_accumulate_sharded_rejects_bad_arguments(cornell):
         sh.block_rows(torch.zeros(32, 32, 3), 0, 3)
 
 
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_whole_image_round_trips_through_the_blocks(monkeypatch, n):
+    # cut (`block_rows`, `shard_accum`) and join (`join_rows`, `gather_accum`)
+    # are inverses; block t holds rows t, t + n, ...; the all_gather is
+    # stood in for by a copy of every rank's block
+    whole = torch.as_tensor(np.random.default_rng(n).random((32, 24, 3), np.float32))
+    blocks = [sh.block_rows(whole, t, n) for t in range(n)]
+    for t, b in enumerate(blocks):
+        assert b.shape == (32 // n, 24, 3)
+        assert torch.equal(b, whole[[i * n + t for i in range(32 // n)]])
+    assert torch.equal(sh.join_rows(blocks), whole)
+
+    def all_gather(parts, mine, group=None):
+        for p, b in zip(parts, blocks):
+            p.copy_(b)
+    monkeypatch.setattr(sh.dist, "all_gather", all_gather)
+    state = tpipe.AccumState(whole, 6)
+    for t in range(n):
+        mesh = sh.Mesh(n, 1, tile_index=t)
+        mine = sh.shard_accum(state, mesh)
+        assert mine.spp == 6 and mine.rgb_sum.is_contiguous()
+        assert torch.equal(mine.rgb_sum, blocks[t])
+        back = sh.gather_accum(mine, mesh)
+        assert back.spp == 6 and torch.equal(back.rgb_sum, whole)
+
+
 def test_meshes_without_a_process_group():
     assert sh.make_mesh().shape == (1, 1)
     assert sh.make_mesh(1, axis="samples").shape == (1, 1)
@@ -267,7 +315,7 @@ def test_meshes_without_a_process_group():
 
 
 def _accumulate_blocks(states, scene, n, n_samples, seed, pool):
-    """One `accumulate_sharded` step on each of the n row blocks."""
+    """One `accumulate_sharded` step on each of the n tile blocks."""
     out = [sh.shard_accumulate(s, scene, CAM, n_samples, seed,
                                tint.DEFAULT_CONFIG, pool, i, n)
            for i, s in enumerate(states)]
@@ -283,7 +331,8 @@ def test_progressive_sharded_accumulation_matches_wavefront(cornell):
     assert all(s.spp == 4 for s in states)
     img, rays = tpipe.render_image_wavefront(cornell, CAM, 32, 32, spp=4, seed=3,
                                              pool_size=256)
-    _close(torch.cat([s.rgb_sum for s in states]) / 4.0, img, rtol=1e-6, atol=1e-7)
+    _close(sh.join_rows([s.rgb_sum for s in states]) / 4.0, img, rtol=1e-6,
+           atol=1e-7)
     assert rays1 + rays2 == rays
 
 
@@ -293,7 +342,7 @@ def test_accum_sharded_checkpoint_roundtrip(cornell, tmp_path):
     s0 = [sh.init_accum_sharded(32, 32, _mesh_of(n), "cpu") for _ in range(n)]
     s1, _ = _accumulate_blocks(s0, cornell, n, 2, 7, 256)
     path = tmp_path / "shard.npz"
-    whole = tpipe.AccumState(torch.cat([s.rgb_sum for s in s1]), s1[0].spp)
+    whole = tpipe.AccumState(sh.join_rows([s.rgb_sum for s in s1]), s1[0].spp)
     save_checkpoint(str(path), whole, seed=7)
     loaded, seed, _ = load_checkpoint(str(path), "cpu")
     assert seed == 7 and loaded.rgb_sum.shape == (32, 32, 3)
@@ -303,6 +352,34 @@ def test_accum_sharded_checkpoint_roundtrip(cornell, tmp_path):
     for x, y in zip(a, b):
         assert torch.equal(x.rgb_sum, y.rgb_sum)
         assert x.spp == y.spp == 4
+
+
+def test_dealt_rows_balance_the_ranks_where_contiguous_blocks_do_not():
+    # the upstream scene from its default camera: the top rows are sky, one
+    # ray a path; contiguous blocks leave rank 0 the sky and rank 3 the
+    # bunny, dealt rows give each rank a share of both. `STATS` counts each
+    # shard's own rays and tile passes
+    scene = t_upload(presets.reference_default(os.path.join(REPO, "assets",
+                                                            "bunny.obj")), "cpu")
+    cam, cfg = tcam.Camera.reset(), tint.RenderConfig(max_depth=3)
+    w, h, n = 64, 128, 4
+    n_local = w * h // n
+    whole_rays = tint.trace_wavefront(scene, cam, w, h, 1, 5, cfg, 256)[1]
+    contiguous = [tint.trace_wavefront(scene, cam, w, h, 1, 5, cfg, 256,
+                                       pixel_offset=r * n_local, n_pixels=n_local)[1]
+                  for r in range(n)]
+    dealt, passes = [], []
+    for r in range(n):
+        before = dict(sh.STATS)
+        _, rays = sh.shard_render_wavefront(scene, cam, w, h, 1, 5, cfg, 256, r, n)
+        dealt.append(sh.STATS["rays"] - before["rays"])
+        passes.append(sh.STATS["tile_passes"] - before["tile_passes"])
+        assert dealt[-1] == rays
+    assert sum(dealt) == sum(contiguous) == whole_rays
+    assert max(dealt) <= 1.05 * min(dealt), dealt
+    assert max(contiguous) > 2 * min(contiguous), contiguous
+    assert contiguous[0] == n_local  # the sky: one ray a path
+    assert all(p > 0 for p in passes), passes
 
 
 # --- tests/test_sharding_extra.py -------------------------------------------

@@ -73,22 +73,32 @@ def _lanes(n, ka, seed, groups=None, chunks=4):
 # the restart
 # --------------------------------------------------------------------------
 
-# (width, height, bank_k, spb, pixel_offset, sample_offset): whole images
-# and row blocks of a tile shard, first samples 0 and later
+# (width, height, bank_k, spb, pixel_offset, sample_offset, row_stride):
+# whole images, contiguous row ranges and the dealt rows of a tile shard
+# (every row_stride-th row from pixel_offset's), first samples 0 and later
 RESTART_CASES = {
-    "image": (32, 24, 1, 1, 0, 0),
-    "bank4_spb2_offsets": (40, 30, 4, 2, 0, 6),
-    "shard_rows": (64, 48, 2, 4, 64 * 20, 3),
-    "shard_late_samples": (48, 32, 8, 1, 48 * 9, 1021),
+    "image": (32, 24, 1, 1, 0, 0, 1),
+    "bank4_spb2_offsets": (40, 30, 4, 2, 0, 6, 1),
+    "shard_rows": (64, 48, 2, 4, 64 * 20, 3, 1),
+    "shard_late_samples": (48, 32, 8, 1, 48 * 9, 1021, 1),
+    "shard_dealt_rows": (64, 48, 2, 4, 64 * 3, 3, 4),
+    "shard_dealt_late_samples": (48, 32, 8, 1, 48 * 1, 1021, 2),
 }
+
+
+def _dealt(local, w, offset, stride):
+    """Local pixel ids -> image pixel ids of a range whose row i is image
+    row i * stride past the first's (numpy)."""
+    return offset + (local // w) * stride * w + local % w
 
 
 @pytest.mark.parametrize("case", sorted(RESTART_CASES))
 def test_restart_twin_matches_the_reference_generate_rays(case):
-    w, h, bank_k, spb, offset, sample_offset = RESTART_CASES[case]
-    n_pix = (w * h - offset) // 2  # a shard of half the rows left
+    w, h, bank_k, spb, offset, sample_offset, stride = RESTART_CASES[case]
+    # a contiguous shard of half the rows left, or all rows of a dealt one
+    n_pix = (w * h - offset) // 2 if stride == 1 else (h // stride) * w
     groups = n_pix // bank_k
-    plan = twfk.LanePlan(w, h, groups, bank_k, spb, offset, 0xC0FFEE)
+    plan = twfk.LanePlan(w, h, groups, bank_k, spb, offset, 0xC0FFEE, stride)
     n = 700
     r = np.random.default_rng(len(case))
     item = r.integers(0, groups * 3, n)
@@ -100,8 +110,9 @@ def test_restart_twin_matches_the_reference_generate_rays(case):
     out = twfk.restart_lanes(lanes, restart, camera_basis(cam, w, h),
                              torch.tensor(sample_offset), plan)
     # the ids: numpy's integer arithmetic
-    pixel = (item % groups) * bank_k + schunk // spb + offset
+    pixel = _dealt((item % groups) * bank_k + schunk // spb, w, offset, stride)
     sample = (item // groups) * spb + schunk % spb + sample_offset
+    assert pixel.max() < w * h
     np.testing.assert_array_equal(out["pixel"].numpy(), pixel)
     np.testing.assert_array_equal(out["sample"].numpy(), sample)
     jo, jd = jpipe.generate_rays(_cornell_cam(jcam), w, h,
@@ -129,6 +140,30 @@ def test_restart_keeps_the_lanes_that_do_not_restart():
     assert torch.equal(out["d"][restart], d[restart])
     assert torch.equal(out["o"][restart], o[restart])
     assert torch.equal(out["pixel"], pixel) and torch.equal(out["sample"], sample)
+
+
+@pytest.mark.parametrize("stride", [2, 4, 8])
+def test_pixel_sample_deals_the_rows(stride):
+    # rank r of `stride` ranks: local row i is image row i * stride + r, the
+    # columns and samples as on a contiguous range
+    w, h, bank_k, spb = 24, 32, 4, 2
+    n_local = (h // stride) * w
+    groups = n_local // bank_k
+    item = torch.arange(groups * 3)
+    schunk = item % (bank_k * spb)
+    for r in range(stride):
+        plan = twfk.LanePlan(w, h, groups, bank_k, spb, r * w, 9, stride)
+        pixel, sample = twfk.pixel_sample(item, schunk, 5, plan)
+        local, same = twfk.pixel_sample(item, schunk, 5,
+                                        twfk.LanePlan(w, h, groups, bank_k, spb, 0, 9))
+        assert torch.equal(sample, same)
+        assert torch.equal(pixel, (local // w * stride + r) * w + local % w)
+        assert torch.equal(pixel // w % stride, torch.full_like(pixel, r))
+    # every pixel of the image once over the ranks' whole ranges
+    every = torch.arange(n_local)
+    ids = torch.cat([twfk.pixel_sample(every, torch.zeros_like(every), 0, twfk.LanePlan(
+        w, h, n_local, 1, 1, r * w, 9, stride))[0] for r in range(stride)])
+    assert torch.equal(ids.sort().values, torch.arange(w * h))
 
 
 # --------------------------------------------------------------------------
@@ -478,7 +513,7 @@ def test_advance_reads_the_restart_pixel_and_sample(render_scenes):
     lane state: lanes given other ids draw other paths."""
     scene = render_scenes["cornell"]
     graphs.clear()
-    wf = tint._Wavefront(scene, 16, 16, 2, 5, tint.RenderConfig(max_depth=4), 64, 0, 256)
+    wf = tint._Wavefront(scene, 16, 16, 2, 5, tint.RenderConfig(max_depth=4), 64, 0, 256, 1)
     wf.start(_cornell_cam(tcam), 0)
     st = dict(wf.st)
     pixel, sample = twfk.pixel_sample(st["item"], st["schunk"], wf.sample_offset,
