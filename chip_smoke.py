@@ -187,7 +187,11 @@ Phases, each raising on failure:
     frame's pool call 5 (16,384) and drain call 1 (1,024), the bunny300k
     leg's first step (32,768) and config 4's first step (262,144 lanes,
     spheres alone; its closest hit and its shadow rays', the sphere pass and
-    the epilogue alone; without NEE, its shading); the shading without and
+    the epilogue alone; without NEE, its shading), and the first two bounce
+    steps of the benchmark's final scene of "Ray Tracing in One Weekend"
+    at its cell's shape (810,000 lanes, 487 spheres of three materials,
+    depth 50: the sphere pass and the shading from its winners, whose times
+    and bounds the kernels line gives under `at_rtiow_final`); the shading without and
     with the bank at each of these shapes (`complete_shading_set`: where a
     step shaded from the winners, the epilogue's call at those winners, and
     the shading with bank operands made from the call's, or the bank
@@ -3093,6 +3097,40 @@ def config4_camera():
     return Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
 
 
+# the benchmark's final scene of "Ray Tracing in One Weekend" at its cell's
+# shape (portbench/traffic/scan_1200x675.json) and a seed as large as the
+# benchmark's
+RTIOW_W, RTIOW_H, RTIOW_DEPTH, RTIOW_SEED = 1200, 675, 50, 3_000_000_003
+
+
+def rtiow_final(dev):
+    """The benchmark's final scene of "Ray Tracing in One Weekend"
+    (`portbench/configs/rtiow_final.json`: 487 spheres, no mesh) on `dev`
+    through the program's own scene types, its camera and its render
+    configuration at the cell's depth."""
+    import torch
+
+    from metalpathtracer_torch.render.camera import Camera
+    from metalpathtracer_torch.render.device_scene import upload_scene
+    from metalpathtracer_torch.render.integrator import RenderConfig
+    from metalpathtracer_torch.scene.types import HostScene, Material
+
+    cfg = json.loads((ROOT / "portbench" / "configs" / "rtiow_final.json").read_text())
+    host = HostScene()
+    for s in cfg["scene"]["spheres"]:
+        host.add_sphere(s["center"], s["radius"], Material(
+            albedo=tuple(s["albedo"]), material_type=s.get("material_type", 0.0),
+            fuzz=s.get("fuzz", 0.0)))
+    c, r = cfg["camera"], cfg["render"]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    camera = Camera(position=f32(c["position"]), forward=f32(c["forward"]),
+                    up=f32(c["up"]), vfov_deg=f32(c["vfov_deg"]))
+    render = RenderConfig(max_depth=RTIOW_DEPTH, clamp_radiance=r["clamp_radiance"],
+                          adaptive_offset=r["adaptive_offset"], nee=r["nee"],
+                          rr_start=r["rr_start"])
+    return upload_scene(host, dev), camera, render
+
+
 def phase_nee(card):
     """15: NEE + Russian roulette renders on the card against the same
     renders on the CPU."""
@@ -4836,7 +4874,21 @@ def main(argv=None) -> int:
     (calls,) = shading_steps(glass, 512, 512, 1, cam=config4_camera(), seed=4,
                              cfg=RenderConfig(max_depth=16, rr_start=3))
     shading_sets["config4_step1_no_nee"] = {"shade_hit": calls["shade_hit"][0]}
-    del calls, glass
+    # the final scene of "Ray Tracing in One Weekend" at its benchmark
+    # cell's shape (810,000 lanes, 487 spheres and a padding row, 487
+    # material rows, IOR-1.5 glass): the sphere pass and the shading from
+    # its winners in the first two bounce steps (the second's lanes hit
+    # glass from inside too)
+    rtiow, rtiow_cam, rtiow_cfg = rtiow_final(dev)
+    for k, calls in enumerate(shading_steps(rtiow, RTIOW_W, RTIOW_H, 2, cam=rtiow_cam,
+                                            seed=RTIOW_SEED, cfg=rtiow_cfg), 1):
+        if len(calls["sphere_pass"]) != 1 or len(calls["shade_hit"]) != 1 or any(
+                calls[kernel] for kernel in ("hit_front", "hit_epilogue", "shade_bank_hit")):
+            raise RuntimeError(f"rtiow_final's step {k}: "
+                               f"{[(kernel, len(v)) for kernel, v in calls.items()]}")
+        shading_sets[f"rtiow_step{k}"] = {kernel: calls[kernel][0]
+                                          for kernel in ("sphere_pass", "shade_hit")}
+    del calls, glass, rtiow
     # every shading entry at the shapes where the paths shade (the scan,
     # the pool advance, the viewer's pool and drain, config 4, the bunny
     # leg's step), on operands made from the step's (`complete_shading_set`);
@@ -4982,7 +5034,9 @@ def main(argv=None) -> int:
     # shading from the winners on the scan flagship (its first bounce step,
     # 921,600 lanes); the epilogue's own kernel on the NEE path (the
     # multimesh wavefront; timed at the pool advance's winners); no single
-    # PyTorch call computes any of them
+    # PyTorch call computes any of them. Each row also has the kernel's
+    # times at the final scene of "Ray Tracing in One Weekend" (its
+    # benchmark cell's shape, 487 spheres) where that scene runs it
     where = {"hit_front": ("wavefront", "pool_hit_front"),
              "hit_epilogue": ("nee_multimesh_wavefront", "pool_hit_epilogue"),
              "shade_hit": ("scan", "scan_step1_shade_hit"),
@@ -4998,7 +5052,11 @@ def main(argv=None) -> int:
             ms=at["ms"], call_ms=at["call_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"], share=at["share"],
             library_ms=None,
-            launches_by_path={k: v[key] for k, v in per_path.items()}))
+            launches_by_path={k: v[key] for k, v in per_path.items()},
+            at_rtiow_final={f"{v['set']}_{v['wrapper']}": {
+                f: v[f] for f in ("lanes", "ms", "call_ms", "bound_ms", "bound_by", "share")}
+                for v in bounce_kernels.values()
+                if v["kernel"] == kernel and v["set"].startswith("rtiow_")}))
     # the regeneration's kernels: the main path's launches, and their times
     # at its shape (the pool advance); the library call where one PyTorch
     # call computes the same function

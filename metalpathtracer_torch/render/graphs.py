@@ -43,11 +43,15 @@ before and after, so that no graph traced with the swap outlives it.
 `STATS` counts captures (and their seconds), replays and the graph nodes
 they ran (`replayed_ops`: each replay adds its graph's node count, no
 device read), eager runs, host reads, the scan's idle steps (bounce steps
-a block ran with no live lane, which the eager loop does not run) and the
+a block ran with no live lane, which the eager loop does not run), the
 bounce steps traced through the plain shading with next-event estimation
 (`nee_steps`: run eagerly or traced into a capture; the shading kernel
-runs every other step) since it was last zeroed; `chip_smoke.py` and the
-benchmark read it.
+runs every other step) and the ray-sphere tests handed to the sphere pass
+(`sphere_tests`: lanes times sphere-table rows a call, which the
+integrator adds as it calls the closest hit) since it was last zeroed;
+`chip_smoke.py` and the benchmark read it. What a captured function adds
+to `sphere_tests` is kept as its graph's count and added at each replay
+instead, with no device read and no graph node.
 
 Every run opens the span `graphs.run.<fn>` and every read
 `graphs.read.<fn>` (`utils/metrics.py::span`; `<fn>`: the function whose
@@ -86,7 +90,7 @@ from metalpathtracer_torch.utils import metrics
 CACHE_SIZE = 4
 
 STATS = dict(captures=0, capture_s=0.0, replays=0, replayed_ops=0, eager_runs=0,
-             reads=0, idle_steps=0, nee_steps=0)
+             reads=0, idle_steps=0, nee_steps=0, sphere_tests=0)
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _eager = [0]  # depth of nested `eager()` blocks
@@ -110,7 +114,7 @@ def clear() -> None:
 
 def zero_stats() -> None:
     STATS.update(captures=0, capture_s=0.0, replays=0, replayed_ops=0, eager_runs=0,
-                 reads=0, idle_steps=0, nee_steps=0)
+                 reads=0, idle_steps=0, nee_steps=0, sphere_tests=0)
 
 
 def span_maps() -> dict:
@@ -184,6 +188,7 @@ class Entry:
         self.graphs: dict = {}  # name -> CUDAGraph
         # name -> (node count, span segments) of its graph (`span_maps`)
         self.nodes: dict = {}
+        self.sphere_tests: dict = {}  # name -> its graph's count of them
         self.warm: set = set()
         self.pool = None
         self.last = None  # the function run last: whose report `read` reads
@@ -212,6 +217,7 @@ class Entry:
                 self.graphs[name].replay()
             STATS["replays"] += 1
             STATS["replayed_ops"] += self.nodes[name][0]
+            STATS["sphere_tests"] += self.sphere_tests[name]
 
     def read(self) -> list:
         """The program's report on the host: the one read of a window or
@@ -234,6 +240,7 @@ class Entry:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        tests = STATS["sphere_tests"]
         try:
             with torch.cuda.graph(graph, pool=self.pool), metrics.capture_spans(
                     "graphs.run." + name, lambda: captured_nodes(self.device)) as spans:
@@ -244,7 +251,10 @@ class Entry:
                 if value is self:
                     del _cache[key]
             raise
+        finally:
+            tests, STATS["sphere_tests"] = STATS["sphere_tests"] - tests, tests
         self.graphs[name] = graph
         self.nodes[name] = nodes
+        self.sphere_tests[name] = tests
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0

@@ -87,12 +87,20 @@ REFERENCE_CONFIG = RenderConfig(max_depth=32, clamp_radiance=True,
                                 adaptive_offset=False)
 
 
+def _count_sphere_tests(scene, o) -> None:
+    """Count the ray-sphere tests the tile intersector's sphere pass is
+    handed: every lane, live or not, against every row of the sphere
+    table (padding too), as the kernel's loop runs them."""
+    graphs.STATS["sphere_tests"] += o.shape[0] * scene.sph_center.shape[0]
+
+
 def _trace_rays(scene, o, d, cfg, active=None, occ_t=None):
     """Closest hit + surface frame: (t, idx, normal, front_face, mat_id,
     tile_passes). mat_id is the winner's material-bank id where the
     intersector provides it (the tile path does), else None."""
     kind = cfg.intersector
     if kind in ("auto", "mm"):
+        _count_sphere_tests(scene, o)
         return closest_hit_mm_full(scene, o, d, T_MIN, active=active,
                                    occ_t=occ_t)
     if kind == "bvh":
@@ -259,6 +267,7 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     # packed tensor: one copy here, not one in each kernel's wrapper
     o, d = o.contiguous(), d.contiguous()
     if from_winners:
+        _count_sphere_tests(scene, o)
         t_tri, col, t_s, i_s, slot, tile_passes = closest_hit_mm_winners(
             scene, o, d, T_MIN, active=active)
         hit = (t_tri, col, t_s, i_s, slot, scene.mm_refine, scene.sph_center,

@@ -7,8 +7,10 @@ one launch a bundle, also inside a CUDA graph), the bounce step's and
 the wavefront regeneration's kernels (bit-equal, eagerly and inside a
 CUDA graph), and the
 wavefront integrator, the progressive path (checkpointed CLI, progressive
-wavefront, the viewer's frames) and the BVH study path on the card, and
-each replay's device events against its graph's capture-time span map.
+wavefront, the viewer's frames) and the BVH study path on the card,
+each replay's device events against its graph's capture-time span map,
+and the scan's count of ray-sphere tests under replays (the benchmark's
+final scene of "Ray Tracing in One Weekend", 487 spheres).
 These tests need an NVIDIA card (sm_90a)
 and nvcc; where there is none they skip. On a machine with the card,
 without JAX:
@@ -38,6 +40,7 @@ the queue: at most 1e-4 of the pixels may differ at all.
 """
 
 import contextlib
+import json
 import os
 
 import numpy as np
@@ -1568,6 +1571,77 @@ def test_scan_graph_capture_serves_three_progressive_steps(scene):
     assert captures[1] == captures[2] == captures[3]
 
 
+@pytest.fixture(scope="module")
+def rtiow():
+    """The benchmark's final scene of "Ray Tracing in One Weekend" (487
+    spheres, no mesh) on the card through the port's own scene types, and
+    its camera."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from metalpathtracer_torch.scene.types import HostScene, Material
+
+    with open(os.path.join(REPO, "portbench", "configs", "rtiow_final.json")) as f:
+        cfg = json.load(f)
+    host = HostScene()
+    for s in cfg["scene"]["spheres"]:
+        host.add_sphere(s["center"], s["radius"], Material(
+            albedo=tuple(s["albedo"]), material_type=s.get("material_type", 0.0),
+            fuzz=s.get("fuzz", 0.0)))
+    c = cfg["camera"]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    camera = Camera(position=f32(c["position"]), forward=f32(c["forward"]),
+                    up=f32(c["up"]), vfov_deg=f32(c["vfov_deg"]))
+    return upload_scene(host, "cuda"), camera
+
+
+def test_scan_graph_counts_sphere_tests_at_each_replay(rtiow, monkeypatch):
+    # a scene of spheres alone at depth 50: each replayed block adds the
+    # lanes times the sphere table's rows (487 spheres and one padding row)
+    # of each of its steps, as counted at its capture, and the counter adds
+    # no node to any graph
+    from metalpathtracer_torch.render import graphs, integrator
+
+    scene, camera = rtiow
+    w, h, seed, cfg = 160, 90, 3, RenderConfig(max_depth=50)
+    n, spheres = w * h, scene.sph_center.shape[0]
+    assert spheres == 488
+
+    def replayed_sample():
+        graphs.clear()
+        state = tpipe.init_accum(w, h, "cuda")
+        for _ in range(6):  # warm-ups and captures, until a sample makes none
+            graphs.zero_stats()
+            state = tpipe.accumulate(state, scene, camera, w, h, 1, seed, cfg)
+            if graphs.STATS["captures"] == graphs.STATS["eager_runs"] == 0:
+                break
+        graphs.zero_stats()
+        launches = tmm.sphere_pass.launches
+        state = tpipe.accumulate(state, scene, camera, w, h, 1, seed, cfg)
+        entry = integrator.scan_entry(scene, w, h, n, seed, cfg)
+        stats = dict(graphs.STATS)
+        assert stats["captures"] == stats["eager_runs"] == 0 and stats["replays"] > 0
+        assert tmm.sphere_pass.launches == launches  # no Python ran a step
+        nodes = {k: v[0] for k, v in entry.nodes.items()}
+        counts = dict(entry.sphere_tests)
+        steps = int(entry.program.bounce)  # the sample's steps, idle ones too
+        graphs.clear()
+        return state.rgb_sum, stats, nodes, counts, steps
+
+    img, stats, nodes, counts, steps = replayed_sample()
+    # whole blocks of 8 steps until no lane lives, then the last 2 (on the
+    # CPU the third sample of these 14,400 lanes runs all 50)
+    assert steps in (16, 24, 32, 40, 48, 50)
+    assert stats["sphere_tests"] == n * spheres * steps
+    assert counts["bounce_block"] == n * spheres * 8
+    assert counts.get("last_block", n * spheres * 2) == n * spheres * 2
+    assert counts["start_sample"] == counts["end_sample"] == 0
+    monkeypatch.setattr(integrator, "_count_sphere_tests", lambda scene, o: None)
+    img_off, stats_off, nodes_off, _, steps_off = replayed_sample()
+    assert stats_off["sphere_tests"] == 0
+    assert nodes_off == nodes and stats_off["replayed_ops"] == stats["replayed_ops"]
+    assert steps_off == steps and torch.equal(img_off, img)
+
+
 @pytest.mark.parametrize("integrator", ["scan", "wavefront"])
 def test_bvh_cli_on_card_runs_eagerly_and_equals_its_eager_render(scene, tmp_path,
                                                                   integrator):
@@ -1835,20 +1909,26 @@ def test_flagship_wavefront_regenerates_on_the_kernels(scene):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["scan", "wavefront"])
-def test_replays_match_their_capture_span_maps(scene, kind):
+@pytest.mark.parametrize("kind", ["scan", "wavefront", "rtiow_scan"])
+def test_replays_match_their_capture_span_maps(request, kind):
+    # rtiow_scan: the scan on the benchmark's scene of spheres alone, whose
+    # closest hit is the sphere pass (`hit.sphere_pass`)
     from torch.profiler import ProfilerActivity, profile
 
     from metalpathtracer_torch.render import graphs
     from metalpathtracer_torch.utils import metrics
 
     w, h, spp, cfg = 160, 90, 2, RenderConfig(max_depth=8)
+    if kind == "rtiow_scan":
+        scene, camera = request.getfixturevalue("rtiow")
+    else:
+        scene, camera = request.getfixturevalue("scene"), Camera.reset()
 
     def one_pass(state):
-        if kind == "scan":
-            state = tpipe.accumulate(state, scene, Camera.reset(), w, h, spp, 5, cfg)
+        if kind != "wavefront":
+            state = tpipe.accumulate(state, scene, camera, w, h, spp, 5, cfg)
         else:  # 28,800 paths through 4,096 lanes: windows and drain blocks
-            state, _ = tpipe.accumulate_wavefront(state, scene, Camera.reset(), w, h,
+            state, _ = tpipe.accumulate_wavefront(state, scene, camera, w, h,
                                                   spp, 5, cfg, 4096)
         return tpipe.to_image(state)
 
@@ -1875,5 +1955,10 @@ def test_replays_match_their_capture_span_maps(scene, kind):
     assert len(replayed) == graphs.STATS["replayed_ops"]
     assert all(span != metrics.NO_SPAN for span, _, _ in charges)
     charged = {span for span, _, _ in charges}
-    assert "hit.mm_closest_hit" in charged and "hit.front" in charged
+    if kind == "rtiow_scan":
+        assert {span for span, _, name in charges if "hit_front_kernel" in name} == {
+            "hit.sphere_pass"}
+        assert "hit.mm_closest_hit" not in charged and "hit.front" not in charged
+    else:
+        assert "hit.mm_closest_hit" in charged and "hit.front" in charged
     graphs.clear()
